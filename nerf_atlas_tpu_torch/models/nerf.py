@@ -1,0 +1,58 @@
+"""PlainNeRF: a density MLP emitting sigma + an intermediate feature, RGB
+from a pluggable reflectance model.
+
+Counterpart of `nerf_atlas_tpu/models/nerf.py:PlainNeRF`. TinyNeRF,
+NeRFAE and CoarseFineNeRF arrive with ROADMAP Queue 1 #3, #9 and #8.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..nn import CPEncoder, PositionalEncoder, SkipConnMLP
+from ..refl import load_refl
+from .base import NeRFBase, view_per_sample
+
+
+class PlainNeRF(NeRFBase):
+  """enc_kind selects the spatial encoder: "cp" (factorized feature
+  volumes, the default and the fused-kernel path) or "posenc" (frequency
+  encoding). "hash"/"ref-hash" and mip arrive with ROADMAP Queue 1 #7.
+  The density MLP (256x5) and View (128x5) are built at the default
+  widths; overriding them arrives with --ref-compat (ROADMAP Queue 1 #13)."""
+
+  def __init__(self, refl_kind: str = "view", refl_space: str = "identity",
+               enc_kind: str = "cp", device=None, **base_kwargs):
+    super().__init__(**base_kwargs)
+    if enc_kind == "cp":
+      enc = CPEncoder(device=device)
+    elif enc_kind == "posenc":
+      enc = PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=10)
+    elif enc_kind in ("hash", "ref-hash"):
+      raise NotImplementedError(
+          f"enc kind {enc_kind}: the hash grid arrives with ROADMAP Queue 1 "
+          "#7")
+    else:
+      raise NotImplementedError(f"unknown enc kind {enc_kind}")
+    self.refl_kind = refl_kind
+    self.refl_space = refl_space
+    self.enc_kind = enc_kind
+    self.density_mlp = SkipConnMLP(
+        in_size=3, out=1 + self.intermediate_size, enc=enc, num_layers=5,
+        hidden_size=256, device=device)
+    self.refl = load_refl(
+        refl_kind, latent_size=self.intermediate_size,
+        act=self.sigmoid_kind, space=refl_space, device=device)
+
+  def reset_parameters(self, generator: torch.Generator):
+    self.density_mlp.reset_parameters(generator)
+    self.refl.reset_parameters(generator)
+
+  def query(self, pts, view):
+    out = self.density_mlp(pts)
+    rgb = self.refl(pts, view=view, latent=out[..., 1:])
+    return out[..., 0], rgb
+
+  def forward(self, rays, train: bool = False):
+    pts, ts, _, r_d = self.sample_points(rays, train)
+    density, rgb = self.query(pts, view_per_sample(r_d, self.steps))
+    return self.finish(density, rgb, ts, r_d, train)
