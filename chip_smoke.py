@@ -1,20 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the repo root: `python3 chip_smoke.py`. Phases, each printing its
-line before the next starts:
+Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]]
+[--profile]`.
+Phases, each printing its lines before the next starts:
   1. device: needs CUDA; prints the card's name and power limit;
-  2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc;
-  3. kernel vs plain torch on the card: K1 (render_fwd) on 4096 seeded rays
-     at full width, 64 steps, over sky and rgb-activation kinds;
-  4. main path: the port's runner renders and scores the procedural scene
-     at 800x800 (2 views, train + test split, seeded random weights) and
-     must launch K1;
-  5. timing: one 800x800x64 frame through render_view (kernel) and through
-     the plain-torch reference, plus one 65536-ray call of each;
-  6. with `--profile` only: where one frame's time goes (torch.profiler
-     trace of render_view: device idle share, per-kernel shares; host-side
-     set-up and per-frame costs; SM clock and power under load).
+  2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
+     (one nvcc per source, all started together) and prints ptxas'
+     registers and spills;
+  3. kernels vs plain torch on the card, 4096 seeded rays at full width,
+     64 steps, over sky and rgb-activation kinds and seeded/amplified
+     weights: K1 (render_fwd) on the uniform grid and on a jittered ts;
+     K2 (render_bwd, cotangent mode) and K3 (render_bwd, loss mode) on a
+     jittered ts, against autograd through the plain K1, over all rays
+     and over the rays clear of leaky-relu kinks; a ragged batch;
+     PlainCPRender's gradient against K2's;
+  4. main path, render: the port's runner renders and scores the
+     procedural scene at 800x800 (2 views, train + test split, seeded
+     random weights) and must launch K1;
+  5. main path, train: the port's runner trains PlainNeRF-CP on the
+     procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
+     500 steps) and must engage the one-kernel step, launch K3 once per
+     step and K1 in eval, and beat the all-black PSNR by 2 dB on both
+     splits;
+  6. timing: one 800x800x64 frame through render_view (kernel) and through
+     the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
+     call of each; per train step at 4096x64: K3, K1 + K2, the plain step
+     and the optimizer alone;
+  7. with `--quality` only: the training run at 1500 steps (the quality
+     sweep's budget) on the kernel path for each of
+     `--seeds` (default 0) and with --no-fused for the first seed;
+  8. with `--profile` only: where one frame's and one train step's time
+     goes (torch.profiler traces: device idle share, per-kernel shares;
+     host-side costs; SM clock and power under load).
 The last three lines are the kernels' JSON record, the card's name and
 power limit, and the device JSON. Any failure raises (non-zero exit, no
 result lines).
@@ -22,6 +40,7 @@ result lines).
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import math
 import os
@@ -37,9 +56,33 @@ SIZE = 800
 STEPS = 64
 CHUNK = 65536                 # render_view's rays per call
 N_CHECK = 4096
-# kernel vs reference: both float32, summation order differs (per-thread
-# FMA chains vs cuBLAS tiles); 1e-4 abs on rgb and acc in [0, 1]
+# K1 vs reference: both float32, summation order differs (per-thread FMA
+# chains vs cuBLAS tiles); 1e-4 abs on rgb and acc in [0, 1]
 TOL = 1e-4
+# K2/K3 vs reference: the loss to 1e-5 relative; each of the 32 gradient
+# tensors to ‖Δ‖/‖ref‖ ≤ 1e-4 over the rays clear of leaky-relu kinks (the
+# other rays get a zero cotangent). A density-MLP pre-activation within
+# round-off of 0 takes the other slope in one of the two float32
+# implementations (their sums run in different orders) and moves that
+# point's whole backward: at 4096 rays x 64 steps this alone puts the
+# float32 plain version ~4e-4 from its own float64 evaluation (PERF.md
+# §6). A ray is clear when every pre-activation of its points lies
+# further from 0 than KINK_MARGIN times its column's float32-vs-float64
+# round-off (RMS; `testing.kink_free_rays`). Over all rays the error is
+# printed and held to ALL_RAY_RTOL.
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+KINK_MARGIN = 10.0
+ALL_RAY_RTOL = 1e-2
+# the quality sweep's plain_cp recipe (scripts/tpu_quality_sweep.py)
+TRAIN_ARGV = ["--data-kind", "synthetic", "--model", "plain", "--enc-kind",
+              "cp", "--size", "48", "--num-views", "30", "--batch-size",
+              "4096", "--steps", "64", "--near", "2", "--far", "6", "-lr",
+              "1e-3", "--loss-fns", "l2", "--seed", "0", "--nosave",
+              "--valid-freq", "0"]
+TRAIN_STEPS = 500
+QUALITY_STEPS = 1500
+BATCH = 4096
 
 
 def _sync_time(fn):
@@ -77,38 +120,328 @@ def _mean_s(fn, reps: int = 5) -> float:
   return sum(_sync_time(fn)[1] for _ in range(reps)) / reps
 
 
-def _profile(card, model, ds, ws):
-  """Phase 6: one traced frame through render_view, host-side costs of
-  the serving path, and the card's clock and power under load."""
+def _build(build):
+  """Phase 2: one nvcc per kernel source, started together."""
+  names = ("render_fwd", "render_bwd")
+  with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    built = dict(zip(names, pool.map(build.build, names)))
+  for name, b in built.items():
+    regs = [ln.strip() for ln in b.log.splitlines()
+            if "registers" in ln or "spill" in ln]
+    print(f"[build] {name}.cu -> {b.path.name} in {b.seconds:.1f} s | "
+          f"{' | '.join(regs)}", flush=True)
+
+
+def _rel_error(k1, grad, ref):
+  """(max over the 32 state_dict tensors of ‖grad − ref‖/‖ref‖, its key)."""
+  g, r = k1.unpack_grads(grad), k1.unpack_grads(ref)
+  errs = {key: float((g[key] - r[key]).norm() / r[key].norm()) for key in r}
+  worst = max(errs, key=errs.get)
+  return errs[worst], worst
+
+
+def _check_bwd(what, k1, ws, rays, gen, kw):
+  """K2 (random g) and K3 (random target) against their plain versions,
+  over all rays and over the kink-free rays (see GRAD_RTOL). Returns the
+  max |Δ| of the gradients."""
+  from nerf_atlas_tpu_torch import testing
+  n = rays.shape[0]
+  keep = testing.kink_free_rays(ws, rays, kw["ts"], kw["steps"], KINK_MARGIN)
+  g = torch.randn(n, 4, device=rays.device, generator=gen)
+  target = torch.rand(n, 3, device=rays.device, generator=gen)
+  out = k1.plain_cp_render_reference(ws, rays, **kw)[:, :3]
+  max_abs = 0.0
+  for mode, fn, ref_fn, arg, masked in (
+      ("K2", k1.plain_cp_render_grad, k1.plain_cp_render_grad_reference, g,
+       g * keep[:, None]),
+      ("K3", k1.plain_cp_train_step, k1.plain_cp_train_step_reference,
+       target, torch.where(keep[:, None], target, out).contiguous())):
+    line = []
+    for name, a in (("all rays", arg), ("kink-free", masked)):
+      got, ref = fn(ws, rays, a, **kw), ref_fn(ws, rays, a, **kw)
+      if mode == "K3":
+        (loss, got), (loss_r, ref) = got, ref
+        loss_rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
+        if not loss_rel <= LOSS_RTOL:
+          raise RuntimeError(f"{what} {mode} loss {float(loss)} vs plain "
+                             f"{float(loss_r)}")
+        line.append(f"{name} loss rel {loss_rel:.2e}")
+      torch.cuda.synchronize()
+      err, key = _rel_error(k1, got, ref)
+      tol = ALL_RAY_RTOL if name == "all rays" else GRAD_RTOL
+      if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"{what} {mode} ({name}): gradient of {key} "
+                           f"{err:.3e} from its plain version (tol {tol})")
+      line.append(f"{name}: max_t ‖Δ‖/‖ref‖ {err:.2e} ({key})")
+      if name == "kink-free":
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+    print(f"[check] {mode} {what}: {' | '.join(line)} | kink-free rays "
+          f"{int(keep.sum())}/{n}", flush=True)
+  return max_abs
+
+
+def _check_kernels(k1, rays_ops, model, dev):
+  """Phase 3. Returns (K1 max |Δ|, render_bwd max |Δ| on gradients)."""
+  ws = k1.pack_weights(model.state_dict(), dev)
+  amplified = dict(model.state_dict())
+  amplified["refl.mlp.layer_out.weight"] = (
+      amplified["refl.mlp.layer_out.weight"] * 40.0)
+  amplified["density_mlp.layer_out.weight"] = (
+      amplified["density_mlp.layer_out.weight"] * 8.0)
+  ws_amp = k1.pack_weights(amplified, dev)
+  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  max_k1, max_bwd = 0.0, 0.0
+  cases = [(w, sky, kind) for w in ("seeded", "amplified")
+           for sky in ("black", "white") for kind in ("thin", "normal",
+                                                      "tanh")]
+  for wname, sky, kind in cases:
+    w = ws if wname == "seeded" else ws_amp
+    kw = dict(steps=STEPS, t_near=2.0, t_far=6.0, sigmoid_kind=kind,
+              sky_kind=sky)
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    for name, t in (("grid", None), ("jittered ts", ts)):
+      out = k1.plain_cp_render(w, rays, ts=t, **kw)
+      ref = k1.plain_cp_render_reference(w, rays, ts=t, **kw)
+      torch.cuda.synchronize()
+      if not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"K1 output not finite ({wname}, {sky}, {kind})")
+      e_rgb = float((out[:, :3] - ref[:, :3]).abs().max())
+      e_acc = float((out[:, 3] - ref[:, 3]).abs().max())
+      print(f"[check] K1 {wname:9s} sky {sky:5s} {kind:6s} {name:11s}: "
+            f"max|rgb| {e_rgb:.3e} max|acc| {e_acc:.3e} (tol {TOL:.0e}; ref "
+            f"rgb std {float(ref[:, :3].std()):.3f})", flush=True)
+      if not (e_rgb <= TOL and e_acc <= TOL):
+        raise RuntimeError(f"K1 disagrees with its reference: {e_rgb}, "
+                           f"{e_acc}")
+      max_k1 = max(max_k1, e_rgb, e_acc)
+    max_bwd = max(max_bwd, _check_bwd(
+        f"{wname:9s} sky {sky:5s} {kind:6s}", k1, w, rays, gen,
+        dict(kw, ts=ts)))
+
+  # a ragged batch: 16 steps = 4 rays per kernel block, 4093 rays
+  rays_r = torch.from_numpy(_check_rays(4093, 1)).to(dev)
+  ts = rays_ops.compute_ts(2.0, 6.0, 16, perturb=1.0, generator=gen,
+                           device=dev)
+  kw = dict(steps=16, t_near=2.0, t_far=6.0, sigmoid_kind="thin",
+            sky_kind="white", ts=ts)
+  max_bwd = max(max_bwd, _check_bwd("ragged 4093 rays x 16 steps", k1,
+                                    ws_amp, rays_r, gen, kw))
+
+  # the autograd Function's backward is K2
+  g = torch.randn(4093, 4, device=dev, generator=gen)
+  leaf = ws.clone().requires_grad_(True)
+  out = k1.plain_cp_render_train(leaf, rays_r, ts, steps=16,
+                                 sky_kind="white")
+  (out * g).sum().backward()
+  direct = k1.plain_cp_render_grad(ws, rays_r, g, steps=16, ts=ts,
+                                   sky_kind="white")
+  if not torch.equal(leaf.grad, direct):
+    raise RuntimeError("PlainCPRender's gradient differs from K2's")
+  print("[check] PlainCPRender backward == K2 (bitwise)", flush=True)
+  return max_k1, max_bwd
+
+
+def _black_psnr(pixels) -> float:
+  """Mean over views of the PSNR of an all-black render."""
+  mse = (pixels[..., :3] ** 2).mean(dim=(1, 2, 3)).clamp_min(1e-10)
+  return float((-10 * torch.log10(mse)).mean())
+
+
+def _train_run(port_runner, k1, loaders, dev, steps: int, extra=()):
+  """Run the port's runner on the sweep recipe; returns (results, wall s,
+  K3 launches, K1 launches, black PSNR per split)."""
+  with tempfile.TemporaryDirectory() as outdir:
+    k1.plain_cp_train_step.launches = 0
+    k1.plain_cp_render.launches = 0
+    argv = TRAIN_ARGV + ["--epochs", str(steps), "--outdir", outdir,
+                         *extra]
+    results, secs = _sync_time(lambda: port_runner.main(argv))
+    k3_launches = k1.plain_cp_train_step.launches
+    k1_launches = k1.plain_cp_render.launches
+    with open(os.path.join(outdir, "log.json")) as f:
+      logged = json.load(f)["engaged_path"]
+  if logged != results["engaged_path"]:
+    raise RuntimeError(f"log.json says {logged}, the run "
+                       f"{results['engaged_path']}")
+  black = {}
+  for split, training in (("train", True), ("test", False)):
+    px = loaders.load("", data_kind="synthetic", training=training, size=48,
+                      num_views=30, device=dev).labels
+    black[split] = _black_psnr(torch.as_tensor(px))
+  return results, secs, k3_launches, k1_launches, black
+
+
+def _train_main(port_runner, k1, loaders, dev):
+  """Phase 5: the training main path. Returns the K3 launches."""
+  results, secs, k3_n, k1_n, black = _train_run(port_runner, k1, loaders,
+                                                dev, TRAIN_STEPS)
+  hist = results["history"]
+  losses = [h["loss"] for h in hist]
+  if results["engaged_path"] != "fused-one-kernel":
+    raise RuntimeError(f"engaged {results['engaged_path']}, not the "
+                       "one-kernel step")
+  if k3_n != TRAIN_STEPS:
+    raise RuntimeError(f"K3 launched {k3_n} times in {TRAIN_STEPS} steps")
+  if k1_n <= 0:
+    raise RuntimeError("the trained model's eval never launched K1")
+  if not (all(math.isfinite(v) for v in losses)
+          and losses[-1] < 0.5 * losses[0]):
+    raise RuntimeError(f"loss not finite and falling: {losses}")
+  for split in ("train", "test"):
+    if not results[split]["psnr_mean"] >= black[split] + 2.0:
+      raise RuntimeError(f"{split} PSNR {results[split]['psnr_mean']} does "
+                         f"not beat all-black {black[split]} by 2 dB")
+  print(f"[train] runner {TRAIN_STEPS} steps x {BATCH} rays x {STEPS} "
+        f"samples (48x48, 30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | K3 launches {k3_n}, K1 launches "
+        f"{k1_n} | loss {losses[0]:.5f} -> {losses[-1]:.5f} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return k3_n
+
+
+def _step_fns(model_cls, driver, ds, dev):
+  """The three train steps at batch 4096 on fresh seeded models: K3, K1 +
+  K2, plain (module under autograd); and each one's optimizer."""
+  from nerf_atlas_tpu_torch.train import losses, optim
+  out = {}
+  for name in ("K3 step", "K1+K2 step", "plain step"):
+    model = driver.init_model(model_cls(steps=STEPS, device=dev), seed=0)
+    cfg = driver.TrainConfig(steps=1000, batch_size=BATCH,
+                             learning_rate=1e-3,
+                             no_fused=name == "plain step")
+    opt = optim.load_optimizer(model.parameters(), "adam", 1e-3,
+                               total_steps=1000)
+    loss_fn = losses.load_loss_fn()
+    fused_step = (driver._fused_step_fn(model, cfg, ds)
+                  if name == "K3 step" else None)
+    fused_train = (driver._fused_train_fn(model, cfg, ds)
+                   if name == "K1+K2 step" else None)
+    out[name] = (driver.make_train_step(model, ds, loss_fn, opt, cfg,
+                                        fused_step, fused_train), opt)
+  return out
+
+
+def _time_training(card, model_cls, driver, loaders, sampler, k1, rays_ops,
+                   dev):
+  """Phase 6, training half: ms per step, train rays/s, the optimizer
+  alone; and one 65536-ray K2 call against its plain version (summed
+  over 8192-ray chunks: autograd through the plain K1 at 65536 rays
+  would hold ~60 GB of activations). Returns the K3 and plain-K3 ms."""
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  fns = _step_fns(model_cls, driver, ds, dev)
+  gen = torch.Generator(device=dev).manual_seed(1)
+  ms = {}
+  for name in ("K3 step", "K1+K2 step", "plain step", "plain step",
+               "K1+K2 step", "K3 step"):
+    step, _ = fns[name]
+    ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+  opt = fns["K3 step"][1]
+  opt_ms = _event_ms(opt.step, 20)
+  for name, v in ms.items():
+    print(f"[time] {card}: {name} at {BATCH}x{STEPS}: {v[0]:.2f} / "
+          f"{v[1]:.2f} ms = {BATCH / (min(v) / 1e3):,.0f} train rays/s",
+          flush=True)
+  print(f"[time] {card}: optimizer step alone (Adam + cosine, 467,620 "
+        f"weights): {opt_ms:.3f} ms", flush=True)
+
+  ws = k1.pack_weights(driver.init_model(
+      model_cls(steps=STEPS, device=dev), seed=0).state_dict(), dev)
+  rays = ds.view_rays(0, 256).contiguous()            # 65536 rays
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                           device=dev)
+  g = torch.randn(rays.shape[0], 4, device=dev, generator=gen)
+  kw = dict(steps=STEPS, ts=ts)
+
+  def plain_k2():
+    return sum(k1.plain_cp_render_grad_reference(
+        ws, rays[i:i + 8192], g[i:i + 8192], **kw)
+               for i in range(0, rays.shape[0], 8192))
+
+  launches = k1.plain_cp_render_grad.launches
+  p1 = _event_ms(plain_k2, 1)
+  kk1 = _event_ms(lambda: k1.plain_cp_render_grad(ws, rays, g, **kw), 2)
+  kk2 = _event_ms(lambda: k1.plain_cp_render_grad(ws, rays, g, **kw), 2)
+  p2 = _event_ms(plain_k2, 1)
+  k1.plain_cp_render_grad.launches = launches        # timing, not the path
+  print(f"[time] {card}: one {rays.shape[0]}-ray x {STEPS}-step K2 call "
+        f"{kk1:.2f} / {kk2:.2f} ms, plain torch {p1:.2f} / {p2:.2f} ms",
+        flush=True)
+  target = torch.rand(BATCH, 3, device=dev, generator=gen)
+  r4 = rays[:BATCH].contiguous()
+  k3_ms = _event_ms(lambda: k1.plain_cp_train_step(ws, r4, target, **kw), 5)
+  plain_k3_ms = _event_ms(lambda: k1.plain_cp_train_step_reference(
+      ws, r4, target, **kw), 5)
+  print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3 call "
+        f"{k3_ms:.2f} ms, plain torch {plain_k3_ms:.2f} ms", flush=True)
+  return k3_ms, plain_k3_ms
+
+
+def _quality(card, port_runner, k1, loaders, dev, seeds):
+  """Phase 7: the sweep recipe's 1500 steps on the kernel path for
+  each seed, and with --no-fused for the first; prints both splits' PSNR
+  and the wall time of each run."""
+  runs = [(seeds[0], ()), (seeds[0], ("--no-fused",))]
+  runs += [(seed, ()) for seed in seeds[1:]]
+  for seed, extra in runs:
+    results, secs, _, _, black = _train_run(
+        port_runner, k1, loaders, dev, QUALITY_STEPS,
+        ("--seed", str(seed), *extra))
+    print(f"[quality] {card}: {QUALITY_STEPS} steps, seed {seed}, path "
+          f"{results['engaged_path']}: PSNR train "
+          f"{results['train']['psnr_mean']:.3f} test "
+          f"{results['test']['psnr_mean']:.3f} (all-black "
+          f"{black['train']:.3f} / {black['test']:.3f}) in {secs:.1f} s",
+          flush=True)
+
+
+def _trace(fn, warm: int = 2):
+  """torch.profiler over one call of fn after `warm` untraced calls:
+  (untraced seconds, traced wall seconds, {kernel name: (count, us)})."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
-
-  from nerf_atlas_tpu_torch.data import loaders
-  from nerf_atlas_tpu_torch.ops.kernels import render as k1
-  from nerf_atlas_tpu_torch.train import driver
-
-  frames = [_sync_time(lambda: driver.render_view(model, ds, 0))[1]
-            for _ in range(2)]
+  untraced = [_sync_time(fn)[1] for _ in range(warm)]
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-    img, wall = _sync_time(lambda: driver.render_view(model, ds, 0))
+    _, wall = _sync_time(fn)
   by_name = {}
   for e in prof.events():
     if e.device_type == DeviceType.CUDA:
       n, us = by_name.get(e.name, (0, 0.0))
       by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+  return untraced, wall, by_name
+
+
+def _print_shares(tag, by_name, busy, top=6):
+  for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+    print(f"[profile]   {tag}: {us / 1e6 / busy:8.4%} of device time: {n} x "
+          f"{us / n / 1e3:.3f} ms  {name[:80]}", flush=True)
+  if not by_name:
+    print(f"[profile]   {tag}: no device events in the trace: per-kernel "
+          "shares not measured", flush=True)
+
+
+def _profile(card, model, ds, ws):
+  """Phase 8, render half: one traced frame through render_view, host-side
+  costs of the serving path, and the card's clock and power under load."""
+  from nerf_atlas_tpu_torch.data import loaders
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  from nerf_atlas_tpu_torch.train import driver
+
+  frames, wall, by_name = _trace(lambda: driver.render_view(model, ds, 0))
   busy = sum(us for _, us in by_name.values()) / 1e6
   print(f"[profile] {card}: render_view frames {frames[0]:.4f} / "
         f"{frames[1]:.4f} s untraced; traced {wall:.4f} s wall, device "
         f"busy {busy:.4f} s, idle share "
         f"{(1 - busy / wall if busy else float('nan')):.4f}", flush=True)
-  for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]:
-    print(f"[profile]   {us / 1e6 / busy:8.4%} of device time: {n} x "
-          f"{us / n / 1e3:.3f} ms  {name[:80]}", flush=True)
-  if not by_name:
-    print("[profile]   no device events in the trace: per-kernel shares "
-          "not measured", flush=True)
+  _print_shares("frame", by_name, busy, top=5)
 
+  img = driver.render_view(model, ds, 0)
   sd = model.state_dict()
   pack_ms = 1e3 * _mean_s(lambda: k1.pack_weights(sd, ws.device))
   rays_ms = 1e3 * _mean_s(lambda: ds.view_rays(0))
@@ -144,10 +477,53 @@ def _profile(card, model, ds, ws):
         f"{smi.stdout.strip()}", flush=True)
 
 
+def _profile_train(card, model_cls, driver, loaders, sampler, dev):
+  """Phase 8, train half: one traced K3 train step at batch 4096 (device
+  idle share; shares of K3, its reduction, sampling and Adam) and the
+  host time per step."""
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  step, _ = _step_fns(model_cls, driver, ds, dev)["K3 step"]
+  gen = torch.Generator(device=dev).manual_seed(2)
+  untraced, wall, by_name = _trace(lambda: step(0, gen), warm=3)
+  busy = sum(us for _, us in by_name.values()) / 1e6
+
+  def share(*keys):
+    us = sum(us for n, (_, us) in by_name.items()
+             if any(k in n.lower() for k in keys))
+    return us / 1e6 / busy if busy else float("nan")
+
+  print(f"[profile] {card}: K3 train step {untraced[-1] * 1e3:.2f} ms "
+        f"untraced; traced {wall * 1e3:.2f} ms wall, device busy "
+        f"{busy * 1e3:.2f} ms, idle share "
+        f"{(1 - busy / wall if busy else float('nan')):.4f}; shares: K3 "
+        f"{share('render_bwd_kernel'):.4f}, reduction "
+        f"{share('reduce_partials'):.4f}, Adam "
+        f"{share('adam', 'foreach', 'lerp', 'addcdiv', 'sqrt'):.4f}, "
+        f"sampling {share('randint', 'uniform', 'index', 'gather'):.4f}",
+        flush=True)
+  _print_shares("train step", by_name, busy, top=8)
+  # host time: enqueue of one step without waiting on the device
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  step(0, gen)
+  host = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  print(f"[profile] host: {host * 1e3:.2f} ms to issue one K3 train step "
+        "(sampling, weight packing, kernel launch, gradient unpacking, "
+        "Adam)", flush=True)
+
+
 def main(argv=None):
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--profile", action="store_true",
-                      help="add phase 6, the traced frame")
+                      help="add phase 8, the traced frame and train step")
+  parser.add_argument("--quality", action="store_true",
+                      help="add phase 7, the quality sweep's training runs")
+  parser.add_argument("--seeds", type=int, nargs="+", default=[0],
+                      help="phase 7's seeds: the kernel path for each, "
+                           "--no-fused for the first")
   args = parser.parse_args(argv)
   # ---- 1. device ----
   if not torch.cuda.is_available():
@@ -165,52 +541,22 @@ def main(argv=None):
   from nerf_atlas_tpu_torch import models
   from nerf_atlas_tpu_torch import runner as port_runner
   from nerf_atlas_tpu_torch.data import loaders, sampler
+  from nerf_atlas_tpu_torch.ops import rays as rays_ops
   from nerf_atlas_tpu_torch.ops.kernels import build
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
-  built = build.build("render_fwd")
-  regs = [ln.strip() for ln in built.log.splitlines()
-          if "registers" in ln or "spill" in ln]
-  print(f"[build] render_fwd.cu -> {built.path.name} in "
-        f"{built.seconds:.1f} s | {' | '.join(regs)}", flush=True)
+  _build(build)
 
-  # ---- 3. kernel vs reference on the card ----
+  # ---- 3. kernels vs reference on the card ----
   dev = torch.device("cuda")
   model = driver.init_model(models.PlainNeRF(steps=STEPS, device=dev),
                             seed=0)
   ws = k1.pack_weights(model.state_dict(), dev)
-  amplified = dict(model.state_dict())
-  amplified["refl.mlp.layer_out.weight"] = (
-      amplified["refl.mlp.layer_out.weight"] * 40.0)
-  amplified["density_mlp.layer_out.weight"] = (
-      amplified["density_mlp.layer_out.weight"] * 8.0)
-  ws_amp = k1.pack_weights(amplified, dev)
-  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
-  max_err = 0.0
-  cases = [(w, sky, kind) for w in ("seeded", "amplified")
-           for sky in ("black", "white") for kind in ("thin", "normal",
-                                                      "tanh")]
-  for wname, sky, kind in cases:
-    w = ws if wname == "seeded" else ws_amp
-    kw = dict(steps=STEPS, t_near=2.0, t_far=6.0, sigmoid_kind=kind,
-              sky_kind=sky)
-    out = k1.plain_cp_render(w, rays, **kw)
-    ref = k1.plain_cp_render_reference(w, rays, **kw)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(out).all()):
-      raise RuntimeError(f"K1 output not finite ({wname}, {sky}, {kind})")
-    e_rgb = float((out[:, :3] - ref[:, :3]).abs().max())
-    e_acc = float((out[:, 3] - ref[:, 3]).abs().max())
-    print(f"[check] {wname:9s} sky {sky:5s} {kind:6s}: max|rgb| {e_rgb:.3e} "
-          f"max|acc| {e_acc:.3e} (tol {TOL:.0e}; ref rgb std "
-          f"{float(ref[:, :3].std()):.3f})", flush=True)
-    if not (e_rgb <= TOL and e_acc <= TOL):
-      raise RuntimeError(f"K1 disagrees with its reference: {e_rgb}, {e_acc}")
-    max_err = max(max_err, e_rgb, e_acc)
+  max_err, max_bwd = _check_kernels(k1, rays_ops, model, dev)
 
-  # ---- 4. main path: the port's runner at 800x800 ----
+  # ---- 4. main path, render: the port's runner at 800x800 ----
   with tempfile.TemporaryDirectory() as outdir:
     k1.plain_cp_render.launches = 0
     argv = ["--data-kind", "synthetic", "--model", "plain", "--size",
@@ -232,7 +578,10 @@ def main(argv=None):
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
 
-  # ---- 5. timing at the main path's shapes ----
+  # ---- 5. main path, train ----
+  k3_launches = _train_main(port_runner, k1, loaders, dev)
+
+  # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
       loaders.load("", data_kind="synthetic", size=SIZE, num_views=1,
                    device=dev), size=SIZE, device=dev)
@@ -270,9 +619,14 @@ def main(argv=None):
         f"{k_s:.3f} s = {SIZE * SIZE / k_s:,.0f} rays/s, plain torch "
         f"{ref_s:.3f} s = {SIZE * SIZE / ref_s:,.0f} rays/s | frame max "
         f"diff {frame_err:.2e}", flush=True)
+  k3_ms, plain_k3_ms = _time_training(card, models.PlainNeRF, driver,
+                                      loaders, sampler, k1, rays_ops, dev)
 
+  if args.quality:
+    _quality(card, port_runner, k1, loaders, dev, args.seeds)
   if args.profile:
     _profile(card, model, ds, ws)
+    _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev)
 
   print(json.dumps({"kernels": [{
       "name": "render_fwd", "route": "cuda",
@@ -280,6 +634,12 @@ def main(argv=None):
       "replaces": "nerf_atlas_tpu/ops/pallas/render.py:586",
       "launches": launches, "max_abs_err": max_err,
       "ms": min(kernel_ms, kernel_ms2), "plain_ms": min(plain_ms, plain_ms2),
+  }, {
+      "name": "render_bwd", "route": "cuda",
+      "source": "nerf_atlas_tpu_torch/csrc/render_bwd.cu",
+      "replaces": "nerf_atlas_tpu/ops/pallas/render.py:915",
+      "launches": k3_launches, "max_abs_err": max_bwd,
+      "ms": k3_ms, "plain_ms": plain_k3_ms,
   }]}))
   print(card)
   print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -46,10 +47,18 @@ class NeRFCamera:
     v = -(xy[..., 1] - size * 0.5) / self.focal
     return torch.stack([u, v, -torch.ones_like(u)], dim=-1)
 
-  def rays_at(self, view_idx, xy, size: int):
+  def rays_at(self, view_idx, xy, size: int, jitter: float = 0.0,
+              generator: Optional[torch.Generator] = None):
     """Rays for pixel samples: view_idx [...] int, xy [..., 2] pixel
-    coords. Returns rays [..., 6]. Sub-pixel jitter for training arrives
-    with ROADMAP Queue 1 #5."""
+    coords. With jitter > 0 each sample moves by jitter·(u − 0.5), u
+    uniform in [0, 1) per coordinate from `generator` (on xy's device):
+    the centred sub-pixel jitter of training. Returns rays [..., 6]."""
+    if jitter > 0:
+      if generator is None:
+        raise ValueError("pixel jitter requires a torch.Generator")
+      u = torch.rand(xy.shape, generator=generator, dtype=xy.dtype,
+                     device=xy.device)
+      xy = xy + jitter * (u - 0.5)
     d_cam = self._pixel_dirs(xy, size)                      # [..., 3]
     c2w = self.cam_to_world[view_idx]                       # [..., 4, 4]
     r_d = torch.sum(c2w[..., :3, :3] * d_cam[..., None, :], dim=-1)

@@ -2,26 +2,24 @@
 backgrounds.
 
 Counterpart of `nerf_atlas_tpu/models/base.py`. Model contract:
-  forward(rays [..., 6], train=False)
+  forward(rays [..., 6], train=False, generator=None)
       -> dict: rgb [..., 3], weights [..., T], ts, alpha.
   query(pts [..., 3], view [..., 3]) -> (density [...], rgb [..., 3]).
 Modules own their parameters; `reset_parameters(generator)` draws them
-from an explicit `torch.Generator`. Training-mode sampling (stratified
-jitter, density noise, random sky) arrives with the training slice
-(ROADMAP Queue 1 #5); latent-conditioned models with Queue 1 #9/#11.
+from an explicit `torch.Generator`. Training mode (train=True) draws the
+stratified sample jitter, the density noise and the random sky colour
+from `generator`, which lives on the rays' device. Latent-conditioned
+models arrive with ROADMAP Queue 1 #9/#11.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import torch
 from torch import nn
 
 from ..ops import integrate, rays as rays_ops
 from ..ops.math import load_sigmoid
-
-_TRAINING = ("training mode: arrives with the training slice (ROADMAP "
-             "Queue 1 #5)")
-
 
 class NeRFBase(nn.Module):
   """Base class holding the common render configuration."""
@@ -30,7 +28,7 @@ class NeRFBase(nn.Module):
                t_far: float = 6.0, mip: Optional[str] = None,
                sky_kind: str = "black", sigmoid_kind: str = "thin",
                intermediate_size: int = 32, per_ray_jitter: bool = False,
-               lindisp: bool = False):
+               lindisp: bool = False, density_noise: float = 0.0):
     super().__init__()
     if mip is not None:
       raise NotImplementedError(
@@ -49,30 +47,46 @@ class NeRFBase(nn.Module):
     self.intermediate_size = intermediate_size
     self.per_ray_jitter = per_ray_jitter
     self.lindisp = lindisp
+    self.density_noise = density_noise
 
   # ---- helpers shared by all subclasses --------------------------------
 
-  def sample_points(self, rays, train: bool):
-    if train:
-      raise NotImplementedError(_TRAINING)
+  def sample_points(self, rays, train: bool,
+                    generator: Optional[torch.Generator] = None):
+    """Eval: the uniform grid. Train: stratified jitter inside the bins
+    (one draw shared by all rays, or per ray with per_ray_jitter)."""
     return rays_ops.compute_pts_ts(
         rays, self.t_near, self.t_far, self.steps, lindisp=self.lindisp,
+        perturb=1.0 if train else 0.0, generator=generator,
         per_ray_jitter=self.per_ray_jitter)
 
-  def sky_color(self, weights, r_d, train: bool):
-    """Background contribution on leftover transmittance [..., 1]."""
+  def add_density_noise(self, density, train: bool,
+                        generator: Optional[torch.Generator] = None):
+    if train and self.density_noise > 0:
+      density = density + self.density_noise * torch.randn(
+          density.shape, generator=generator, dtype=density.dtype,
+          device=density.device)
+    return density
+
+  def sky_color(self, weights, r_d, train: bool,
+                generator: Optional[torch.Generator] = None):
+    """Background contribution on leftover transmittance [..., 1]. The
+    "random" sky is a uniform grey per ray in training, black at eval."""
     del r_d
-    if train:
-      raise NotImplementedError(_TRAINING)
+    if train and self.sky_kind == "random":
+      rem = integrate.leftover_transmittance(weights)
+      return rem * torch.rand(rem.shape, generator=generator,
+                              dtype=rem.dtype, device=rem.device)
     return integrate.load_sky(self.sky_kind)(weights)
 
   def finish(self, density, rgb, ts, r_d, train: bool,
-             softplus: bool = True) -> Dict[str, Any]:
+             softplus: bool = True,
+             generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
     """density [..., T], rgb [..., T, 3] -> composited output dict."""
     alpha, weights = integrate.alpha_from_density(density, ts, r_d,
                                                   softplus=softplus)
     img = integrate.volumetric_integrate(weights, rgb)
-    img = img + self.sky_color(weights, r_d, train)
+    img = img + self.sky_color(weights, r_d, train, generator)
     return dict(rgb=img, weights=weights, ts=ts, alpha=alpha)
 
 

@@ -6,6 +6,8 @@ NeRFAE and CoarseFineNeRF arrive with ROADMAP Queue 1 #3, #9 and #8.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..nn import CPEncoder, PositionalEncoder, SkipConnMLP
@@ -47,12 +49,18 @@ class PlainNeRF(NeRFBase):
     self.density_mlp.reset_parameters(generator)
     self.refl.reset_parameters(generator)
 
-  def query(self, pts, view):
+  def query(self, pts, view, train: bool = False,
+            generator: Optional[torch.Generator] = None):
     out = self.density_mlp(pts)
+    density = self.add_density_noise(out[..., 0], train, generator)
     rgb = self.refl(pts, view=view, latent=out[..., 1:])
-    return out[..., 0], rgb
+    return density, rgb
 
-  def forward(self, rays, train: bool = False):
-    pts, ts, _, r_d = self.sample_points(rays, train)
-    density, rgb = self.query(pts, view_per_sample(r_d, self.steps))
-    return self.finish(density, rgb, ts, r_d, train)
+  def forward(self, rays, train: bool = False,
+              generator: Optional[torch.Generator] = None):
+    """train=True draws the ts jitter, the density noise and the random
+    sky from `generator` (required then, on the rays' device)."""
+    pts, ts, _, r_d = self.sample_points(rays, train, generator)
+    density, rgb = self.query(pts, view_per_sample(r_d, self.steps), train,
+                              generator)
+    return self.finish(density, rgb, ts, r_d, train, generator=generator)

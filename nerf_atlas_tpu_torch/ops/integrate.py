@@ -81,8 +81,8 @@ def bg_white(weights):
 
 
 def bg_random(weights):
-  """Black at eval; the training form (a random colour on the leftover
-  transmittance) arrives with the training slice (ROADMAP Queue 1 #5)."""
+  """Black at eval; the training form (a random grey on the leftover
+  transmittance) is `models.base.NeRFBase.sky_color`."""
   return bg_black(weights)
 
 

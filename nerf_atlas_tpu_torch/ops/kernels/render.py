@@ -1,22 +1,31 @@
-"""K1: the fused forward render of the flagship PlainNeRF-CP model.
+"""K1 and K2/K3: the fused forward render of the flagship PlainNeRF-CP
+model and its backward.
 
-Counterpart of `nerf_atlas_tpu/ops/pallas/render.py:fused_plain_cp_render`
-(kernel body `_render_kernel`). `plain_cp_render` launches the CUDA kernel
-`csrc/render_fwd.cu` for rays on the GPU; `plain_cp_render_reference` is
-the same function in plain torch, which the wrapper uses only for rays on
-the CPU. See the kernel source for its design.
+Counterparts of `nerf_atlas_tpu/ops/pallas/render.py`:
+- `plain_cp_render` (K1, kernel body `_render_kernel`) launches
+  `csrc/render_fwd.cu`; `plain_cp_render_reference` is its plain torch.
+- `plain_cp_render_grad` (K2, `_render_bwd_kernel`) and
+  `plain_cp_train_step` (K3, its loss mode, `fused_plain_cp_train_step`)
+  launch `csrc/render_bwd.cu`; `plain_cp_render_grad_reference` and
+  `plain_cp_train_step_reference` are autograd through the plain K1.
+- `PlainCPRender` is the autograd Function K1 forward / K2 backward
+  (`_make_diff_render`), `plain_cp_render_train` its entry point.
+Each wrapper launches its kernel for rays on the GPU (and raises if it
+cannot) and takes its plain version for rays on the CPU. See the kernel
+sources for their design.
 
 Weights travel as one packed float32 vector (`pack_weights`): the four CP
 line tables [3, R, 8], then every Dense layer of the density MLP and of
-the View MLP as W [in, out] row-major followed by its bias. The encoder
-variants (posenc, tiny, mip, hash), the per-ray-ts and `want_weights`
-forms and the backward kernels arrive with ROADMAP Queue 2 K2-K6.
+the View MLP as W [in, out] row-major followed by its bias; gradients
+come back in the same layout (`unpack_grads` maps them onto state_dict
+keys). The encoder variants (posenc, tiny, mip, hash), per-ray ts and
+`want_weights` arrive with ROADMAP Queue 2 K4-K6.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +52,7 @@ SIREN_W0 = 30.0
 FUSED_SIGMOID_KINDS = ("thin", "fat", "normal", "upshifted", "tanh",
                        "relu", "upshifted_relu", "leaky_relu")
 MAX_STEPS = 2048                                 # csrc/render_fwd.cu
+BWD_MAX_STEPS = 1024                             # csrc/render_bwd.cu
 
 Params = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
@@ -130,16 +140,37 @@ def _unpack(ws: torch.Tensor):
   return lines, mlps[0], mlps[1]
 
 
-def sample_grid(steps: int, t_near: float, t_far: float, device=None):
-  """The shared sample positions ts [T] and their segment lengths
+def unpack_grads(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+  """Packed weights or gradient [WEIGHT_COUNT] -> {state_dict key: tensor}
+  (the inverse of `flatten_params` + `pack_weights`: Dense weights back
+  to [out, in])."""
+  lines, dense_layers, refl_layers = _unpack(packed)
+  out = {name: t for (name, _), t in zip(LINE_SHAPES, lines)}
+  for (name, _, _), (w, b) in zip(DENSITY_LAYERS + REFL_LAYERS,
+                                  dense_layers + refl_layers):
+    out[f"{name}.weight"] = w.t().contiguous()
+    out[f"{name}.bias"] = b
+  return out
+
+
+def sample_grid(steps: int, t_near: float, t_far: float, device=None,
+                ts: Optional[torch.Tensor] = None):
+  """The shared sample positions ts [T] (the uniform grid, or the given
+  ones, e.g. a stratified-jittered draw) and their segment lengths
   dists [T] with the 1e10 tail and 1e-5 clamp, unscaled by ||r_d||
   (render.py `_linspace_ts` / `_dists_base`)."""
-  ts = torch.linspace(t_near, t_far, steps, device=device)
+  if ts is None:
+    ts = torch.linspace(t_near, t_far, steps, device=device)
+  elif (ts.dtype != torch.float32 or tuple(ts.shape) != (steps,)
+        or ts.device != torch.device(device) or not ts.is_contiguous()):
+    raise ValueError(f"ts must be contiguous float32 [{steps}] on {device}, "
+                     f"got {ts.dtype} {tuple(ts.shape)} on {ts.device}")
   return ts, integrate.dists_from_ts(ts)
 
 
 def _check_call(ws: torch.Tensor, rays: torch.Tensor, steps: int,
-                sigmoid_kind: str, sky_kind: str):
+                sigmoid_kind: str, sky_kind: str,
+                max_steps: int = MAX_STEPS):
   if rays.dtype != torch.float32 or rays.ndim != 2 or rays.shape[1] != 6:
     raise ValueError(f"rays must be float32 [N, 6], got {rays.dtype} "
                      f"{tuple(rays.shape)}")
@@ -147,8 +178,8 @@ def _check_call(ws: torch.Tensor, rays: torch.Tensor, steps: int,
     raise ValueError("rays must be contiguous")
   if ws.device != rays.device:
     raise ValueError(f"weights on {ws.device}, rays on {rays.device}")
-  if not 2 <= steps <= MAX_STEPS:
-    raise ValueError(f"steps must be in [2, {MAX_STEPS}], got {steps}")
+  if not 2 <= steps <= max_steps:
+    raise ValueError(f"steps must be in [2, {max_steps}], got {steps}")
   if sigmoid_kind not in FUSED_SIGMOID_KINDS:
     raise NotImplementedError(f"fused kernel: rgb act {sigmoid_kind}")
   if sky_kind not in integrate.SKY_KINDS:
@@ -176,14 +207,18 @@ def plain_cp_render_reference(params: Params, rays: torch.Tensor, *,
                               steps: int = 64, t_near: float = 2.0,
                               t_far: float = 6.0,
                               sigmoid_kind: str = "thin",
-                              sky_kind: str = "black") -> torch.Tensor:
-  """Plain-torch K1: rays [N, 6] -> [N, 4] (rgb ‖ acc), on any device.
-  The "random" sky is black at eval."""
+                              sky_kind: str = "black",
+                              ts: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+  """Plain-torch K1: rays [N, 6] -> [N, 4] (rgb ‖ acc), on any device,
+  differentiable in a packed weight vector. ts [T]: shared sample
+  positions (default the uniform grid). The "random" sky is black, as
+  the kernels render it."""
   ws = pack_weights(params, rays.device)
   _check_call(ws, rays, steps, sigmoid_kind, sky_kind)
   lines, dense_layers, refl_layers = _unpack(ws)
   n = rays.shape[0]
-  ts, dists = sample_grid(steps, t_near, t_far, rays.device)
+  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
   r_o, r_d = rays[:, :3], rays[:, 3:6]
   pts = (r_o[:, None, :] + ts[None, :, None] * r_d[:, None, :]).reshape(-1, 3)
 
@@ -207,6 +242,17 @@ def plain_cp_render_reference(params: Params, rays: torch.Tensor, *,
   if sky_kind == "white":
     img = img + (1.0 - (acc - weights[:, -1:]))
   return torch.cat([img, acc], dim=-1)
+
+
+def _check_cuda(rays: torch.Tensor, name: str):
+  if rays.device.type != "cuda":
+    raise ValueError(f"{name} runs on cuda or cpu, not {rays.device}")
+
+
+def _raise_on(err: int, lib, what: str, prefix: str):
+  if err != 0:
+    msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+    raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,22 +279,21 @@ def _load_library() -> ctypes.CDLL:
 def plain_cp_render(params: Params, rays: torch.Tensor, *, steps: int = 64,
                     t_near: float = 2.0, t_far: float = 6.0,
                     sigmoid_kind: str = "thin",
-                    sky_kind: str = "black") -> torch.Tensor:
+                    sky_kind: str = "black",
+                    ts: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Render rays [N, 6] -> [N, 4] (rgb ‖ acc) through K1.
 
-  params: a PlainNeRF-CP state_dict or its `pack_weights` vector. Rays on
-  a CUDA device launch the kernel on the current stream (and raise if it
-  cannot launch); rays on the CPU take `plain_cp_render_reference`. The
-  "random" sky is black at eval. Each launch adds one to
-  `plain_cp_render.launches`."""
+  params: a PlainNeRF-CP state_dict or its `pack_weights` vector. ts [T]:
+  shared sample positions (default the uniform grid). Rays on a CUDA
+  device launch the kernel on the current stream (and raise if it cannot
+  launch); rays on the CPU take `plain_cp_render_reference`. The "random"
+  sky is black. Each launch adds one to `plain_cp_render.launches`."""
   if rays.device.type == "cpu":
     return plain_cp_render_reference(
         params, rays, steps=steps, t_near=t_near, t_far=t_far,
-        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind)
-  if rays.device.type != "cuda":
-    raise ValueError(f"plain_cp_render runs on cuda or cpu, not "
-                     f"{rays.device}")
-  ws = pack_weights(params, rays.device)
+        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+  _check_cuda(rays, "plain_cp_render")
+  ws = pack_weights(params, rays.device).detach()
   _check_call(ws, rays, steps, sigmoid_kind, sky_kind)
   if not ws.is_contiguous():
     raise ValueError("packed weights must be contiguous")
@@ -256,7 +301,7 @@ def plain_cp_render(params: Params, rays: torch.Tensor, *, steps: int = 64,
                     device=rays.device)
   if rays.shape[0] == 0:
     return out
-  ts, dists = sample_grid(steps, t_near, t_far, rays.device)
+  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
   lib = _load_library()
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_fwd_launch(
@@ -264,11 +309,223 @@ def plain_cp_render(params: Params, rays: torch.Tensor, *, steps: int = 64,
       out.data_ptr(), rays.shape[0], steps,
       FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
       stream)
-  if err != 0:
-    raise RuntimeError(f"render_fwd launch failed: CUDA error {err} "
-                       f"({lib.render_fwd_error_string(err).decode()})")
+  _raise_on(err, lib, "render_fwd", "render_fwd")
   plain_cp_render.launches += 1
   return out
 
 
 plain_cp_render.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2/K3: the backward (csrc/render_bwd.cu) and its plain versions
+# ---------------------------------------------------------------------------
+
+def _leaf(params: Params, device) -> torch.Tensor:
+  return pack_weights(params, device).detach().clone().requires_grad_(True)
+
+
+def plain_cp_render_grad_reference(params: Params, rays: torch.Tensor,
+                                   g: torch.Tensor, *, steps: int = 64,
+                                   t_near: float = 2.0, t_far: float = 6.0,
+                                   sigmoid_kind: str = "thin",
+                                   sky_kind: str = "black",
+                                   ts: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+  """Plain K2: d(Σ g·out)/d(packed weights) [WEIGHT_COUNT] for the
+  cotangent g [N, 4], by autograd through `plain_cp_render_reference`."""
+  ws = _leaf(params, rays.device)
+  with torch.enable_grad():
+    out = plain_cp_render_reference(
+        ws, rays, steps=steps, t_near=t_near, t_far=t_far,
+        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+    (dws,) = torch.autograd.grad(out, ws, g)
+  return dws
+
+
+def plain_cp_train_step_reference(params: Params, rays: torch.Tensor,
+                                  target: torch.Tensor, *, steps: int = 64,
+                                  t_near: float = 2.0, t_far: float = 6.0,
+                                  sigmoid_kind: str = "thin",
+                                  sky_kind: str = "black",
+                                  ts: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Plain K3: (loss, d loss/d(packed weights)) for loss =
+  mean((out_rgb − target)²), by autograd through the plain K1."""
+  ws = _leaf(params, rays.device)
+  with torch.enable_grad():
+    out = plain_cp_render_reference(
+        ws, rays, steps=steps, t_near=t_near, t_far=t_far,
+        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+    loss = torch.mean((out[:, :3] - target) ** 2)
+    (dws,) = torch.autograd.grad(loss, ws)
+  return loss.detach(), dws
+
+
+@functools.lru_cache(maxsize=None)
+def _load_bwd_library() -> ctypes.CDLL:
+  """Build (at first use) and bind csrc/render_bwd.cu."""
+  from . import build
+  lib = build.load("render_bwd")
+  lib.render_bwd_launch.argtypes = (
+      [ctypes.c_void_p] * 9
+      + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+  lib.render_bwd_launch.restype = ctypes.c_int
+  for fn in ("render_bwd_weight_count", "render_bwd_stash_floats_per_tile"):
+    getattr(lib, fn).argtypes = []
+    getattr(lib, fn).restype = ctypes.c_longlong
+  lib.render_bwd_max_steps.argtypes = []
+  lib.render_bwd_max_steps.restype = ctypes.c_int
+  lib.render_bwd_error_string.argtypes = [ctypes.c_int]
+  lib.render_bwd_error_string.restype = ctypes.c_char_p
+  if (lib.render_bwd_weight_count() != WEIGHT_COUNT
+      or lib.render_bwd_max_steps() != BWD_MAX_STEPS):
+    raise RuntimeError(
+        f"render_bwd.cu packs {lib.render_bwd_weight_count()} weights and "
+        f"takes {lib.render_bwd_max_steps()} steps, the wrapper "
+        f"{WEIGHT_COUNT} and {BWD_MAX_STEPS}")
+  return lib
+
+
+_TRANSPOSE_INDEX: Dict[torch.device, torch.Tensor] = {}
+
+
+def _transposed(ws: torch.Tensor) -> torch.Tensor:
+  """The packed vector with every Dense W [in, out] stored as [out, in]
+  at the same offset (render_bwd.cu reads W row by output unit for the
+  input-gradient products)."""
+  index = _TRANSPOSE_INDEX.get(ws.device)
+  if index is None:
+    index = torch.arange(WEIGHT_COUNT)
+    pos = sum(3 * r * CP_RANK for r in CP_RESOLUTIONS)
+    for _, i, o in DENSITY_LAYERS + REFL_LAYERS:
+      index[pos:pos + i * o] = pos + torch.arange(i * o).view(i, o).t(
+      ).reshape(-1)
+      pos += i * o + o
+    index = _TRANSPOSE_INDEX.setdefault(ws.device, index.to(ws.device))
+  return ws[index]
+
+
+def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
+                     gin: torch.Tensor, ts: Optional[torch.Tensor], *,
+                     steps: int, t_near: float, t_far: float,
+                     sigmoid_kind: str, sky_kind: str, loss_mode: bool
+                     ) -> torch.Tensor:
+  """One render_bwd launch (+ its partial reduction); returns
+  [WEIGHT_COUNT + 1] = gradient ‖ loss."""
+  _check_cuda(rays, "render_bwd")
+  ws = ws.detach()
+  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, BWD_MAX_STEPS)
+  width = 3 if loss_mode else 4
+  if (gin.dtype != torch.float32 or tuple(gin.shape) != (rays.shape[0], width)
+      or gin.device != rays.device or not gin.is_contiguous()):
+    raise ValueError(f"{'target' if loss_mode else 'g'} must be contiguous "
+                     f"float32 [{rays.shape[0]}, {width}] on {rays.device}, "
+                     f"got {gin.dtype} {tuple(gin.shape)} on {gin.device}")
+  if not ws.is_contiguous():
+    raise ValueError("packed weights must be contiguous")
+  n = rays.shape[0]
+  out = torch.zeros(WEIGHT_COUNT + 1, dtype=torch.float32, device=rays.device)
+  if n == 0:
+    return out
+  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
+  lib = _load_bwd_library()
+  rays_per_block = 1 if steps >= 64 else 64 // steps
+  ray_blocks = -(-n // rays_per_block)
+  tiles = -(-(rays_per_block * steps) // 64)
+  blocks = min(ray_blocks, torch.cuda.get_device_properties(
+      rays.device).multi_processor_count)
+  partial = torch.empty(blocks * (WEIGHT_COUNT + 1), dtype=torch.float32,
+                        device=rays.device)
+  stash = torch.empty(blocks * tiles * lib.render_bwd_stash_floats_per_tile(),
+                      dtype=torch.float32, device=rays.device)
+  wt = _transposed(ws)
+  stream = torch.cuda.current_stream(rays.device).cuda_stream
+  err = lib.render_bwd_launch(
+      rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
+      wt.data_ptr(), gin.data_ptr(), out.data_ptr(), partial.data_ptr(),
+      stash.data_ptr(), n, steps, blocks,
+      FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
+      int(loss_mode), 1.0 / (3 * n) if loss_mode else 0.0, stream)
+  _raise_on(err, lib, "render_bwd", "render_bwd")
+  return out
+
+
+def plain_cp_render_grad(params: Params, rays: torch.Tensor, g: torch.Tensor,
+                         *, steps: int = 64, t_near: float = 2.0,
+                         t_far: float = 6.0, sigmoid_kind: str = "thin",
+                         sky_kind: str = "black",
+                         ts: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """K2: d(Σ g·out)/d(packed weights) [WEIGHT_COUNT] for the render of
+  rays [N, 6] and the cotangent g [N, 4]. CUDA rays launch render_bwd.cu
+  in mode G (each launch adds one to `plain_cp_render_grad.launches`);
+  CPU rays take `plain_cp_render_grad_reference`."""
+  kw = dict(steps=steps, t_near=t_near, t_far=t_far,
+            sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+  if rays.device.type == "cpu":
+    return plain_cp_render_grad_reference(params, rays, g, **kw)
+  out = _backward_launch(pack_weights(params, rays.device), rays, g,
+                         loss_mode=False, **kw)
+  plain_cp_render_grad.launches += 1
+  return out[:WEIGHT_COUNT]
+
+
+plain_cp_render_grad.launches = 0
+
+
+def plain_cp_train_step(params: Params, rays: torch.Tensor,
+                        target: torch.Tensor, *, steps: int = 64,
+                        t_near: float = 2.0, t_far: float = 6.0,
+                        sigmoid_kind: str = "thin", sky_kind: str = "black",
+                        ts: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """K3, the one-kernel train step: (loss, d loss/d(packed weights)) for
+  loss = mean((render(rays)_rgb − target)²), target [N, 3]. CUDA rays
+  launch render_bwd.cu in mode L, which computes the loss and its
+  cotangent from its own forward (each launch adds one to
+  `plain_cp_train_step.launches`); CPU rays take
+  `plain_cp_train_step_reference`. `unpack_grads` maps the gradient onto
+  the state_dict keys."""
+  kw = dict(steps=steps, t_near=t_near, t_far=t_far,
+            sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+  if rays.device.type == "cpu":
+    return plain_cp_train_step_reference(params, rays, target, **kw)
+  out = _backward_launch(pack_weights(params, rays.device), rays, target,
+                         loss_mode=True, **kw)
+  plain_cp_train_step.launches += 1
+  return out[WEIGHT_COUNT], out[:WEIGHT_COUNT]
+
+
+plain_cp_train_step.launches = 0
+
+
+class PlainCPRender(torch.autograd.Function):
+  """K1 forward, K2 backward (render.py `_make_diff_render`): packed
+  weights [WEIGHT_COUNT], rays [N, 6], ts [T] or None -> [N, 4]. The
+  gradient goes to the packed weights only; rays and ts get none."""
+
+  @staticmethod
+  def forward(ctx, ws, rays, ts, steps, t_near, t_far, sigmoid_kind,
+              sky_kind):
+    ctx.save_for_backward(ws, rays, ts)
+    ctx.kw = dict(steps=steps, t_near=t_near, t_far=t_far,
+                  sigmoid_kind=sigmoid_kind, sky_kind=sky_kind)
+    return plain_cp_render(ws.detach(), rays, ts=ts, **ctx.kw)
+
+  @staticmethod
+  def backward(ctx, g):
+    ws, rays, ts = ctx.saved_tensors
+    dws = plain_cp_render_grad(ws.detach(), rays, g.contiguous(), ts=ts,
+                               **ctx.kw)
+    return dws, None, None, None, None, None, None, None
+
+
+def plain_cp_render_train(ws: torch.Tensor, rays: torch.Tensor,
+                          ts: Optional[torch.Tensor] = None, *,
+                          steps: int = 64, t_near: float = 2.0,
+                          t_far: float = 6.0, sigmoid_kind: str = "thin",
+                          sky_kind: str = "black") -> torch.Tensor:
+  """Differentiable render (the two-kernel train path): packed weights
+  (a leaf that requires grad) -> [N, 4] through `PlainCPRender`."""
+  return PlainCPRender.apply(ws, rays, ts, steps, t_near, t_far,
+                             sigmoid_kind, sky_kind)

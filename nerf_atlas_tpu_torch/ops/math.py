@@ -1,6 +1,7 @@
-"""Elementwise math: the sigmoid zoo, view-direction angles, PSNR.
+"""Elementwise math: the sigmoid zoo, view-direction angles, PSNR, colour
+spaces.
 
-Counterpart of `nerf_atlas_tpu/ops/math.py` (the parts the eval path
+Counterpart of `nerf_atlas_tpu/ops/math.py` (the parts the main path
 needs). Everything is a plain function on tensors.
 """
 from __future__ import annotations
@@ -88,3 +89,41 @@ def dir_to_elev_azim(direc):
   d = torch.clamp(normalize(direc), -lim, lim)
   x, y, z = d[..., 0:1], d[..., 1:2], d[..., 2:3]
   return torch.cat([torch.arccos(z), torch.atan2(y, x)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# colour spaces (the loss's --color-spaces)
+# ---------------------------------------------------------------------------
+
+def rgb2hsv(v):
+  """RGB -> (hue, saturation, value) as the JAX package computes it: V is
+  the mean of max and min, hue in sextants from the max channel."""
+  r, g, b = v[..., 0], v[..., 1], v[..., 2]
+  max_val, max_ind = torch.max(v, dim=-1)
+  min_val = torch.min(v, dim=-1).values
+  c = max_val - min_val
+  eps = 1e-8
+  cc = torch.clamp(c, min=eps)
+  h = torch.where(
+      torch.abs(c) < eps, torch.zeros_like(c),
+      torch.where(max_ind == 0, (g - b) / cc,
+                  torch.where(max_ind == 1, 2 + (b - r) / cc,
+                              4 + (r - g) / cc)))
+  s = torch.where(torch.abs(max_val) < eps, torch.zeros_like(c),
+                  c / torch.clamp(max_val, min=eps))
+  return torch.stack([h, s, (max_val + min_val) / 2], dim=-1)
+
+
+def rgb2luminance(v):
+  r, g, b = v[..., 0:1], v[..., 1:2], v[..., 2:3]
+  return 0.2126 * r + 0.7152 * g + 0.0722 * b
+
+
+_RGB2XYZ = ((0.49, 0.31, 0.2),
+            (0.17697, 0.8124, 0.01063),
+            (0.0, 0.01, 0.99))
+
+
+def rgb2xyz(v):
+  m = torch.tensor(_RGB2XYZ, dtype=v.dtype, device=v.device)
+  return torch.einsum("ij,...j->...i", m, v) / 0.17697

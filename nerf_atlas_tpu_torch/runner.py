@@ -1,12 +1,17 @@
 """The port's entry point: `python -m nerf_atlas_tpu_torch.runner ...`.
 
 Takes the root `runner.py`'s flags (its `arguments`, pure argparse) and
-runs the eval-only flow of its `main`: load the data, build the model,
-initialize it from `--seed` or restore `--load`, then render and score
-the train and test splits (results.txt, test_###.png). Training
-(`--epochs > 0`) arrives with the backward kernels K2/K3.
+runs the flow of its `main`: load the data, build the model, initialize
+it from `--seed` or restore `--load`, train for `--epochs` steps (through
+the one-kernel step K3 where the gate allows, log.json records the
+engaged path), then render and score the train and test splits
+(results.txt, test_###.png). The loss plot (loss.png) is not written: it
+needs matplotlib, which the GPU machine lacks.
 
-Example (procedural scene, random weights):
+Examples (procedural scene):
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model plain --size 48 --num-views 30 --epochs 1500 \
+      --batch-size 4096 -lr 1e-3 --seed 0 --nosave --outdir out
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
       --model plain --size 800 --num-views 2 --epochs 0 --outdir out
 """
@@ -23,7 +28,7 @@ from .data import load, sampler
 from .models import load_model
 from .train import checkpoints, driver
 
-# flags the eval path does not carry yet: (attribute, ROADMAP item)
+# flags the port does not carry yet: (attribute, ROADMAP item)
 _UNSUPPORTED = (
     ("bendy", "Queue 1 #13"), ("dyn_model", "Queue 1 #11"),
     ("ref_compat", "Queue 1 #13"), ("neural_upsample", "Queue 1 #13"),
@@ -34,14 +39,11 @@ _UNSUPPORTED = (
     ("visualize", "Queue 1 #10/#11"), ("exp_bg", "Queue 1 #13"),
     ("draw_colormap", "Queue 1 #13"), ("normals_from_depth", "Queue 1 #13"),
     ("depth_query_normal", "Queue 1 #10"),
+    ("long_vid_progressive_train", "Queue 1 #11"),
 )
 
 
 def _check_supported(args):
-  if args.epochs > 0:
-    raise NotImplementedError(
-        "--epochs > 0: training arrives with the backward kernels K2/K3 "
-        "(ROADMAP Queue 1 #5); run with --epochs 0")
   for flag, item in _UNSUPPORTED:
     if getattr(args, flag):
       raise NotImplementedError(
@@ -58,9 +60,85 @@ def build_model(args, device):
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
                 lindisp=args.lindisp, per_ray_jitter=args.per_ray_jitter,
+                density_noise=args.density_noise,
                 refl_kind=args.refl_kind, mip=args.mip,
                 enc_kind=args.enc_kind, refl_space=args.space_kind)
   return load_model(args.model, device=device, **kwargs)
+
+
+def make_train_config(args) -> driver.TrainConfig:
+  """runner.py:make_train_config for the fields the port trains with.
+  Flags whose path is not ported raise NotImplementedError naming their
+  ROADMAP item (here, or in `driver.check_config`)."""
+  if args.crop_size > 0 or set(args.loss_fns) & {"ssim", "fft"}:
+    raise NotImplementedError(
+        "--crop-size / --loss-fns ssim|fft: crop batches arrive with "
+        "ROADMAP Queue 1 #5")
+  if args.train_parts != ["all"]:
+    raise NotImplementedError(
+        "--train-parts: the refl/occ/path-tf groups and camera training "
+        "arrive with their models (ROADMAP Queue 1 #13)")
+  # --mesh-devices 0 ("all") and 1 both train on the one device the port
+  # uses; a mesh of several devices is data parallelism
+  if args.mesh_devices > 1 or args.data_parallel:
+    raise NotImplementedError(
+        "--mesh-devices > 1 / --data-parallel: the port trains on one "
+        "device; multi-GPU training arrives with ROADMAP Queue 1 #12")
+  import runner as cli   # the root runner.py: argparse + numpy only
+  cfg = driver.TrainConfig(
+      steps=args.epochs, batch_size=args.batch_size,
+      learning_rate=args.learning_rate, opt_kind=args.opt_kind,
+      loss_kinds=tuple(args.loss_fns),
+      color_spaces=tuple(args.color_spaces), tone_map=args.tone_map,
+      gamma_correct=(2.2 if args.gamma_correct
+                     else args.gamma_correct_loss),
+      reg_coeffs={
+          "latent_l2": args.latent_l2_weight,
+          "eikonal": args.eikonal_weight,
+          "surface_eikonal": args.surface_eikonal,
+          "delta_x": args.dp_weight,
+          "offset": args.offset_decay,
+          "rigidity_sparsity": args.rigidity_sparsity,
+          "tv_sigma": args.tv_sigma,
+          "tv_refl": args.tv_refl,
+          "tv_bezier": args.tv_bezier,
+          "tv_rigidity": args.tv_rigidity,
+          "weight_sparsity": args.weight_sparsity,
+          "volsdf_scale": args.volsdf_scale_decay,
+          "occ_decay": args.occ_decay_weight,
+          "smooth_normals": args.smooth_normals_weight,
+          "smooth_surface": args.smooth_surface_weight,
+          "smooth_occ": args.smooth_occ_weight,
+          "view_variance": args.view_variance_weight,
+          "eikonal_random": args.eikonal_random_weight,
+          "dyn_divergence": args.dyn_divergence_weight,
+          "ffjord_div": args.ffjord_div_decay,
+          "spline_length": (args.spline_length_weight
+                            + args.random_spline_len_decay
+                            + args.voxel_random_spline_len_decay),
+          "spline_pt0": args.spline_pt0_weight,
+      },
+      grad_clip=args.clip_gradients, accum_steps=args.opt_step,
+      no_sched=args.no_sched, sched_min=args.sched_min, seed=args.seed,
+      valid_freq=args.valid_freq, save_freq=args.save_freq,
+      versioned_save=args.versioned_save,
+      save_path=args.save or os.path.join(args.outdir, "model.ckpt"),
+      duration_sec=args.duration_sec,
+      train_only=cli._train_only_substrings(args.train_parts),
+      profile_dir=args.profile_dir, save_load_opt=args.save_load_opt,
+      alt_train=args.alt_train, inc_fourier_freqs=args.inc_fourier_freqs,
+      crop_size=args.crop_size, style_img=args.style_img,
+      style_weight=args.style_img_weight,
+      model_parallel=args.model_parallel,
+      weight_decay=args.decay, serial_idxs=args.serial_idxs,
+      end_bias=args.higher_end_chance, omit_bg=args.omit_bg,
+      skip_loss=args.skip_loss,
+      freeze_substr="canonical" if args.fix_canon else None,
+      smooth_eps=args.smooth_eps, smooth_eps_rng=args.smooth_eps_rng,
+      smooth_ords=tuple(args.smooth_n_ord),
+      volsdf_alternate=args.volsdf_alternate, no_fused=args.no_fused)
+  driver.check_config(cfg)
+  return cfg
 
 
 def _slice_views(ds, n: int):
@@ -74,8 +152,10 @@ def _slice_views(ds, n: int):
 
 
 def main(argv=None, device="cuda"):
-  """Run the eval flow on `device` (the GPU by default; tests pass
-  device="cpu"). Raises when the device is CUDA and none is present."""
+  """Run the train + eval flow on `device` (the GPU by default; tests pass
+  device="cpu"). Raises when the device is CUDA and none is present.
+  Returns {"train", "test": driver.test results} plus, after training,
+  "engaged_path" and "history"."""
   argv = list(sys.argv[1:] if argv is None else argv)
   if any(a == "--param-file" or a.startswith("--param-file=") for a in argv):
     raise NotImplementedError(
@@ -87,6 +167,9 @@ def main(argv=None, device="cuda"):
   import runner as cli   # the root runner.py: argparse + numpy only
   args = cli.arguments(argv)
   _check_supported(args)
+  if args.nosave:
+    args.save_freq = 0
+  cfg = make_train_config(args) if args.epochs > 0 else None
   if not args.derive_kind and args.data_kind is None:
     raise ValueError("--data-kind is required when --derive-kind is unset")
   if args.timed_outdir:
@@ -115,14 +198,28 @@ def main(argv=None, device="cuda"):
           f"(step {raw.get('step', 0)})")
   else:
     driver.init_model(model, args.seed)
-  model.eval()
+
+  results = {}
+  if cfg is not None:
+    t0 = time.time()
+
+    def log_cb(m):
+      print(f"step {m['step']:6d}  loss {m['loss']:.5f}  "
+            f"psnr {m['psnr']:.2f}  ({time.time() - t0:.0f}s)")
+
+    results["history"] = driver.train(model, ds, cfg,
+                                      config_dict=config_dict,
+                                      callback=log_cb)
+    results["engaged_path"] = driver.LAST_TRAIN_PATH
+    config_dict["engaged_path"] = driver.LAST_TRAIN_PATH
+    with open(os.path.join(args.outdir, args.log), "w") as f:
+      json.dump(config_dict, f, indent=2, default=str)
 
   test_kwargs = dict(
       render_size=args.render_size or None, save_depth=args.depth_images,
       chunk=(args.test_crop_size ** 2 if args.test_crop_size else 65536),
       only_view=args.render_frame if args.render_frame >= 0 else None,
       white_bg=args.test_white_bg, with_alpha=args.with_alpha)
-  results = {}
   if not args.notraintest:
     results["train"] = driver.test(
         model, ds, out_dir=os.path.join(args.outdir, "train"), **test_kwargs)

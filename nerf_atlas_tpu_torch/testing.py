@@ -1,0 +1,53 @@
+"""Helpers that hold the kernels against their plain versions: used by
+`chip_smoke.py` and the `cuda` tests, not by any training or rendering
+path."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .nn.encoders import cp_encode
+from .ops.kernels import render as k1
+
+
+def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
+                   steps: int, margin: float = 10.0) -> torch.Tensor:
+  """[N] bool: the rays none of whose density-MLP pre-activations lies
+  within `margin` round-offs of the leaky-relu kink at 0.
+
+  Two float32 backward implementations (K2/K3 and autograd through the
+  plain K1) sum in different orders; a pre-activation within round-off
+  of 0 can then take the other slope in one of them and move that
+  point's whole backward (one such point moves a weight gradient by
+  ~1e-3 relative). A pre-activation counts as near the kink when its
+  magnitude is under `margin` times its column's float32-vs-float64
+  round-off (RMS over the points). The init features are left out:
+  render_bwd.cu rounds them exactly as the plain version does. Used to
+  hold the kernels to their plain versions on the rays where the two
+  must agree to float32 summation order."""
+  ws = k1.pack_weights(params, rays.device)
+
+  def pre_activations(dtype):
+    lines, dense_layers, _ = k1._unpack(ws.to(dtype))
+    r, t = rays.to(dtype), ts.to(dtype)
+    pts = (r[:, None, :3] + t[None, :, None] * r[:, None, 3:6]).reshape(-1, 3)
+    feat = torch.cat([pts, cp_encode(torch.clamp((pts + 1) * 0.5, 0, 1),
+                                     lines)], dim=-1)
+    zs = []
+
+    def act(v):
+      zs.append(v)
+      return F.leaky_relu(v, 0.01)
+
+    with torch.no_grad():
+      k1._mlp(feat, dense_layers, act, k1.N_LAYERS)
+    return zs[1:]                    # zs[0]: act(init feature)
+
+  fragile = torch.zeros(rays.shape[0] * steps, dtype=torch.bool,
+                        device=rays.device)
+  for z32, z64 in zip(pre_activations(torch.float32),
+                      pre_activations(torch.float64)):
+    z32 = z32.double()
+    rms = (z32 - z64).pow(2).mean(dim=0).sqrt()
+    fragile |= (z32.abs() < margin * rms).any(dim=-1)
+  return ~fragile.view(rays.shape[0], steps).any(dim=-1)

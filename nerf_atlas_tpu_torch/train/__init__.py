@@ -1,1 +1,1 @@
-"""Eval driver and checkpoints (training arrives with ROADMAP Queue 1 #5)."""
+"""Training and eval driver, losses, optimizers and checkpoints."""

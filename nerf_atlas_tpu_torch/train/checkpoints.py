@@ -14,10 +14,17 @@ import torch
 
 
 def save(path: str, params: Mapping[str, torch.Tensor],
-         config: Optional[Dict[str, Any]] = None, step: int = 0) -> str:
+         config: Optional[Dict[str, Any]] = None, step: int = 0,
+         versioned: bool = False) -> str:
   """Write {"params": state_dict, "step": step} (tensors moved to the CPU)
-  and, with `config`, `<path>.json`. The write goes to a temp file and an
-  atomic rename, so a crash never corrupts an earlier checkpoint."""
+  and, with `config`, `<path>.json`; returns the path written. versioned:
+  write `<base>_<step:07d><ext>` instead (--versioned-save). The write
+  goes to a temp file and an atomic rename, so a crash never corrupts an
+  earlier checkpoint. Synchronous (the JAX package writes periodic saves
+  on a thread)."""
+  if versioned:
+    base, ext = os.path.splitext(path)
+    path = f"{base}_{step:07d}{ext}"
   os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
   payload = {"params": {k: v.detach().cpu() for k, v in params.items()},
              "step": step}

@@ -1,26 +1,115 @@
-"""Eval driver: parameter init, tiled view rendering, per-view PSNR.
+"""Train / eval driver: parameter init, the training loop with its kernel
+gates, tiled view rendering, per-view PSNR.
 
-Counterpart of `nerf_atlas_tpu/train/driver.py` (`init_model`,
-`_fused_render_fn`, `render_view`, `test`). The port's modules own their
-parameters, so these functions take the model where the JAX package takes
-(model, params). The training loop (`train`, losses, optimizers) arrives
-with the training slice (ROADMAP Queue 1 #5).
+Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
+`_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
+`make_train_step`, `train`, `init_model`, `_fused_render_fn`,
+`render_view`, `test`). The port's modules own their parameters, so these
+functions take the model where the JAX package takes (model, params), and
+a train step is a Python closure (no jit). Unlike the JAX gates, a kernel
+gate never catches an exception: a parameter tree that diverges from the
+kernel's, or a kernel that fails to build or launch, raises.
 """
 from __future__ import annotations
 
 import math
 import os
 import struct
+import time
 import zlib
-from typing import Callable, Optional
+from dataclasses import dataclass, field, fields
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data import sampler as sampler_lib
 from ..models import PlainNeRF
-from ..ops import integrate
+from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
+from . import checkpoints, losses as losses_lib, optim as optim_lib
+
+# which train path the most recent train() engaged: "fused-one-kernel"
+# (K3) | "fused" (K1 + K2 through PlainCPRender) | "oracle" (the module
+# forward under autograd). Recorded into log.json by the runner.
+LAST_TRAIN_PATH: Optional[str] = None
+
+# the options of the smoothness regularizers (their models are not ported)
+_SMOOTH_REGS = {"item": "Queue 1 #10/#13"}
+
+
+@dataclass
+class TrainConfig:
+  """The JAX package's TrainConfig without `use_mesh` (the port trains on
+  one device; the runner rejects a device mesh, ROADMAP Queue 1 #12). The
+  port honours the fields up to `no_fused` below; `check_config` raises
+  on the rest when they leave their defaults."""
+  steps: int = 1000
+  batch_size: int = 4096
+  learning_rate: float = 5e-4
+  opt_kind: str = "adam"
+  loss_kinds: tuple = ("l2",)
+  color_spaces: tuple = ("rgb",)
+  tone_map: bool = False
+  gamma_correct: bool = False
+  reg_coeffs: Dict[str, float] = field(default_factory=dict)
+  grad_clip: float = 0.0
+  accum_steps: int = 1
+  no_sched: bool = False
+  sched_min: float = 5e-5
+  seed: int = 0
+  valid_freq: int = 500
+  save_freq: int = 1000
+  versioned_save: bool = False
+  save_path: str = "outputs/model.ckpt"
+  log_freq: int = 50
+  duration_sec: float = 0.0
+  pixel_jitter: float = 1.0
+  train_only: Optional[Tuple[str, ...]] = None
+  weight_decay: float = 0.0
+  serial_idxs: bool = False
+  end_bias: int = 0
+  skip_loss: int = 0
+  freeze_substr: Optional[str] = None
+  style_weight: float = 0.0
+  no_fused: bool = False
+  # not ported yet: (ROADMAP item) in the metadata
+  smooth_eps: float = field(default=1e-3, metadata=_SMOOTH_REGS)
+  smooth_eps_rng: bool = field(default=False, metadata=_SMOOTH_REGS)
+  smooth_ords: tuple = field(default=(2,), metadata=_SMOOTH_REGS)
+  model_parallel: int = field(default=1, metadata={"item": "Queue 1 #12"})
+  train_camera: bool = field(default=False, metadata={"item": "Queue 1 #13"})
+  profile_dir: Optional[str] = field(default=None,
+                                     metadata={"item": "Queue 1 #13"})
+  save_load_opt: bool = field(default=False, metadata={"item": "Queue 1 #13"})
+  crop_size: int = field(default=0, metadata={"item": "Queue 1 #5"})
+  style_img: Optional[str] = field(default=None,
+                                   metadata={"item": "Queue 1 #5"})
+  inc_fourier_freqs: bool = field(default=False,
+                                  metadata={"item": "Queue 1 #13"})
+  inc_fourier_rate: float = field(default=1.0005,
+                                  metadata={"item": "Queue 1 #13"})
+  alt_train: int = field(default=0, metadata={"item": "Queue 1 #13"})
+  omit_bg: bool = field(default=False, metadata={"item": "Queue 1 #13"})
+  volsdf_alternate: bool = field(default=False,
+                                 metadata={"item": "Queue 1 #10"})
+
+
+def check_config(cfg: TrainConfig):
+  """Raise NotImplementedError for a field the port does not carry yet
+  set away from its default, and for an active regularizer."""
+  default = TrainConfig()
+  for f in fields(cfg):
+    item = f.metadata.get("item")
+    if item and getattr(cfg, f.name) != getattr(default, f.name):
+      raise NotImplementedError(
+          f"train config {f.name}={getattr(cfg, f.name)!r}: not ported yet "
+          f"(ROADMAP {item})")
+  active = sorted(k for k, v in (cfg.reg_coeffs or {}).items() if v)
+  if active:
+    raise NotImplementedError(
+        f"regularizers {active}: arrive with their models (ROADMAP Queue 1 "
+        "#9-#13)")
 
 
 def init_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
@@ -30,19 +119,212 @@ def init_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
   return model
 
 
+def _is_flagship(model) -> bool:
+  """PlainNeRF with the cp encoder and the View refl in identity space at
+  the kernels' width, an rgb activation they implement, linear-in-t
+  samples."""
+  return (isinstance(model, PlainNeRF) and model.enc_kind == "cp"
+          and model.mip is None and model.refl_kind == "view"
+          and model.refl_space == "identity"
+          and model.intermediate_size == 32
+          and model.sigmoid_kind in k1.FUSED_SIGMOID_KINDS
+          and not model.lindisp)
+
+
+def _fused_common_ok(model, cfg: TrainConfig) -> bool:
+  """Config constraints of both training kernel gates
+  (train/driver.py:135-155): black or white sky, no density noise, no
+  per-ray jitter or lindisp, no crops, no camera training, no active
+  regularizer, no omit-bg. Unlike the JAX gate there is no batch-multiple
+  rule (the CUDA kernels mask the ragged edge) and no CPU rule (there the
+  wrappers take their plain versions)."""
+  return not (
+      not _is_flagship(model)
+      or model.sky_kind not in ("black", "white")
+      or model.density_noise != 0
+      or model.per_ray_jitter or model.lindisp
+      or cfg.train_camera or cfg.crop_size > 0
+      or any((cfg.reg_coeffs or {}).values())
+      or cfg.omit_bg)
+
+
+def _kernel_kw(model) -> dict:
+  return dict(steps=model.steps, t_near=model.t_near, t_far=model.t_far,
+              sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
+
+
+def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
+  """The step's shared stratified ts [T] (driver.py:512-514 `_ts`)."""
+  return rays_ops.compute_ts(model.t_near, model.t_far, model.steps,
+                             perturb=1.0, generator=generator, device=device)
+
+
+def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
+  """The one-kernel train step K3 (driver.py:448-560) when the training
+  loss is the kernel's (plain l2 on rgb, no colour transforms, tone map,
+  gamma or style, 3- or 4-channel labels) and `_fused_common_ok` holds;
+  None otherwise. Returns fn(ws, rays, pix, generator) -> (loss, packed
+  gradient)."""
+  if cfg.no_fused:
+    return None
+  g = cfg.gamma_correct
+  gamma_active = bool(cfg.tone_map) or g is True or (
+      not isinstance(g, bool) and g not in (0.0, 1.0))
+  style_active = bool(cfg.style_img) and cfg.style_weight > 0
+  if (tuple(cfg.loss_kinds) != ("l2",) or tuple(cfg.color_spaces) != ("rgb",)
+      or gamma_active or style_active or ds.pixels.shape[-1] not in (3, 4)
+      or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)):
+    return None
+  k1.pack_weights(model.state_dict())        # raises on a divergent tree
+  kw = _kernel_kw(model)
+
+  def fn(ws, rays, pix, generator):
+    ts = _step_ts(model, generator, rays.device)
+    return k1.plain_cp_train_step(ws, rays, pix[:, :3].contiguous(), ts=ts,
+                                  **kw)
+
+  return fn
+
+
+def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
+  """The two-kernel path (driver.py:158-295): K1 forward and K2 backward
+  through `PlainCPRender`, with the loss computed outside. Returns
+  fn(ws, rays, generator) -> [N, 4], differentiable in the packed
+  weights ws, or None."""
+  del ds
+  if cfg.no_fused or not _fused_common_ok(model, cfg):
+    return None
+  k1.pack_weights(model.state_dict())        # raises on a divergent tree
+  kw = _kernel_kw(model)
+
+  def fn(ws, rays, generator):
+    return k1.plain_cp_render_train(ws, rays,
+                                    _step_ts(model, generator, rays.device),
+                                    **kw)
+
+  return fn
+
+
+def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
+                    cfg: TrainConfig, fused_step=None, fused_train=None):
+  """The per-step closure step(i, generator) -> {"loss", "mse"} (device
+  scalars): sample a batch, get the gradient from K3, from K1 + K2, or
+  from the module forward under autograd, mask it (train_only /
+  freeze_substr), and step the optimizer."""
+  params = dict(model.named_parameters())
+  device = next(model.parameters()).device
+
+  def set_grads(packed):
+    for key, grad in k1.unpack_grads(packed).items():
+      params[key].grad = grad
+
+  def step(i: int, generator: torch.Generator):
+    opt.zero_grad()
+    rays, pix, _, _ = ds.sample(
+        generator, cfg.batch_size, jitter=cfg.pixel_jitter,
+        serial_step=i if cfg.serial_idxs else None, end_bias=cfg.end_bias)
+    if fused_step is not None:
+      loss, grad = fused_step(k1.pack_weights(model.state_dict(), device),
+                              rays, pix, generator)
+      set_grads(grad)
+    elif fused_train is not None:
+      ws = k1.pack_weights(model.state_dict(), device).requires_grad_(True)
+      loss = loss_fn(fused_train(ws, rays, generator)[:, :3], pix)
+      loss.backward()
+      set_grads(ws.grad)
+    else:
+      loss = loss_fn(model(rays, train=True, generator=generator)["rgb"], pix)
+      loss.backward()
+    for key, p in params.items():
+      keep = (cfg.train_only is None
+              or any(k in key for k in cfg.train_only))
+      if not keep or (cfg.freeze_substr and cfg.freeze_substr in key):
+        p.grad = None if p.grad is None else torch.zeros_like(p.grad)
+    opt.step()
+    loss = loss.detach()         # no regularizer is ported: loss == mse
+    return {"loss": loss, "mse": loss}
+
+  return step
+
+
+def train(model, ds: sampler_lib.RayDataset, cfg: TrainConfig,
+          config_dict: Optional[dict] = None,
+          callback: Optional[Callable] = None) -> List[dict]:
+  """The outer loop (driver.py:857-968); trains `model` in place and
+  returns the logged history (loss, mse, step, psnr, steps_per_sec)."""
+  global LAST_TRAIN_PATH
+  check_config(cfg)
+  loss_fn = losses_lib.load_loss_fn(cfg.loss_kinds, cfg.color_spaces,
+                                    cfg.tone_map, cfg.gamma_correct)
+  opt = optim_lib.load_optimizer(
+      model.parameters(), cfg.opt_kind, cfg.learning_rate,
+      total_steps=cfg.steps, sched_min=cfg.sched_min,
+      no_sched=cfg.no_sched, grad_clip=cfg.grad_clip,
+      accum_steps=cfg.accum_steps, weight_decay=cfg.weight_decay)
+  fused_step = _fused_step_fn(model, cfg, ds)
+  fused_train = (None if fused_step is not None
+                 else _fused_train_fn(model, cfg, ds))
+  if fused_step is not None:
+    LAST_TRAIN_PATH = "fused-one-kernel"
+    print("[train] fused train kernel engaged (one-kernel step)")
+  elif fused_train is not None:
+    LAST_TRAIN_PATH = "fused"
+    print("[train] fused train kernel engaged")
+  else:
+    LAST_TRAIN_PATH = "oracle"
+    print("[train] path: oracle (plain torch)"
+          + (" — forced by --no-fused" if cfg.no_fused else ""))
+  step_fn = make_train_step(model, ds, loss_fn, opt, cfg,
+                            fused_step=fused_step, fused_train=fused_train)
+
+  generator = torch.Generator(device=ds.device).manual_seed(cfg.seed + 1234)
+  history = []
+  start = last_t = time.perf_counter()
+  last_i = 0
+  for i in range(cfg.steps):
+    metrics = step_fn(i, generator)
+    if ((i + 1) % cfg.log_freq == 0 or i == 0) and i >= cfg.skip_loss:
+      m = {k: float(v) for k, v in metrics.items()}   # waits for the step
+      if not math.isfinite(m["loss"]):
+        raise FloatingPointError(
+            f"non-finite loss {m['loss']} at step {i + 1}")
+      now = time.perf_counter()
+      m["step"] = i + 1
+      m["psnr"] = float(losses_lib.mse2psnr(m["mse"]))
+      m["steps_per_sec"] = (i + 1 - last_i) / max(now - last_t, 1e-9)
+      last_t, last_i = now, i + 1
+      history.append(m)
+      if callback:
+        callback(m)
+    if cfg.save_freq and (i + 1) % cfg.save_freq == 0:
+      checkpoints.save(cfg.save_path, model.state_dict(), config=config_dict,
+                       step=i + 1, versioned=cfg.versioned_save)
+    if cfg.valid_freq and (i + 1) % cfg.valid_freq == 0:
+      _save_valid_image(model, ds, cfg, i + 1)
+    if cfg.duration_sec and time.perf_counter() - start > cfg.duration_sec:
+      break
+  if cfg.save_freq:
+    checkpoints.save(cfg.save_path, model.state_dict(), config=config_dict,
+                     step=cfg.steps, versioned=cfg.versioned_save)
+  return history
+
+
+def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
+  """Validation render of view 0 at up to 64×64 (driver.py:1217-1229),
+  written next to the checkpoint. A render error propagates."""
+  img = render_view(model, ds, 0, min(ds.size, 64))
+  out_dir = os.path.dirname(cfg.save_path) or "."
+  os.makedirs(out_dir, exist_ok=True)
+  write_png(os.path.join(out_dir, f"valid_{step:06d}.png"),
+            _to_u8(img[..., :3]))
+
+
 def _fused_render_fn(model) -> Optional[Callable]:
   """rays [n, 6] -> rgb [n, 3] through the K1 kernel wrapper when the
-  model is the flagship (PlainNeRF, cp encoder, view refl in identity
-  space, an rgb activation and sky the kernel implements); None
-  otherwise. A parameter tree that diverges from the flagship's raises
-  (in `pack_weights`)."""
-  if (not isinstance(model, PlainNeRF) or model.enc_kind != "cp"
-      or model.mip is not None or model.refl_kind != "view"
-      or model.refl_space != "identity" or model.intermediate_size != 32
-      or model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS
-      or model.sky_kind not in integrate.SKY_KINDS
-      # the kernel samples linearly in t
-      or model.lindisp):
+  model is the flagship (`_is_flagship`, any sky the kernel implements);
+  None otherwise. A parameter tree that diverges from the flagship's
+  raises (in `pack_weights`)."""
+  if not _is_flagship(model) or model.sky_kind not in integrate.SKY_KINDS:
     return None
   device = next(model.parameters()).device
   ws = k1.pack_weights(model.state_dict(), device)  # raises on divergence

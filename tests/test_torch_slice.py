@@ -121,7 +121,11 @@ def test_write_png_roundtrips(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--epochs", "5"], NotImplementedError),
+    (["--epochs", "5", "--crop-size", "8"], NotImplementedError),
+    (["--epochs", "5", "--mesh-devices", "4"], NotImplementedError),
+    (["--epochs", "5", "--data-parallel"], NotImplementedError),
+    (["--epochs", "5", "--smooth-eps", "0.01"], NotImplementedError),
+    (["--epochs", "5", "--smooth-n-ord", "1"], NotImplementedError),
     (["--param-file", "x.json"], NotImplementedError),
     (["--model", "tiny"], NotImplementedError),
     (["--enc-kind", "hash"], NotImplementedError),
