@@ -14,28 +14,43 @@ Phases, each printing its lines before the next starts:
      K2 (render_bwd, cotangent mode) and K3 (render_bwd, loss mode) on a
      jittered ts, against autograd through the plain K1, over all rays
      and over the rays clear of leaky-relu kinks; a ragged batch;
-     PlainCPRender's gradient against K2's;
+     PlainCPRender's gradient against K2's. Then the hash grid: K5f
+     (hash_fwd) and K5b (hash_bwd) at T = 2^19 and 2^14 over the check
+     rays' 4096 x 64 points, bbox-face and out-of-bbox points, with the
+     table seeded and amplified to +-1; K1/K2/K3 in hash mode at T = 2^19
+     as for cp; the chained table gradient (K3-hash -> K5b) against
+     autograd through the plain path; a ragged batch; PlainHashRender's
+     gradient against K2-hash's;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
-     random weights) and must launch K1;
+     random weights) and must launch K1; 4b. the same with --enc-kind
+     hash (T = 2^19), which must launch K5f and K1-hash;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
      500 steps) and must engage the one-kernel step, launch K3 once per
      step and K1 in eval, and beat the all-black PSNR by 2 dB on both
-     splits;
+     splits; 5b. the same for PlainNeRF-hash at the quality sweep's
+     plain_hash recipe (--hash-table-log2 14), which must launch K5f,
+     K3-hash and K5b once per step;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
-     and the optimizer alone;
+     and the optimizer alone. For hash: K5f and K5b per call (262144 and
+     4194304 points), the K1-hash and K3-hash calls, the hash train steps
+     (K3 at T = 2^19 and 2^14, K1 + K2, plain) and one 800x800 hash frame;
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
-     `--seeds` (default 0) and with --no-fused for the first seed;
+     `--seeds` (default 0) and with --no-fused for the first seed; then
+     plain_hash at 1500 steps for each seed;
   8. with `--profile` only: where one frame's and one train step's time
-     goes (torch.profiler traces: device idle share, per-kernel shares;
-     host-side costs; SM clock and power under load).
-The last three lines are the kernels' JSON record, the card's name and
-power limit, and the device JSON. Any failure raises (non-zero exit, no
-result lines).
+     goes, for cp and for hash (torch.profiler traces: device idle share,
+     per-kernel shares; host-side costs; SM clock and power under load).
+The last three lines are the kernels' JSON record (each kernel's
+launches on its main path, max error against its plain version, ms per
+call, the plain version's ms, the bound from this run's bytes and
+operations at the published H100 peaks, and a single PyTorch call's ms
+where one computes the function), the card's name and power limit, and
+the device JSON. Any failure raises (non-zero exit, no result lines).
 """
 from __future__ import annotations
 
@@ -83,6 +98,24 @@ TRAIN_ARGV = ["--data-kind", "synthetic", "--model", "plain", "--enc-kind",
 TRAIN_STEPS = 500
 QUALITY_STEPS = 1500
 BATCH = 4096
+# the quality sweep's plain_hash recipe (scripts/tpu_quality_sweep.py:58-60)
+HASH_TRAIN_ARGV = (TRAIN_ARGV[:5] + ["hash", "--hash-table-log2", "14"]
+                   + TRAIN_ARGV[6:])
+HASH_T = 1 << 19                           # HashEncoder's default table
+HASH_TRAIN_T = 1 << 14
+# QUALITY_r05 plain_hash (TPU, seed 0, one run): a record, not a gate
+QUALITY_R05_HASH = (33.686, 31.062)
+# K5f vs plain torch: the same float operations in the same order, 1e-6
+# abs; K5b: float atomics add in another order, 1e-5 relative per level
+HASH_TOL = 1e-6
+HASH_GRAD_RTOL = 1e-5
+# published H100 SXM peaks (on-chip-measurement guide): float32 outside
+# the tensor cores, and HBM3
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# float operations per (point, level) of K5f and of K5b: the cell (13),
+# then per corner its weight and the two products and sums (7.5)
+HASH_FLOP_PER_LEVEL = 73
 
 
 def _sync_time(fn):
@@ -122,7 +155,7 @@ def _mean_s(fn, reps: int = 5) -> float:
 
 def _build(build):
   """Phase 2: one nvcc per kernel source, started together."""
-  names = ("render_fwd", "render_bwd")
+  names = ("render_fwd", "render_bwd", "hash_encode")
   with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
     built = dict(zip(names, pool.map(build.build, names)))
   for name, b in built.items():
@@ -140,41 +173,58 @@ def _rel_error(k1, grad, ref):
   return errs[worst], worst
 
 
-def _check_bwd(what, k1, ws, rays, gen, kw):
+def _check_bwd(what, k1, ws, rays, gen, kw, feats=None):
   """K2 (random g) and K3 (random target) against their plain versions,
-  over all rays and over the kink-free rays (see GRAD_RTOL). Returns the
-  max |Δ| of the gradients."""
+  over all rays and over the kink-free rays (see GRAD_RTOL); in hash mode
+  (with the points' features `feats`) dfeat is held as one more tensor.
+  Returns the max |Δ| of the gradients."""
   from nerf_atlas_tpu_torch import testing
   n = rays.shape[0]
-  keep = testing.kink_free_rays(ws, rays, kw["ts"], kw["steps"], KINK_MARGIN)
+  keep = testing.kink_free_rays(ws, rays, kw["ts"], kw["steps"], KINK_MARGIN,
+                                feats=feats)
   g = torch.randn(n, 4, device=rays.device, generator=gen)
   target = torch.rand(n, 3, device=rays.device, generator=gen)
-  out = k1.plain_cp_render_reference(ws, rays, **kw)[:, :3]
+  if feats is None:
+    out = k1.plain_cp_render_reference(ws, rays, **kw)[:, :3]
+    fns = (("K2", k1.plain_cp_render_grad, k1.plain_cp_render_grad_reference),
+           ("K3", k1.plain_cp_train_step, k1.plain_cp_train_step_reference))
+    args = ()
+  else:
+    out = k1.plain_hash_render_reference(ws, rays, feats, **kw)[:, :3]
+    fns = (("K2-hash", k1.plain_hash_render_grad,
+            k1.plain_hash_render_grad_reference),
+           ("K3-hash", k1.plain_hash_train_step,
+            k1.plain_hash_train_step_reference))
+    args = (feats,)
   max_abs = 0.0
-  for mode, fn, ref_fn, arg, masked in (
-      ("K2", k1.plain_cp_render_grad, k1.plain_cp_render_grad_reference, g,
-       g * keep[:, None]),
-      ("K3", k1.plain_cp_train_step, k1.plain_cp_train_step_reference,
-       target, torch.where(keep[:, None], target, out).contiguous())):
+  for (mode, fn, ref_fn), arg, masked in zip(
+      fns, (g, target),
+      (g * keep[:, None], torch.where(keep[:, None], target, out).contiguous())):
     line = []
     for name, a in (("all rays", arg), ("kink-free", masked)):
-      got, ref = fn(ws, rays, a, **kw), ref_fn(ws, rays, a, **kw)
-      if mode == "K3":
-        (loss, got), (loss_r, ref) = got, ref
+      got, ref = fn(ws, rays, *args, a, **kw), ref_fn(ws, rays, *args, a, **kw)
+      if mode.startswith("K3"):
+        (loss, *got), (loss_r, *ref) = got, ref
         loss_rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
         if not loss_rel <= LOSS_RTOL:
           raise RuntimeError(f"{what} {mode} loss {float(loss)} vs plain "
                              f"{float(loss_r)}")
         line.append(f"{name} loss rel {loss_rel:.2e}")
+      elif feats is None:
+        got, ref = [got], [ref]
       torch.cuda.synchronize()
-      err, key = _rel_error(k1, got, ref)
+      err, key = _rel_error(k1, got[0], ref[0])
+      if feats is not None:
+        e = float((got[1] - ref[1]).norm() / ref[1].norm())
+        err, key = max((err, key), (e, "dfeat"))
       tol = ALL_RAY_RTOL if name == "all rays" else GRAD_RTOL
-      if not (err <= tol and bool(torch.isfinite(got).all())):
+      if not (err <= tol and all(bool(torch.isfinite(t).all()) for t in got)):
         raise RuntimeError(f"{what} {mode} ({name}): gradient of {key} "
                            f"{err:.3e} from its plain version (tol {tol})")
       line.append(f"{name}: max_t ‖Δ‖/‖ref‖ {err:.2e} ({key})")
       if name == "kink-free":
-        max_abs = max(max_abs, float((got - ref).abs().max()))
+        max_abs = max([max_abs] + [float((x - y).abs().max())
+                                   for x, y in zip(got, ref)])
     print(f"[check] {mode} {what}: {' | '.join(line)} | kink-free rays "
           f"{int(keep.sum())}/{n}", flush=True)
   return max_abs
@@ -243,23 +293,193 @@ def _check_kernels(k1, rays_ops, model, dev):
   return max_k1, max_bwd
 
 
+def _hash_points(k1, dev):
+  """The check rays' 4096 x 64 sample points on the uniform grid, points
+  on the bbox's faces and corners, and points far outside it."""
+  rays = torch.from_numpy(_check_rays(N_CHECK, 2)).to(dev)
+  pts = k1.hash_pts(rays, torch.linspace(2.0, 6.0, STEPS, device=dev))
+  rng = np.random.default_rng(3)
+  face = rng.uniform(-1.0, 1.0, (4096, 3))
+  i = np.arange(4096)
+  face[i, i % 3] = np.where(i % 2, 1.0, -1.0)
+  corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1)
+                      for z in (-1, 1)], np.float64)
+  far = rng.uniform(-50.0, 50.0, (1024, 3))
+  extra = torch.from_numpy(np.concatenate([face, corners, far]).astype(
+      np.float32)).to(dev)
+  return torch.cat([pts, extra]).contiguous()
+
+
+def _check_hash_encoder(hk, k1, dev):
+  """Phase 3, K5f and K5b against their plain versions at T = 2^19 and
+  2^14. Returns (K5f max |Δ|, K5b max |Δ|)."""
+  pts = _hash_points(k1, dev)
+  gen = torch.Generator().manual_seed(4)
+  g = torch.randn(pts.shape[0], 16, generator=gen).to(dev)
+  max_f, max_b = 0.0, 0.0
+  for size in (HASH_T, HASH_TRAIN_T):
+    for name, scale in (("seeded", 1e-4), ("amplified", 1.0)):
+      table = ((torch.rand(8 * size, 2, generator=gen) * 2 - 1) * scale).to(dev)
+      out = hk.hash_encode(table, pts)
+      ref = hk.hash_encode_reference(table, pts)
+      torch.cuda.synchronize()
+      err = float((out - ref).abs().max())
+      print(f"[check] K5f T=2^{size.bit_length() - 1} {name:9s} "
+            f"{pts.shape[0]} points: max|Δ| {err:.3e} (tol {HASH_TOL:.0e}; "
+            f"bitwise {torch.equal(out, ref)})", flush=True)
+      if not (err <= HASH_TOL and bool(torch.isfinite(out).all())):
+        raise RuntimeError(f"K5f disagrees with its plain version: {err}")
+      max_f = max(max_f, err)
+    got = hk.hash_encode_table_grad(pts, g, size)
+    ref = hk.hash_encode_table_grad_reference(pts, g, size)
+    torch.cuda.synchronize()
+    errs = [float((got[sl] - ref[sl]).norm() / ref[sl].norm())
+            for sl in (slice(l * size, (l + 1) * size) for l in range(8))]
+    err_abs = float((got - ref).abs().max())
+    print(f"[check] K5b T=2^{size.bit_length() - 1}: per-level ‖Δ‖/‖ref‖ "
+          f"max {max(errs):.2e} (tol {HASH_GRAD_RTOL:.0e}), max|Δ| "
+          f"{err_abs:.3e}", flush=True)
+    if not max(errs) <= HASH_GRAD_RTOL:
+      raise RuntimeError(f"K5b disagrees with its plain version: {errs}")
+    max_b = max(max_b, err_abs)
+  return max_f, max_b
+
+
+def _check_hash_render(k1, hk, rays_ops, models, driver, dev):
+  """Phase 3, K1/K2/K3 in hash mode at T = 2^19 against their plain
+  versions, the chained table gradient, a ragged batch and
+  PlainHashRender. Returns (K1-hash max |Δ|, K2/K3-hash max |Δ|)."""
+  model = driver.init_model(models.PlainNeRF(steps=STEPS, enc_kind="hash",
+                                             device=dev), seed=0)
+  seeded = model.state_dict()
+  amplified = dict(seeded)
+  amplified["refl.mlp.layer_out.weight"] = (
+      amplified["refl.mlp.layer_out.weight"] * 40.0)
+  amplified["density_mlp.layer_out.weight"] = (
+      amplified["density_mlp.layer_out.weight"] * 8.0)
+  amplified[k1.HASH_TABLE_KEY] = amplified[k1.HASH_TABLE_KEY] * 1e4
+  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
+  gen = torch.Generator(device=dev).manual_seed(5)
+  max_k1, max_bwd = 0.0, 0.0
+  for wname, sky, kind in (("seeded", "black", "thin"),
+                           ("amplified", "white", "normal"),
+                           ("amplified", "black", "tanh")):
+    sd = seeded if wname == "seeded" else amplified
+    ws, table = k1.pack_weights(sd, dev, "hash"), k1.hash_table(sd)
+    kw = dict(steps=STEPS, t_near=2.0, t_far=6.0, sigmoid_kind=kind,
+              sky_kind=sky)
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    for name, t in (("grid", None), ("jittered ts", ts)):
+      grid = k1.sample_grid(STEPS, 2.0, 6.0, rays.device, t)[0]
+      feats = hk.hash_encode(table, k1.hash_pts(rays, grid))
+      out = k1.plain_hash_render(ws, rays, feats, ts=t, **kw)
+      ref = k1.plain_hash_render_reference(ws, rays, feats, ts=t, **kw)
+      torch.cuda.synchronize()
+      e = float((out - ref).abs().max())
+      print(f"[check] K1-hash {wname:9s} sky {sky:5s} {kind:6s} {name:11s}: "
+            f"max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
+            f"{float(ref[:, :3].std()):.3f})", flush=True)
+      if not (e <= TOL and bool(torch.isfinite(out).all())):
+        raise RuntimeError(f"K1-hash disagrees with its reference: {e}")
+      max_k1 = max(max_k1, e)
+    max_bwd = max(max_bwd, _check_bwd(f"{wname:9s} sky {sky:5s} {kind:6s}",
+                                      k1, ws, rays, gen, dict(kw, ts=ts),
+                                      feats=feats))
+    # the chained table gradient, on the kink-free rays' cotangent
+    from nerf_atlas_tpu_torch import testing
+    keep = testing.kink_free_rays(ws, rays, ts, STEPS, KINK_MARGIN,
+                                  feats=feats)
+    target = torch.where(keep[:, None],
+                         torch.rand(N_CHECK, 3, device=dev, generator=gen),
+                         ref[:, :3]).contiguous()
+    _, _, dtable = k1.fused_plain_hash_train_step(ws, table, rays, target, ts,
+                                                  **kw)
+    leaf = table.clone().requires_grad_(True)
+    out = k1.plain_hash_render_reference(
+        ws, rays, hk.hash_encode_reference(leaf, k1.hash_pts(rays, ts)),
+        ts=ts, **kw)
+    torch.mean((out[:, :3] - target) ** 2).backward()
+    e = float((dtable - leaf.grad).norm() / leaf.grad.norm())
+    print(f"[check] K3-hash -> K5b table gradient {wname:9s}: ‖Δ‖/‖ref‖ "
+          f"{e:.2e} (tol {GRAD_RTOL:.0e})", flush=True)
+    if not e <= GRAD_RTOL:
+      raise RuntimeError(f"chained table gradient {e} from autograd")
+
+  # a ragged batch: 16 steps = 4 rays per kernel block, 4093 rays
+  ws = k1.pack_weights(amplified, dev, "hash")
+  rays_r = torch.from_numpy(_check_rays(4093, 1)).to(dev)
+  ts = rays_ops.compute_ts(2.0, 6.0, 16, perturb=1.0, generator=gen,
+                           device=dev)
+  feats = hk.hash_encode(k1.hash_table(amplified), k1.hash_pts(rays_r, ts))
+  kw = dict(steps=16, t_near=2.0, t_far=6.0, sigmoid_kind="thin",
+            sky_kind="white", ts=ts)
+  max_bwd = max(max_bwd, _check_bwd("ragged 4093 rays x 16 steps", k1, ws,
+                                    rays_r, gen, kw, feats=feats))
+  g = torch.randn(4093, 4, device=dev, generator=gen)
+  leaf, fl = ws.clone().requires_grad_(True), feats.clone().requires_grad_(True)
+  out = k1.PlainHashRender.apply(leaf, fl, rays_r, ts, 16, 2.0, 6.0, "thin",
+                                 "white")
+  (out * g).sum().backward()
+  dws, dfeat = k1.plain_hash_render_grad(ws, rays_r, feats, g, **kw)
+  if not (torch.equal(leaf.grad, dws) and torch.equal(fl.grad, dfeat)):
+    raise RuntimeError("PlainHashRender's gradient differs from K2-hash's")
+  print("[check] PlainHashRender backward == K2-hash (bitwise)", flush=True)
+  return max_k1, max_bwd
+
+
+def _render_main(port_runner, *extra):
+  """Phases 4 / 4b: the port's runner renders and scores 800x800, 2 views
+  x 2 splits, seeded random weights; returns (results, wall s, launches
+  per kernel)."""
+  with tempfile.TemporaryDirectory() as outdir:
+    argv = ["--data-kind", "synthetic", "--model", "plain", "--size",
+            str(SIZE), "--num-views", "2", "--epochs", "0", "--outdir",
+            outdir, *extra]
+    (results, secs), counts = _counted(
+        lambda: _sync_time(lambda: port_runner.main(argv)))
+    for split in ("train", "test"):
+      if not os.path.exists(os.path.join(outdir, split, "results.txt")):
+        raise RuntimeError(f"no {split}/results.txt")
+      if not all(math.isfinite(p) for p in results[split]["psnrs"]):
+        raise RuntimeError(f"{split} PSNR not finite: {results[split]}")
+  return results, secs, counts
+
+
 def _black_psnr(pixels) -> float:
   """Mean over views of the PSNR of an all-black render."""
   mse = (pixels[..., :3] ** 2).mean(dim=(1, 2, 3)).clamp_min(1e-10)
   return float((-10 * torch.log10(mse)).mean())
 
 
-def _train_run(port_runner, k1, loaders, dev, steps: int, extra=()):
-  """Run the port's runner on the sweep recipe; returns (results, wall s,
-  K3 launches, K1 launches, black PSNR per split)."""
+def _wrappers():
+  """{name: wrapper} of every kernel wrapper that counts its launches."""
+  from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  return {"K1": k1.plain_cp_render, "K2": k1.plain_cp_render_grad,
+          "K3": k1.plain_cp_train_step, "K1-hash": k1.plain_hash_render,
+          "K2-hash": k1.plain_hash_render_grad,
+          "K3-hash": k1.plain_hash_train_step, "K5f": hk.hash_encode,
+          "K5b": hk.hash_encode_table_grad}
+
+
+def _counted(fn):
+  """(fn(), {kernel: launches in that call}), every count set to 0
+  just before and read just after."""
+  for w in _wrappers().values():
+    w.launches = 0
+  out = fn()
+  return out, {name: w.launches for name, w in _wrappers().items()}
+
+
+def _train_run(port_runner, k1, loaders, dev, steps: int, extra=(),
+               argv=TRAIN_ARGV):
+  """Run the port's runner on a sweep recipe; returns (results, wall s,
+  launches per kernel, black PSNR per split)."""
   with tempfile.TemporaryDirectory() as outdir:
-    k1.plain_cp_train_step.launches = 0
-    k1.plain_cp_render.launches = 0
-    argv = TRAIN_ARGV + ["--epochs", str(steps), "--outdir", outdir,
-                         *extra]
-    results, secs = _sync_time(lambda: port_runner.main(argv))
-    k3_launches = k1.plain_cp_train_step.launches
-    k1_launches = k1.plain_cp_render.launches
+    argv = argv + ["--epochs", str(steps), "--outdir", outdir, *extra]
+    (results, secs), counts = _counted(
+        lambda: _sync_time(lambda: port_runner.main(argv)))
     with open(os.path.join(outdir, "log.json")) as f:
       logged = json.load(f)["engaged_path"]
   if logged != results["engaged_path"]:
@@ -270,22 +490,14 @@ def _train_run(port_runner, k1, loaders, dev, steps: int, extra=()):
     px = loaders.load("", data_kind="synthetic", training=training, size=48,
                       num_views=30, device=dev).labels
     black[split] = _black_psnr(torch.as_tensor(px))
-  return results, secs, k3_launches, k1_launches, black
+  return results, secs, counts, black
 
 
-def _train_main(port_runner, k1, loaders, dev):
-  """Phase 5: the training main path. Returns the K3 launches."""
-  results, secs, k3_n, k1_n, black = _train_run(port_runner, k1, loaders,
-                                                dev, TRAIN_STEPS)
-  hist = results["history"]
-  losses = [h["loss"] for h in hist]
+def _check_trained(results, black):
+  losses = [h["loss"] for h in results["history"]]
   if results["engaged_path"] != "fused-one-kernel":
     raise RuntimeError(f"engaged {results['engaged_path']}, not the "
                        "one-kernel step")
-  if k3_n != TRAIN_STEPS:
-    raise RuntimeError(f"K3 launched {k3_n} times in {TRAIN_STEPS} steps")
-  if k1_n <= 0:
-    raise RuntimeError("the trained model's eval never launched K1")
   if not (all(math.isfinite(v) for v in losses)
           and losses[-1] < 0.5 * losses[0]):
     raise RuntimeError(f"loss not finite and falling: {losses}")
@@ -293,6 +505,19 @@ def _train_main(port_runner, k1, loaders, dev):
     if not results[split]["psnr_mean"] >= black[split] + 2.0:
       raise RuntimeError(f"{split} PSNR {results[split]['psnr_mean']} does "
                          f"not beat all-black {black[split]} by 2 dB")
+  return losses
+
+
+def _train_main(port_runner, k1, loaders, dev):
+  """Phase 5: the training main path. Returns the K3 launches."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            TRAIN_STEPS)
+  k3_n, k1_n = counts["K3"], counts["K1"]
+  losses = _check_trained(results, black)
+  if k3_n != TRAIN_STEPS:
+    raise RuntimeError(f"K3 launched {k3_n} times in {TRAIN_STEPS} steps")
+  if k1_n <= 0:
+    raise RuntimeError("the trained model's eval never launched K1")
   print(f"[train] runner {TRAIN_STEPS} steps x {BATCH} rays x {STEPS} "
         f"samples (48x48, 30 views): {secs:.2f} s end to end | path "
         f"{results['engaged_path']} | K3 launches {k3_n}, K1 launches "
@@ -303,13 +528,39 @@ def _train_main(port_runner, k1, loaders, dev):
   return k3_n
 
 
-def _step_fns(model_cls, driver, ds, dev):
+def _train_main_hash(port_runner, k1, loaders, dev):
+  """Phase 5b: the hash training main path at the plain_hash recipe.
+  Returns the launches per kernel."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            TRAIN_STEPS,
+                                            argv=HASH_TRAIN_ARGV)
+  losses = _check_trained(results, black)
+  # K5f also runs once per eval chunk, as K1-hash does
+  want = {"K3-hash": TRAIN_STEPS, "K5b": TRAIN_STEPS,
+          "K5f": TRAIN_STEPS + counts["K1-hash"]}
+  if any(counts[k] != v for k, v in want.items()) or counts["K1-hash"] <= 0:
+    raise RuntimeError(f"hash training launched {counts}, expected {want} "
+                       "and K1-hash in eval")
+  print(f"[train] runner hash T=2^14 {TRAIN_STEPS} steps x {BATCH} rays x "
+        f"{STEPS} samples (48x48, 30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | launches K5f {counts['K5f']}, K3-hash "
+        f"{counts['K3-hash']}, K5b {counts['K5b']}, K1-hash "
+        f"{counts['K1-hash']} | loss {losses[0]:.5f} -> {losses[-1]:.5f} | "
+        f"PSNR train {results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts
+
+
+def _step_fns(model_cls, driver, ds, dev, names=("K3 step", "K1+K2 step",
+                                                 "plain step"), **model_kw):
   """The three train steps at batch 4096 on fresh seeded models: K3, K1 +
   K2, plain (module under autograd); and each one's optimizer."""
   from nerf_atlas_tpu_torch.train import losses, optim
   out = {}
-  for name in ("K3 step", "K1+K2 step", "plain step"):
-    model = driver.init_model(model_cls(steps=STEPS, device=dev), seed=0)
+  for name in names:
+    model = driver.init_model(model_cls(steps=STEPS, device=dev, **model_kw),
+                              seed=0)
     cfg = driver.TrainConfig(steps=1000, batch_size=BATCH,
                              learning_rate=1e-3,
                              no_fused=name == "plain step")
@@ -317,9 +568,9 @@ def _step_fns(model_cls, driver, ds, dev):
                                total_steps=1000)
     loss_fn = losses.load_loss_fn()
     fused_step = (driver._fused_step_fn(model, cfg, ds)
-                  if name == "K3 step" else None)
+                  if name.startswith("K3 step") else None)
     fused_train = (driver._fused_train_fn(model, cfg, ds)
-                   if name == "K1+K2 step" else None)
+                   if name.startswith("K1+K2 step") else None)
     out[name] = (driver.make_train_step(model, ds, loss_fn, opt, cfg,
                                         fused_step, fused_train), opt)
   return out
@@ -382,22 +633,216 @@ def _time_training(card, model_cls, driver, loaders, sampler, k1, rays_ops,
   return k3_ms, plain_k3_ms
 
 
+def _bound_ms(flop: float, nbytes: float):
+  """(ms, "bytes" or "operations"): the least time the card could take,
+  the larger of the bytes over the HBM rate and the float32 operations
+  over the float32 peak."""
+  t_ops, t_bytes = flop / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+  return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool):
+  """Bound of one K1 (or, backward, K2/K3) call on n rays: 2 FLOP per
+  multiply-add of the two MLPs per sample point (3x that backward: the
+  forward, the input- and the weight-gradient products); bytes: rays, ts,
+  weights and the hash features in, [n, 4] out (backward: the target in,
+  the gradient and dfeat out)."""
+  lay = k1.LAYOUTS[enc]
+  macs = sum(i * o for _, i, o in lay.density_layers + lay.refl_layers)
+  pts = n * steps
+  feat = pts * 16 if enc == "hash" else 0
+  if backward:
+    return _bound_ms(6 * macs * pts, 4 * (n * 9 + 2 * steps
+                                          + 2 * lay.weight_count + 2 * feat))
+  return _bound_ms(2 * macs * pts, 4 * (n * 10 + 2 * steps + lay.weight_count
+                                        + feat))
+
+
+def _distinct_rows(hk, pts, size: int) -> int:
+  """Table rows the points' corners touch: the rows K5f must read."""
+  seen = torch.zeros(8 * size, dtype=torch.bool, device=pts.device)
+  for _, _, idx, _ in hk._corners(pts, size):
+    seen[idx] = True
+  return int(seen.sum())
+
+
+def _time_hash_kernels(card, k1, hk, frame_rays, dev):
+  """Phase 6: K5f and K5b per call, kernel against plain (plain, kernel,
+  kernel, plain), and one PyTorch call on the same rows and weights
+  without the index math: `embedding_bag` (weighted sum of 8 rows per
+  point and level) for K5f, `index_add_` for K5b. Returns {(points,
+  T): numbers}."""
+  import torch.nn.functional as F
+  grid = torch.linspace(2.0, 6.0, STEPS, device=dev)
+  gen = torch.Generator().manual_seed(7)
+  out = {}
+  for n_rays, size in ((BATCH, HASH_T), (CHUNK, HASH_T),
+                       (BATCH, HASH_TRAIN_T)):
+    pts = k1.hash_pts(frame_rays[:n_rays], grid).contiguous()
+    n = pts.shape[0]
+    table = ((torch.rand(8 * size, 2, generator=gen) * 2 - 1) * 1e-4).to(dev)
+    g = torch.randn(n, 16, device=dev)
+    corners = list(hk._corners(pts, size))
+    rows = torch.stack([c[2] for c in corners]).view(8, 8, n)
+    wts = torch.stack([c[3] for c in corners]).view(8, 8, n)
+    del corners
+    bag_rows = rows.permute(2, 0, 1).reshape(n * 8, 8)
+    bag_w = wts.permute(2, 0, 1).reshape(n * 8, 8)
+    vals = (wts[..., None] * g.view(n, 8, 2).permute(1, 0, 2)[:, None]
+            ).reshape(-1, 2)
+    flat_rows = rows.reshape(-1)
+
+    def lib_fwd():
+      return F.embedding_bag(bag_rows, table, per_sample_weights=bag_w,
+                             mode="sum")
+
+    def lib_bwd():
+      return torch.zeros(8 * size, 2, device=dev).index_add_(0, flat_rows,
+                                                             vals)
+
+    t = {}
+    for name, fn, reps in (
+        ("plain_f", lambda: hk.hash_encode_reference(table, pts), 2),
+        ("kf", lambda: hk.hash_encode(table, pts), 10),
+        ("kf", lambda: hk.hash_encode(table, pts), 10),
+        ("plain_f", lambda: hk.hash_encode_reference(table, pts), 2),
+        ("lib_f", lib_fwd, 5),
+        ("plain_b", lambda: hk.hash_encode_table_grad_reference(pts, g, size),
+         2),
+        ("kb", lambda: hk.hash_encode_table_grad(pts, g, size), 10),
+        ("kb", lambda: hk.hash_encode_table_grad(pts, g, size), 10),
+        ("plain_b", lambda: hk.hash_encode_table_grad_reference(pts, g, size),
+         2),
+        ("lib_b", lib_bwd, 5)):
+      t.setdefault(name, []).append(_event_ms(fn, reps))
+    if not (torch.allclose(lib_fwd().view(n, 16), hk.hash_encode(table, pts),
+                           atol=1e-6)):
+      raise RuntimeError("embedding_bag yardstick computes another function")
+    del bag_rows, bag_w, vals, flat_rows, rows, wts
+    distinct = _distinct_rows(hk, pts, size)
+    flop = HASH_FLOP_PER_LEVEL * 8 * n
+    bf = _bound_ms(flop, n * 12 + distinct * 8 + n * 64)
+    bb = _bound_ms(flop, n * 12 + n * 64 + 8 * size * 8)
+    tag = f"{n} points, T=2^{size.bit_length() - 1}"
+    print(f"[time] {card}: K5f {tag}: {t['kf'][0]:.4f} / {t['kf'][1]:.4f} ms "
+          f"(bound {bf[0]:.4f} ms by {bf[1]}, {distinct} distinct rows); "
+          f"plain torch {t['plain_f'][0]:.3f} / {t['plain_f'][1]:.3f} ms; "
+          f"embedding_bag on precomputed rows {t['lib_f'][0]:.4f} ms",
+          flush=True)
+    print(f"[time] {card}: K5b {tag}: {t['kb'][0]:.4f} / {t['kb'][1]:.4f} ms "
+          f"(bound {bb[0]:.4f} ms by {bb[1]}); plain torch "
+          f"{t['plain_b'][0]:.3f} / {t['plain_b'][1]:.3f} ms; index_add_ on "
+          f"precomputed rows {t['lib_b'][0]:.4f} ms", flush=True)
+    out[(n, size)] = dict(
+        fwd=(min(t["kf"]), min(t["plain_f"]), bf, t["lib_f"][0]),
+        bwd=(min(t["kb"]), min(t["plain_b"]), bb, t["lib_b"][0]))
+  return out
+
+
+def _time_hash(card, models, driver, loaders, sampler, k1, hk, rays_ops, dev,
+               frame_ds):
+  """Phase 6, hash half: K5f/K5b, the K1-hash and K3-hash calls, the hash
+  train steps and one 800x800 hash frame. Returns the numbers of the
+  kernels line."""
+  frame_rays = frame_ds.view_rays(0)
+  res = {"k5": _time_hash_kernels(card, k1, hk, frame_rays, dev)}
+  model = driver.init_model(models.PlainNeRF(steps=STEPS, enc_kind="hash",
+                                             device=dev), seed=0)
+  sd = model.state_dict()
+  ws, table = k1.pack_weights(sd, dev, "hash"), k1.hash_table(sd)
+  grid = torch.linspace(2.0, 6.0, STEPS, device=dev)
+  kw = dict(steps=STEPS, t_near=2.0, t_far=6.0)
+  call_rays = frame_rays[:CHUNK].contiguous()
+  feats = hk.hash_encode(table, k1.hash_pts(call_rays, grid))
+  ms = {}
+  for name, fn, reps in (
+      ("plain", lambda: k1.plain_hash_render_reference(ws, call_rays, feats,
+                                                       **kw), 2),
+      ("kernel", lambda: k1.plain_hash_render(ws, call_rays, feats, **kw), 3),
+      ("kernel", lambda: k1.plain_hash_render(ws, call_rays, feats, **kw), 3),
+      ("plain", lambda: k1.plain_hash_render_reference(ws, call_rays, feats,
+                                                       **kw), 2)):
+    ms.setdefault(name, []).append(_event_ms(fn, reps))
+  res["k1"] = (min(ms["kernel"]), min(ms["plain"]),
+               _mlp_bound(k1, "hash", CHUNK, STEPS, False))
+  print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step K1-hash call "
+        f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms (bound "
+        f"{res['k1'][2][0]:.2f} ms), plain torch {ms['plain'][0]:.2f} / "
+        f"{ms['plain'][1]:.2f} ms", flush=True)
+
+  gen = torch.Generator(device=dev).manual_seed(8)
+  r4 = call_rays[:BATCH].contiguous()
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                           device=dev)
+  f4 = hk.hash_encode(table, k1.hash_pts(r4, ts))
+  target = torch.rand(BATCH, 3, device=dev, generator=gen)
+  k3_ms = _event_ms(lambda: k1.plain_hash_train_step(ws, r4, f4, target,
+                                                     ts=ts, steps=STEPS), 5)
+  plain_ms = _event_ms(lambda: k1.plain_hash_train_step_reference(
+      ws, r4, f4, target, ts=ts, steps=STEPS), 5)
+  res["k3"] = (k3_ms, plain_ms, _mlp_bound(k1, "hash", BATCH, STEPS, True))
+  print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3-hash call "
+        f"{k3_ms:.2f} ms (bound {res['k3'][2][0]:.2f} ms), plain torch "
+        f"{plain_ms:.2f} ms", flush=True)
+
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  fns = _step_fns(models.PlainNeRF, driver, ds, dev, enc_kind="hash")
+  fns.update({f"{name} T=2^14": fn for name, fn in _step_fns(
+      models.PlainNeRF, driver, ds, dev, names=("K3 step",), enc_kind="hash",
+      table_size=HASH_TRAIN_T).items()})
+  order = ["K3 step", "K3 step T=2^14", "K1+K2 step", "plain step"]
+  step_ms = {}
+  for name in order + order[::-1]:
+    step, _ = fns[name]
+    step_ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+  for name in order:
+    v = step_ms[name]
+    tag = name if "T=" in name else f"{name} T=2^19"
+    print(f"[time] {card}: hash {tag} at {BATCH}x{STEPS}: {v[0]:.2f} / "
+          f"{v[1]:.2f} ms = {BATCH / (min(v) / 1e3):,.0f} train rays/s",
+          flush=True)
+
+  def ref_frame():
+    return torch.cat([k1.plain_hash_render_reference(
+        ws, rc, hk.hash_encode_reference(table, k1.hash_pts(rc, grid)),
+        **kw)[:, :3] for rc in frame_rays.split(CHUNK)])
+
+  img_ref, ref_s = _sync_time(ref_frame)
+  img_k, k_s = _sync_time(lambda: driver.render_view(model, frame_ds, 0))
+  frame_err = float(np.abs(img_k.reshape(-1, 3)
+                           - img_ref.cpu().numpy()).max())
+  if frame_err > TOL:
+    raise RuntimeError(f"800x800 hash frame: kernel vs reference {frame_err}")
+  print(f"[time] {card}: one {SIZE}x{SIZE}x{STEPS} hash frame (T=2^19): "
+        f"render_view (K5f + K1-hash) {k_s:.3f} s = {SIZE * SIZE / k_s:,.0f} "
+        f"rays/s, plain torch {ref_s:.3f} s = {SIZE * SIZE / ref_s:,.0f} "
+        f"rays/s | frame max diff {frame_err:.2e}", flush=True)
+  res["frame_err"] = frame_err
+  return res
+
+
 def _quality(card, port_runner, k1, loaders, dev, seeds):
   """Phase 7: the sweep recipe's 1500 steps on the kernel path for
   each seed, and with --no-fused for the first; prints both splits' PSNR
   and the wall time of each run."""
-  runs = [(seeds[0], ()), (seeds[0], ("--no-fused",))]
-  runs += [(seed, ()) for seed in seeds[1:]]
-  for seed, extra in runs:
-    results, secs, _, _, black = _train_run(
+  runs = [(seeds[0], (), TRAIN_ARGV), (seeds[0], ("--no-fused",), TRAIN_ARGV)]
+  runs += [(seed, (), TRAIN_ARGV) for seed in seeds[1:]]
+  runs += [(seed, (), HASH_TRAIN_ARGV) for seed in seeds]
+  for seed, extra, argv in runs:
+    results, secs, _, black = _train_run(
         port_runner, k1, loaders, dev, QUALITY_STEPS,
-        ("--seed", str(seed), *extra))
-    print(f"[quality] {card}: {QUALITY_STEPS} steps, seed {seed}, path "
+        ("--seed", str(seed), *extra), argv=argv)
+    hash_note = (f" (QUALITY_r05 plain_hash, TPU: {QUALITY_R05_HASH[0]} / "
+                 f"{QUALITY_R05_HASH[1]})" if argv is HASH_TRAIN_ARGV else "")
+    print(f"[quality] {card}: {'plain_hash T=2^14 ' if hash_note else ''}"
+          f"{QUALITY_STEPS} steps, seed {seed}, path "
           f"{results['engaged_path']}: PSNR train "
           f"{results['train']['psnr_mean']:.3f} test "
           f"{results['test']['psnr_mean']:.3f} (all-black "
-          f"{black['train']:.3f} / {black['test']:.3f}) in {secs:.1f} s",
-          flush=True)
+          f"{black['train']:.3f} / {black['test']:.3f}) in {secs:.1f} s"
+          f"{hash_note}", flush=True)
 
 
 def _trace(fn, warm: int = 2):
@@ -477,14 +922,15 @@ def _profile(card, model, ds, ws):
         f"{smi.stdout.strip()}", flush=True)
 
 
-def _profile_train(card, model_cls, driver, loaders, sampler, dev):
-  """Phase 8, train half: one traced K3 train step at batch 4096 (device
-  idle share; shares of K3, its reduction, sampling and Adam) and the
-  host time per step."""
+def _profile_train(card, model_cls, driver, loaders, sampler, dev,
+                   tag="K3", **model_kw):
+  """Phase 8, train half: one traced one-kernel train step at batch 4096
+  (device idle share; shares of K3, its reduction, K5f/K5b for hash,
+  sampling and Adam) and the host time per step."""
   ds = sampler.RayDataset.from_bundle(
       loaders.load("", data_kind="synthetic", size=48, num_views=30,
                    device=dev), size=48, device=dev)
-  step, _ = _step_fns(model_cls, driver, ds, dev)["K3 step"]
+  step, _ = _step_fns(model_cls, driver, ds, dev, **model_kw)["K3 step"]
   gen = torch.Generator(device=dev).manual_seed(2)
   untraced, wall, by_name = _trace(lambda: step(0, gen), warm=3)
   busy = sum(us for _, us in by_name.values()) / 1e6
@@ -494,25 +940,40 @@ def _profile_train(card, model_cls, driver, loaders, sampler, dev):
              if any(k in n.lower() for k in keys))
     return us / 1e6 / busy if busy else float("nan")
 
-  print(f"[profile] {card}: K3 train step {untraced[-1] * 1e3:.2f} ms "
+  print(f"[profile] {card}: {tag} train step {untraced[-1] * 1e3:.2f} ms "
         f"untraced; traced {wall * 1e3:.2f} ms wall, device busy "
         f"{busy * 1e3:.2f} ms, idle share "
         f"{(1 - busy / wall if busy else float('nan')):.4f}; shares: K3 "
         f"{share('render_bwd_kernel'):.4f}, reduction "
-        f"{share('reduce_partials'):.4f}, Adam "
+        f"{share('reduce_partials'):.4f}, K5f {share('hash_fwd'):.4f}, K5b "
+        f"{share('hash_bwd'):.4f}, Adam "
         f"{share('adam', 'foreach', 'lerp', 'addcdiv', 'sqrt'):.4f}, "
         f"sampling {share('randint', 'uniform', 'index', 'gather'):.4f}",
         flush=True)
-  _print_shares("train step", by_name, busy, top=8)
+  _print_shares(f"{tag} train step", by_name, busy, top=8)
   # host time: enqueue of one step without waiting on the device
   torch.cuda.synchronize()
   t0 = time.perf_counter()
   step(0, gen)
   host = time.perf_counter() - t0
   torch.cuda.synchronize()
-  print(f"[profile] host: {host * 1e3:.2f} ms to issue one K3 train step "
+  print(f"[profile] host: {host * 1e3:.2f} ms to issue one {tag} train step "
         "(sampling, weight packing, kernel launch, gradient unpacking, "
         "Adam)", flush=True)
+
+
+def _profile_hash_frame(card, models, driver, ds, dev):
+  """Phase 8, hash render: one traced 800x800 frame of PlainNeRF-hash at
+  T = 2^19 through render_view (K5f + K1-hash per chunk)."""
+  model = driver.init_model(models.PlainNeRF(steps=STEPS, enc_kind="hash",
+                                             device=dev), seed=0)
+  frames, wall, by_name = _trace(lambda: driver.render_view(model, ds, 0))
+  busy = sum(us for _, us in by_name.values()) / 1e6
+  print(f"[profile] {card}: hash render_view frames {frames[0]:.4f} / "
+        f"{frames[1]:.4f} s untraced; traced {wall:.4f} s wall, device "
+        f"busy {busy:.4f} s, idle share "
+        f"{(1 - busy / wall if busy else float('nan')):.4f}", flush=True)
+  _print_shares("hash frame", by_name, busy, top=5)
 
 
 def main(argv=None):
@@ -543,6 +1004,7 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.data import loaders, sampler
   from nerf_atlas_tpu_torch.ops import rays as rays_ops
   from nerf_atlas_tpu_torch.ops.kernels import build
+  from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   from nerf_atlas_tpu_torch.train import driver
 
@@ -555,31 +1017,36 @@ def main(argv=None):
                             seed=0)
   ws = k1.pack_weights(model.state_dict(), dev)
   max_err, max_bwd = _check_kernels(k1, rays_ops, model, dev)
+  max_k5f, max_k5b = _check_hash_encoder(hk, k1, dev)
+  max_err_h, max_bwd_h = _check_hash_render(k1, hk, rays_ops, models, driver,
+                                            dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
-  with tempfile.TemporaryDirectory() as outdir:
-    k1.plain_cp_render.launches = 0
-    argv = ["--data-kind", "synthetic", "--model", "plain", "--size",
-            str(SIZE), "--num-views", "2", "--epochs", "0", "--outdir",
-            outdir]
-    results, secs = _sync_time(lambda: port_runner.main(argv))
-    launches = k1.plain_cp_render.launches
-    if launches <= 0:
-      raise RuntimeError("the main path never launched K1")
-    for split in ("train", "test"):
-      if not os.path.exists(os.path.join(outdir, split, "results.txt")):
-        raise RuntimeError(f"no {split}/results.txt")
-      if not all(math.isfinite(p) for p in results[split]["psnrs"]):
-        raise RuntimeError(f"{split} PSNR not finite: {results[split]}")
+  results, secs, counts = _render_main(port_runner)
+  launches = counts["K1"]
+  if launches <= 0:
+    raise RuntimeError("the main path never launched K1")
   n_rays = 2 * 2 * SIZE * SIZE
   print(f"[main] runner {SIZE}x{SIZE}x{STEPS}, 2 views x 2 splits: "
         f"{secs:.2f} s end to end (incl. ground-truth render + PNGs), "
         f"{n_rays / secs:,.0f} rays/s | K1 launches {launches} | PSNR train "
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
+  # ---- 4b. the same with the hash grid at T = 2^19 ----
+  results, secs, render_h = _render_main(port_runner, "--enc-kind", "hash")
+  if render_h["K5f"] <= 0 or render_h["K1-hash"] != render_h["K5f"]:
+    raise RuntimeError(f"the hash render launched {render_h}")
+  print(f"[main] runner hash T=2^19 {SIZE}x{SIZE}x{STEPS}, 2 views x 2 "
+        f"splits: {secs:.2f} s end to end (incl. ground-truth render + PNGs), "
+        f"{n_rays / secs:,.0f} rays/s | K5f launches {render_h['K5f']}, "
+        f"K1-hash launches {render_h['K1-hash']} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f}", flush=True)
 
   # ---- 5. main path, train ----
   k3_launches = _train_main(port_runner, k1, loaders, dev)
+  # ---- 5b. hash training at the plain_hash recipe ----
+  train_h = _train_main_hash(port_runner, k1, loaders, dev)
 
   # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
@@ -621,26 +1088,43 @@ def main(argv=None):
         f"diff {frame_err:.2e}", flush=True)
   k3_ms, plain_k3_ms = _time_training(card, models.PlainNeRF, driver,
                                       loaders, sampler, k1, rays_ops, dev)
+  hash_t = _time_hash(card, models, driver, loaders, sampler, k1, hk,
+                      rays_ops, dev, ds)
 
   if args.quality:
     _quality(card, port_runner, k1, loaders, dev, args.seeds)
   if args.profile:
     _profile(card, model, ds, ws)
     _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev)
+    _profile_hash_frame(card, models, driver, ds, dev)
+    _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev,
+                   "hash K3 T=2^14", enc_kind="hash", table_size=HASH_TRAIN_T)
 
+  k5f = hash_t["k5"][(CHUNK * STEPS, HASH_T)]["fwd"]
+  k5b = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["bwd"]
+  rows = [
+      ("render_fwd", "render_fwd.cu", "render.py:586", launches, max_err,
+       min(kernel_ms, kernel_ms2), min(plain_ms, plain_ms2),
+       _mlp_bound(k1, "cp", CHUNK, STEPS, False), None),
+      ("render_bwd", "render_bwd.cu", "render.py:915", k3_launches, max_bwd,
+       k3_ms, plain_k3_ms, _mlp_bound(k1, "cp", BATCH, STEPS, True), None),
+      ("render_fwd_hash", "render_fwd.cu", "render.py:586",
+       render_h["K1-hash"], max(max_err_h, hash_t["frame_err"]),
+       *hash_t["k1"], None),
+      ("render_bwd_hash", "render_bwd.cu", "render.py:915",
+       train_h["K3-hash"], max_bwd_h, *hash_t["k3"], None),
+      ("hash_fwd", "hash_encode.cu", "hash_encode.py:160", render_h["K5f"],
+       max_k5f, *k5f),
+      ("hash_bwd", "hash_encode.cu", "hash_encode.py:203", train_h["K5b"],
+       max_k5b, *k5b),
+  ]
   print(json.dumps({"kernels": [{
-      "name": "render_fwd", "route": "cuda",
-      "source": "nerf_atlas_tpu_torch/csrc/render_fwd.cu",
-      "replaces": "nerf_atlas_tpu/ops/pallas/render.py:586",
-      "launches": launches, "max_abs_err": max_err,
-      "ms": min(kernel_ms, kernel_ms2), "plain_ms": min(plain_ms, plain_ms2),
-  }, {
-      "name": "render_bwd", "route": "cuda",
-      "source": "nerf_atlas_tpu_torch/csrc/render_bwd.cu",
-      "replaces": "nerf_atlas_tpu/ops/pallas/render.py:915",
-      "launches": k3_launches, "max_abs_err": max_bwd,
-      "ms": k3_ms, "plain_ms": plain_k3_ms,
-  }]}))
+      "name": name, "route": "cuda",
+      "source": f"nerf_atlas_tpu_torch/csrc/{src}",
+      "replaces": f"nerf_atlas_tpu/ops/pallas/{tpu}",
+      "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+      "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
+  } for name, src, tpu, n, err, ms, plain, bound, lib in rows]}))
   print(card)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
-// K2/K3: backward of the fused PlainNeRF-CP render on Hopper.
+// K2/K3: backward of the fused PlainNeRF render on Hopper, in two
+// instantiations: enc_kind "cp" and "hash".
 //
 // Replaces nerf_atlas_tpu/ops/pallas/render.py:_render_bwd_kernel
-// (enc_kind "cp"), both of its modes, in one source:
+// (enc_kind "cp" and "hash"), both of its modes, in one source:
 //   mode G (K2, the autograd backward of K1): takes the output cotangent
 //     g [N, 4] (rgb ‖ acc) and returns d(Σ g·out)/d(weights);
 //   mode L (K3, the one-kernel train step): takes target [N, 3] and
@@ -10,6 +11,10 @@
 //     2·loss_scale·(out_rgb − target) (0 on acc).
 // Both return the float32 gradient of the packed weight vector (the
 // layout of ops/kernels/render.py:pack_weights); rays and ts get none.
+// The hash mode reads each sample point's 16 hash-grid features (feats
+// [N·T, 16], K5f's output) where cp encodes, has no line gradients, and
+// writes dfeat [N·T, 16], the density MLP's input cotangent on those
+// feature columns (the raw-point columns dropped), for K5b.
 //
 // Per block of rays (max(1, 64/T) rays, as in K1), in two passes:
 //   pass 1 re-runs K1's forward tile by tile (64 sample points per tile:
@@ -22,7 +27,8 @@
 //     dσ = dα·Δt‖r_d‖·(1−α), d density = dσ·sigmoid(density − 1);
 //   pass 2 walks the tiles again and chains the hand VJPs: rgb activation
 //     → View MLP (sin(30h), derivative 30·cos(30h) with accurate cosf)
-//     → density MLP (leaky-relu 0.01) → CP line gradients.
+//     → density MLP (leaky-relu 0.01) → CP line gradients (cp) or the
+//     feature cotangent dfeat (hash).
 //
 // What bounds it: compute, about three times K1's (the forward, then per
 // layer the input-gradient and the weight-gradient products, each
@@ -52,8 +58,8 @@ constexpr int THREADS = 256;      // 8 warps x 8 points = one tile
 constexpr int PS = TILE + 4;      // row stride (floats) of shared tiles
 constexpr int RANK = 8;
 constexpr int N_LEVELS = 4;       // resolutions 16 << l
-constexpr int ENC = N_LEVELS * RANK;        // 32
-constexpr int FEAT_IN = 3 + ENC;            // 35
+constexpr int CP_DIM = N_LEVELS * RANK;     // 32
+constexpr int HASH_FEATS = 16;              // 8 levels × 2 features
 constexpr int HIDDEN = 256;
 constexpr int D_OUT_W = 33;                 // density ‖ 32 features
 constexpr int INTERMEDIATE = 32;
@@ -62,6 +68,7 @@ constexpr int R_HIDDEN = 128;
 constexpr int R_OUT_W = 3;
 constexpr int F_ROWS = 40;                  // >= max(FEAT_IN, R_IN)
 constexpr int MAX_STEPS = 1024;             // shared memory for res
+enum Enc { ENC_CP = 0, ENC_HASH = 1 };      // render.py ENC_KINDS
 
 static_assert(THREADS == TILE * N_LEVELS, "CP: one (point, level) per "
               "thread");
@@ -73,40 +80,46 @@ enum Act { ACT_NONE = 0, ACT_LEAKY = 1, ACT_SIN30 = 2 };
 enum Mode { MODE_Z = 0, MODE_FADD = 1, MODE_ADD = 2 };
 
 // ---- packed weight layout (ops/kernels/render.py:pack_weights), the same
-// as csrc/render_fwd.cu: CP lines, then each Dense layer as W [in][out]
-// row-major followed by its bias [out]. The transposed copy `wt` the
-// wrapper passes has each W block as [out][in] at the same offset.
+// as csrc/render_fwd.cu: CP lines (cp only), then each Dense layer as W
+// [in][out] row-major followed by its bias [out]. The transposed copy `wt`
+// the wrapper passes has each W block as [out][in] at the same offset.
 __host__ __device__ constexpr long dense_size(int in, int out) {
   return (long)in * out + out;
 }
 __host__ __device__ constexpr long line_offset(int l) {
   return 3L * RANK * 16 * ((1L << l) - 1);
 }
-constexpr int LINE_TOTAL = (int)line_offset(N_LEVELS);      // 5760
-constexpr long OFF_D_IN = line_offset(N_LEVELS);
-constexpr long OFF_D_L0 = OFF_D_IN + dense_size(FEAT_IN, HIDDEN);
-constexpr long OFF_D_L1 = OFF_D_L0 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
-constexpr long OFF_D_L2 = OFF_D_L1 + dense_size(HIDDEN, HIDDEN);
-constexpr long OFF_D_L3 = OFF_D_L2 + dense_size(HIDDEN, HIDDEN);
-constexpr long OFF_D_L4 = OFF_D_L3 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
-constexpr long OFF_D_OUT = OFF_D_L4 + dense_size(HIDDEN, HIDDEN);
-constexpr long OFF_R_IN = OFF_D_OUT + dense_size(HIDDEN, D_OUT_W);
-constexpr long OFF_R_L0 = OFF_R_IN + dense_size(R_IN, R_HIDDEN);
-constexpr long OFF_R_L1 = OFF_R_L0 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
-constexpr long OFF_R_L2 = OFF_R_L1 + dense_size(R_HIDDEN, R_HIDDEN);
-constexpr long OFF_R_L3 = OFF_R_L2 + dense_size(R_HIDDEN, R_HIDDEN);
-constexpr long OFF_R_L4 = OFF_R_L3 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
-constexpr long OFF_R_OUT = OFF_R_L4 + dense_size(R_HIDDEN, R_HIDDEN);
-constexpr long W_TOTAL = OFF_R_OUT + dense_size(R_HIDDEN, R_OUT_W);
-constexpr long WP = W_TOTAL + 1;            // partial row: grads ‖ loss
-
 // ---- stash rows per tile (each row holds TILE floats)
 constexpr int ST_D = 0;                           // density z_in, z_0..z_4
 constexpr int ST_R = ST_D + 6 * HIDDEN;           // View z_in, z_0..z_4
 constexpr int ST_FD = ST_R + 6 * R_HIDDEN;        // density init feature
-constexpr int ST_FR = ST_FD + FEAT_IN;            // View init feature
-constexpr int ST_ROWS = ST_FR + R_IN;             // 2376
-constexpr long ST_TILE = (long)ST_ROWS * TILE;    // floats per tile
+
+template <int ENC>
+struct Layout {
+  static constexpr int FEAT_IN = ENC == ENC_CP ? 3 + CP_DIM : 3 + HASH_FEATS;
+  static constexpr int LINES =                    // 5760 (cp), 0 (hash)
+      ENC == ENC_CP ? (int)line_offset(N_LEVELS) : 0;
+  static constexpr long D_IN = LINES;
+  static constexpr long D_L0 = D_IN + dense_size(FEAT_IN, HIDDEN);
+  static constexpr long D_L1 = D_L0 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
+  static constexpr long D_L2 = D_L1 + dense_size(HIDDEN, HIDDEN);
+  static constexpr long D_L3 = D_L2 + dense_size(HIDDEN, HIDDEN);
+  static constexpr long D_L4 = D_L3 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
+  static constexpr long D_OUT = D_L4 + dense_size(HIDDEN, HIDDEN);
+  static constexpr long R_IN_ = D_OUT + dense_size(HIDDEN, D_OUT_W);
+  static constexpr long R_L0 = R_IN_ + dense_size(R_IN, R_HIDDEN);
+  static constexpr long R_L1 = R_L0 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
+  static constexpr long R_L2 = R_L1 + dense_size(R_HIDDEN, R_HIDDEN);
+  static constexpr long R_L3 = R_L2 + dense_size(R_HIDDEN, R_HIDDEN);
+  static constexpr long R_L4 = R_L3 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
+  static constexpr long R_OUT = R_L4 + dense_size(R_HIDDEN, R_HIDDEN);
+  static constexpr long TOTAL = R_OUT + dense_size(R_HIDDEN, R_OUT_W);
+  static constexpr long WP = TOTAL + 1;           // partial row: grads ‖ loss
+  static constexpr int ST_FR = ST_FD + FEAT_IN;   // View init feature
+  static constexpr int ST_ROWS = ST_FR + R_IN;    // 2376 (cp), 2360 (hash)
+  static constexpr long ST_TILE = (long)ST_ROWS * TILE;  // floats per tile
+  static_assert(FEAT_IN <= F_ROWS, "init feature rows");
+};
 
 template <int ACT>
 __device__ __forceinline__ float activate(float v) {
@@ -422,13 +435,15 @@ __device__ __forceinline__ void input_bwd(const float* G, const float* F,
   dense_bwd<H, FI, FI, ACT_NONE, MODE_ADD>(G, wt, DF, nullptr, nullptr);
 }
 
+template <int ENC>
 size_t smem_bytes(int rays_per_block, int steps) {
   return sizeof(float) * ((size_t)(2 * HIDDEN + 3 * F_ROWS) * PS
-                          + LINE_TOTAL
+                          + Layout<ENC>::LINES
                           + 8 * (size_t)rays_per_block * steps
                           + 13 * (size_t)rays_per_block);
 }
 
+template <int ENC>
 __global__ void __launch_bounds__(THREADS, 1)
 render_bwd_kernel(const float* __restrict__ rays,
                   const float* __restrict__ ts,
@@ -436,11 +451,19 @@ render_bwd_kernel(const float* __restrict__ rays,
                   const float* __restrict__ w,
                   const float* __restrict__ wt,
                   const float* __restrict__ gin,
+                  const float* __restrict__ feats,
+                  float* __restrict__ dfeat,
                   float* __restrict__ partial,
                   float* __restrict__ stash,
                   int n_rays, int steps, int rays_per_block, int n_rb,
                   int tiles, int sigmoid_kind, int sky_white, int loss_mode,
                   float loss_scale) {
+  using L = Layout<ENC>;
+  constexpr int FEAT_IN = L::FEAT_IN;
+  constexpr int LINE_TOTAL = L::LINES;
+  constexpr long WP = L::WP;
+  constexpr int ST_FR = L::ST_FR;
+  constexpr long ST_TILE = L::ST_TILE;
   extern __shared__ float4 smem4[];
   float* X = reinterpret_cast<float*>(smem4);        // [HIDDEN][PS]
   float* G = X + HIDDEN * PS;                        // [HIDDEN][PS]
@@ -499,8 +522,19 @@ render_bwd_kernel(const float* __restrict__ rays,
         for (int c = 0; c < 3; ++c)
           F[c * PS + tid] = sample_point(s[c], t, s[3 + c]);
       }
+      if constexpr (ENC == ENC_HASH) {
+        // hash features -> rows 3..18 (padding rows repeat the last point)
+        for (int i = tid; i < TILE * HASH_FEATS; i += THREADS) {
+          const int p = i / HASH_FEATS, j = i % HASH_FEATS;
+          const int q = min(q0 + p, n_pts - 1);
+          const long g = (long)min(ray0 + q / steps, n_rays - 1) * steps
+                         + q % steps;
+          F[(3 + j) * PS + p] = __ldg(feats + g * HASH_FEATS + j);
+        }
+      }
       __syncthreads();
-      {  // CP encode: one (point, level) per thread -> rows 3 + 8 l + k
+      if constexpr (ENC == ENC_CP) {
+        // CP encode: one (point, level) per thread -> rows 3 + 8 l + k
         const int p = tid & (TILE - 1);
         const int l = tid / TILE;
         const int res_l = 16 << l;
@@ -531,19 +565,19 @@ render_bwd_kernel(const float* __restrict__ rays,
       __syncthreads();
 
       float* zd = st + ST_D * TILE;
-      dense_fwd<FEAT_IN, 0, HIDDEN, ACT_LEAKY>(F, nullptr, w + OFF_D_IN, X,
+      dense_fwd<FEAT_IN, 0, HIDDEN, ACT_LEAKY>(F, nullptr, w + L::D_IN, X,
                                                zd);
-      dense_fwd<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(X, FA, w + OFF_D_L0, X,
+      dense_fwd<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(X, FA, w + L::D_L0, X,
                                                     zd + 1 * HIDDEN * TILE);
-      dense_fwd<HIDDEN, 0, HIDDEN, ACT_LEAKY>(X, nullptr, w + OFF_D_L1, X,
+      dense_fwd<HIDDEN, 0, HIDDEN, ACT_LEAKY>(X, nullptr, w + L::D_L1, X,
                                               zd + 2 * HIDDEN * TILE);
-      dense_fwd<HIDDEN, 0, HIDDEN, ACT_LEAKY>(X, nullptr, w + OFF_D_L2, X,
+      dense_fwd<HIDDEN, 0, HIDDEN, ACT_LEAKY>(X, nullptr, w + L::D_L2, X,
                                               zd + 3 * HIDDEN * TILE);
-      dense_fwd<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(X, FA, w + OFF_D_L3, X,
+      dense_fwd<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(X, FA, w + L::D_L3, X,
                                                     zd + 4 * HIDDEN * TILE);
-      dense_fwd<HIDDEN, 0, HIDDEN, ACT_LEAKY>(X, nullptr, w + OFF_D_L4, X,
+      dense_fwd<HIDDEN, 0, HIDDEN, ACT_LEAKY>(X, nullptr, w + L::D_L4, X,
                                               zd + 5 * HIDDEN * TILE);
-      dense_fwd<HIDDEN, 0, D_OUT_W, ACT_NONE>(X, nullptr, w + OFF_D_OUT, X,
+      dense_fwd<HIDDEN, 0, D_OUT_W, ACT_NONE>(X, nullptr, w + L::D_OUT, X,
                                               nullptr);
 
       // density (raw); View init feature [p ‖ elev, azim ‖ feats]
@@ -568,19 +602,19 @@ render_bwd_kernel(const float* __restrict__ rays,
       __syncthreads();
 
       float* zr = st + ST_R * TILE;
-      dense_fwd<R_IN, 0, R_HIDDEN, ACT_SIN30>(F, nullptr, w + OFF_R_IN, X,
+      dense_fwd<R_IN, 0, R_HIDDEN, ACT_SIN30>(F, nullptr, w + L::R_IN_, X,
                                               zr);
       dense_fwd<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(
-          X, FA, w + OFF_R_L0, X, zr + 1 * R_HIDDEN * TILE);
+          X, FA, w + L::R_L0, X, zr + 1 * R_HIDDEN * TILE);
       dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(
-          X, nullptr, w + OFF_R_L1, X, zr + 2 * R_HIDDEN * TILE);
+          X, nullptr, w + L::R_L1, X, zr + 2 * R_HIDDEN * TILE);
       dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(
-          X, nullptr, w + OFF_R_L2, X, zr + 3 * R_HIDDEN * TILE);
+          X, nullptr, w + L::R_L2, X, zr + 3 * R_HIDDEN * TILE);
       dense_fwd<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(
-          X, FA, w + OFF_R_L3, X, zr + 4 * R_HIDDEN * TILE);
+          X, FA, w + L::R_L3, X, zr + 4 * R_HIDDEN * TILE);
       dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(
-          X, nullptr, w + OFF_R_L4, X, zr + 5 * R_HIDDEN * TILE);
-      dense_fwd<R_HIDDEN, 0, R_OUT_W, ACT_NONE>(X, nullptr, w + OFF_R_OUT, X,
+          X, nullptr, w + L::R_L4, X, zr + 5 * R_HIDDEN * TILE);
+      dense_fwd<R_HIDDEN, 0, R_OUT_W, ACT_NONE>(X, nullptr, w + L::R_OUT, X,
                                                 nullptr);
       if (tid < TILE && q0 + tid < n_pts) {
 #pragma unroll
@@ -681,24 +715,24 @@ render_bwd_kernel(const float* __restrict__ rays,
       }
       load_act<ACT_SIN30>(zr + 5 * R_HIDDEN * TILE, R_HIDDEN, X);
       __syncthreads();
-      dw_small<R_HIDDEN, R_OUT_W>(X, G, part + OFF_R_OUT);
+      dw_small<R_HIDDEN, R_OUT_W>(X, G, part + L::R_OUT);
       dense_bwd<R_OUT_W, R_HIDDEN, R_HIDDEN, ACT_SIN30, MODE_Z>(
-          G, wt + OFF_R_OUT, G, zr + 5 * R_HIDDEN * TILE, nullptr);
+          G, wt + L::R_OUT, G, zr + 5 * R_HIDDEN * TILE, nullptr);
       hidden_bwd<R_HIDDEN, R_IN, false, ACT_SIN30>(
-          X, G, F, FA, DF, wt + OFF_R_L4, part + OFF_R_L4,
+          X, G, F, FA, DF, wt + L::R_L4, part + L::R_L4,
           zr + 4 * R_HIDDEN * TILE);
       hidden_bwd<R_HIDDEN, R_IN, true, ACT_SIN30>(
-          X, G, F, FA, DF, wt + OFF_R_L3, part + OFF_R_L3,
+          X, G, F, FA, DF, wt + L::R_L3, part + L::R_L3,
           zr + 3 * R_HIDDEN * TILE);
       hidden_bwd<R_HIDDEN, R_IN, false, ACT_SIN30>(
-          X, G, F, FA, DF, wt + OFF_R_L2, part + OFF_R_L2,
+          X, G, F, FA, DF, wt + L::R_L2, part + L::R_L2,
           zr + 2 * R_HIDDEN * TILE);
       hidden_bwd<R_HIDDEN, R_IN, false, ACT_SIN30>(
-          X, G, F, FA, DF, wt + OFF_R_L1, part + OFF_R_L1,
+          X, G, F, FA, DF, wt + L::R_L1, part + L::R_L1,
           zr + 1 * R_HIDDEN * TILE);
       hidden_bwd<R_HIDDEN, R_IN, true, ACT_SIN30>(
-          X, G, F, FA, DF, wt + OFF_R_L0, part + OFF_R_L0, zr);
-      input_bwd<R_HIDDEN, R_IN>(G, F, DF, wt + OFF_R_IN, part + OFF_R_IN);
+          X, G, F, FA, DF, wt + L::R_L0, part + L::R_L0, zr);
+      input_bwd<R_HIDDEN, R_IN>(G, F, DF, wt + L::R_IN_, part + L::R_IN_);
 
       // density MLP: G <- [d density ‖ d feats (DF rows 5..36)]
       for (int i = tid; i < D_OUT_W * TILE; i += THREADS) {
@@ -721,104 +755,152 @@ render_bwd_kernel(const float* __restrict__ rays,
       }
       load_act<ACT_LEAKY>(zd + 5 * HIDDEN * TILE, HIDDEN, X);
       __syncthreads();
-      dw_small<HIDDEN, D_OUT_W>(X, G, part + OFF_D_OUT);
+      dw_small<HIDDEN, D_OUT_W>(X, G, part + L::D_OUT);
       dense_bwd<D_OUT_W, HIDDEN, HIDDEN, ACT_LEAKY, MODE_Z>(
-          G, wt + OFF_D_OUT, G, zd + 5 * HIDDEN * TILE, nullptr);
+          G, wt + L::D_OUT, G, zd + 5 * HIDDEN * TILE, nullptr);
       hidden_bwd<HIDDEN, FEAT_IN, false, ACT_LEAKY>(
-          X, G, F, FA, DF, wt + OFF_D_L4, part + OFF_D_L4,
+          X, G, F, FA, DF, wt + L::D_L4, part + L::D_L4,
           zd + 4 * HIDDEN * TILE);
       hidden_bwd<HIDDEN, FEAT_IN, true, ACT_LEAKY>(
-          X, G, F, FA, DF, wt + OFF_D_L3, part + OFF_D_L3,
+          X, G, F, FA, DF, wt + L::D_L3, part + L::D_L3,
           zd + 3 * HIDDEN * TILE);
       hidden_bwd<HIDDEN, FEAT_IN, false, ACT_LEAKY>(
-          X, G, F, FA, DF, wt + OFF_D_L2, part + OFF_D_L2,
+          X, G, F, FA, DF, wt + L::D_L2, part + L::D_L2,
           zd + 2 * HIDDEN * TILE);
       hidden_bwd<HIDDEN, FEAT_IN, false, ACT_LEAKY>(
-          X, G, F, FA, DF, wt + OFF_D_L1, part + OFF_D_L1,
+          X, G, F, FA, DF, wt + L::D_L1, part + L::D_L1,
           zd + 1 * HIDDEN * TILE);
       hidden_bwd<HIDDEN, FEAT_IN, true, ACT_LEAKY>(
-          X, G, F, FA, DF, wt + OFF_D_L0, part + OFF_D_L0, zd);
-      input_bwd<HIDDEN, FEAT_IN>(G, F, DF, wt + OFF_D_IN, part + OFF_D_IN);
+          X, G, F, FA, DF, wt + L::D_L0, part + L::D_L0, zd);
+      input_bwd<HIDDEN, FEAT_IN>(G, F, DF, wt + L::D_IN, part + L::D_IN);
 
-      // CP lines: d enc = DF rows 3..34. Stage per point the factor
-      // gradients and taps in X, then one thread per (level, axis, rank)
-      // scatters them in point order into LG.
-      {
-        const int p = tid & (TILE - 1);
-        const int l = tid / TILE;
-        const int res_l = 16 << l;
-        const float* __restrict__ lines = w + line_offset(l);
-        float f[3][RANK];
-        float fr[3];
-        int i0s[3];
-#pragma unroll
-        for (int axis = 0; axis < 3; ++axis) {
-          int i0, i1;
-          fr[axis] = cp_tap(F[axis * PS + p], res_l, &i0, &i1);
-          i0s[axis] = i0;
-          const float* __restrict__ l0 = lines + (axis * res_l + i0) * RANK;
-          const float* __restrict__ l1 = lines + (axis * res_l + i1) * RANK;
-#pragma unroll
-          for (int k = 0; k < RANK; ++k)
-            f[axis][k] = cp_lerp(__ldg(l0 + k), __ldg(l1 + k), fr[axis]);
+      if constexpr (ENC == ENC_HASH) {
+        // dfeat = DF rows 3..18 for the points of real rays (a padding
+        // ray repeats the last ray and must not overwrite its row)
+        for (int i = tid; i < TILE * HASH_FEATS; i += THREADS) {
+          const int p = i / HASH_FEATS, j = i % HASH_FEATS;
+          const int q = q0 + p;
+          if (q < n_pts && ray0 + q / steps < n_rays)
+            dfeat[((long)ray0 * steps + q) * HASH_FEATS + j] =
+                DF[(3 + j) * PS + p];
         }
+        __syncthreads();
+      } else {
+        // CP lines: d enc = DF rows 3..34. Stage per point the factor
+        // gradients and taps in X, then one thread per (level, axis, rank)
+        // scatters them in point order into LG.
+        {
+          const int p = tid & (TILE - 1);
+          const int l = tid / TILE;
+          const int res_l = 16 << l;
+          const float* __restrict__ lines = w + line_offset(l);
+          float f[3][RANK];
+          float fr[3];
+          int i0s[3];
 #pragma unroll
-        for (int axis = 0; axis < 3; ++axis) {
-          const int b = axis == 0 ? 1 : 0, c = axis == 2 ? 1 : 2;
+          for (int axis = 0; axis < 3; ++axis) {
+            int i0, i1;
+            fr[axis] = cp_tap(F[axis * PS + p], res_l, &i0, &i1);
+            i0s[axis] = i0;
+            const float* __restrict__ l0 = lines + (axis * res_l + i0) * RANK;
+            const float* __restrict__ l1 = lines + (axis * res_l + i1) * RANK;
 #pragma unroll
-          for (int k = 0; k < RANK; ++k) {
-            const float denc = DF[(3 + l * RANK + k) * PS + p];
-            X[((l * 3 + axis) * RANK + k) * PS + p] =
-                denc * f[b][k] * f[c][k];
+            for (int k = 0; k < RANK; ++k)
+              f[axis][k] = cp_lerp(__ldg(l0 + k), __ldg(l1 + k), fr[axis]);
           }
-          X[(96 + l * 3 + axis) * PS + p] = (float)i0s[axis];
-          X[(108 + l * 3 + axis) * PS + p] = fr[axis];
+#pragma unroll
+          for (int axis = 0; axis < 3; ++axis) {
+            const int b = axis == 0 ? 1 : 0, c = axis == 2 ? 1 : 2;
+#pragma unroll
+            for (int k = 0; k < RANK; ++k) {
+              const float denc = DF[(3 + l * RANK + k) * PS + p];
+              X[((l * 3 + axis) * RANK + k) * PS + p] =
+                  denc * f[b][k] * f[c][k];
+            }
+            X[(96 + l * 3 + axis) * PS + p] = (float)i0s[axis];
+            X[(108 + l * 3 + axis) * PS + p] = fr[axis];
+          }
         }
-      }
-      __syncthreads();
-      if (tid < 3 * N_LEVELS * RANK) {
-        const int l = tid / (3 * RANK), axis = (tid / RANK) % 3;
-        const int k = tid % RANK;
-        const int res_l = 16 << l;
-        float* lg = LG + line_offset(l) + axis * res_l * RANK + k;
-        const float* df = X + tid * PS;
-        const float* i0r = X + (96 + l * 3 + axis) * PS;
-        const float* frr = X + (108 + l * 3 + axis) * PS;
-        for (int p = 0; p < TILE; ++p) {
-          const int i0 = (int)i0r[p];
-          const int i1 = min(i0 + 1, res_l - 1);
-          lg[i0 * RANK] += df[p] * (1.0f - frr[p]);
-          lg[i1 * RANK] += df[p] * frr[p];
+        __syncthreads();
+        if (tid < 3 * N_LEVELS * RANK) {
+          const int l = tid / (3 * RANK), axis = (tid / RANK) % 3;
+          const int k = tid % RANK;
+          const int res_l = 16 << l;
+          float* lg = LG + line_offset(l) + axis * res_l * RANK + k;
+          const float* df = X + tid * PS;
+          const float* i0r = X + (96 + l * 3 + axis) * PS;
+          const float* frr = X + (108 + l * 3 + axis) * PS;
+          for (int p = 0; p < TILE; ++p) {
+            const int i0 = (int)i0r[p];
+            const int i1 = min(i0 + 1, res_l - 1);
+            lg[i0 * RANK] += df[p] * (1.0f - frr[p]);
+            lg[i1 * RANK] += df[p] * frr[p];
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
     }
   }
 
   // the CP line gradients and the loss go to this block's partial once
   for (int i = tid; i < LINE_TOTAL; i += THREADS) part[i] = LG[i];
-  if (tid == 0) part[W_TOTAL] = loss_acc;
+  if (tid == 0) part[L::TOTAL] = loss_acc;
 }
 
-// out[i] = sum over blocks b (in order) of partial[b][i]
+// out[i] = sum over blocks b (in order) of partial[b][i], i < wp
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, int blocks) {
+                                       float* __restrict__ out, int blocks,
+                                       long wp) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= WP) return;
+  if (i >= wp) return;
   float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) s += partial[(long)b * WP + i];
+  for (int b = 0; b < blocks; ++b) s += partial[(long)b * wp + i];
   out[i] = s;
+}
+
+template <int ENC>
+int launch(const float* rays, const float* ts, const float* dists,
+           const float* weights, const float* weights_t, const float* gin,
+           const float* feats, float* dfeat, float* out, float* partial,
+           float* stash, int n_rays, int steps, int blocks, int sigmoid_kind,
+           int sky_white, int loss_mode, float loss_scale, cudaStream_t s) {
+  constexpr long WP = Layout<ENC>::WP;
+  const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
+  const int n_rb = (n_rays + rays_per_block - 1) / rays_per_block;
+  if (blocks > n_rb) return cudaErrorInvalidValue;
+  const int tiles = (rays_per_block * steps + TILE - 1) / TILE;
+  const size_t smem = smem_bytes<ENC>(rays_per_block, steps);
+  cudaError_t err = cudaFuncSetAttribute(
+      render_bwd_kernel<ENC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)blocks * WP, s);
+  if (err != cudaSuccess) return err;
+  render_bwd_kernel<ENC><<<blocks, THREADS, smem, s>>>(
+      rays, ts, dists, weights, weights_t, gin, feats, dfeat, partial, stash,
+      n_rays, steps, rays_per_block, n_rb, tiles, sigmoid_kind, sky_white,
+      loss_mode, loss_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<<<(int)((WP + 255) / 256), 256, 0, s>>>(
+      partial, out, blocks, WP);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats in the packed weight buffer the kernel expects.
-long long render_bwd_weight_count() { return W_TOTAL; }
+// Floats in the packed weight buffer the kernel expects for `enc`
+// (0 cp, 1 hash).
+long long render_bwd_weight_count(int enc) {
+  return enc == ENC_CP ? Layout<ENC_CP>::TOTAL : Layout<ENC_HASH>::TOTAL;
+}
 
 // Floats of stash per 64-point tile (the wrapper sizes the scratch).
-long long render_bwd_stash_floats_per_tile() { return ST_TILE; }
+long long render_bwd_stash_floats_per_tile(int enc) {
+  return enc == ENC_CP ? Layout<ENC_CP>::ST_TILE : Layout<ENC_HASH>::ST_TILE;
+}
 
 int render_bwd_max_steps() { return MAX_STEPS; }
 
@@ -828,40 +910,31 @@ const char* render_bwd_error_string(int code) {
 
 // Enqueues one backward on `stream`; returns the cudaError_t of the
 // launches. gin: g [N, 4] (loss_mode 0) or target [N, 3] (loss_mode 1).
-// out: [WEIGHT_COUNT + 1] (gradient ‖ loss). partial: blocks × (WEIGHT_COUNT
-// + 1) floats; stash: blocks × tiles × stash_floats_per_tile floats, tiles
-// = ceil(rays_per_block · steps / 64), rays_per_block = max(1, 64 / steps).
+// enc 0 (cp): feats, dfeat unused; enc 1 (hash): feats and dfeat
+// [N·steps, 16]. out: [weight count + 1] (gradient ‖ loss). partial:
+// blocks × (weight count + 1) floats; stash: blocks × tiles ×
+// stash_floats_per_tile(enc) floats, tiles = ceil(rays_per_block · steps /
+// 64), rays_per_block = max(1, 64 / steps).
 int render_bwd_launch(const float* rays, const float* ts, const float* dists,
                       const float* weights, const float* weights_t,
-                      const float* gin, float* out, float* partial,
-                      float* stash, int n_rays, int steps, int blocks,
-                      int sigmoid_kind, int sky_white, int loss_mode,
-                      float loss_scale, void* stream) {
+                      const float* gin, const float* feats, float* dfeat,
+                      float* out, float* partial, float* stash, int n_rays,
+                      int steps, int blocks, int sigmoid_kind, int sky_white,
+                      int loss_mode, float loss_scale, int enc,
+                      void* stream) {
   if (n_rays <= 0) return cudaSuccess;
   if (steps < 2 || steps > MAX_STEPS || sigmoid_kind < 0 || sigmoid_kind > 7
-      || blocks <= 0)
+      || blocks <= 0 || (enc != ENC_CP && enc != ENC_HASH)
+      || (enc == ENC_HASH && (feats == nullptr || dfeat == nullptr)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
-  const int n_rb = (n_rays + rays_per_block - 1) / rays_per_block;
-  if (blocks > n_rb) return cudaErrorInvalidValue;
-  const int tiles = (rays_per_block * steps + TILE - 1) / TILE;
-  const size_t smem = smem_bytes(rays_per_block, steps);
-  cudaError_t err = cudaFuncSetAttribute(
-      render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)blocks * WP, s);
-  if (err != cudaSuccess) return err;
-  render_bwd_kernel<<<blocks, THREADS, smem, s>>>(
-      rays, ts, dists, weights, weights_t, gin, partial, stash, n_rays, steps,
-      rays_per_block, n_rb, tiles, sigmoid_kind, sky_white, loss_mode,
-      loss_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<(int)((WP + 255) / 256), 256, 0, s>>>(
-      partial, out, blocks);
-  return cudaGetLastError();
+  return enc == ENC_CP
+      ? launch<ENC_CP>(rays, ts, dists, weights, weights_t, gin, feats,
+                       dfeat, out, partial, stash, n_rays, steps, blocks,
+                       sigmoid_kind, sky_white, loss_mode, loss_scale, s)
+      : launch<ENC_HASH>(rays, ts, dists, weights, weights_t, gin, feats,
+                         dfeat, out, partial, stash, n_rays, steps, blocks,
+                         sigmoid_kind, sky_white, loss_mode, loss_scale, s);
 }
 
 }  // extern "C"

@@ -1,11 +1,15 @@
-// K1: fused forward render of the flagship PlainNeRF-CP model on Hopper.
+// K1: fused forward render of the flagship PlainNeRF on Hopper, in two
+// instantiations: enc_kind "cp" and "hash".
 //
 // Replaces nerf_atlas_tpu/ops/pallas/render.py:_render_kernel (enc_kind
-// "cp"). One launch renders rays [N, 6] -> [N, 4] (rgb ‖ acc):
+// "cp" and "hash"). One launch renders rays [N, 6] -> [N, 4] (rgb ‖ acc):
 //   p = r_o + t·r_d for the T shared sample positions
-//   -> CP encode (4 levels × rank 8, 2-tap linear interpolation per axis,
-//      product over the three axes) -> init feature [p ‖ cp] (35)
-//   -> density SkipConnMLP 35 -> 256×5 -> 33, leaky-relu 0.01, skip
+//   -> cp: CP encode (4 levels × rank 8, 2-tap linear interpolation per
+//      axis, product over the three axes) -> init feature [p ‖ cp] (35);
+//      hash: read the point's 16 hash-grid features (K5f's output, feats
+//      [N·T, 16]) -> init feature [p ‖ feats] (19), with p rounded after
+//      the product and after the sum, the bits K5f encoded
+//   -> density SkipConnMLP FEAT_IN -> 256×5 -> 33, leaky-relu 0.01, skip
 //      concat [h ; init] at layers 0 and 3 (split into two matmuls)
 //   -> siren View MLP on [p ‖ elev, azim ‖ feats] (37) -> 128×5 -> 3,
 //      activation sin(30·h)
@@ -15,8 +19,9 @@
 //      the leftover transmittance excluding the 1e10 tail sample.
 //
 // What bounds it: compute. Each sample point costs about 0.92 MFLOP of
-// matmul (459,520 multiply-adds), ≈37.7 TFLOP for an 800×800×64 frame,
-// against ~1.9 MB of f32 weights that every block re-reads.
+// matmul (459,520 multiply-adds for cp, 451,328 for hash), ≈37.7 TFLOP
+// for an 800×800×64 frame, against ~1.9 MB of f32 weights that every
+// block re-reads; the hash mode also reads 64 B of features per point.
 //
 // First design (simple and exact, not yet fast): float32 FMAs on the
 // CUDA cores, no tensor cores. A block of 256 threads owns
@@ -44,8 +49,8 @@ constexpr int THREADS = 256;      // 8 warps x 8 points = one tile
 constexpr int PS = TILE + 4;      // row stride (floats) of activation rows
 constexpr int RANK = 8;
 constexpr int N_LEVELS = 4;       // resolutions 16 << l
-constexpr int ENC = N_LEVELS * RANK;        // 32
-constexpr int FEAT_IN = 3 + ENC;            // 35
+constexpr int CP_DIM = N_LEVELS * RANK;     // 32
+constexpr int HASH_FEATS = 16;              // 8 levels × 2 features
 constexpr int HIDDEN = 256;
 constexpr int D_OUT_W = 33;                 // density ‖ 32 features
 constexpr int INTERMEDIATE = 32;
@@ -53,6 +58,7 @@ constexpr int R_IN = 3 + 2 + INTERMEDIATE;  // 37
 constexpr int R_HIDDEN = 128;
 constexpr int R_OUT_W = 3;
 constexpr int F_ROWS = 40;                  // >= max(FEAT_IN, R_IN)
+enum Enc { ENC_CP = 0, ENC_HASH = 1 };      // render.py ENC_KINDS
 constexpr int MAX_STEPS = 2048;
 
 static_assert(THREADS == TILE * N_LEVELS, "CP encode: one (point, level) "
@@ -62,8 +68,8 @@ static_assert(THREADS == 32 * (TILE / 8), "dense: 8 points per warp");
 enum Act { ACT_NONE = 0, ACT_LEAKY = 1, ACT_SIN30 = 2 };
 
 // ---- packed weight layout (nerf_atlas_tpu_torch/ops/kernels/render.py:
-// pack_weights): CP lines, then each Dense layer as W [in][out] row-major
-// followed by its bias [out].
+// pack_weights): CP lines (cp only), then each Dense layer as W [in][out]
+// row-major followed by its bias [out].
 __host__ __device__ constexpr long dense_size(int in, int out) {
   return (long)in * out + out;
 }
@@ -71,21 +77,26 @@ __host__ __device__ constexpr long dense_size(int in, int out) {
 __host__ __device__ constexpr long line_offset(int l) {
   return 3L * RANK * 16 * ((1L << l) - 1);
 }
-constexpr long OFF_D_IN = line_offset(N_LEVELS);
-constexpr long OFF_D_L0 = OFF_D_IN + dense_size(FEAT_IN, HIDDEN);
-constexpr long OFF_D_L1 = OFF_D_L0 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
-constexpr long OFF_D_L2 = OFF_D_L1 + dense_size(HIDDEN, HIDDEN);
-constexpr long OFF_D_L3 = OFF_D_L2 + dense_size(HIDDEN, HIDDEN);
-constexpr long OFF_D_L4 = OFF_D_L3 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
-constexpr long OFF_D_OUT = OFF_D_L4 + dense_size(HIDDEN, HIDDEN);
-constexpr long OFF_R_IN = OFF_D_OUT + dense_size(HIDDEN, D_OUT_W);
-constexpr long OFF_R_L0 = OFF_R_IN + dense_size(R_IN, R_HIDDEN);
-constexpr long OFF_R_L1 = OFF_R_L0 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
-constexpr long OFF_R_L2 = OFF_R_L1 + dense_size(R_HIDDEN, R_HIDDEN);
-constexpr long OFF_R_L3 = OFF_R_L2 + dense_size(R_HIDDEN, R_HIDDEN);
-constexpr long OFF_R_L4 = OFF_R_L3 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
-constexpr long OFF_R_OUT = OFF_R_L4 + dense_size(R_HIDDEN, R_HIDDEN);
-constexpr long W_TOTAL = OFF_R_OUT + dense_size(R_HIDDEN, R_OUT_W);
+template <int ENC>
+struct Layout {
+  static constexpr int FEAT_IN = ENC == ENC_CP ? 3 + CP_DIM : 3 + HASH_FEATS;
+  static constexpr long D_IN = ENC == ENC_CP ? line_offset(N_LEVELS) : 0;
+  static constexpr long D_L0 = D_IN + dense_size(FEAT_IN, HIDDEN);
+  static constexpr long D_L1 = D_L0 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
+  static constexpr long D_L2 = D_L1 + dense_size(HIDDEN, HIDDEN);
+  static constexpr long D_L3 = D_L2 + dense_size(HIDDEN, HIDDEN);
+  static constexpr long D_L4 = D_L3 + dense_size(HIDDEN + FEAT_IN, HIDDEN);
+  static constexpr long D_OUT = D_L4 + dense_size(HIDDEN, HIDDEN);
+  static constexpr long R_IN_ = D_OUT + dense_size(HIDDEN, D_OUT_W);
+  static constexpr long R_L0 = R_IN_ + dense_size(R_IN, R_HIDDEN);
+  static constexpr long R_L1 = R_L0 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
+  static constexpr long R_L2 = R_L1 + dense_size(R_HIDDEN, R_HIDDEN);
+  static constexpr long R_L3 = R_L2 + dense_size(R_HIDDEN, R_HIDDEN);
+  static constexpr long R_L4 = R_L3 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
+  static constexpr long R_OUT = R_L4 + dense_size(R_HIDDEN, R_HIDDEN);
+  static constexpr long TOTAL = R_OUT + dense_size(R_HIDDEN, R_OUT_W);
+  static_assert(FEAT_IN <= F_ROWS, "init feature rows");
+};
 
 template <int ACT>
 __device__ __forceinline__ float activate(float v) {
@@ -183,14 +194,18 @@ size_t smem_bytes(int rays_per_block, int steps) {
                           + 8 * (size_t)rays_per_block);
 }
 
+template <int ENC>
 __global__ void __launch_bounds__(THREADS, 2)
 render_fwd_kernel(const float* __restrict__ rays,
                   const float* __restrict__ ts,
                   const float* __restrict__ dists,
                   const float* __restrict__ w,
+                  const float* __restrict__ feats,
                   float* __restrict__ out,
                   int n_rays, int steps, int rays_per_block,
                   int sigmoid_kind, int sky_white) {
+  using L = Layout<ENC>;
+  constexpr int FEAT_IN = L::FEAT_IN;
   extern __shared__ float4 smem4[];
   float* hbuf = reinterpret_cast<float*>(smem4);   // [HIDDEN][PS]
   float* fbuf = hbuf + HIDDEN * PS;                 // [F_ROWS][PS] init feat
@@ -227,13 +242,30 @@ render_fwd_kernel(const float* __restrict__ rays,
       const int q = min(q0 + tid, n_pts - 1);
       const float* s = ray_s + 8 * (q / steps);
       const float t = ts[q % steps];
+      if constexpr (ENC == ENC_CP) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) fbuf[c * PS + tid] = s[c] + t * s[3 + c];
+        for (int c = 0; c < 3; ++c) fbuf[c * PS + tid] = s[c] + t * s[3 + c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          fbuf[c * PS + tid] = __fadd_rn(s[c], __fmul_rn(t, s[3 + c]));
+      }
+    }
+    if constexpr (ENC == ENC_HASH) {
+      // ---- hash features -> rows 3..18 (padding rows repeat the last
+      // point, as the sample points do) ----
+      for (int i = tid; i < TILE * HASH_FEATS; i += THREADS) {
+        const int p = i / HASH_FEATS, j = i % HASH_FEATS;
+        const int q = min(q0 + p, n_pts - 1);
+        const long g = (long)min(ray0 + q / steps, n_rays - 1) * steps
+                       + q % steps;
+        fbuf[(3 + j) * PS + p] = __ldg(feats + g * HASH_FEATS + j);
+      }
     }
     __syncthreads();
 
     // ---- CP encode: one (point, level) per thread -> rows 3 + 8 l + k ----
-    {
+    if constexpr (ENC == ENC_CP) {
       const int p = tid & (TILE - 1);
       const int l = tid / TILE;
       const int res_l = 16 << l;
@@ -266,13 +298,13 @@ render_fwd_kernel(const float* __restrict__ rays,
     __syncthreads();
 
     // ---- density MLP (skips at layers 0 and 3) ----
-    dense<FEAT_IN, 0, HIDDEN, ACT_LEAKY>(fbuf, nullptr, w + OFF_D_IN, hbuf);
-    dense<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(hbuf, fact, w + OFF_D_L0, hbuf);
-    dense<HIDDEN, 0, HIDDEN, ACT_LEAKY>(hbuf, nullptr, w + OFF_D_L1, hbuf);
-    dense<HIDDEN, 0, HIDDEN, ACT_LEAKY>(hbuf, nullptr, w + OFF_D_L2, hbuf);
-    dense<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(hbuf, fact, w + OFF_D_L3, hbuf);
-    dense<HIDDEN, 0, HIDDEN, ACT_LEAKY>(hbuf, nullptr, w + OFF_D_L4, hbuf);
-    dense<HIDDEN, 0, D_OUT_W, ACT_NONE>(hbuf, nullptr, w + OFF_D_OUT, hbuf);
+    dense<FEAT_IN, 0, HIDDEN, ACT_LEAKY>(fbuf, nullptr, w + L::D_IN, hbuf);
+    dense<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(hbuf, fact, w + L::D_L0, hbuf);
+    dense<HIDDEN, 0, HIDDEN, ACT_LEAKY>(hbuf, nullptr, w + L::D_L1, hbuf);
+    dense<HIDDEN, 0, HIDDEN, ACT_LEAKY>(hbuf, nullptr, w + L::D_L2, hbuf);
+    dense<HIDDEN, FEAT_IN, HIDDEN, ACT_LEAKY>(hbuf, fact, w + L::D_L3, hbuf);
+    dense<HIDDEN, 0, HIDDEN, ACT_LEAKY>(hbuf, nullptr, w + L::D_L4, hbuf);
+    dense<HIDDEN, 0, D_OUT_W, ACT_NONE>(hbuf, nullptr, w + L::D_OUT, hbuf);
 
     // ---- sigma; refl init feature [p ‖ elev, azim ‖ feats] ----
     if (tid < TILE) {
@@ -294,13 +326,13 @@ render_fwd_kernel(const float* __restrict__ rays,
     __syncthreads();
 
     // ---- siren View MLP ----
-    dense<R_IN, 0, R_HIDDEN, ACT_SIN30>(fbuf, nullptr, w + OFF_R_IN, hbuf);
-    dense<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(hbuf, fact, w + OFF_R_L0, hbuf);
-    dense<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(hbuf, nullptr, w + OFF_R_L1, hbuf);
-    dense<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(hbuf, nullptr, w + OFF_R_L2, hbuf);
-    dense<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(hbuf, fact, w + OFF_R_L3, hbuf);
-    dense<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(hbuf, nullptr, w + OFF_R_L4, hbuf);
-    dense<R_HIDDEN, 0, R_OUT_W, ACT_NONE>(hbuf, nullptr, w + OFF_R_OUT, hbuf);
+    dense<R_IN, 0, R_HIDDEN, ACT_SIN30>(fbuf, nullptr, w + L::R_IN_, hbuf);
+    dense<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(hbuf, fact, w + L::R_L0, hbuf);
+    dense<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(hbuf, nullptr, w + L::R_L1, hbuf);
+    dense<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(hbuf, nullptr, w + L::R_L2, hbuf);
+    dense<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(hbuf, fact, w + L::R_L3, hbuf);
+    dense<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(hbuf, nullptr, w + L::R_L4, hbuf);
+    dense<R_HIDDEN, 0, R_OUT_W, ACT_NONE>(hbuf, nullptr, w + L::R_OUT, hbuf);
 
     if (tid < TILE && q0 + tid < n_pts) {
 #pragma unroll
@@ -337,37 +369,54 @@ render_fwd_kernel(const float* __restrict__ rays,
   }
 }
 
+template <int ENC>
+int launch(const float* rays, const float* ts, const float* dists,
+           const float* weights, const float* feats, float* out, int n_rays,
+           int steps, int sigmoid_kind, int sky_white, cudaStream_t stream) {
+  const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
+  const size_t smem = smem_bytes(rays_per_block, steps);
+  cudaError_t err = cudaFuncSetAttribute(
+      render_fwd_kernel<ENC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
+  render_fwd_kernel<ENC><<<blocks, THREADS, smem, stream>>>(
+      rays, ts, dists, weights, feats, out, n_rays, steps, rays_per_block,
+      sigmoid_kind, sky_white);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats in the packed weight buffer the kernel expects.
-long long render_fwd_weight_count() { return W_TOTAL; }
+// Floats in the packed weight buffer the kernel expects for `enc`
+// (0 cp, 1 hash).
+long long render_fwd_weight_count(int enc) {
+  return enc == ENC_CP ? Layout<ENC_CP>::TOTAL : Layout<ENC_HASH>::TOTAL;
+}
 
 const char* render_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // Enqueues one render on `stream`; returns the cudaError_t of the launch.
+// enc 0 (cp): feats unused; enc 1 (hash): feats [n_rays·steps, 16].
 int render_fwd_launch(const float* rays, const float* ts, const float* dists,
-                      const float* weights, float* out, int n_rays,
-                      int steps, int sigmoid_kind, int sky_white,
-                      void* stream) {
+                      const float* weights, const float* feats, float* out,
+                      int n_rays, int steps, int sigmoid_kind, int sky_white,
+                      int enc, void* stream) {
   if (n_rays <= 0) return cudaSuccess;
-  if (steps < 2 || steps > MAX_STEPS || sigmoid_kind < 0 || sigmoid_kind > 7)
+  if (steps < 2 || steps > MAX_STEPS || sigmoid_kind < 0 || sigmoid_kind > 7
+      || (enc != ENC_CP && enc != ENC_HASH)
+      || (enc == ENC_HASH && feats == nullptr))
     return cudaErrorInvalidValue;
-  const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
-  const size_t smem = smem_bytes(rays_per_block, steps);
-  cudaError_t err = cudaFuncSetAttribute(
-      render_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
-  render_fwd_kernel<<<blocks, THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      rays, ts, dists, weights, out, n_rays, steps, rays_per_block,
-      sigmoid_kind, sky_white);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return enc == ENC_CP
+      ? launch<ENC_CP>(rays, ts, dists, weights, feats, out, n_rays, steps,
+                       sigmoid_kind, sky_white, s)
+      : launch<ENC_HASH>(rays, ts, dists, weights, feats, out, n_rays, steps,
+                         sigmoid_kind, sky_white, s);
 }
 
 }  // extern "C"

@@ -10,29 +10,37 @@ from typing import Optional
 
 import torch
 
-from ..nn import CPEncoder, PositionalEncoder, SkipConnMLP
+from ..nn import CPEncoder, HashEncoder, PositionalEncoder, SkipConnMLP
 from ..refl import load_refl
 from .base import NeRFBase, view_per_sample
 
 
 class PlainNeRF(NeRFBase):
   """enc_kind selects the spatial encoder: "cp" (factorized feature
-  volumes, the default and the fused-kernel path) or "posenc" (frequency
-  encoding). "hash"/"ref-hash" and mip arrive with ROADMAP Queue 1 #7.
-  The density MLP (256x5) and View (128x5) are built at the default
-  widths; overriding them arrives with --ref-compat (ROADMAP Queue 1 #13)."""
+  volumes, the default), "hash" (the NGP hash grid, `table_size` entries
+  per level; the JAX model's `enc_kwargs={"table_size": ...}`) or
+  "posenc" (frequency encoding); cp and hash take the fused kernels.
+  "ref-hash" and mip arrive with ROADMAP Queue 1 #7. The density MLP
+  (256x5) and View (128x5) are built at the default widths; overriding
+  them arrives with --ref-compat (ROADMAP Queue 1 #13)."""
 
   def __init__(self, refl_kind: str = "view", refl_space: str = "identity",
-               enc_kind: str = "cp", device=None, **base_kwargs):
+               enc_kind: str = "cp", table_size: Optional[int] = None,
+               device=None, **base_kwargs):
     super().__init__(**base_kwargs)
+    if table_size is not None and enc_kind != "hash":
+      raise NotImplementedError(
+          f"table_size only configures enc_kind='hash', got {enc_kind}")
     if enc_kind == "cp":
       enc = CPEncoder(device=device)
+    elif enc_kind == "hash":
+      enc = HashEncoder(table_size=table_size or 1 << 19, device=device)
     elif enc_kind == "posenc":
       enc = PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=10)
-    elif enc_kind in ("hash", "ref-hash"):
+    elif enc_kind == "ref-hash":
       raise NotImplementedError(
-          f"enc kind {enc_kind}: the hash grid arrives with ROADMAP Queue 1 "
-          "#7")
+          "enc kind ref-hash: the reference-exact RefHashEncoder arrives "
+          "with ROADMAP Queue 1 #7")
     else:
       raise NotImplementedError(f"unknown enc kind {enc_kind}")
     self.refl_kind = refl_kind

@@ -1,7 +1,8 @@
-"""Input encoders: positional sin/cos bands and CP factorized volumes.
+"""Input encoders: positional sin/cos bands, CP factorized volumes and
+the NGP hash grid.
 
-Counterpart of `nerf_atlas_tpu/nn/encoders.py` (the encoders the eval
-path builds). Every encoder maps [..., D] -> [..., size()].
+Counterpart of `nerf_atlas_tpu/nn/encoders.py` (the encoders PlainNeRF
+builds). Every encoder maps [..., D] -> [..., size()].
 """
 from __future__ import annotations
 
@@ -106,3 +107,38 @@ def cp_encode(xn, lines: Sequence[torch.Tensor]):
       level = f if level is None else level * f
     feats.append(level)
   return torch.cat(feats, dim=-1)
+
+
+class HashEncoder(nn.Module):
+  """Multi-resolution hash-grid encoder (Instant-NGP): 8 levels of 2
+  features, resolutions round(16·2^i) up to 2048, bbox [-1, 1], and
+  `table_size` entries per level (a power of two; 2^19 by default). The
+  parameter `table` is [8·table_size, 2]. Dense levels whose full grid
+  fits in the table are indexed directly, larger ones by the XOR-prime
+  hash. The forward is the plain K5f (`hash_encode_reference`: the index
+  math and `table[idx]`); the fused kernel paths call K5f/K5b on the
+  table directly (`ops/kernels/hash_encode.py`)."""
+
+  def __init__(self, table_size: int = 1 << 19, device=None):
+    super().__init__()
+    from ..ops.kernels import hash_encode as hk
+    if table_size < 1 or table_size & (table_size - 1):
+      raise ValueError(f"table_size must be a power of two, got {table_size}")
+    self.table = nn.Parameter(torch.zeros(
+        hk.LEVELS * table_size, hk.FEATURES, device=device))
+
+  def size(self) -> int:
+    from ..ops.kernels import hash_encode as hk
+    return hk.LEVELS * hk.FEATURES
+
+  def reset_parameters(self, generator: torch.Generator):
+    """uniform(−1e-4, 1e-4), drawn on the CPU (encoders.py:214)."""
+    with torch.no_grad():
+      self.table.copy_((torch.rand(self.table.shape, generator=generator)
+                        * 2 - 1) * 1e-4)
+
+  def forward(self, x):
+    from ..ops.kernels import hash_encode as hk
+    batch = x.shape[:-1]
+    out = hk.hash_encode_reference(self.table, x.reshape(-1, 3))
+    return out.reshape(batch + (self.size(),))

@@ -1,11 +1,11 @@
 """The port's entry point: `python -m nerf_atlas_tpu_torch.runner ...`.
 
-Takes the root `runner.py`'s flags (its `arguments`, pure argparse) and
-runs the flow of its `main`: load the data, build the model, initialize
-it from `--seed` or restore `--load`, train for `--epochs` steps (through
-the one-kernel step K3 where the gate allows, log.json records the
-engaged path), then render and score the train and test splits
-(results.txt, test_###.png). The loss plot (loss.png) is not written: it
+Takes the root `runner.py`'s flags (through the port's own copy of its
+parser, `cli.py`) and runs the flow of its `main`: load the data, build
+the model, initialize it from `--seed` or restore `--load`, train for
+`--epochs` steps (through the one-kernel step where the gate allows,
+log.json records the engaged path), then render and score the train and
+test splits (results.txt, test_###.png). The loss plot (loss.png) is not written: it
 needs matplotlib, which the GPU machine lacks.
 
 Examples (procedural scene):
@@ -14,6 +14,9 @@ Examples (procedural scene):
       --batch-size 4096 -lr 1e-3 --seed 0 --nosave --outdir out
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
       --model plain --size 800 --num-views 2 --epochs 0 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model plain --enc-kind hash --hash-table-log2 14 --size 48 \
+      --num-views 30 --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import time
 
 import torch
 
+from . import cli
 from .data import load, sampler
 from .models import load_model
 from .train import checkpoints, driver
@@ -55,7 +59,9 @@ def _check_supported(args):
 
 
 def build_model(args, device):
-  """runner.py:build_model for --model plain (static data)."""
+  """runner.py:build_model for --model plain (static data):
+  --hash-table-log2 N sets the hash table to 2^N entries per level when N
+  is not the default 19 (runner.py:470-471)."""
   kwargs = dict(steps=args.steps, t_near=args.near, t_far=args.far,
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
@@ -63,6 +69,8 @@ def build_model(args, device):
                 density_noise=args.density_noise,
                 refl_kind=args.refl_kind, mip=args.mip,
                 enc_kind=args.enc_kind, refl_space=args.space_kind)
+  if args.enc_kind == "hash" and args.hash_table_log2 != 19:
+    kwargs["table_size"] = 1 << args.hash_table_log2
   return load_model(args.model, device=device, **kwargs)
 
 
@@ -84,7 +92,6 @@ def make_train_config(args) -> driver.TrainConfig:
     raise NotImplementedError(
         "--mesh-devices > 1 / --data-parallel: the port trains on one "
         "device; multi-GPU training arrives with ROADMAP Queue 1 #12")
-  import runner as cli   # the root runner.py: argparse + numpy only
   cfg = driver.TrainConfig(
       steps=args.epochs, batch_size=args.batch_size,
       learning_rate=args.learning_rate, opt_kind=args.opt_kind,
@@ -157,14 +164,9 @@ def main(argv=None, device="cuda"):
   Returns {"train", "test": driver.test results} plus, after training,
   "engaged_path" and "history"."""
   argv = list(sys.argv[1:] if argv is None else argv)
-  if any(a == "--param-file" or a.startswith("--param-file=") for a in argv):
-    raise NotImplementedError(
-        "--param-file: the hyper-parameter loader lives in the JAX package "
-        "(ROADMAP Queue 1 #13)")
   device = torch.device(device)
   if device.type == "cuda" and not torch.cuda.is_available():
     raise RuntimeError("CUDA is not available; the port's runner needs a GPU")
-  import runner as cli   # the root runner.py: argparse + numpy only
   args = cli.arguments(argv)
   _check_supported(args)
   if args.nosave:

@@ -3,6 +3,8 @@
 path."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -11,7 +13,8 @@ from .ops.kernels import render as k1
 
 
 def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
-                   steps: int, margin: float = 10.0) -> torch.Tensor:
+                   steps: int, margin: float = 10.0,
+                   feats: Optional[torch.Tensor] = None) -> torch.Tensor:
   """[N] bool: the rays none of whose density-MLP pre-activations lies
   within `margin` round-offs of the leaky-relu kink at 0.
 
@@ -22,17 +25,20 @@ def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
   ~1e-3 relative). A pre-activation counts as near the kink when its
   magnitude is under `margin` times its column's float32-vs-float64
   round-off (RMS over the points). The init features are left out:
-  render_bwd.cu rounds them exactly as the plain version does. Used to
-  hold the kernels to their plain versions on the rays where the two
-  must agree to float32 summation order."""
-  ws = k1.pack_weights(params, rays.device)
+  render_bwd.cu rounds them exactly as the plain version does. `params`
+  are cp weights, or hash weights with the points' features `feats`
+  [N·T, 16]. Used to hold the kernels to their plain versions on the
+  rays where the two must agree to float32 summation order."""
+  ws = k1.pack_weights(params, rays.device,
+                       "cp" if feats is None else "hash")
 
   def pre_activations(dtype):
     lines, dense_layers, _ = k1._unpack(ws.to(dtype))
     r, t = rays.to(dtype), ts.to(dtype)
-    pts = (r[:, None, :3] + t[None, :, None] * r[:, None, 3:6]).reshape(-1, 3)
-    feat = torch.cat([pts, cp_encode(torch.clamp((pts + 1) * 0.5, 0, 1),
-                                     lines)], dim=-1)
+    pts = k1.hash_pts(r, t)
+    enc = (cp_encode(torch.clamp((pts + 1) * 0.5, 0, 1), lines)
+           if feats is None else feats.to(dtype))
+    feat = torch.cat([pts, enc], dim=-1)
     zs = []
 
     def act(v):

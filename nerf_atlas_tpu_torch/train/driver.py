@@ -30,8 +30,9 @@ from ..ops.kernels import render as k1
 from . import checkpoints, losses as losses_lib, optim as optim_lib
 
 # which train path the most recent train() engaged: "fused-one-kernel"
-# (K3) | "fused" (K1 + K2 through PlainCPRender) | "oracle" (the module
-# forward under autograd). Recorded into log.json by the runner.
+# (K3; for hash K5f + K3 + K5b) | "fused" (K1 + K2 through PlainCPRender,
+# or PlainHashRender after HashEncode) | "oracle" (the module forward
+# under autograd). Recorded into log.json by the runner.
 LAST_TRAIN_PATH: Optional[str] = None
 
 # the options of the smoothness regularizers (their models are not ported)
@@ -119,16 +120,20 @@ def init_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
   return model
 
 
-def _is_flagship(model) -> bool:
-  """PlainNeRF with the cp encoder and the View refl in identity space at
-  the kernels' width, an rgb activation they implement, linear-in-t
-  samples."""
-  return (isinstance(model, PlainNeRF) and model.enc_kind == "cp"
+def _fused_enc_kind(model) -> Optional[str]:
+  """The kernels' enc kind, "cp" or "hash", for a PlainNeRF with that
+  encoder and the View refl in identity space at the kernels' width, an
+  rgb activation they implement and linear-in-t samples; None otherwise.
+  The port's HashEncoder lets only `table_size` differ from the defaults,
+  which is the JAX gate's rule (train/driver.py:254-261)."""
+  if not (isinstance(model, PlainNeRF) and model.enc_kind in k1.ENC_KINDS
           and model.mip is None and model.refl_kind == "view"
           and model.refl_space == "identity"
           and model.intermediate_size == 32
           and model.sigmoid_kind in k1.FUSED_SIGMOID_KINDS
-          and not model.lindisp)
+          and not model.lindisp):
+    return None
+  return model.enc_kind
 
 
 def _fused_common_ok(model, cfg: TrainConfig) -> bool:
@@ -139,7 +144,7 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   rule (the CUDA kernels mask the ragged edge) and no CPU rule (there the
   wrappers take their plain versions)."""
   return not (
-      not _is_flagship(model)
+      _fused_enc_kind(model) is None
       or model.sky_kind not in ("black", "white")
       or model.density_noise != 0
       or model.per_ray_jitter or model.lindisp
@@ -160,11 +165,11 @@ def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
-  """The one-kernel train step K3 (driver.py:448-560) when the training
-  loss is the kernel's (plain l2 on rgb, no colour transforms, tone map,
-  gamma or style, 3- or 4-channel labels) and `_fused_common_ok` holds;
-  None otherwise. Returns fn(ws, rays, pix, generator) -> (loss, packed
-  gradient)."""
+  """The one-kernel train step (driver.py:448-560): K3, or for hash K5f +
+  K3 + K5b, when the training loss is the kernel's (plain l2 on rgb, no
+  colour transforms, tone map, gamma or style, 3- or 4-channel labels)
+  and `_fused_common_ok` holds; None otherwise. Returns fn(rays, pix,
+  generator) -> (loss, {state_dict key: gradient})."""
   if cfg.no_fused:
     return None
   g = cfg.gamma_correct
@@ -175,32 +180,44 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
       or gamma_active or style_active or ds.pixels.shape[-1] not in (3, 4)
       or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)):
     return None
-  k1.pack_weights(model.state_dict())        # raises on a divergent tree
+  enc = _fused_enc_kind(model)
+  k1.pack_weights(model.state_dict(), enc_kind=enc)  # raises on divergence
   kw = _kernel_kw(model)
 
-  def fn(ws, rays, pix, generator):
+  def fn(rays, pix, generator):
     ts = _step_ts(model, generator, rays.device)
-    return k1.plain_cp_train_step(ws, rays, pix[:, :3].contiguous(), ts=ts,
-                                  **kw)
+    sd = model.state_dict()
+    ws = k1.pack_weights(sd, rays.device, enc)
+    target = pix[:, :3].contiguous()
+    if enc == "cp":
+      loss, grad = k1.plain_cp_train_step(ws, rays, target, ts=ts, **kw)
+      return loss, k1.unpack_grads(grad)
+    loss, grad, dtable = k1.fused_plain_hash_train_step(
+        ws, k1.hash_table(sd), rays, target, ts, **kw)
+    return loss, {**k1.unpack_grads(grad), k1.HASH_TABLE_KEY: dtable}
 
   return fn
 
 
 def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   """The two-kernel path (driver.py:158-295): K1 forward and K2 backward
-  through `PlainCPRender`, with the loss computed outside. Returns
+  through `PlainCPRender`, or for hash K5f/K5b (`HashEncode`) into
+  K1/K2 (`PlainHashRender`), with the loss computed outside. Returns
   fn(ws, rays, generator) -> [N, 4], differentiable in the packed
-  weights ws, or None."""
+  weights ws (and, for hash, in the model's table parameter), or None."""
   del ds
   if cfg.no_fused or not _fused_common_ok(model, cfg):
     return None
-  k1.pack_weights(model.state_dict())        # raises on a divergent tree
+  enc = _fused_enc_kind(model)
+  k1.pack_weights(model.state_dict(), enc_kind=enc)  # raises on divergence
   kw = _kernel_kw(model)
 
   def fn(ws, rays, generator):
-    return k1.plain_cp_render_train(ws, rays,
-                                    _step_ts(model, generator, rays.device),
-                                    **kw)
+    ts = _step_ts(model, generator, rays.device)
+    if enc == "cp":
+      return k1.plain_cp_render_train(ws, rays, ts, **kw)
+    return k1.fused_plain_hash_render_train(ws, model.density_mlp.enc.table,
+                                            rays, ts, **kw)
 
   return fn
 
@@ -208,14 +225,16 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
                     cfg: TrainConfig, fused_step=None, fused_train=None):
   """The per-step closure step(i, generator) -> {"loss", "mse"} (device
-  scalars): sample a batch, get the gradient from K3, from K1 + K2, or
-  from the module forward under autograd, mask it (train_only /
-  freeze_substr), and step the optimizer."""
+  scalars): sample a batch, get the gradient from the one-kernel step,
+  from the two-kernel path, or from the module forward under autograd,
+  mask it (train_only / freeze_substr), and step the optimizer. The hash
+  table's gradient comes from K5b."""
   params = dict(model.named_parameters())
   device = next(model.parameters()).device
+  enc = _fused_enc_kind(model)
 
-  def set_grads(packed):
-    for key, grad in k1.unpack_grads(packed).items():
+  def set_grads(grads):
+    for key, grad in grads.items():
       params[key].grad = grad
 
   def step(i: int, generator: torch.Generator):
@@ -224,14 +243,14 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
         generator, cfg.batch_size, jitter=cfg.pixel_jitter,
         serial_step=i if cfg.serial_idxs else None, end_bias=cfg.end_bias)
     if fused_step is not None:
-      loss, grad = fused_step(k1.pack_weights(model.state_dict(), device),
-                              rays, pix, generator)
-      set_grads(grad)
+      loss, grads = fused_step(rays, pix, generator)
+      set_grads(grads)
     elif fused_train is not None:
-      ws = k1.pack_weights(model.state_dict(), device).requires_grad_(True)
+      ws = k1.pack_weights(model.state_dict(), device, enc).requires_grad_(
+          True)
       loss = loss_fn(fused_train(ws, rays, generator)[:, :3], pix)
-      loss.backward()
-      set_grads(ws.grad)
+      loss.backward()                 # for hash, also the table's .grad
+      set_grads(k1.unpack_grads(ws.grad))
     else:
       loss = loss_fn(model(rays, train=True, generator=generator)["rgb"], pix)
       loss.backward()
@@ -320,20 +339,24 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
 
 
 def _fused_render_fn(model) -> Optional[Callable]:
-  """rays [n, 6] -> rgb [n, 3] through the K1 kernel wrapper when the
-  model is the flagship (`_is_flagship`, any sky the kernel implements);
-  None otherwise. A parameter tree that diverges from the flagship's
-  raises (in `pack_weights`)."""
-  if not _is_flagship(model) or model.sky_kind not in integrate.SKY_KINDS:
+  """rays [n, 6] -> rgb [n, 3] through K1 (cp) or K5f + K1 (hash) when
+  the model is in the kernels' envelope (`_fused_enc_kind`, any sky the
+  kernel implements); None otherwise. A parameter tree that diverges
+  from the flagship's raises (in `pack_weights`)."""
+  enc = _fused_enc_kind(model)
+  if enc is None or model.sky_kind not in integrate.SKY_KINDS:
     return None
   device = next(model.parameters()).device
-  ws = k1.pack_weights(model.state_dict(), device)  # raises on divergence
+  sd = model.state_dict()
+  ws = k1.pack_weights(sd, device, enc)       # raises on divergence
+  kw = dict(steps=model.steps, t_near=model.t_near, t_far=model.t_far,
+            sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
 
   def fn(rays_chunk):
-    return k1.plain_cp_render(
-        ws, rays_chunk, steps=model.steps, t_near=model.t_near,
-        t_far=model.t_far, sigmoid_kind=model.sigmoid_kind,
-        sky_kind=model.sky_kind)[:, :3]
+    if enc == "cp":
+      return k1.plain_cp_render(ws, rays_chunk, **kw)[:, :3]
+    return k1.fused_plain_hash_render(ws, k1.hash_table(sd), rays_chunk,
+                                      **kw)[:, :3]
 
   return fn
 

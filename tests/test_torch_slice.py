@@ -128,7 +128,7 @@ def test_write_png_roundtrips(tmp_path):
     (["--epochs", "5", "--smooth-n-ord", "1"], NotImplementedError),
     (["--param-file", "x.json"], NotImplementedError),
     (["--model", "tiny"], NotImplementedError),
-    (["--enc-kind", "hash"], NotImplementedError),
+    (["--enc-kind", "ref-hash"], NotImplementedError),
     (["--mip", "cone"], NotImplementedError),
     (["--data-kind", "dnerf"], NotImplementedError),
     (["--depth-query-normal"], NotImplementedError),
