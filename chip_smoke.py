@@ -109,7 +109,7 @@ QUALITY_R05_HASH = (33.686, 31.062)
 # abs; K5b: float atomics add in another order, 1e-5 relative per level
 HASH_TOL = 1e-6
 HASH_GRAD_RTOL = 1e-5
-# published H100 SXM peaks (on-chip-measurement guide): float32 outside
+# published H100 SXM peaks (NVIDIA's H100 datasheet): float32 outside
 # the tensor cores, and HBM3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
