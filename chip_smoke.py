@@ -20,30 +20,41 @@ Phases, each printing its lines before the next starts:
      table seeded and amplified to +-1; K1/K2/K3 in hash mode at T = 2^19
      as for cp; the chained table gradient (K3-hash -> K5b) against
      autograd through the plain path; a ragged batch; PlainHashRender's
-     gradient against K2-hash's;
+     gradient against K2-hash's. Then NeRFAE: K7f (render_ae_fwd) at
+     (64 steps, 1001 rays) and (16 steps, 77 rays), black and white sky,
+     on the grid and on a jittered ts; K7b (render_ae_bwd) in cotangent
+     and loss mode at 4096 x 64 and 77 x 16 as for K2/K3, over all rays
+     and the kink-free ones; AERender's gradient against mode G's; two
+     K7b launches bit for bit;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
-     hash (T = 2^19), which must launch K5f and K1-hash;
+     hash (T = 2^19), which must launch K5f and K1-hash; 4c. the same
+     with --model ae --normalize-latent, which must launch K7f and no K1;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
      500 steps) and must engage the one-kernel step, launch K3 once per
      step and K1 in eval, and beat the all-black PSNR by 2 dB on both
      splits; 5b. the same for PlainNeRF-hash at the quality sweep's
      plain_hash recipe (--hash-table-log2 14), which must launch K5f,
-     K3-hash and K5b once per step;
+     K3-hash and K5b once per step; 5c. NeRFAE at the sweep's ae recipe
+     (--normalize-latent --latent-l2-weight 1e-3), which must engage the
+     one-kernel step and launch K7b once per step;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
      and the optimizer alone. For hash: K5f and K5b per call (262144 and
      4194304 points), the K1-hash and K3-hash calls, the hash train steps
-     (K3 at T = 2^19 and 2^14, K1 + K2, plain) and one 800x800 hash frame;
+     (K3 at T = 2^19 and 2^14, K1 + K2, plain) and one 800x800 hash frame.
+     For NeRFAE: the K7f and plain calls at 65536 x 64, one 800x800 frame,
+     the K7b and plain K7b calls at 4096 x 64, the train steps (K7b,
+     K7f + K7b, plain) and the point-sampled latent L2's share of a step;
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
-     plain_hash at 1500 steps for each seed;
+     plain_hash and ae at 1500 steps for each seed;
   8. with `--profile` only: where one frame's and one train step's time
-     goes, for cp and for hash (torch.profiler traces: device idle share,
+     goes, for cp, hash and ae (torch.profiler traces: device idle share,
      per-kernel shares; host-side costs; SM clock and power under load).
 The last three lines are the kernels' JSON record (each kernel's
 launches on its main path, max error against its plain version, ms per
@@ -113,9 +124,18 @@ HASH_GRAD_RTOL = 1e-5
 # the tensor cores, and HBM3
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# dense bf16 on the tensor cores: the bound a bf16 port could reach
+PEAK_BF16 = 989e12
 # float operations per (point, level) of K5f and of K5b: the cell (13),
 # then per corner its weight and the two products and sums (7.5)
 HASH_FLOP_PER_LEVEL = 73
+# the quality sweep's ae recipe (scripts/tpu_quality_sweep.py:75-77)
+AE_TRAIN_ARGV = (TRAIN_ARGV[:3] + ["ae", "--normalize-latent",
+                                   "--latent-l2-weight", "1e-3"]
+                 + TRAIN_ARGV[6:])
+AE_LATENT_L2 = 1e-3
+# QUALITY_r05 ae (TPU, seed 0, one run): a record, not a gate
+QUALITY_R05_AE = (33.524, 33.169)
 
 
 def _sync_time(fn):
@@ -155,7 +175,8 @@ def _mean_s(fn, reps: int = 5) -> float:
 
 def _build(build):
   """Phase 2: one nvcc per kernel source, started together."""
-  names = ("render_fwd", "render_bwd", "hash_encode")
+  names = ("render_fwd", "render_bwd", "hash_encode", "render_ae_fwd",
+           "render_ae_bwd")
   with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
     built = dict(zip(names, pool.map(build.build, names)))
   for name, b in built.items():
@@ -428,14 +449,126 @@ def _check_hash_render(k1, hk, rays_ops, models, driver, dev):
   return max_k1, max_bwd
 
 
+def _ae_weights(models, driver, k7, dev, steps=STEPS):
+  """(seeded, amplified) packed NeRFAE weights: the amplified ones scale
+  the View's output layer by 40 and density_tfm's by 8, so that rgb
+  spans (0, 1) and density varies along the rays."""
+  sd = driver.init_model(models.NeRFAE(steps=steps, device=dev),
+                         seed=0).state_dict()
+  amp = dict(sd)
+  amp["refl.mlp.layer_out.weight"] = amp["refl.mlp.layer_out.weight"] * 40.0
+  amp["density_tfm.layer_out.weight"] = (
+      amp["density_tfm.layer_out.weight"] * 8.0)
+  return k7.pack_weights_ae(sd, dev), k7.pack_weights_ae(amp, dev)
+
+
+def _check_ae_bwd(what, k7, testing, ws, rays, gen, kw):
+  """K7b in modes G (random g) and L (random target) against autograd
+  through the plain K7f, over all rays and over the kink-free rays (see
+  GRAD_RTOL). Returns the max |Δ| of the kink-free gradients."""
+  n = rays.shape[0]
+  keep = testing.ae_kink_free_rays(ws, rays, kw["ts"], kw["steps"],
+                                   KINK_MARGIN)
+  g = torch.randn(n, 4, device=rays.device, generator=gen)
+  target = torch.rand(n, 3, device=rays.device, generator=gen)
+  out = k7.ae_render_reference(ws, rays, **kw)[:, :3]
+  step_kw = {k: v for k, v in kw.items() if k != "ts"}
+  max_abs = 0.0
+  for mode, arg, masked in (
+      ("G", g, g * keep[:, None]),
+      ("L", target, torch.where(keep[:, None], target, out).contiguous())):
+    line = []
+    for name, a in (("all rays", arg), ("kink-free", masked)):
+      if mode == "G":
+        got = k7.fused_ae_render_grad(ws, rays, a, **kw)
+        ref = k7.ae_render_grad_reference(ws, rays, a, **kw)
+      else:
+        (loss, got) = k7.fused_ae_train_step(ws, rays, a, kw["ts"], **step_kw)
+        (loss_r, ref) = k7.ae_train_step_reference(ws, rays, a, **kw)
+        loss_rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
+        if not loss_rel <= LOSS_RTOL:
+          raise RuntimeError(f"{what} K7b-L loss {float(loss)} vs plain "
+                             f"{float(loss_r)}")
+        line.append(f"{name} loss rel {loss_rel:.2e}")
+      torch.cuda.synchronize()
+      ug, ur = k7.unpack_grads_ae(got), k7.unpack_grads_ae(ref)
+      errs = {k: float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur}
+      key = max(errs, key=errs.get)
+      tol = ALL_RAY_RTOL if name == "all rays" else GRAD_RTOL
+      if not (errs[key] <= tol and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"{what} K7b-{mode} ({name}): gradient of {key} "
+                           f"{errs[key]:.3e} from its plain version (tol "
+                           f"{tol})")
+      line.append(f"{name}: max_t ‖Δ‖/‖ref‖ {errs[key]:.2e} ({key})")
+      if name == "kink-free":
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+    print(f"[check] K7b-{mode} {what}: {' | '.join(line)} | kink-free rays "
+          f"{int(keep.sum())}/{n}", flush=True)
+  return max_abs
+
+
+def _check_ae(k7, testing, rays_ops, models, driver, dev):
+  """Phase 3, NeRFAE: K7f and K7b against their plain versions, AERender
+  against mode G, and K7b's determinism. Returns (K7f max |Δ|, K7b max
+  |Δ|)."""
+  seeded, amplified = _ae_weights(models, driver, k7, dev)
+  gen = torch.Generator(device=dev).manual_seed(6)
+  max_f, max_b = 0.0, 0.0
+  for steps, n in ((STEPS, 1001), (16, 77)):
+    rays = torch.from_numpy(_check_rays(n, steps)).to(dev)
+    ts = rays_ops.compute_ts(2.0, 6.0, steps, perturb=1.0, generator=gen,
+                             device=dev)
+    for (wname, ws), sky, kind in (
+        (("seeded", seeded), "black", "thin"),
+        (("amplified", amplified), "black", "thin"),
+        (("amplified", amplified), "white", "normal")):
+      for tname, t in (("grid", None), ("jittered ts", ts)):
+        kw = dict(steps=steps, sigmoid_kind=kind, sky_kind=sky, ts=t)
+        out = k7.fused_ae_render(ws, rays, **kw)
+        ref = k7.ae_render_reference(ws, rays, **kw)
+        torch.cuda.synchronize()
+        e = float((out - ref).abs().max())
+        print(f"[check] K7f {n} rays x {steps} {wname:9s} sky {sky:5s} "
+              f"{kind:6s} {tname:11s}: max|Δ| {e:.3e} (tol {TOL:.0e}; ref "
+              f"rgb std {float(ref[:, :3].std()):.3f})", flush=True)
+        if not (e <= TOL and bool(torch.isfinite(out).all())):
+          raise RuntimeError(f"K7f disagrees with its reference: {e}")
+        max_f = max(max_f, e)
+  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
+  for sky, kind in (("white", "thin"), ("black", "normal")):
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    max_b = max(max_b, _check_ae_bwd(
+        f"{N_CHECK} rays x {STEPS} sky {sky:5s} {kind:6s}", k7, testing,
+        amplified, rays, gen, dict(steps=STEPS, sigmoid_kind=kind,
+                                   sky_kind=sky, ts=ts)))
+  rays_r = torch.from_numpy(_check_rays(77, 1)).to(dev)
+  ts = rays_ops.compute_ts(2.0, 6.0, 16, perturb=1.0, generator=gen,
+                           device=dev)
+  kw = dict(steps=16, sigmoid_kind="thin", sky_kind="white", ts=ts)
+  max_b = max(max_b, _check_ae_bwd("ragged 77 rays x 16", k7, testing,
+                                   amplified, rays_r, gen, kw))
+  g = torch.randn(77, 4, device=dev, generator=gen)
+  leaf = amplified.clone().requires_grad_(True)
+  (k7.fused_ae_render_train(leaf, rays_r, ts, steps=16, sky_kind="white")
+   * g).sum().backward()
+  direct = k7.fused_ae_render_grad(amplified, rays_r, g, **kw)
+  again = k7.fused_ae_render_grad(amplified, rays_r, g, **kw)
+  if not (torch.equal(leaf.grad, direct) and torch.equal(direct, again)):
+    raise RuntimeError("AERender's gradient differs from K7b-G's, or two "
+                       "K7b launches differ")
+  print("[check] AERender backward == K7b-G (bitwise); two K7b launches "
+        "bitwise equal", flush=True)
+  return max_f, max_b
+
+
 def _render_main(port_runner, *extra):
-  """Phases 4 / 4b: the port's runner renders and scores 800x800, 2 views
-  x 2 splits, seeded random weights; returns (results, wall s, launches
-  per kernel)."""
+  """Phases 4 / 4b / 4c: the port's runner renders and scores 800x800, 2
+  views x 2 splits, seeded random weights; returns (results, wall s,
+  launches per kernel)."""
   with tempfile.TemporaryDirectory() as outdir:
-    argv = ["--data-kind", "synthetic", "--model", "plain", "--size",
-            str(SIZE), "--num-views", "2", "--epochs", "0", "--outdir",
-            outdir, *extra]
+    argv = ["--data-kind", "synthetic", "--size", str(SIZE), "--num-views",
+            "2", "--epochs", "0", "--outdir", outdir, *extra]
     (results, secs), counts = _counted(
         lambda: _sync_time(lambda: port_runner.main(argv)))
     for split in ("train", "test"):
@@ -456,11 +589,13 @@ def _wrappers():
   """{name: wrapper} of every kernel wrapper that counts its launches."""
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
   return {"K1": k1.plain_cp_render, "K2": k1.plain_cp_render_grad,
           "K3": k1.plain_cp_train_step, "K1-hash": k1.plain_hash_render,
           "K2-hash": k1.plain_hash_render_grad,
           "K3-hash": k1.plain_hash_train_step, "K5f": hk.hash_encode,
-          "K5b": hk.hash_encode_table_grad}
+          "K5b": hk.hash_encode_table_grad, "K7f": k7.fused_ae_render,
+          "K7b-G": k7.fused_ae_render_grad, "K7b": k7.fused_ae_train_step}
 
 
 def _counted(fn):
@@ -552,17 +687,40 @@ def _train_main_hash(port_runner, k1, loaders, dev):
   return counts
 
 
+def _train_main_ae(port_runner, k1, loaders, dev):
+  """Phase 5c: NeRFAE at the quality sweep's ae recipe. Returns the
+  launches per kernel."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            TRAIN_STEPS, argv=AE_TRAIN_ARGV)
+  losses = _check_trained(results, black)
+  others = {k: v for k, v in counts.items() if k not in ("K7b", "K7f") and v}
+  if counts["K7b"] != TRAIN_STEPS or counts["K7f"] <= 0 or others:
+    raise RuntimeError(f"ae training launched {counts}, expected "
+                       f"{TRAIN_STEPS} K7b, K7f in eval and nothing else")
+  print(f"[train] runner ae {TRAIN_STEPS} steps x {BATCH} rays x {STEPS} "
+        f"samples (48x48, 30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | launches K7b {counts['K7b']}, K7f "
+        f"{counts['K7f']} | loss {losses[0]:.5f} -> {losses[-1]:.5f} | PSNR "
+        f"train {results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts
+
+
 def _step_fns(model_cls, driver, ds, dev, names=("K3 step", "K1+K2 step",
-                                                 "plain step"), **model_kw):
-  """The three train steps at batch 4096 on fresh seeded models: K3, K1 +
-  K2, plain (module under autograd); and each one's optimizer."""
+                                                 "plain step"),
+              reg_coeffs=None, **model_kw):
+  """The three train steps at batch 4096 on fresh seeded models: the
+  one-kernel step ("K3 step"; K7b for NeRFAE), the two-kernel path
+  ("K1+K2 step"; K7f + K7b), plain (module under autograd); and each
+  one's optimizer."""
   from nerf_atlas_tpu_torch.train import losses, optim
   out = {}
   for name in names:
     model = driver.init_model(model_cls(steps=STEPS, device=dev, **model_kw),
                               seed=0)
     cfg = driver.TrainConfig(steps=1000, batch_size=BATCH,
-                             learning_rate=1e-3,
+                             learning_rate=1e-3, reg_coeffs=reg_coeffs or {},
                              no_fused=name == "plain step")
     opt = optim.load_optimizer(model.parameters(), "adam", 1e-3,
                                total_steps=1000)
@@ -620,9 +778,10 @@ def _time_training(card, model_cls, driver, loaders, sampler, k1, rays_ops,
   kk2 = _event_ms(lambda: k1.plain_cp_render_grad(ws, rays, g, **kw), 2)
   p2 = _event_ms(plain_k2, 1)
   k1.plain_cp_render_grad.launches = launches        # timing, not the path
+  b2 = _mlp_bound(k1, "cp", rays.shape[0], STEPS, True)
   print(f"[time] {card}: one {rays.shape[0]}-ray x {STEPS}-step K2 call "
-        f"{kk1:.2f} / {kk2:.2f} ms, plain torch {p1:.2f} / {p2:.2f} ms",
-        flush=True)
+        f"{kk1:.2f} / {kk2:.2f} ms (bound {b2[0]:.2f} ms, bf16 tensor-core "
+        f"{b2[2]:.2f} ms), plain torch {p1:.2f} / {p2:.2f} ms", flush=True)
   target = torch.rand(BATCH, 3, device=dev, generator=gen)
   r4 = rays[:BATCH].contiguous()
   k3_ms = _event_ms(lambda: k1.plain_cp_train_step(ws, r4, target, **kw), 5)
@@ -634,26 +793,41 @@ def _time_training(card, model_cls, driver, loaders, sampler, k1, rays_ops,
 
 
 def _bound_ms(flop: float, nbytes: float):
-  """(ms, "bytes" or "operations"): the least time the card could take,
-  the larger of the bytes over the HBM rate and the float32 operations
-  over the float32 peak."""
+  """(ms, "bytes" or "operations", bf16 ms): the least time the card
+  could take, the larger of the bytes over the HBM rate and the float32
+  operations over the float32 peak; last, the same with the operations
+  over the bf16 tensor-core peak."""
   t_ops, t_bytes = flop / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-  return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+  t_bf16 = max(flop / PEAK_BF16 * 1e3, t_bytes)
+  return ((t_ops, "operations", t_bf16) if t_ops >= t_bytes
+          else (t_bytes, "bytes", t_bf16))
+
+
+def _no_cotangent_macs(layers, prefix: str, hidden: int, rows: int) -> int:
+  """Multiply-adds per point of the input-gradient products onto `rows`
+  rows of the init feature of the MLP `prefix`, which no gradient needs:
+  layer_in and each skip layer carry the init feature (their width is
+  not `hidden`)."""
+  return sum(rows * o for name, i, o in layers
+             if name.startswith(prefix) and i != hidden)
 
 
 def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool):
   """Bound of one K1 (or, backward, K2/K3) call on n rays: 2 FLOP per
   multiply-add of the two MLPs per sample point (3x that backward: the
-  forward, the input- and the weight-gradient products); bytes: rays, ts,
-  weights and the hash features in, [n, 4] out (backward: the target in,
-  the gradient and dfeat out)."""
+  forward, the input- and the weight-gradient products, less the input
+  gradients of the View's p and elev/azim rows); bytes: rays, ts, weights
+  and the hash features in, [n, 4] out (backward: the target in, the
+  gradient and dfeat out)."""
   lay = k1.LAYOUTS[enc]
   macs = sum(i * o for _, i, o in lay.density_layers + lay.refl_layers)
   pts = n * steps
   feat = pts * 16 if enc == "hash" else 0
   if backward:
-    return _bound_ms(6 * macs * pts, 4 * (n * 9 + 2 * steps
-                                          + 2 * lay.weight_count + 2 * feat))
+    skip = _no_cotangent_macs(lay.refl_layers, "refl.mlp", k1.R_HIDDEN, 5)
+    return _bound_ms(2 * (3 * macs - skip) * pts,
+                     4 * (n * 9 + 2 * steps + 2 * lay.weight_count
+                          + 2 * feat))
   return _bound_ms(2 * macs * pts, 4 * (n * 10 + 2 * steps + lay.weight_count
                                         + feat))
 
@@ -823,6 +997,115 @@ def _time_hash(card, models, driver, loaders, sampler, k1, hk, rays_ops, dev,
   return res
 
 
+def _ae_bound(k7, n: int, backward: bool):
+  """Bound of one K7f (or, backward, K7b) call on n rays x 64 steps: 2
+  FLOP per multiply-add of the three MLPs per sample point (3x that
+  backward, less the input gradients no output needs: the encoder's 51
+  posenc rows and the View's p and elev/azim rows); bytes: rays, ts,
+  dists, the bands and the weights in, [n, 4] out (backward: the target
+  in, the gradient out)."""
+  macs = sum(i * o for _, i, o in k7.LAYERS)
+  pts = n * STEPS
+  fixed = 2 * STEPS + 8
+  if backward:
+    skip = (_no_cotangent_macs(k7.LAYERS, "encode", k7.E_HIDDEN, k7.E_IN)
+            + _no_cotangent_macs(k7.LAYERS, "refl.mlp", k7.k1.R_HIDDEN, 5))
+    return _bound_ms(2 * (3 * macs - skip) * pts,
+                     4 * (n * 9 + fixed + 2 * k7.WEIGHT_COUNT))
+  return _bound_ms(2 * macs * pts, 4 * (n * 10 + fixed + k7.WEIGHT_COUNT))
+
+
+def _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
+             frame_ds):
+  """Phase 6, NeRFAE: the K7f and plain calls at 65536 x 64, one 800x800
+  frame, the K7b and plain K7b calls at 4096 x 64, the three train steps
+  at the ae recipe and the latent L2's share of the K7b step. Returns the
+  numbers of the kernels line."""
+  from nerf_atlas_tpu_torch.train import regularizers
+  model = driver.init_model(models.NeRFAE(steps=STEPS, device=dev), seed=0)
+  ws = k7.pack_weights_ae(model.state_dict(), dev)
+  frame_rays = frame_ds.view_rays(0)
+  call_rays = frame_rays[:CHUNK].contiguous()
+  kw = dict(steps=STEPS, t_near=2.0, t_far=6.0)
+  res, ms = {}, {}
+  for name, fn, reps in (
+      ("plain", lambda: k7.ae_render_reference(ws, call_rays, **kw), 2),
+      ("kernel", lambda: k7.fused_ae_render(ws, call_rays, **kw), 3),
+      ("kernel", lambda: k7.fused_ae_render(ws, call_rays, **kw), 3),
+      ("plain", lambda: k7.ae_render_reference(ws, call_rays, **kw), 2)):
+    ms.setdefault(name, []).append(_event_ms(fn, reps))
+  res["k7f"] = (min(ms["kernel"]), min(ms["plain"]),
+                _ae_bound(k7, CHUNK, False))
+  tflop = 2 * sum(i * o for _, i, o in k7.LAYERS) * CHUNK * STEPS / 1e12
+  print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step K7f call "
+        f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
+        f"({tflop / (min(ms['kernel']) / 1e3):.2f} TFLOP/s; bound "
+        f"{res['k7f'][2][0]:.2f} ms), plain torch {ms['plain'][0]:.2f} / "
+        f"{ms['plain'][1]:.2f} ms ({tflop / (min(ms['plain']) / 1e3):.2f} "
+        "TFLOP/s)", flush=True)
+
+  def ref_frame():
+    return torch.cat([k7.ae_render_reference(ws, rc, **kw)[:, :3]
+                      for rc in frame_rays.split(CHUNK)])
+
+  img_ref, ref_s = _sync_time(ref_frame)
+  img_k, k_s = _sync_time(lambda: driver.render_view(model, frame_ds, 0))
+  res["frame_err"] = float(np.abs(img_k.reshape(-1, 3)
+                                  - img_ref.cpu().numpy()).max())
+  if res["frame_err"] > TOL:
+    raise RuntimeError(f"800x800 ae frame: kernel vs reference "
+                       f"{res['frame_err']}")
+  print(f"[time] {card}: one {SIZE}x{SIZE}x{STEPS} ae frame: render_view "
+        f"(K7f) {k_s:.3f} s = {SIZE * SIZE / k_s:,.0f} rays/s, plain torch "
+        f"{ref_s:.3f} s = {SIZE * SIZE / ref_s:,.0f} rays/s | frame max diff "
+        f"{res['frame_err']:.2e}", flush=True)
+
+  gen = torch.Generator(device=dev).manual_seed(9)
+  r4 = call_rays[:BATCH].contiguous()
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                           device=dev)
+  target = torch.rand(BATCH, 3, device=dev, generator=gen)
+  launches = k7.fused_ae_train_step.launches
+  k7b_ms = _event_ms(lambda: k7.fused_ae_train_step(ws, r4, target, ts,
+                                                    steps=STEPS), 5)
+  k7.fused_ae_train_step.launches = launches         # timing, not the path
+  plain_ms = _event_ms(lambda: k7.ae_train_step_reference(
+      ws, r4, target, ts=ts, steps=STEPS), 3)
+  res["k7b"] = (k7b_ms, plain_ms, _ae_bound(k7, BATCH, True))
+  print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K7b call (loss "
+        f"mode) {k7b_ms:.2f} ms (bound {res['k7b'][2][0]:.2f} ms), plain "
+        f"torch {plain_ms:.2f} ms", flush=True)
+
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  fns = _step_fns(models.NeRFAE, driver, ds, dev,
+                  reg_coeffs={"latent_l2": AE_LATENT_L2})
+  order = ["K3 step", "K1+K2 step", "plain step"]
+  labels = {"K3 step": "K7b step", "K1+K2 step": "K7f+K7b step",
+            "plain step": "plain step"}
+  step_ms = {}
+  for name in order + order[::-1]:
+    step, _ = fns[name]
+    step_ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+  for name in order:
+    v = step_ms[name]
+    print(f"[time] {card}: ae {labels[name]} at {BATCH}x{STEPS} (latent L2 "
+          f"{AE_LATENT_L2}): {v[0]:.2f} / {v[1]:.2f} ms = "
+          f"{BATCH / (min(v) / 1e3):,.0f} train rays/s", flush=True)
+
+  def latent_l2_grad():
+    reg = AE_LATENT_L2 * regularizers.ae_latent_l2(model, gen)
+    reg.backward()
+
+  reg_ms = _event_ms(latent_l2_grad, 10)
+  model.zero_grad(set_to_none=True)
+  print(f"[time] {card}: ae_latent_l2 (1024 points) + its gradient "
+        f"{reg_ms:.3f} ms = {reg_ms / min(step_ms['K3 step']):.4f} of the "
+        "K7b step", flush=True)
+  return res
+
+
 def _quality(card, port_runner, k1, loaders, dev, seeds):
   """Phase 7: the sweep recipe's 1500 steps on the kernel path for
   each seed, and with --no-fused for the first; prints both splits' PSNR
@@ -830,19 +1113,22 @@ def _quality(card, port_runner, k1, loaders, dev, seeds):
   runs = [(seeds[0], (), TRAIN_ARGV), (seeds[0], ("--no-fused",), TRAIN_ARGV)]
   runs += [(seed, (), TRAIN_ARGV) for seed in seeds[1:]]
   runs += [(seed, (), HASH_TRAIN_ARGV) for seed in seeds]
+  runs += [(seed, (), AE_TRAIN_ARGV) for seed in seeds]
+  records = {id(HASH_TRAIN_ARGV): ("plain_hash T=2^14 ", QUALITY_R05_HASH),
+             id(AE_TRAIN_ARGV): ("ae ", QUALITY_R05_AE)}
   for seed, extra, argv in runs:
     results, secs, _, black = _train_run(
         port_runner, k1, loaders, dev, QUALITY_STEPS,
         ("--seed", str(seed), *extra), argv=argv)
-    hash_note = (f" (QUALITY_r05 plain_hash, TPU: {QUALITY_R05_HASH[0]} / "
-                 f"{QUALITY_R05_HASH[1]})" if argv is HASH_TRAIN_ARGV else "")
-    print(f"[quality] {card}: {'plain_hash T=2^14 ' if hash_note else ''}"
-          f"{QUALITY_STEPS} steps, seed {seed}, path "
+    tag, record = records.get(id(argv), ("", None))
+    note = (f" (QUALITY_r05 {tag.split()[0]}, TPU: {record[0]} / "
+            f"{record[1]})" if record else "")
+    print(f"[quality] {card}: {tag}{QUALITY_STEPS} steps, seed {seed}, path "
           f"{results['engaged_path']}: PSNR train "
           f"{results['train']['psnr_mean']:.3f} test "
           f"{results['test']['psnr_mean']:.3f} (all-black "
           f"{black['train']:.3f} / {black['test']:.3f}) in {secs:.1f} s"
-          f"{hash_note}", flush=True)
+          f"{note}", flush=True)
 
 
 def _trace(fn, warm: int = 2):
@@ -923,14 +1209,15 @@ def _profile(card, model, ds, ws):
 
 
 def _profile_train(card, model_cls, driver, loaders, sampler, dev,
-                   tag="K3", **model_kw):
+                   tag="K3", reg_coeffs=None, **model_kw):
   """Phase 8, train half: one traced one-kernel train step at batch 4096
-  (device idle share; shares of K3, its reduction, K5f/K5b for hash,
-  sampling and Adam) and the host time per step."""
+  (device idle share; shares of K3 or K7b, its reduction, K5f/K5b for
+  hash, sampling and Adam) and the host time per step."""
   ds = sampler.RayDataset.from_bundle(
       loaders.load("", data_kind="synthetic", size=48, num_views=30,
                    device=dev), size=48, device=dev)
-  step, _ = _step_fns(model_cls, driver, ds, dev, **model_kw)["K3 step"]
+  step, _ = _step_fns(model_cls, driver, ds, dev, reg_coeffs=reg_coeffs,
+                      **model_kw)["K3 step"]
   gen = torch.Generator(device=dev).manual_seed(2)
   untraced, wall, by_name = _trace(lambda: step(0, gen), warm=3)
   busy = sum(us for _, us in by_name.values()) / 1e6
@@ -944,7 +1231,8 @@ def _profile_train(card, model_cls, driver, loaders, sampler, dev,
         f"untraced; traced {wall * 1e3:.2f} ms wall, device busy "
         f"{busy * 1e3:.2f} ms, idle share "
         f"{(1 - busy / wall if busy else float('nan')):.4f}; shares: K3 "
-        f"{share('render_bwd_kernel'):.4f}, reduction "
+        f"{share('render_bwd_kernel'):.4f}, K7b "
+        f"{share('render_ae_bwd_kernel'):.4f}, reduction "
         f"{share('reduce_partials'):.4f}, K5f {share('hash_fwd'):.4f}, K5b "
         f"{share('hash_bwd'):.4f}, Adam "
         f"{share('adam', 'foreach', 'lerp', 'addcdiv', 'sqrt'):.4f}, "
@@ -962,18 +1250,17 @@ def _profile_train(card, model_cls, driver, loaders, sampler, dev,
         "Adam)", flush=True)
 
 
-def _profile_hash_frame(card, models, driver, ds, dev):
-  """Phase 8, hash render: one traced 800x800 frame of PlainNeRF-hash at
-  T = 2^19 through render_view (K5f + K1-hash per chunk)."""
-  model = driver.init_model(models.PlainNeRF(steps=STEPS, enc_kind="hash",
-                                             device=dev), seed=0)
+def _profile_frame(card, model, ds, tag):
+  """Phase 8, hash and ae render: one traced 800x800 frame through
+  render_view (hash: K5f + K1-hash per chunk; ae: K7f)."""
+  from nerf_atlas_tpu_torch.train import driver
   frames, wall, by_name = _trace(lambda: driver.render_view(model, ds, 0))
   busy = sum(us for _, us in by_name.values()) / 1e6
-  print(f"[profile] {card}: hash render_view frames {frames[0]:.4f} / "
+  print(f"[profile] {card}: {tag} render_view frames {frames[0]:.4f} / "
         f"{frames[1]:.4f} s untraced; traced {wall:.4f} s wall, device "
         f"busy {busy:.4f} s, idle share "
         f"{(1 - busy / wall if busy else float('nan')):.4f}", flush=True)
-  _print_shares("hash frame", by_name, busy, top=5)
+  _print_shares(f"{tag} frame", by_name, busy, top=5)
 
 
 def main(argv=None):
@@ -999,13 +1286,14 @@ def main(argv=None):
   torch.backends.cuda.matmul.allow_tf32 = False     # the reference's matmuls
   torch.backends.cudnn.allow_tf32 = False
 
-  from nerf_atlas_tpu_torch import models
+  from nerf_atlas_tpu_torch import models, testing
   from nerf_atlas_tpu_torch import runner as port_runner
   from nerf_atlas_tpu_torch.data import loaders, sampler
   from nerf_atlas_tpu_torch.ops import rays as rays_ops
   from nerf_atlas_tpu_torch.ops.kernels import build
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
@@ -1020,6 +1308,7 @@ def main(argv=None):
   max_k5f, max_k5b = _check_hash_encoder(hk, k1, dev)
   max_err_h, max_bwd_h = _check_hash_render(k1, hk, rays_ops, models, driver,
                                             dev)
+  max_k7f, max_k7b = _check_ae(k7, testing, rays_ops, models, driver, dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
   results, secs, counts = _render_main(port_runner)
@@ -1042,11 +1331,25 @@ def main(argv=None):
         f"K1-hash launches {render_h['K1-hash']} | PSNR train "
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
+  # ---- 4c. the same for NeRFAE ----
+  results, secs, render_ae = _render_main(port_runner, "--model", "ae",
+                                          "--normalize-latent")
+  others = {k: v for k, v in render_ae.items() if k != "K7f" and v}
+  if render_ae["K7f"] <= 0 or others:
+    raise RuntimeError(f"the ae render launched {render_ae}")
+  print(f"[main] runner ae {SIZE}x{SIZE}x{STEPS}, 2 views x 2 splits: "
+        f"{secs:.2f} s end to end (incl. ground-truth render + PNGs), "
+        f"{n_rays / secs:,.0f} rays/s | K7f launches {render_ae['K7f']}, K1 "
+        f"launches {render_ae['K1']} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f}", flush=True)
 
   # ---- 5. main path, train ----
   k3_launches = _train_main(port_runner, k1, loaders, dev)
   # ---- 5b. hash training at the plain_hash recipe ----
   train_h = _train_main_hash(port_runner, k1, loaders, dev)
+  # ---- 5c. NeRFAE at the ae recipe ----
+  train_ae = _train_main_ae(port_runner, k1, loaders, dev)
 
   # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
@@ -1090,15 +1393,22 @@ def main(argv=None):
                                       loaders, sampler, k1, rays_ops, dev)
   hash_t = _time_hash(card, models, driver, loaders, sampler, k1, hk,
                       rays_ops, dev, ds)
+  ae_t = _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
+                  ds)
 
   if args.quality:
     _quality(card, port_runner, k1, loaders, dev, args.seeds)
   if args.profile:
     _profile(card, model, ds, ws)
     _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev)
-    _profile_hash_frame(card, models, driver, ds, dev)
+    _profile_frame(card, driver.init_model(models.PlainNeRF(
+        steps=STEPS, enc_kind="hash", device=dev), seed=0), ds, "hash")
     _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev,
                    "hash K3 T=2^14", enc_kind="hash", table_size=HASH_TRAIN_T)
+    _profile_frame(card, driver.init_model(models.NeRFAE(
+        steps=STEPS, device=dev), seed=0), ds, "ae")
+    _profile_train(card, models.NeRFAE, driver, loaders, sampler, dev,
+                   "ae K7b", reg_coeffs={"latent_l2": AE_LATENT_L2})
 
   k5f = hash_t["k5"][(CHUNK * STEPS, HASH_T)]["fwd"]
   k5b = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["bwd"]
@@ -1117,7 +1427,15 @@ def main(argv=None):
        max_k5f, *k5f),
       ("hash_bwd", "hash_encode.cu", "hash_encode.py:203", train_h["K5b"],
        max_k5b, *k5b),
+      ("render_ae_fwd", "render_ae_fwd.cu", "render_ae.py:135",
+       render_ae["K7f"], max(max_k7f, ae_t["frame_err"]), *ae_t["k7f"], None),
+      ("render_ae_bwd", "render_ae_bwd.cu", "render_ae.py:166",
+       train_ae["K7b"], max_k7b, *ae_t["k7b"], None),
   ]
+  for name, *_, bound, _ in rows:
+    print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
+          f"outside the tensor cores), {bound[2]:.4f} ms at the bf16 "
+          "tensor-core peak", flush=True)
   print(json.dumps({"kernels": [{
       "name": name, "route": "cuda",
       "source": f"nerf_atlas_tpu_torch/csrc/{src}",

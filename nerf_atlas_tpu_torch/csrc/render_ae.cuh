@@ -1,0 +1,384 @@
+// Device code shared by K7f (render_ae_fwd.cu) and K7b (render_ae_bwd.cu):
+// the NeRFAE architecture and its packed weight layout, the per-layer
+// building blocks (copied from render_fwd.cu / render_bwd.cu, whose cp and
+// hash instantiations stay as they are), and the forward of one 64-point
+// tile, which both kernels run so that the backward recomputes exactly
+// the forward's values.
+//
+// The chain of one sample point (nerf_atlas_tpu/ops/pallas/render_ae.py
+// `_ae_chain_fwd`, models/nerf.py NeRFAE):
+//   p = r_o + t·r_d, rounded after the product and after the sum
+//   -> posenc: 8 bands f_k = the host's float32 2^linspace(0, 6, 8),
+//      phase p_c·f_k rounded once, accurate sinf/cosf, dim-major, sin
+//      then cos -> encoder init [p ‖ sin ‖ cos] (51)
+//   -> encoder SkipConnMLP 51 -> 256×5 -> 32, leaky-relu 0.01, skips at
+//      layers 0 and 3
+//   -> y = x / max(‖x‖, 1e-6)
+//   -> density_tfm SkipConnMLP 32 -> 128×4 -> 33, skip at layer 0
+//   -> siren View MLP on [p ‖ elev, azim ‖ y ‖ feats] (69) -> 128×5 -> 3
+//
+// Activations of a tile live feature-major in shared memory ([row][PS],
+// 64 points per row); weights are read per layer through L1/L2.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ae {
+
+constexpr int TILE = 64;          // sample points per tile
+constexpr int THREADS = 256;      // 8 warps x 8 points = one tile
+constexpr int PS = TILE + 4;      // row stride (floats) of shared tiles
+constexpr int N_FREQS = 8;
+constexpr int PE = 3 * N_FREQS;              // 24 phases per point
+constexpr int E_IN = 3 + 2 * PE;             // 51: p ‖ sin ‖ cos
+constexpr int E_HIDDEN = 256;
+constexpr int ENC = 32;                      // encoding_size
+constexpr int D_HIDDEN = 128;
+constexpr int INTERMEDIATE = 32;
+constexpr int D_OUT_W = 1 + INTERMEDIATE;    // density ‖ 32 features
+constexpr int R_IN = 3 + 2 + ENC + INTERMEDIATE;  // 69
+constexpr int R_HIDDEN = 128;
+constexpr int R_OUT_W = 3;
+constexpr int R_ENC = 5;                     // refl-init rows of the latent
+constexpr int R_FEAT = R_ENC + ENC;          // ... and of the features
+constexpr int F_ROWS = 72;                   // >= max(E_IN, R_IN)
+
+static_assert(THREADS == 32 * (TILE / 8), "dense: 8 points per warp");
+static_assert(E_IN <= F_ROWS && R_IN <= F_ROWS, "init feature rows");
+
+enum Act { ACT_NONE = 0, ACT_LEAKY = 1, ACT_SIN30 = 2 };
+
+// ---- packed weight layout (ops/kernels/render_ae.py:pack_weights_ae, in
+// `_flatten_params_ae` order: encode, density_tfm, refl.mlp): each Dense
+// layer as W [in][out] row-major followed by its bias [out]. The
+// backward's transposed copy has each W block as [out][in] at the same
+// offset.
+__host__ __device__ constexpr long dense_size(int in, int out) {
+  return (long)in * out + out;
+}
+constexpr long E_IN_ = 0;
+constexpr long E_L0 = E_IN_ + dense_size(E_IN, E_HIDDEN);
+constexpr long E_L1 = E_L0 + dense_size(E_HIDDEN + E_IN, E_HIDDEN);
+constexpr long E_L2 = E_L1 + dense_size(E_HIDDEN, E_HIDDEN);
+constexpr long E_L3 = E_L2 + dense_size(E_HIDDEN, E_HIDDEN);
+constexpr long E_L4 = E_L3 + dense_size(E_HIDDEN + E_IN, E_HIDDEN);
+constexpr long E_OUT = E_L4 + dense_size(E_HIDDEN, E_HIDDEN);
+constexpr long D_IN_ = E_OUT + dense_size(E_HIDDEN, ENC);
+constexpr long D_L0 = D_IN_ + dense_size(ENC, D_HIDDEN);
+constexpr long D_L1 = D_L0 + dense_size(D_HIDDEN + ENC, D_HIDDEN);
+constexpr long D_L2 = D_L1 + dense_size(D_HIDDEN, D_HIDDEN);
+constexpr long D_L3 = D_L2 + dense_size(D_HIDDEN, D_HIDDEN);
+constexpr long D_OUT = D_L3 + dense_size(D_HIDDEN, D_HIDDEN);
+constexpr long R_IN_ = D_OUT + dense_size(D_HIDDEN, D_OUT_W);
+constexpr long R_L0 = R_IN_ + dense_size(R_IN, R_HIDDEN);
+constexpr long R_L1 = R_L0 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
+constexpr long R_L2 = R_L1 + dense_size(R_HIDDEN, R_HIDDEN);
+constexpr long R_L3 = R_L2 + dense_size(R_HIDDEN, R_HIDDEN);
+constexpr long R_L4 = R_L3 + dense_size(R_HIDDEN + R_IN, R_HIDDEN);
+constexpr long R_OUT = R_L4 + dense_size(R_HIDDEN, R_HIDDEN);
+constexpr long TOTAL = R_OUT + dense_size(R_HIDDEN, R_OUT_W);  // 564,804
+
+// ---- the backward's stash of one tile, in rows of TILE floats
+constexpr int ST_E = 0;                         // encoder z_in, z_0..z_4
+constexpr int ST_D = ST_E + 6 * E_HIDDEN;       // density_tfm z_in, z_0..z_3
+constexpr int ST_R = ST_D + 5 * D_HIDDEN;       // View z_in, z_0..z_4
+constexpr int ST_FE = ST_R + 6 * R_HIDDEN;      // encoder init feature
+constexpr int ST_X = ST_FE + E_IN;              // raw encoding
+constexpr int ST_FR = ST_X + ENC;               // View init feature
+constexpr int ST_ROWS = ST_FR + R_IN;           // 3096
+constexpr long ST_TILE = (long)ST_ROWS * TILE;  // floats per tile
+
+template <int ACT>
+__device__ __forceinline__ float activate(float v) {
+  if (ACT == ACT_LEAKY) return fmaxf(v, 0.01f * v);
+  if (ACT == ACT_SIN30) return sinf(30.0f * v);
+  return v;
+}
+
+// d act / d v, with autograd's convention at the leaky kink (0.01 at 0)
+template <int ACT>
+__device__ __forceinline__ float act_grad(float v) {
+  if (ACT == ACT_LEAKY) return v > 0.0f ? 1.0f : 0.01f;
+  if (ACT == ACT_SIN30) return 30.0f * cosf(30.0f * v);
+  return 1.0f;
+}
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
+}
+
+// ops/math.py sigmoid kinds, indexed like FUSED_SIGMOID_KINDS: the value
+// and its derivative
+__device__ __forceinline__ float rgb_act(float v, int kind, float* grad) {
+  const float eps = 1e-2f;
+  if (kind <= 3) {
+    const float s = sigmoid(v);
+    const float ds = s * (1.0f - s);
+    switch (kind) {
+      case 0: *grad = ds * (1.0f - 2.0f * eps);                   // thin
+              return s * (1.0f - 2.0f * eps) + 2.0f * eps;
+      case 1: *grad = ds * (1.0f + 2.0f * eps);                   // fat
+              return s * (1.0f + 2.0f * eps) - eps;
+      case 2: *grad = ds; return s;                               // normal
+      default: *grad = ds; return s + eps;                        // upshifted
+    }
+  }
+  switch (kind) {
+    case 4: { const float t = tanhf(v); *grad = 1.0f - t * t; return t; }
+    case 5: *grad = v > 0.0f ? 1.0f : 0.0f; return fmaxf(v, 0.0f);
+    case 6: *grad = v > 0.0f ? 1.0f : 0.0f; return fmaxf(v, 0.0f) + eps;
+    default: *grad = v > 0.0f ? 1.0f : 0.01f; return fmaxf(v, 0.01f * v);
+  }
+}
+
+// The sample point, rounded as the plain torch version rounds it (one
+// IEEE op per torch op, no FMA contraction): posenc multiplies it by up
+// to 64, so a contracted FMA would move the highest band's phase.
+__device__ __forceinline__ float sample_point(float o, float t, float d) {
+  return __fadd_rn(o, __fmul_rn(t, d));
+}
+
+// Per-ray constants: s[0..5] = the ray, s[6], s[7] = its elevation and
+// azimuth (ops/math.py:dir_to_elev_azim).
+__device__ __forceinline__ void ray_setup(const float* __restrict__ ray,
+                                          float* s) {
+#pragma unroll
+  for (int c = 0; c < 6; ++c) s[c] = ray[c];
+  const float norm = sqrtf(s[3] * s[3] + s[4] * s[4] + s[5] * s[5]);
+  const float inv = 1.0f / fmaxf(norm, 1e-12f);
+  const float lim = 1.0f - 1e-6f;
+  const float x = fminf(fmaxf(s[3] * inv, -lim), lim);
+  const float y = fminf(fmaxf(s[4] * inv, -lim), lim);
+  const float z = fminf(fmaxf(s[5] * inv, -lim), lim);
+  s[6] = acosf(z);
+  s[7] = atan2f(y, x);
+}
+
+// ‖x‖ of one point's raw encoding (ENC values at stride `stride`), summed
+// in one fixed order: the forward and the backward call this on the same
+// values and get the same bits.
+__device__ __forceinline__ float latent_norm(const float* x, int stride) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int k = 0; k < ENC; ++k) s = fmaf(x[k * stride], x[k * stride], s);
+  return sqrtf(s);
+}
+
+// acc[j][i] += sum_k x[k][p0 + i] * w[k * LDW + lane + 32 j]
+template <int K, int NOUT, int NJ, int LDW>
+__device__ __forceinline__ void accumulate(const float* x,
+                                           const float* __restrict__ w,
+                                           int lane, int p0,
+                                           float (&acc)[NJ][8]) {
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    const float4 x0 = *reinterpret_cast<const float4*>(x + k * PS + p0);
+    const float4 x1 = *reinterpret_cast<const float4*>(x + k * PS + p0 + 4);
+    const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int o = lane + 32 * j;
+      const float wv = (o < NOUT) ? __ldg(w + (long)k * LDW + o) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xs[i], wv, acc[j][i]);
+    }
+  }
+}
+
+// Forward layer: dst[o][p] = act(z), z = b[o] + sum_k a[k][p] w[k][o] +
+// sum_k f[k][p] w[KA + k][o] for the tile's 64 points and o < NOUT; with
+// `zst` the pre-activation z also goes to the stash rows zst[o][p]. `w` is
+// [KA + KF][NOUT] row-major with the bias after it. dst may alias a: every
+// read finishes before the barrier that precedes the writes.
+template <int KA, int KF, int NOUT, int ACT>
+__device__ __forceinline__ void dense_fwd(const float* a, const float* f,
+                                          const float* __restrict__ w,
+                                          float* dst, float* zst) {
+  constexpr int NJ = (NOUT + 31) / 32;
+  const int lane = threadIdx.x & 31;
+  const int p0 = (threadIdx.x >> 5) * 8;
+  const float* __restrict__ b = w + (long)(KA + KF) * NOUT;
+  float acc[NJ][8];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int o = lane + 32 * j;
+    const float bj = (o < NOUT) ? __ldg(b + o) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[j][i] = bj;
+  }
+  accumulate<KA, NOUT, NJ, NOUT>(a, w, lane, p0, acc);
+  if (KF > 0) accumulate<KF, NOUT, NJ, NOUT>(f, w + (long)KA * NOUT, lane,
+                                             p0, acc);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int o = lane + 32 * j;
+    if (o < NOUT) {
+      if (zst != nullptr) {
+        *reinterpret_cast<float4*>(zst + o * TILE + p0) =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        *reinterpret_cast<float4*>(zst + o * TILE + p0 + 4) =
+            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+      }
+      float4 v0, v1;
+      v0.x = activate<ACT>(acc[j][0]); v0.y = activate<ACT>(acc[j][1]);
+      v0.z = activate<ACT>(acc[j][2]); v0.w = activate<ACT>(acc[j][3]);
+      v1.x = activate<ACT>(acc[j][4]); v1.y = activate<ACT>(acc[j][5]);
+      v1.z = activate<ACT>(acc[j][6]); v1.w = activate<ACT>(acc[j][7]);
+      *reinterpret_cast<float4*>(dst + o * PS + p0) = v0;
+      *reinterpret_cast<float4*>(dst + o * PS + p0 + 4) = v1;
+    }
+  }
+  __syncthreads();
+}
+
+// dst[r][p] = act(src[r][p]) for rows r < rows of the tile
+template <int ACT>
+__device__ __forceinline__ void act_rows(const float* src, float* dst,
+                                         int rows) {
+  for (int i = threadIdx.x; i < rows * TILE; i += THREADS) {
+    const int idx = (i / TILE) * PS + (i % TILE);
+    dst[idx] = activate<ACT>(src[idx]);
+  }
+}
+
+// The forward of one tile: the block's sample points q0 .. q0 + 63 (of
+// n_pts; padding points repeat the last one). H [E_HIDDEN][PS], Fb and FA
+// [F_ROWS][PS] are shared-memory buffers; ray_s [rays][8] holds the
+// block's rays (`ray_setup`), fq the 8 frequencies. Each real point's raw
+// density goes to res[RS·q] and its raw rgb to res[RS·q + 1..3]. With
+// `st` (the backward's stash of this tile), every MLP pre-activation, the
+// encoder's init feature, the raw encoding and the View's init feature go
+// there too. On return Fb rows 0..68 hold the View's init feature.
+template <int RS>
+__device__ void tile_forward(float* H, float* Fb, float* FA,
+                             const float* ray_s,
+                             const float* __restrict__ ts, const float* fq,
+                             const float* __restrict__ w, int q0, int n_pts,
+                             int steps, float* res, float* st) {
+  const int tid = threadIdx.x;
+  // ---- sample points -> rows 0..2 ----
+  if (tid < TILE) {
+    const int q = min(q0 + tid, n_pts - 1);
+    const float* s = ray_s + 8 * (q / steps);
+    const float t = ts[q % steps];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      Fb[c * PS + tid] = sample_point(s[c], t, s[3 + c]);
+  }
+  __syncthreads();
+  // ---- posenc: rows 3 + j = sin(phase_j), rows 27 + j = cos(phase_j),
+  // phase_j = p_{j / 8} · f_{j % 8} ----
+  for (int i = tid; i < PE * TILE; i += THREADS) {
+    const int j = i / TILE, p = i % TILE;
+    const float ph = __fmul_rn(Fb[(j / N_FREQS) * PS + p], fq[j % N_FREQS]);
+    Fb[(3 + j) * PS + p] = sinf(ph);
+    Fb[(3 + PE + j) * PS + p] = cosf(ph);
+  }
+  __syncthreads();
+  for (int i = tid; i < E_IN * TILE; i += THREADS) {
+    const int row = i / TILE, p = i % TILE;
+    const float v = Fb[row * PS + p];
+    FA[row * PS + p] = activate<ACT_LEAKY>(v);
+    if (st != nullptr) st[(ST_FE + row) * TILE + p] = v;
+  }
+  __syncthreads();
+
+  // ---- encoder (skips at layers 0 and 3); the raw encoding lands in Fb
+  // rows 5..36, where the View's init feature takes the latent ----
+  float* ze = st != nullptr ? st + ST_E * TILE : nullptr;
+  constexpr int EZ = E_HIDDEN * TILE;
+  dense_fwd<E_IN, 0, E_HIDDEN, ACT_LEAKY>(Fb, nullptr, w + E_IN_, H, ze);
+  dense_fwd<E_HIDDEN, E_IN, E_HIDDEN, ACT_LEAKY>(H, FA, w + E_L0, H,
+                                                 ze ? ze + 1 * EZ : nullptr);
+  dense_fwd<E_HIDDEN, 0, E_HIDDEN, ACT_LEAKY>(H, nullptr, w + E_L1, H,
+                                              ze ? ze + 2 * EZ : nullptr);
+  dense_fwd<E_HIDDEN, 0, E_HIDDEN, ACT_LEAKY>(H, nullptr, w + E_L2, H,
+                                              ze ? ze + 3 * EZ : nullptr);
+  dense_fwd<E_HIDDEN, E_IN, E_HIDDEN, ACT_LEAKY>(H, FA, w + E_L3, H,
+                                                 ze ? ze + 4 * EZ : nullptr);
+  dense_fwd<E_HIDDEN, 0, E_HIDDEN, ACT_LEAKY>(H, nullptr, w + E_L4, H,
+                                              ze ? ze + 5 * EZ : nullptr);
+  dense_fwd<E_HIDDEN, 0, ENC, ACT_NONE>(H, nullptr, w + E_OUT, Fb + R_ENC * PS,
+                                        nullptr);
+
+  // ---- normalize: one thread per point ----
+  if (tid < TILE) {
+    float* x = Fb + R_ENC * PS + tid;
+    const float m = fmaxf(latent_norm(x, PS), 1e-6f);
+    for (int k = 0; k < ENC; ++k) {
+      const float v = x[k * PS];
+      if (st != nullptr) st[(ST_X + k) * TILE + tid] = v;
+      x[k * PS] = v / m;
+    }
+  }
+  __syncthreads();
+  act_rows<ACT_LEAKY>(Fb + R_ENC * PS, FA + R_ENC * PS, ENC);
+  __syncthreads();
+
+  // ---- density_tfm (skip at layer 0) ----
+  float* zd = st != nullptr ? st + ST_D * TILE : nullptr;
+  constexpr int DZ = D_HIDDEN * TILE;
+  dense_fwd<ENC, 0, D_HIDDEN, ACT_LEAKY>(Fb + R_ENC * PS, nullptr, w + D_IN_,
+                                         H, zd);
+  dense_fwd<D_HIDDEN, ENC, D_HIDDEN, ACT_LEAKY>(H, FA + R_ENC * PS, w + D_L0,
+                                                H, zd ? zd + 1 * DZ : nullptr);
+  dense_fwd<D_HIDDEN, 0, D_HIDDEN, ACT_LEAKY>(H, nullptr, w + D_L1, H,
+                                              zd ? zd + 2 * DZ : nullptr);
+  dense_fwd<D_HIDDEN, 0, D_HIDDEN, ACT_LEAKY>(H, nullptr, w + D_L2, H,
+                                              zd ? zd + 3 * DZ : nullptr);
+  dense_fwd<D_HIDDEN, 0, D_HIDDEN, ACT_LEAKY>(H, nullptr, w + D_L3, H,
+                                              zd ? zd + 4 * DZ : nullptr);
+  dense_fwd<D_HIDDEN, 0, D_OUT_W, ACT_NONE>(H, nullptr, w + D_OUT, H,
+                                            nullptr);
+
+  // ---- raw density; View init feature [p ‖ elev, azim ‖ latent ‖ feats]
+  if (tid < TILE) {
+    const int q = q0 + tid;
+    if (q < n_pts) res[RS * q] = H[tid];
+    const float* s = ray_s + 8 * (min(q, n_pts - 1) / steps);
+    Fb[3 * PS + tid] = s[6];
+    Fb[4 * PS + tid] = s[7];
+  }
+  for (int i = tid; i < INTERMEDIATE * TILE; i += THREADS) {
+    const int row = i / TILE, p = i % TILE;
+    Fb[(R_FEAT + row) * PS + p] = H[(1 + row) * PS + p];
+  }
+  __syncthreads();
+  for (int i = tid; i < R_IN * TILE; i += THREADS) {
+    const int row = i / TILE, p = i % TILE;
+    const float v = Fb[row * PS + p];
+    FA[row * PS + p] = activate<ACT_SIN30>(v);
+    if (st != nullptr) st[(ST_FR + row) * TILE + p] = v;
+  }
+  __syncthreads();
+
+  // ---- siren View MLP (skips at layers 0 and 3) ----
+  float* zr = st != nullptr ? st + ST_R * TILE : nullptr;
+  constexpr int RZ = R_HIDDEN * TILE;
+  dense_fwd<R_IN, 0, R_HIDDEN, ACT_SIN30>(Fb, nullptr, w + R_IN_, H, zr);
+  dense_fwd<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(H, FA, w + R_L0, H,
+                                                 zr ? zr + 1 * RZ : nullptr);
+  dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(H, nullptr, w + R_L1, H,
+                                              zr ? zr + 2 * RZ : nullptr);
+  dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(H, nullptr, w + R_L2, H,
+                                              zr ? zr + 3 * RZ : nullptr);
+  dense_fwd<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(H, FA, w + R_L3, H,
+                                                 zr ? zr + 4 * RZ : nullptr);
+  dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(H, nullptr, w + R_L4, H,
+                                              zr ? zr + 5 * RZ : nullptr);
+  dense_fwd<R_HIDDEN, 0, R_OUT_W, ACT_NONE>(H, nullptr, w + R_OUT, H,
+                                            nullptr);
+  if (tid < TILE && q0 + tid < n_pts) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) res[RS * (q0 + tid) + 1 + c] = H[c * PS + tid];
+  }
+  __syncthreads();
+}
+
+}  // namespace ae

@@ -1,8 +1,9 @@
-"""PlainNeRF: a density MLP emitting sigma + an intermediate feature, RGB
-from a pluggable reflectance model.
+"""PlainNeRF (a density MLP emitting sigma + an intermediate feature, RGB
+from a pluggable reflectance model) and NeRFAE (an auto-encoded latent
+field that density and reflectance both read).
 
-Counterpart of `nerf_atlas_tpu/models/nerf.py:PlainNeRF`. TinyNeRF,
-NeRFAE and CoarseFineNeRF arrive with ROADMAP Queue 1 #3, #9 and #8.
+Counterparts of `nerf_atlas_tpu/models/nerf.py:PlainNeRF` and `NeRFAE`.
+TinyNeRF and CoarseFineNeRF arrive with ROADMAP Queue 1 #3 and #8.
 """
 from __future__ import annotations
 
@@ -72,3 +73,79 @@ class PlainNeRF(NeRFBase):
     density, rgb = self.query(pts, view_per_sample(r_d, self.steps), train,
                               generator)
     return self.finish(density, rgb, ts, r_d, train, generator=generator)
+
+
+class NeRFAE(NeRFBase):
+  """Auto-encoded NeRF (JAX `models/nerf.py:NeRFAE`): points encode to a
+  latent field (positional encoding, 8 bands up to 2^6, into a 256×5
+  SkipConnMLP), optionally L2-normalized; a 128×4 `density_tfm` MLP maps
+  the latent to sigma and 32 features, and the View refl reads the
+  latent and the features.
+
+  The encoder submodule is the attribute `encode`, so that the
+  `state_dict` keys are the flax paths (`encode.layer_in.weight`, ...);
+  the JAX class's `encode` *method* is therefore `encoding` here, and its
+  `encode_raw` keeps its name. Only the default widths are built; the
+  JAX `enc_mlp_kwargs` / `density_mlp_kwargs` / `refl_kwargs` overrides
+  arrive with --ref-compat (ROADMAP Queue 1 #13)."""
+
+  def __init__(self, refl_kind: str = "view", encoding_size: int = 32,
+               normalize_latent: bool = True, device=None, **base_kwargs):
+    super().__init__(**base_kwargs)
+    self.refl_kind = refl_kind
+    self.encoding_size = encoding_size
+    self.normalize_latent = normalize_latent
+    self.encode = SkipConnMLP(
+        in_size=3, out=encoding_size,
+        enc=PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=8),
+        num_layers=5, hidden_size=256, device=device)
+    self.density_tfm = SkipConnMLP(
+        in_size=encoding_size, out=1 + self.intermediate_size, num_layers=4,
+        hidden_size=128, device=device)
+    self.refl = load_refl(
+        refl_kind, latent_size=encoding_size + self.intermediate_size,
+        act=self.sigmoid_kind, device=device)
+
+  def reset_parameters(self, generator: torch.Generator):
+    self.encode.reset_parameters(generator)
+    self.density_tfm.reset_parameters(generator)
+    self.refl.reset_parameters(generator)
+
+  def encoding(self, pts, with_raw: bool = False):
+    """Latent field at pts (the JAX method `encode`); with_raw also
+    returns the encoding before normalization, which `latent_l2` reads."""
+    raw = self.encode(pts)
+    enc = raw
+    if self.normalize_latent:
+      enc = raw / torch.clamp(
+          torch.linalg.vector_norm(raw, dim=-1, keepdim=True), min=1e-6)
+    return (enc, raw) if with_raw else enc
+
+  def encode_raw(self, pts):
+    """The encoding before normalization (`ae_latent_l2` reads it)."""
+    return self.encode(pts)
+
+  def query_from_encoding(self, pts, enc, view, train: bool = False,
+                          generator: Optional[torch.Generator] = None):
+    out = self.density_tfm(enc)
+    density = self.add_density_noise(out[..., 0], train, generator)
+    rgb = self.refl(pts, view=view,
+                    latent=torch.cat([enc, out[..., 1:]], dim=-1))
+    return density, rgb
+
+  def query(self, pts, view, train: bool = False,
+            generator: Optional[torch.Generator] = None):
+    return self.query_from_encoding(pts, self.encoding(pts), view, train,
+                                    generator)
+
+  def forward(self, rays, train: bool = False,
+              generator: Optional[torch.Generator] = None):
+    """As PlainNeRF's, plus out["latent_l2"]: the mean over sample points
+    of ‖raw encoding‖², taken before normalization."""
+    pts, ts, _, r_d = self.sample_points(rays, train, generator)
+    enc, raw = self.encoding(pts, with_raw=True)
+    density, rgb = self.query_from_encoding(
+        pts, enc, view_per_sample(r_d, self.steps), train, generator)
+    out = self.finish(density, rgb, ts, r_d, train, generator=generator)
+    out["latent_l2"] = torch.mean(torch.sum(torch.square(raw), dim=-1))
+    return out

@@ -3,15 +3,17 @@
 Each kernel source in `nerf_atlas_tpu_torch/csrc/` has a plain C
 interface. At first use it is compiled with `nvcc` for `sm_90a` (Hopper)
 into a shared library under `build/kernels/` at the repo root, named by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Nothing is built or imported when this module is
-imported.
+hash of the source, of every header it includes from `csrc/` (quoted
+`#include`, followed recursively) and of the flags, so an edited source
+or header is rebuilt and an unchanged one is reused. Nothing is built or
+imported when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,11 +46,34 @@ def nvcc() -> str:
   raise RuntimeError("nvcc not found: set CUDA_HOME to a CUDA toolkit")
 
 
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_digest(src: Path) -> str:
+  """16 hex digits of the sha256 of the source, then of each header it
+  includes with quotes (depth first, each once, resolved beside the file
+  that includes it), then of the flags."""
+  digest = hashlib.sha256()
+  seen = set()
+
+  def add(path: Path):
+    if path in seen:
+      return
+    seen.add(path)
+    text = path.read_bytes()
+    digest.update(text)
+    for name in _QUOTED_INCLUDE.findall(text):
+      add((path.parent / name.decode()).resolve())
+
+  add(src.resolve())
+  digest.update(" ".join(NVCC_FLAGS).encode())
+  return digest.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
   """Compile csrc/<name>.cu into build/kernels/lib<name>-<hash>.so."""
   src = CSRC / f"{name}.cu"
-  digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-  lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+  lib = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
   if lib.exists():
     return Built(lib, 0.0, "")
   BUILD_DIR.mkdir(parents=True, exist_ok=True)

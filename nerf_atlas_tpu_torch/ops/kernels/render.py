@@ -252,6 +252,24 @@ def _check_call(ws: torch.Tensor, rays: torch.Tensor, steps: int,
                 sigmoid_kind: str, sky_kind: str,
                 max_steps: int = MAX_STEPS,
                 feats: Optional[torch.Tensor] = None):
+  check_rays(ws, rays, steps, sigmoid_kind, sky_kind, max_steps)
+  if (feats is None) != (_layout_of(ws).enc_kind == "cp"):
+    raise ValueError("hash weights take feats, cp weights none")
+  if feats is not None and (
+      feats.dtype != torch.float32
+      or tuple(feats.shape) != (rays.shape[0] * steps, HASH_DIM)
+      or feats.device != rays.device or not feats.is_contiguous()):
+    raise ValueError(f"feats must be contiguous float32 "
+                     f"[{rays.shape[0] * steps}, {HASH_DIM}] on "
+                     f"{rays.device}, got {feats.dtype} "
+                     f"{tuple(feats.shape)} on {feats.device}")
+
+
+def check_rays(ws: torch.Tensor, rays: torch.Tensor, steps: int,
+               sigmoid_kind: str, sky_kind: str, max_steps: int):
+  """The checks every render kernel's wrapper makes: rays contiguous
+  float32 [N, 6] beside the weights, steps in range, an rgb activation
+  and a sky the kernels implement."""
   if rays.dtype != torch.float32 or rays.ndim != 2 or rays.shape[1] != 6:
     raise ValueError(f"rays must be float32 [N, 6], got {rays.dtype} "
                      f"{tuple(rays.shape)}")
@@ -265,16 +283,6 @@ def _check_call(ws: torch.Tensor, rays: torch.Tensor, steps: int,
     raise NotImplementedError(f"fused kernel: rgb act {sigmoid_kind}")
   if sky_kind not in integrate.SKY_KINDS:
     raise NotImplementedError(f"fused kernel: sky {sky_kind}")
-  if (feats is None) != (_layout_of(ws).enc_kind == "cp"):
-    raise ValueError("hash weights take feats, cp weights none")
-  if feats is not None and (
-      feats.dtype != torch.float32
-      or tuple(feats.shape) != (rays.shape[0] * steps, HASH_DIM)
-      or feats.device != rays.device or not feats.is_contiguous()):
-    raise ValueError(f"feats must be contiguous float32 "
-                     f"[{rays.shape[0] * steps}, {HASH_DIM}] on "
-                     f"{rays.device}, got {feats.dtype} "
-                     f"{tuple(feats.shape)} on {feats.device}")
 
 
 def _mlp(init_feat, layers, act, n_layers):
@@ -316,8 +324,21 @@ def _plain_render(ws: torch.Tensor, rays: torch.Tensor,
   elaz = dir_to_elev_azim(r_d)[:, None, :].expand(n, steps, 2).reshape(-1, 2)
   r_in = torch.cat([pts, elaz, latent], dim=-1)
   rgb = load_sigmoid(sigmoid_kind)(
-      _mlp(r_in, refl_layers, lambda v: torch.sin(SIREN_W0 * v), R_LAYERS))
+      _mlp(r_in, refl_layers, siren_act, R_LAYERS))
+  return composite(density, rgb, r_d, dists, sky_kind)
 
+
+def siren_act(v):
+  return torch.sin(SIREN_W0 * v)
+
+
+def composite(density: torch.Tensor, rgb: torch.Tensor, r_d: torch.Tensor,
+              dists: torch.Tensor, sky_kind: str) -> torch.Tensor:
+  """The kernels' compositing in plain torch: raw density [N·T] and rgb
+  [N·T, 3] of N rays -> [N, 4] (rgb ‖ acc); sigma = softplus(density −
+  1), the exclusive transmittance of max(1 − alpha, 1e-10), a white sky
+  over the leftover transmittance without the 1e10 tail."""
+  n, steps = r_d.shape[0], dists.shape[0]
   sigma = F.softplus(density - 1.0).reshape(n, steps)
   seg = dists[None, :] * torch.linalg.vector_norm(r_d, dim=-1, keepdim=True)
   alpha = 1.0 - torch.exp(-sigma * seg)

@@ -17,6 +17,9 @@ Examples (procedural scene):
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
       --model plain --enc-kind hash --hash-table-log2 14 --size 48 \
       --num-views 30 --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model ae --normalize-latent --latent-l2-weight 1e-3 --size 48 \
+      --num-views 30 --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
 """
 from __future__ import annotations
 
@@ -52,25 +55,32 @@ def _check_supported(args):
     if getattr(args, flag):
       raise NotImplementedError(
           f"--{flag.replace('_', '-')}: not ported yet (ROADMAP {item})")
-  if args.model != "plain":
+  if args.model not in ("plain", "ae"):
     raise NotImplementedError(
-        f"--model {args.model}: the port has PlainNeRF only so far "
-        "(ROADMAP Queue 1 #3, #8-#13)")
+        f"--model {args.model}: the port has PlainNeRF and NeRFAE so far "
+        "(ROADMAP Queue 1 #3, #8, #10-#13)")
 
 
 def build_model(args, device):
-  """runner.py:build_model for --model plain (static data):
+  """runner.py:build_model for --model plain and ae (static data). plain:
   --hash-table-log2 N sets the hash table to 2^N entries per level when N
-  is not the default 19 (runner.py:470-471)."""
+  is not the default 19 (runner.py:470-471). ae takes --refl-kind,
+  --encoding-size and --normalize-latent (runner.py:483-486); like the
+  root runner it ignores --mip, --enc-kind and --space-kind."""
   kwargs = dict(steps=args.steps, t_near=args.near, t_far=args.far,
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
                 lindisp=args.lindisp, per_ray_jitter=args.per_ray_jitter,
                 density_noise=args.density_noise,
-                refl_kind=args.refl_kind, mip=args.mip,
-                enc_kind=args.enc_kind, refl_space=args.space_kind)
-  if args.enc_kind == "hash" and args.hash_table_log2 != 19:
-    kwargs["table_size"] = 1 << args.hash_table_log2
+                refl_kind=args.refl_kind)
+  if args.model == "ae":
+    kwargs.update(encoding_size=args.encoding_size,
+                  normalize_latent=args.normalize_latent)
+  else:
+    kwargs.update(mip=args.mip, enc_kind=args.enc_kind,
+                  refl_space=args.space_kind)
+    if args.enc_kind == "hash" and args.hash_table_log2 != 19:
+      kwargs["table_size"] = 1 << args.hash_table_log2
   return load_model(args.model, device=device, **kwargs)
 
 
@@ -144,7 +154,7 @@ def make_train_config(args) -> driver.TrainConfig:
       smooth_eps=args.smooth_eps, smooth_eps_rng=args.smooth_eps_rng,
       smooth_ords=tuple(args.smooth_n_ord),
       volsdf_alternate=args.volsdf_alternate, no_fused=args.no_fused)
-  driver.check_config(cfg)
+  driver.check_config(cfg, args.model)
   return cfg
 
 

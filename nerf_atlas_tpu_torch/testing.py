@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from .nn.encoders import cp_encode
 from .ops.kernels import render as k1
+from .ops.kernels import render_ae as k7
 
 
 def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
@@ -49,6 +50,36 @@ def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
       k1._mlp(feat, dense_layers, act, k1.N_LAYERS)
     return zs[1:]                    # zs[0]: act(init feature)
 
+  return _kink_free(pre_activations, rays, steps, margin)
+
+
+def ae_kink_free_rays(params: k7.Params, rays: torch.Tensor,
+                      ts: torch.Tensor, steps: int,
+                      margin: float = 10.0) -> torch.Tensor:
+  """`kink_free_rays` for NeRFAE (`params`: its state_dict or packed
+  weights): the same rule over the encoder's hidden pre-activations and
+  every leaky-relu input of density_tfm, its init feature (the
+  normalized latent, which the kernel and the plain version sum in
+  different orders) included. The encoder's init feature (p and its
+  posenc) is left out: its kink moves only the input cotangent, which
+  neither implementation forms."""
+  ws = k7.pack_weights_ae(params, rays.device)
+
+  def pre_activations(dtype):
+    zs = []
+
+    def act(v):
+      zs.append(v)
+      return F.leaky_relu(v, 0.01)
+
+    with torch.no_grad():
+      k7.ae_chain(ws.to(dtype), rays.to(dtype), ts.to(dtype), "thin", act)
+    return zs[1:]                    # zs[0]: act(the encoder's init feature)
+
+  return _kink_free(pre_activations, rays, steps, margin)
+
+
+def _kink_free(pre_activations, rays, steps: int, margin: float):
   fragile = torch.zeros(rays.shape[0] * steps, dtype=torch.bool,
                         device=rays.device)
   for z32, z64 in zip(pre_activations(torch.float32),

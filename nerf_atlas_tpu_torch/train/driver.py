@@ -4,7 +4,8 @@ gates, tiled view rendering, per-view PSNR.
 Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
-`render_view`, `test`). The port's modules own their parameters, so these
+`render_view`, `test`), for PlainNeRF (cp and hash) and NeRFAE. The
+port's modules own their parameters, so these
 functions take the model where the JAX package takes (model, params), and
 a train step is a Python closure (no jit). Unlike the JAX gates, a kernel
 gate never catches an exception: a parameter tree that diverges from the
@@ -24,16 +25,23 @@ import numpy as np
 import torch
 
 from ..data import sampler as sampler_lib
-from ..models import PlainNeRF
+from ..models import MODEL_KINDS, NeRFAE, PlainNeRF
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
+from ..ops.kernels import render_ae as k7
 from . import checkpoints, losses as losses_lib, optim as optim_lib
+from . import regularizers
 
 # which train path the most recent train() engaged: "fused-one-kernel"
-# (K3; for hash K5f + K3 + K5b) | "fused" (K1 + K2 through PlainCPRender,
-# or PlainHashRender after HashEncode) | "oracle" (the module forward
-# under autograd). Recorded into log.json by the runner.
+# (K3; for hash K5f + K3 + K5b; for NeRFAE K7b in loss mode) | "fused"
+# (K1 + K2 through PlainCPRender, PlainHashRender after HashEncode, or
+# K7f + K7b through AERender) | "oracle" (the module forward under
+# autograd). Recorded into log.json by the runner.
 LAST_TRAIN_PATH: Optional[str] = None
+
+# the regularizers each model kind carries (the JAX package's
+# REGULARIZERS keys); every other active coefficient raises
+MODEL_REGULARIZERS = {"ae": ("latent_l2",)}
 
 # the options of the smoothness regularizers (their models are not ported)
 _SMOOTH_REGS = {"item": "Queue 1 #10/#13"}
@@ -96,9 +104,10 @@ class TrainConfig:
                                  metadata={"item": "Queue 1 #10"})
 
 
-def check_config(cfg: TrainConfig):
+def check_config(cfg: TrainConfig, model_kind: str = "plain"):
   """Raise NotImplementedError for a field the port does not carry yet
-  set away from its default, and for an active regularizer."""
+  set away from its default, and for an active regularizer that the
+  model kind (a `models.MODEL_KINDS` key) does not carry."""
   default = TrainConfig()
   for f in fields(cfg):
     item = f.metadata.get("item")
@@ -106,11 +115,18 @@ def check_config(cfg: TrainConfig):
       raise NotImplementedError(
           f"train config {f.name}={getattr(cfg, f.name)!r}: not ported yet "
           f"(ROADMAP {item})")
-  active = sorted(k for k, v in (cfg.reg_coeffs or {}).items() if v)
+  carried = MODEL_REGULARIZERS.get(model_kind, ())
+  active = sorted(k for k, v in (cfg.reg_coeffs or {}).items()
+                  if v and k not in carried)
   if active:
     raise NotImplementedError(
-        f"regularizers {active}: arrive with their models (ROADMAP Queue 1 "
-        "#9-#13)")
+        f"regularizers {active} for --model {model_kind}: arrive with their "
+        "models (ROADMAP Queue 1 #10-#13)")
+
+
+def model_kind(model) -> str:
+  """The `models.MODEL_KINDS` key of a model."""
+  return next(k for k, c in MODEL_KINDS.items() if isinstance(model, c))
 
 
 def init_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
@@ -121,35 +137,56 @@ def init_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
 
 def _fused_enc_kind(model) -> Optional[str]:
-  """The kernels' enc kind, "cp" or "hash", for a PlainNeRF with that
-  encoder and the View refl in identity space at the kernels' width, an
-  rgb activation they implement and linear-in-t samples; None otherwise.
+  """The kernels' kind: "cp" or "hash" for a PlainNeRF with that encoder
+  and the View refl in identity space, "ae" for a NeRFAE with the latent
+  normalized at `encoding_size` 32 (driver.py:332-336, :563-567,
+  :1138-1151); both at the kernels' widths, with the View refl, an rgb
+  activation they implement and linear-in-t samples. None otherwise.
   The port's HashEncoder lets only `table_size` differ from the defaults,
   which is the JAX gate's rule (train/driver.py:254-261)."""
-  if not (isinstance(model, PlainNeRF) and model.enc_kind in k1.ENC_KINDS
-          and model.mip is None and model.refl_kind == "view"
-          and model.refl_space == "identity"
+  if not (model.mip is None and model.refl_kind == "view"
           and model.intermediate_size == 32
           and model.sigmoid_kind in k1.FUSED_SIGMOID_KINDS
           and not model.lindisp):
     return None
-  return model.enc_kind
+  if isinstance(model, NeRFAE):
+    return ("ae" if model.encoding_size == 32 and model.normalize_latent
+            else None)
+  if (isinstance(model, PlainNeRF) and model.enc_kind in k1.ENC_KINDS
+      and model.refl_space == "identity"):
+    return model.enc_kind
+  return None
+
+
+def _pack(state_dict, device, enc: str) -> torch.Tensor:
+  """The packed weights of a model in the kernels' envelope."""
+  if enc == "ae":
+    return k7.pack_weights_ae(state_dict, device)
+  return k1.pack_weights(state_dict, device, enc)
+
+
+def _unpack_grads(enc: str, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+  return (k7.unpack_grads_ae(packed) if enc == "ae"
+          else k1.unpack_grads(packed))
 
 
 def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   """Config constraints of both training kernel gates
   (train/driver.py:135-155): black or white sky, no density noise, no
   per-ray jitter or lindisp, no crops, no camera training, no active
-  regularizer, no omit-bg. Unlike the JAX gate there is no batch-multiple
-  rule (the CUDA kernels mask the ragged edge) and no CPU rule (there the
-  wrappers take their plain versions)."""
+  regularizer but NeRFAE's latent L2 (which the step adds outside the
+  kernel, `regularizers.ae_latent_l2`), no omit-bg. Unlike the JAX gate
+  there is no batch-multiple rule (the CUDA kernels mask the ragged
+  edge) and no CPU rule (there the wrappers take their plain versions)."""
+  allowed = MODEL_REGULARIZERS.get(model_kind(model), ())
   return not (
       _fused_enc_kind(model) is None
       or model.sky_kind not in ("black", "white")
       or model.density_noise != 0
       or model.per_ray_jitter or model.lindisp
       or cfg.train_camera or cfg.crop_size > 0
-      or any((cfg.reg_coeffs or {}).values())
+      or any(v for k, v in (cfg.reg_coeffs or {}).items()
+             if k not in allowed)
       or cfg.omit_bg)
 
 
@@ -165,8 +202,9 @@ def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
-  """The one-kernel train step (driver.py:448-560): K3, or for hash K5f +
-  K3 + K5b, when the training loss is the kernel's (plain l2 on rgb, no
+  """The one-kernel train step (driver.py:448-580): K3, for hash K5f +
+  K3 + K5b, for NeRFAE K7b in loss mode, when the training loss is the
+  kernel's (plain l2 on rgb, no
   colour transforms, tone map, gamma or style, 3- or 4-channel labels)
   and `_fused_common_ok` holds; None otherwise. Returns fn(rays, pix,
   generator) -> (loss, {state_dict key: gradient})."""
@@ -181,17 +219,20 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
       or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)):
     return None
   enc = _fused_enc_kind(model)
-  k1.pack_weights(model.state_dict(), enc_kind=enc)  # raises on divergence
+  _pack(model.state_dict(), None, enc)             # raises on divergence
   kw = _kernel_kw(model)
 
   def fn(rays, pix, generator):
     ts = _step_ts(model, generator, rays.device)
     sd = model.state_dict()
-    ws = k1.pack_weights(sd, rays.device, enc)
+    ws = _pack(sd, rays.device, enc)
     target = pix[:, :3].contiguous()
     if enc == "cp":
       loss, grad = k1.plain_cp_train_step(ws, rays, target, ts=ts, **kw)
       return loss, k1.unpack_grads(grad)
+    if enc == "ae":
+      loss, grad = k7.fused_ae_train_step(ws, rays, target, ts, **kw)
+      return loss, k7.unpack_grads_ae(grad)
     loss, grad, dtable = k1.fused_plain_hash_train_step(
         ws, k1.hash_table(sd), rays, target, ts, **kw)
     return loss, {**k1.unpack_grads(grad), k1.HASH_TABLE_KEY: dtable}
@@ -200,22 +241,25 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 
 
 def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
-  """The two-kernel path (driver.py:158-295): K1 forward and K2 backward
-  through `PlainCPRender`, or for hash K5f/K5b (`HashEncode`) into
-  K1/K2 (`PlainHashRender`), with the loss computed outside. Returns
+  """The two-kernel path (driver.py:158-357): K1 forward and K2 backward
+  through `PlainCPRender`, for hash K5f/K5b (`HashEncode`) into K1/K2
+  (`PlainHashRender`), for NeRFAE K7f/K7b (`AERender`), with the loss
+  computed outside. Returns
   fn(ws, rays, generator) -> [N, 4], differentiable in the packed
   weights ws (and, for hash, in the model's table parameter), or None."""
   del ds
   if cfg.no_fused or not _fused_common_ok(model, cfg):
     return None
   enc = _fused_enc_kind(model)
-  k1.pack_weights(model.state_dict(), enc_kind=enc)  # raises on divergence
+  _pack(model.state_dict(), None, enc)             # raises on divergence
   kw = _kernel_kw(model)
 
   def fn(ws, rays, generator):
     ts = _step_ts(model, generator, rays.device)
     if enc == "cp":
       return k1.plain_cp_render_train(ws, rays, ts, **kw)
+    if enc == "ae":
+      return k7.fused_ae_render_train(ws, rays, ts, **kw)
     return k1.fused_plain_hash_render_train(ws, model.density_mlp.enc.table,
                                             rays, ts, **kw)
 
@@ -225,17 +269,23 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
                     cfg: TrainConfig, fused_step=None, fused_train=None):
   """The per-step closure step(i, generator) -> {"loss", "mse"} (device
-  scalars): sample a batch, get the gradient from the one-kernel step,
-  from the two-kernel path, or from the module forward under autograd,
-  mask it (train_only / freeze_substr), and step the optimizer. The hash
-  table's gradient comes from K5b."""
+  scalars; loss = mse + the regularizer): sample a batch, get the
+  gradient from the one-kernel step, from the two-kernel path, or from
+  the module forward under autograd, mask it (train_only /
+  freeze_substr), and step the optimizer. The hash table's gradient
+  comes from K5b. NeRFAE's latent L2 (driver.py:672-683, :813-818) is
+  the module's out["latent_l2"] on the oracle path; the fused paths add
+  the point-sampled `regularizers.ae_latent_l2` and its autograd
+  gradient to the kernel's."""
   params = dict(model.named_parameters())
   device = next(model.parameters()).device
   enc = _fused_enc_kind(model)
+  latent_l2 = float((cfg.reg_coeffs or {}).get("latent_l2") or 0.0)
 
-  def set_grads(grads):
+  def add_grads(grads):
     for key, grad in grads.items():
-      params[key].grad = grad
+      p = params[key]
+      p.grad = grad if p.grad is None else p.grad + grad
 
   def step(i: int, generator: torch.Generator):
     opt.zero_grad()
@@ -243,16 +293,27 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
         generator, cfg.batch_size, jitter=cfg.pixel_jitter,
         serial_step=i if cfg.serial_idxs else None, end_bias=cfg.end_bias)
     if fused_step is not None:
-      loss, grads = fused_step(rays, pix, generator)
-      set_grads(grads)
+      main, grads = fused_step(rays, pix, generator)
+      loss = main
+      if latent_l2:
+        reg = latent_l2 * regularizers.ae_latent_l2(model, generator)
+        reg.backward()                # the encoder's .grad
+        loss = main + reg.detach()
+      add_grads(grads)
     elif fused_train is not None:
-      ws = k1.pack_weights(model.state_dict(), device, enc).requires_grad_(
-          True)
-      loss = loss_fn(fused_train(ws, rays, generator)[:, :3], pix)
-      loss.backward()                 # for hash, also the table's .grad
-      set_grads(k1.unpack_grads(ws.grad))
+      ws = _pack(model.state_dict(), device, enc).requires_grad_(True)
+      main = loss_fn(fused_train(ws, rays, generator)[:, :3], pix)
+      loss = main
+      if latent_l2:
+        loss = main + latent_l2 * regularizers.ae_latent_l2(model, generator)
+      loss.backward()       # for hash the table's .grad, for ae the encoder's
+      add_grads(_unpack_grads(enc, ws.grad))
     else:
-      loss = loss_fn(model(rays, train=True, generator=generator)["rgb"], pix)
+      out = model(rays, train=True, generator=generator)
+      main = loss_fn(out["rgb"], pix)
+      loss = main
+      if latent_l2:
+        loss = main + latent_l2 * regularizers.latent_l2(out)
       loss.backward()
     for key, p in params.items():
       keep = (cfg.train_only is None
@@ -260,8 +321,7 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
       if not keep or (cfg.freeze_substr and cfg.freeze_substr in key):
         p.grad = None if p.grad is None else torch.zeros_like(p.grad)
     opt.step()
-    loss = loss.detach()         # no regularizer is ported: loss == mse
-    return {"loss": loss, "mse": loss}
+    return {"loss": loss.detach(), "mse": main.detach()}
 
   return step
 
@@ -272,7 +332,7 @@ def train(model, ds: sampler_lib.RayDataset, cfg: TrainConfig,
   """The outer loop (driver.py:857-968); trains `model` in place and
   returns the logged history (loss, mse, step, psnr, steps_per_sec)."""
   global LAST_TRAIN_PATH
-  check_config(cfg)
+  check_config(cfg, model_kind(model))
   loss_fn = losses_lib.load_loss_fn(cfg.loss_kinds, cfg.color_spaces,
                                     cfg.tone_map, cfg.gamma_correct)
   opt = optim_lib.load_optimizer(
@@ -339,22 +399,24 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
 
 
 def _fused_render_fn(model) -> Optional[Callable]:
-  """rays [n, 6] -> rgb [n, 3] through K1 (cp) or K5f + K1 (hash) when
-  the model is in the kernels' envelope (`_fused_enc_kind`, any sky the
-  kernel implements); None otherwise. A parameter tree that diverges
-  from the flagship's raises (in `pack_weights`)."""
+  """rays [n, 6] -> rgb [n, 3] through K1 (cp), K5f + K1 (hash) or K7f
+  (ae) when the model is in the kernels' envelope (`_fused_enc_kind`,
+  any sky the kernel implements); None otherwise. A parameter tree that
+  diverges from the default one raises (in `pack_weights`)."""
   enc = _fused_enc_kind(model)
   if enc is None or model.sky_kind not in integrate.SKY_KINDS:
     return None
   device = next(model.parameters()).device
   sd = model.state_dict()
-  ws = k1.pack_weights(sd, device, enc)       # raises on divergence
+  ws = _pack(sd, device, enc)                 # raises on divergence
   kw = dict(steps=model.steps, t_near=model.t_near, t_far=model.t_far,
             sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
 
   def fn(rays_chunk):
     if enc == "cp":
       return k1.plain_cp_render(ws, rays_chunk, **kw)[:, :3]
+    if enc == "ae":
+      return k7.fused_ae_render(ws, rays_chunk, **kw)[:, :3]
     return k1.fused_plain_hash_render(ws, k1.hash_table(sd), rays_chunk,
                                       **kw)[:, :3]
 
