@@ -25,12 +25,18 @@ Phases, each printing its lines before the next starts:
      on the grid and on a jittered ts; K7b (render_ae_bwd) in cotangent
      and loss mode at 4096 x 64 and 77 x 16 as for K2/K3, over all rays
      and the kink-free ones; AERender's gradient against mode G's; two
-     K7b launches bit for bit;
+     K7b launches bit for bit. Then the K4 modes of K1/K2/K3 (posenc,
+     tiny, cone, cylinder) at 4096 x 64 as for cp, a ragged batch, and
+     PlainCPRender's gradient against K2's and two launches of K2 and of
+     K3 bit for bit in each mode;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
      hash (T = 2^19), which must launch K5f and K1-hash; 4c. the same
      with --model ae --normalize-latent, which must launch K7f and no K1;
+     4d-4f. the same with --enc-kind posenc, --mip cone and cylinder, and
+     --model tiny, which must launch K1 in that mode and nothing else,
+     and run no module forward;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
      500 steps) and must engage the one-kernel step, launch K3 once per
@@ -39,7 +45,10 @@ Phases, each printing its lines before the next starts:
      plain_hash recipe (--hash-table-log2 14), which must launch K5f,
      K3-hash and K5b once per step; 5c. NeRFAE at the sweep's ae recipe
      (--normalize-latent --latent-l2-weight 1e-3), which must engage the
-     one-kernel step and launch K7b once per step;
+     one-kernel step and launch K7b once per step; 5d-5f. the sweep's
+     plain_posenc and plain_mip_cone recipes (500 steps, both splits 2 dB
+     over all-black), --mip cylinder (100 steps) and tiny (500 steps, its
+     PSNR recorded), each through K3 in its mode once per step;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -48,14 +57,19 @@ Phases, each printing its lines before the next starts:
      (K3 at T = 2^19 and 2^14, K1 + K2, plain) and one 800x800 hash frame.
      For NeRFAE: the K7f and plain calls at 65536 x 64, one 800x800 frame,
      the K7b and plain K7b calls at 4096 x 64, the train steps (K7b,
-     K7f + K7b, plain) and the point-sampled latent L2's share of a step;
+     K7f + K7b, plain) and the point-sampled latent L2's share of a step.
+     For each K4 mode: the K1 and plain calls at 65536 x 64 and the K3 and
+     plain K3 calls at 4096 x 64; for posenc, mip cone and tiny the three
+     train steps (K3, K1 + K2, plain);
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
-     plain_hash and ae at 1500 steps for each seed;
+     plain_hash, ae, plain_posenc and plain_mip_cone at 1500 steps and
+     tiny at 3000 for each seed;
   8. with `--profile` only: where one frame's and one train step's time
-     goes, for cp, hash and ae (torch.profiler traces: device idle share,
-     per-kernel shares; host-side costs; SM clock and power under load).
+     goes, for cp, hash, ae and posenc (torch.profiler traces: device
+     idle share, per-kernel shares; host-side costs; SM clock and power
+     under load).
 The last three lines are the kernels' JSON record (each kernel's
 launches on its main path, max error against its plain version, ms per
 call, the plain version's ms, the bound from this run's bytes and
@@ -136,6 +150,20 @@ AE_TRAIN_ARGV = (TRAIN_ARGV[:3] + ["ae", "--normalize-latent",
 AE_LATENT_L2 = 1e-3
 # QUALITY_r05 ae (TPU, seed 0, one run): a record, not a gate
 QUALITY_R05_AE = (33.524, 33.169)
+# the quality sweep's plain_posenc, plain_mip_cone and tiny recipes
+# (scripts/tpu_quality_sweep.py:48-62; tiny trains EPOCH_MULT = 2 times
+# the budget), and --mip cylinder on the same recipe
+POSENC_TRAIN_ARGV = TRAIN_ARGV[:5] + ["posenc"] + TRAIN_ARGV[6:]
+MIP_TRAIN_ARGV = TRAIN_ARGV[:4] + ["--mip", "cone"] + TRAIN_ARGV[6:]
+CYLINDER_TRAIN_ARGV = TRAIN_ARGV[:4] + ["--mip", "cylinder"] + TRAIN_ARGV[6:]
+TINY_TRAIN_ARGV = TRAIN_ARGV[:3] + ["tiny"] + TRAIN_ARGV[6:]
+CYLINDER_STEPS = 100
+# QUALITY_r05 plain_posenc, plain_mip_cone, tiny (TPU, seed 0, one run
+# each): records, not gates
+QUALITY_R05_POSENC = (33.413, 33.172)
+QUALITY_R05_MIP = (33.381, 32.455)
+QUALITY_R05_TINY = (23.284, 16.67)
+K4_MODES = ("posenc", "tiny", "cone", "cylinder")
 
 
 def _sync_time(fn):
@@ -173,17 +201,57 @@ def _mean_s(fn, reps: int = 5) -> float:
   return sum(_sync_time(fn)[1] for _ in range(reps)) / reps
 
 
-def _build(build):
-  """Phase 2: one nvcc per kernel source, started together."""
-  names = ("render_fwd", "render_bwd", "hash_encode", "render_ae_fwd",
-           "render_ae_bwd")
-  with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-    built = dict(zip(names, pool.map(build.build, names)))
-  for name, b in built.items():
-    regs = [ln.strip() for ln in b.log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    print(f"[build] {name}.cu -> {b.path.name} in {b.seconds:.1f} s | "
-          f"{' | '.join(regs)}", flush=True)
+def _kernel_name(mangled: str) -> str:
+  """The `*_kernel` identifier in a mangled name (<length><identifier>
+  segments), with its template mode: render_fwd_kernel<2>."""
+  import re
+  i = 0
+  while i < len(mangled):
+    m = re.match(r"\d+", mangled[i:])
+    if not m:
+      i += 1
+      continue
+    start = i + len(m.group())
+    ident = mangled[start:start + int(m.group())]
+    if ident.endswith("_kernel"):
+      t = re.match(r"ILi(\d+)E", mangled[start + len(ident):])
+      return ident + (f"<{t.group(1)}>" if t else "")
+    i = start + len(ident)
+  return mangled
+
+
+def _ptxas_entries(log: str):
+  """[(kernel, "R registers, S B spill stores, L B spill loads")] from
+  nvcc's -Xptxas=-v report, in its order; a template kernel carries its
+  mode (`render_fwd_kernel<2>`)."""
+  import re
+  out, name, spill = [], None, ""
+  for ln in log.splitlines():
+    m = re.search(r"Compiling entry function '(\w+)'", ln)
+    if m:
+      name = _kernel_name(m.group(1))
+    elif "spill stores" in ln:
+      spill = ln.strip()
+    elif "Used" in ln and "registers" in ln and name:
+      regs = re.search(r"Used (\d+) registers", ln).group(1)
+      out.append((name, f"{regs} registers, {spill.split(' stack frame, ')[-1]}"))
+      name = None
+  return out
+
+
+def _build(build, k1):
+  """Phase 2: one nvcc per kernel source, started together; render_bwd.cu
+  once per mode (`render.bwd_defines`)."""
+  jobs = [(name, ()) for name in ("render_fwd", "hash_encode",
+                                  "render_ae_fwd", "render_ae_bwd")]
+  jobs += [("render_bwd", k1.bwd_defines(kind)) for kind in k1.ENC_KINDS]
+  with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+    built = list(pool.map(lambda job: build.build(*job), jobs))
+  for (name, defines), b in zip(jobs, built):
+    tag = f" {' '.join(defines)}" if defines else ""
+    entries = [f"{n}: {r}" for n, r in _ptxas_entries(b.log)]
+    print(f"[build] {name}.cu{tag} -> {b.path.name} in {b.seconds:.1f} s | "
+          f"{' | '.join(entries)}", flush=True)
 
 
 def _rel_error(k1, grad, ref):
@@ -197,18 +265,23 @@ def _rel_error(k1, grad, ref):
 def _check_bwd(what, k1, ws, rays, gen, kw, feats=None):
   """K2 (random g) and K3 (random target) against their plain versions,
   over all rays and over the kink-free rays (see GRAD_RTOL); in hash mode
-  (with the points' features `feats`) dfeat is held as one more tensor.
-  Returns the max |Δ| of the gradients."""
+  (with the points' features `feats`) dfeat is held as one more tensor;
+  kw["enc_kind"], when given, picks a K4 mode. Returns the max |Δ| of the
+  gradients."""
   from nerf_atlas_tpu_torch import testing
   n = rays.shape[0]
+  enc = kw.get("enc_kind")
   keep = testing.kink_free_rays(ws, rays, kw["ts"], kw["steps"], KINK_MARGIN,
-                                feats=feats)
+                                feats=feats, enc_kind=enc)
   g = torch.randn(n, 4, device=rays.device, generator=gen)
   target = torch.rand(n, 3, device=rays.device, generator=gen)
   if feats is None:
     out = k1.plain_cp_render_reference(ws, rays, **kw)[:, :3]
-    fns = (("K2", k1.plain_cp_render_grad, k1.plain_cp_render_grad_reference),
-           ("K3", k1.plain_cp_train_step, k1.plain_cp_train_step_reference))
+    tag = f"-{enc}" if enc else ""
+    fns = ((f"K2{tag}", k1.plain_cp_render_grad,
+            k1.plain_cp_render_grad_reference),
+           (f"K3{tag}", k1.plain_cp_train_step,
+            k1.plain_cp_train_step_reference))
     args = ()
   else:
     out = k1.plain_hash_render_reference(ws, rays, feats, **kw)[:, :3]
@@ -562,6 +635,94 @@ def _check_ae(k7, testing, rays_ops, models, driver, dev):
   return max_f, max_b
 
 
+def _k4_model(models, mode, dev, **kw):
+  """The model of a K4 mode at full width."""
+  if mode == "tiny":
+    return models.TinyNeRF(steps=STEPS, device=dev, **kw)
+  if mode in ("cone", "cylinder"):
+    return models.PlainNeRF(steps=STEPS, mip=mode, device=dev, **kw)
+  return models.PlainNeRF(steps=STEPS, enc_kind=mode, device=dev, **kw)
+
+
+def _k4_amplified(sd, mode):
+  """The output layers scaled so that rgb spans (0, 1) and density varies
+  along the rays: rgb ×40, density ×8 (tiny: the rows of its one
+  layer_out)."""
+  amp = dict(sd)
+  if mode == "tiny":
+    w = amp["mlp.layer_out.weight"]
+    amp["mlp.layer_out.weight"] = torch.cat([w[:1] * 8.0, w[1:] * 40.0])
+  else:
+    amp["refl.mlp.layer_out.weight"] = amp["refl.mlp.layer_out.weight"] * 40.0
+    amp["density_mlp.layer_out.weight"] = (
+        amp["density_mlp.layer_out.weight"] * 8.0)
+  return amp
+
+
+def _check_k4(k1, rays_ops, models, driver, dev):
+  """Phase 3, the K4 modes: K1, K2 and K3 in each of posenc, tiny, cone
+  and cylinder against their plain versions (K2/K3 over all rays and the
+  kink-free ones), a ragged batch, PlainCPRender against K2, and two
+  launches of K2 and of K3 bit for bit. Returns {mode: (K1 max |Δ|,
+  K2/K3 max |Δ|)}."""
+  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
+  rays_r = torch.from_numpy(_check_rays(4093, 1)).to(dev)
+  out = {}
+  for i, mode in enumerate(K4_MODES):
+    sd = driver.init_model(_k4_model(models, mode, dev), seed=0).state_dict()
+    seeded = k1.pack_weights(sd, dev, mode)
+    amplified = k1.pack_weights(_k4_amplified(sd, mode), dev, mode)
+    gen = torch.Generator(device=dev).manual_seed(10 + i)
+    max_k1, max_bwd = 0.0, 0.0
+    for wname, sky, kind in (("seeded", "black", "thin"),
+                             ("amplified", "white", "normal"),
+                             ("amplified", "black", "tanh")):
+      ws = seeded if wname == "seeded" else amplified
+      kw = dict(steps=STEPS, t_near=2.0, t_far=6.0, sigmoid_kind=kind,
+                sky_kind=sky, enc_kind=mode)
+      ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                               device=dev)
+      for name, t in (("grid", None), ("jittered ts", ts)):
+        got = k1.plain_cp_render(ws, rays, ts=t, **kw)
+        ref = k1.plain_cp_render_reference(ws, rays, ts=t, **kw)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        print(f"[check] K1-{mode} {wname:9s} sky {sky:5s} {kind:6s} "
+              f"{name:11s}: max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
+              f"{float(ref[:, :3].std()):.3f})", flush=True)
+        if not (e <= TOL and bool(torch.isfinite(got).all())):
+          raise RuntimeError(f"K1-{mode} disagrees with its reference: {e}")
+        max_k1 = max(max_k1, e)
+      max_bwd = max(max_bwd, _check_bwd(
+          f"{wname:9s} sky {sky:5s} {kind:6s}", k1, ws, rays, gen,
+          dict(kw, ts=ts)))
+    # a ragged batch: 16 steps = 4 rays per kernel block, 4093 rays
+    ts = rays_ops.compute_ts(2.0, 6.0, 16, perturb=1.0, generator=gen,
+                             device=dev)
+    kw = dict(steps=16, t_near=2.0, t_far=6.0, sigmoid_kind="thin",
+              sky_kind="white", ts=ts, enc_kind=mode)
+    max_bwd = max(max_bwd, _check_bwd("ragged 4093 rays x 16 steps", k1,
+                                      amplified, rays_r, gen, kw))
+    g = torch.randn(rays_r.shape[0], 4, device=dev, generator=gen)
+    target = torch.rand(rays_r.shape[0], 3, device=dev, generator=gen)
+    leaf = amplified.clone().requires_grad_(True)
+    (k1.plain_cp_render_train(leaf, rays_r, ts, steps=16, sky_kind="white",
+                              enc_kind=mode) * g).sum().backward()
+    direct = k1.plain_cp_render_grad(amplified, rays_r, g, **kw)
+    again = k1.plain_cp_render_grad(amplified, rays_r, g, **kw)
+    step1 = k1.plain_cp_train_step(amplified, rays_r, target, **kw)
+    step2 = k1.plain_cp_train_step(amplified, rays_r, target, **kw)
+    if not (torch.equal(leaf.grad, direct) and torch.equal(direct, again)
+            and all(torch.equal(a, b) for a, b in zip(step1, step2))):
+      raise RuntimeError(f"PlainCPRender-{mode}'s gradient differs from "
+                         "K2's, or two K2 or K3 launches differ")
+    print(f"[check] PlainCPRender-{mode} backward == K2-{mode} (bitwise); "
+          f"two K2-{mode} and two K3-{mode} launches bitwise equal",
+          flush=True)
+    out[mode] = (max_k1, max_bwd)
+  return out
+
+
 def _render_main(port_runner, *extra):
   """Phases 4 / 4b / 4c: the port's runner renders and scores 800x800, 2
   views x 2 splits, seeded random weights; returns (results, wall s,
@@ -577,6 +738,47 @@ def _render_main(port_runner, *extra):
       if not all(math.isfinite(p) for p in results[split]["psnrs"]):
         raise RuntimeError(f"{split} PSNR not finite: {results[split]}")
   return results, secs, counts
+
+
+def _module_forwards(models, fn):
+  """(fn(), calls of any model class's forward during it): a render that
+  takes the kernel gate calls none."""
+  calls = [0]
+  saved = {cls: cls.forward for cls in set(models.MODEL_KINDS.values())}
+
+  def counting(forward):
+    def wrapped(self, *a, **kw):
+      calls[0] += 1
+      return forward(self, *a, **kw)
+    return wrapped
+
+  for cls, forward in saved.items():
+    cls.forward = counting(forward)
+  try:
+    out = fn()
+  finally:
+    for cls, forward in saved.items():
+      cls.forward = forward
+  return out, calls[0]
+
+
+def _render_main_k4(port_runner, models, tag, *extra):
+  """Phases 4d-4f: the runner's 800x800 render of a K4 family must launch
+  K1 (in its mode) and nothing else, and run no module forward. Returns
+  the K1 launches."""
+  (results, secs, counts), forwards = _module_forwards(
+      models, lambda: _render_main(port_runner, *extra))
+  others = {k: v for k, v in counts.items() if k != "K1" and v}
+  if counts["K1"] <= 0 or others or forwards:
+    raise RuntimeError(f"the {tag} render launched {counts} and ran "
+                       f"{forwards} module forwards")
+  print(f"[main] runner {tag} {SIZE}x{SIZE}x{STEPS}, 2 views x 2 splits: "
+        f"{secs:.2f} s end to end (incl. ground-truth render + PNGs), "
+        f"{2 * 2 * SIZE * SIZE / secs:,.0f} rays/s | K1-{tag} launches "
+        f"{counts['K1']}, other kernels 0, module forwards {forwards} | "
+        f"PSNR train {results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f}", flush=True)
+  return counts["K1"]
 
 
 def _black_psnr(pixels) -> float:
@@ -707,6 +909,36 @@ def _train_main_ae(port_runner, k1, loaders, dev):
   return counts
 
 
+def _train_main_k4(port_runner, k1, loaders, dev, tag, argv, steps,
+                   gate=True):
+  """Phases 5d-5f: a K4 family's recipe through the one-kernel step: K3
+  in its mode once per step, K1 in eval, nothing else; with `gate` both
+  splits 2 dB over all-black (else the PSNR is recorded). Returns the K3
+  launches."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            steps, argv=argv)
+  if gate:
+    losses = _check_trained(results, black)
+  else:
+    losses = [h["loss"] for h in results["history"]]
+    if (results["engaged_path"] != "fused-one-kernel"
+        or not all(math.isfinite(v) for v in losses)):
+      raise RuntimeError(f"{tag}: path {results['engaged_path']}, losses "
+                         f"{losses}")
+  others = {k: v for k, v in counts.items() if k not in ("K3", "K1") and v}
+  if counts["K3"] != steps or counts["K1"] <= 0 or others:
+    raise RuntimeError(f"{tag} training launched {counts}, expected {steps} "
+                       "K3, K1 in eval and nothing else")
+  print(f"[train] runner {tag} {steps} steps x {BATCH} rays x {STEPS} "
+        f"samples (48x48, 30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | launches K3-{tag} {counts['K3']}, "
+        f"K1-{tag} {counts['K1']} | loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} | PSNR train {results['train']['psnr_mean']:.3f} "
+        f"test {results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts["K3"]
+
+
 def _step_fns(model_cls, driver, ds, dev, names=("K3 step", "K1+K2 step",
                                                  "plain step"),
               reg_coeffs=None, **model_kw):
@@ -814,17 +1046,23 @@ def _no_cotangent_macs(layers, prefix: str, hidden: int, rows: int) -> int:
 
 def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool):
   """Bound of one K1 (or, backward, K2/K3) call on n rays: 2 FLOP per
-  multiply-add of the two MLPs per sample point (3x that backward: the
+  multiply-add of the MLPs per sample point (3x that backward: the
   forward, the input- and the weight-gradient products, less the input
-  gradients of the View's p and elev/azim rows); bytes: rays, ts, weights
-  and the hash features in, [n, 4] out (backward: the target in, the
-  gradient and dfeat out)."""
+  gradients no output needs: the View's p and elev/azim rows, and for
+  the parameter-free encoders (posenc, tiny, cone, cylinder) the density
+  MLP's whole init feature); bytes: rays, ts, weights and the hash
+  features in, [n, 4] out (backward: the target in, the gradient and
+  dfeat out)."""
   lay = k1.LAYOUTS[enc]
   macs = sum(i * o for _, i, o in lay.density_layers + lay.refl_layers)
   pts = n * steps
   feat = pts * 16 if enc == "hash" else 0
   if backward:
     skip = _no_cotangent_macs(lay.refl_layers, "refl.mlp", k1.R_HIDDEN, 5)
+    if enc not in ("cp", "hash"):
+      name, _, hidden = lay.density_layers[0]
+      skip += _no_cotangent_macs(lay.density_layers, name.rsplit(".", 1)[0],
+                                 hidden, lay.feat_in)
     return _bound_ms(2 * (3 * macs - skip) * pts,
                      4 * (n * 9 + 2 * steps + 2 * lay.weight_count
                           + 2 * feat))
@@ -1106,6 +1344,81 @@ def _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
   return res
 
 
+def _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
+             frame_ds):
+  """Phase 6, the K4 modes: each mode's K1 and plain calls at 65536 x 64
+  and K3 and plain K3 calls at 4096 x 64 (plain, kernel, kernel, plain);
+  then for posenc, mip cone and tiny the three train steps at 4096 x 64.
+  Returns {mode: ((K1 ms, plain ms, bound), (K3 ms, plain ms, bound))}."""
+  frame_rays = frame_ds.view_rays(0)
+  call_rays = frame_rays[:CHUNK].contiguous()
+  r4 = call_rays[:BATCH].contiguous()
+  gen = torch.Generator(device=dev).manual_seed(11)
+  res = {}
+  for mode in K4_MODES:
+    ws = k1.pack_weights(driver.init_model(_k4_model(models, mode, dev),
+                                           seed=0).state_dict(), dev, mode)
+    kw = dict(steps=STEPS, t_near=2.0, t_far=6.0, enc_kind=mode)
+    ms = {}
+    for name, fn, reps in (
+        ("plain", lambda: k1.plain_cp_render_reference(ws, call_rays, **kw),
+         2),
+        ("kernel", lambda: k1.plain_cp_render(ws, call_rays, **kw), 3),
+        ("kernel", lambda: k1.plain_cp_render(ws, call_rays, **kw), 3),
+        ("plain", lambda: k1.plain_cp_render_reference(ws, call_rays, **kw),
+         2)):
+      ms.setdefault(name, []).append(_event_ms(fn, reps))
+    b1 = _mlp_bound(k1, mode, CHUNK, STEPS, False)
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    target = torch.rand(BATCH, 3, device=dev, generator=gen)
+    k3 = {}
+    for name, fn, reps in (
+        ("plain", lambda: k1.plain_cp_train_step_reference(
+            ws, r4, target, ts=ts, **kw), 3),
+        ("kernel", lambda: k1.plain_cp_train_step(ws, r4, target, ts=ts,
+                                                  **kw), 5),
+        ("kernel", lambda: k1.plain_cp_train_step(ws, r4, target, ts=ts,
+                                                  **kw), 5),
+        ("plain", lambda: k1.plain_cp_train_step_reference(
+            ws, r4, target, ts=ts, **kw), 3)):
+      k3.setdefault(name, []).append(_event_ms(fn, reps))
+    b3 = _mlp_bound(k1, mode, BATCH, STEPS, True)
+    macs = sum(i * o for _, i, o in k1.LAYOUTS[mode].density_layers
+               + k1.LAYOUTS[mode].refl_layers)
+    tflops = 2 * macs * CHUNK * STEPS / (min(ms["kernel"]) / 1e3) / 1e12
+    print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step K1-{mode} call "
+          f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms ({tflops:.2f} "
+          f"TFLOP/s; bound {b1[0]:.2f} ms, bf16 {b1[2]:.2f}), plain torch "
+          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+    print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3-{mode} call "
+          f"{k3['kernel'][0]:.2f} / {k3['kernel'][1]:.2f} ms (bound "
+          f"{b3[0]:.2f} ms, bf16 {b3[2]:.2f}), plain torch "
+          f"{k3['plain'][0]:.2f} / {k3['plain'][1]:.2f} ms", flush=True)
+    res[mode] = ((min(ms["kernel"]), min(ms["plain"]), b1),
+                 (min(k3["kernel"]), min(k3["plain"]), b3))
+
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  for tag, model_cls, model_kw in (
+      ("posenc", models.PlainNeRF, dict(enc_kind="posenc")),
+      ("mip cone", models.PlainNeRF, dict(mip="cone")),
+      ("tiny", models.TinyNeRF, {})):
+    fns = _step_fns(model_cls, driver, ds, dev, **model_kw)
+    order = ["K3 step", "K1+K2 step", "plain step"]
+    step_ms = {}
+    for name in order + order[::-1]:
+      step, _ = fns[name]
+      step_ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+    for name in order:
+      v = step_ms[name]
+      print(f"[time] {card}: {tag} {name} at {BATCH}x{STEPS}: {v[0]:.2f} / "
+            f"{v[1]:.2f} ms = {BATCH / (min(v) / 1e3):,.0f} train rays/s",
+            flush=True)
+  return res
+
+
 def _quality(card, port_runner, k1, loaders, dev, seeds):
   """Phase 7: the sweep recipe's 1500 steps on the kernel path for
   each seed, and with --no-fused for the first; prints both splits' PSNR
@@ -1114,16 +1427,23 @@ def _quality(card, port_runner, k1, loaders, dev, seeds):
   runs += [(seed, (), TRAIN_ARGV) for seed in seeds[1:]]
   runs += [(seed, (), HASH_TRAIN_ARGV) for seed in seeds]
   runs += [(seed, (), AE_TRAIN_ARGV) for seed in seeds]
+  runs += [(seed, (), argv) for argv in (POSENC_TRAIN_ARGV, MIP_TRAIN_ARGV,
+                                         TINY_TRAIN_ARGV) for seed in seeds]
   records = {id(HASH_TRAIN_ARGV): ("plain_hash T=2^14 ", QUALITY_R05_HASH),
-             id(AE_TRAIN_ARGV): ("ae ", QUALITY_R05_AE)}
+             id(AE_TRAIN_ARGV): ("ae ", QUALITY_R05_AE),
+             id(POSENC_TRAIN_ARGV): ("plain_posenc ", QUALITY_R05_POSENC),
+             id(MIP_TRAIN_ARGV): ("plain_mip_cone ", QUALITY_R05_MIP),
+             id(TINY_TRAIN_ARGV): ("tiny ", QUALITY_R05_TINY)}
   for seed, extra, argv in runs:
+    # tiny trains the sweep's EPOCH_MULT = 2 times the budget
+    steps = QUALITY_STEPS * (2 if argv is TINY_TRAIN_ARGV else 1)
     results, secs, _, black = _train_run(
-        port_runner, k1, loaders, dev, QUALITY_STEPS,
+        port_runner, k1, loaders, dev, steps,
         ("--seed", str(seed), *extra), argv=argv)
     tag, record = records.get(id(argv), ("", None))
     note = (f" (QUALITY_r05 {tag.split()[0]}, TPU: {record[0]} / "
             f"{record[1]})" if record else "")
-    print(f"[quality] {card}: {tag}{QUALITY_STEPS} steps, seed {seed}, path "
+    print(f"[quality] {card}: {tag}{steps} steps, seed {seed}, path "
           f"{results['engaged_path']}: PSNR train "
           f"{results['train']['psnr_mean']:.3f} test "
           f"{results['test']['psnr_mean']:.3f} (all-black "
@@ -1273,6 +1593,7 @@ def main(argv=None):
                       help="phase 7's seeds: the kernel path for each, "
                            "--no-fused for the first")
   args = parser.parse_args(argv)
+  t_start = time.perf_counter()
   # ---- 1. device ----
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1297,7 +1618,7 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
-  _build(build)
+  _build(build, k1)
 
   # ---- 3. kernels vs reference on the card ----
   dev = torch.device("cuda")
@@ -1309,6 +1630,7 @@ def main(argv=None):
   max_err_h, max_bwd_h = _check_hash_render(k1, hk, rays_ops, models, driver,
                                             dev)
   max_k7f, max_k7b = _check_ae(k7, testing, rays_ops, models, driver, dev)
+  max_k4 = _check_k4(k1, rays_ops, models, driver, dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
   results, secs, counts = _render_main(port_runner)
@@ -1344,12 +1666,33 @@ def main(argv=None):
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
 
+  # ---- 4d-4f. the same for the K4 families ----
+  render_k4 = {
+      "posenc": _render_main_k4(port_runner, models, "posenc", "--enc-kind",
+                                "posenc"),
+      "cone": _render_main_k4(port_runner, models, "cone", "--mip", "cone"),
+      "cylinder": _render_main_k4(port_runner, models, "cylinder", "--mip",
+                                  "cylinder"),
+      "tiny": _render_main_k4(port_runner, models, "tiny", "--model",
+                              "tiny")}
+
   # ---- 5. main path, train ----
   k3_launches = _train_main(port_runner, k1, loaders, dev)
   # ---- 5b. hash training at the plain_hash recipe ----
   train_h = _train_main_hash(port_runner, k1, loaders, dev)
   # ---- 5c. NeRFAE at the ae recipe ----
   train_ae = _train_main_ae(port_runner, k1, loaders, dev)
+  # ---- 5d-5f. the K4 families at their sweep recipes ----
+  train_k4 = {
+      "posenc": _train_main_k4(port_runner, k1, loaders, dev, "posenc",
+                               POSENC_TRAIN_ARGV, TRAIN_STEPS),
+      "cone": _train_main_k4(port_runner, k1, loaders, dev, "cone",
+                             MIP_TRAIN_ARGV, TRAIN_STEPS),
+      "cylinder": _train_main_k4(port_runner, k1, loaders, dev, "cylinder",
+                                 CYLINDER_TRAIN_ARGV, CYLINDER_STEPS,
+                                 gate=False),
+      "tiny": _train_main_k4(port_runner, k1, loaders, dev, "tiny",
+                             TINY_TRAIN_ARGV, TRAIN_STEPS, gate=False)}
 
   # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
@@ -1395,6 +1738,10 @@ def main(argv=None):
                       rays_ops, dev, ds)
   ae_t = _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
                   ds)
+  k4_t = _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
+                  ds)
+  print(f"[time] phases 1-6 (the run without --quality and --profile): "
+        f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
   if args.quality:
     _quality(card, port_runner, k1, loaders, dev, args.seeds)
@@ -1409,6 +1756,10 @@ def main(argv=None):
         steps=STEPS, device=dev), seed=0), ds, "ae")
     _profile_train(card, models.NeRFAE, driver, loaders, sampler, dev,
                    "ae K7b", reg_coeffs={"latent_l2": AE_LATENT_L2})
+    _profile_frame(card, driver.init_model(models.PlainNeRF(
+        steps=STEPS, enc_kind="posenc", device=dev), seed=0), ds, "posenc")
+    _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev,
+                   "posenc K3", enc_kind="posenc")
 
   k5f = hash_t["k5"][(CHUNK * STEPS, HASH_T)]["fwd"]
   k5b = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["bwd"]
@@ -1432,6 +1783,12 @@ def main(argv=None):
       ("render_ae_bwd", "render_ae_bwd.cu", "render_ae.py:166",
        train_ae["K7b"], max_k7b, *ae_t["k7b"], None),
   ]
+  for mode in K4_MODES:
+    rows += [
+        (f"render_fwd_{mode}", "render_fwd.cu", "render.py:586",
+         render_k4[mode], max_k4[mode][0], *k4_t[mode][0], None),
+        (f"render_bwd_{mode}", "render_bwd.cu", "render.py:915",
+         train_k4[mode], max_k4[mode][1], *k4_t[mode][1], None)]
   for name, *_, bound, _ in rows:
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores), {bound[2]:.4f} ms at the bf16 "

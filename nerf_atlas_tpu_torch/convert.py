@@ -6,6 +6,8 @@ given as a nested dict of numpy arrays (e.g.
 `state_dict`. Paths map one to one, joined with "."; for PlainNeRF:
   params/density_mlp/{enc/lines_0..3, layer_in, layer_0..4, layer_out}
   params/refl/mlp/{layer_in, layer_0..4, layer_out}
+(PlainNeRF-hash has enc/table, posenc and mip no enc at all), and for
+TinyNeRF params/mlp/{layer_in, layer_0..5, layer_out}.
 A flax `Dense.kernel` is [in, out] and a torch `Linear.weight` is
 [out, in], so kernels are transposed. A skip layer's input rows are
 ordered [hidden ; init_feat] in both packages, so nothing else moves.

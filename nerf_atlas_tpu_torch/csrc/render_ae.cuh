@@ -1,9 +1,8 @@
 // Device code shared by K7f (render_ae_fwd.cu) and K7b (render_ae_bwd.cu):
-// the NeRFAE architecture and its packed weight layout, the per-layer
-// building blocks (copied from render_fwd.cu / render_bwd.cu, whose cp and
-// hash instantiations stay as they are), and the forward of one 64-point
-// tile, which both kernels run so that the backward recomputes exactly
-// the forward's values.
+// the NeRFAE architecture and its packed weight layout, and the forward of
+// one 64-point tile, which both kernels run so that the backward
+// recomputes exactly the forward's values. The per-layer building blocks
+// are render_common.cuh's, which K1 and K2/K3 share.
 //
 // The chain of one sample point (nerf_atlas_tpu/ops/pallas/render_ae.py
 // `_ae_chain_fwd`, models/nerf.py NeRFAE):
@@ -17,18 +16,14 @@
 //   -> density_tfm SkipConnMLP 32 -> 128×4 -> 33, skip at layer 0
 //   -> siren View MLP on [p ‖ elev, azim ‖ y ‖ feats] (69) -> 128×5 -> 3
 //
-// Activations of a tile live feature-major in shared memory ([row][PS],
-// 64 points per row); weights are read per layer through L1/L2.
-
 #pragma once
 
-#include <cuda_runtime.h>
+#include "render_common.cuh"
 
 namespace ae {
 
-constexpr int TILE = 64;          // sample points per tile
-constexpr int THREADS = 256;      // 8 warps x 8 points = one tile
-constexpr int PS = TILE + 4;      // row stride (floats) of shared tiles
+using namespace render;
+
 constexpr int N_FREQS = 8;
 constexpr int PE = 3 * N_FREQS;              // 24 phases per point
 constexpr int E_IN = 3 + 2 * PE;             // 51: p ‖ sin ‖ cos
@@ -44,19 +39,13 @@ constexpr int R_ENC = 5;                     // refl-init rows of the latent
 constexpr int R_FEAT = R_ENC + ENC;          // ... and of the features
 constexpr int F_ROWS = 72;                   // >= max(E_IN, R_IN)
 
-static_assert(THREADS == 32 * (TILE / 8), "dense: 8 points per warp");
 static_assert(E_IN <= F_ROWS && R_IN <= F_ROWS, "init feature rows");
-
-enum Act { ACT_NONE = 0, ACT_LEAKY = 1, ACT_SIN30 = 2 };
 
 // ---- packed weight layout (ops/kernels/render_ae.py:pack_weights_ae, in
 // `_flatten_params_ae` order: encode, density_tfm, refl.mlp): each Dense
 // layer as W [in][out] row-major followed by its bias [out]. The
 // backward's transposed copy has each W block as [out][in] at the same
 // offset.
-__host__ __device__ constexpr long dense_size(int in, int out) {
-  return (long)in * out + out;
-}
 constexpr long E_IN_ = 0;
 constexpr long E_L0 = E_IN_ + dense_size(E_IN, E_HIDDEN);
 constexpr long E_L1 = E_L0 + dense_size(E_HIDDEN + E_IN, E_HIDDEN);
@@ -89,76 +78,6 @@ constexpr int ST_FR = ST_X + ENC;               // View init feature
 constexpr int ST_ROWS = ST_FR + R_IN;           // 3096
 constexpr long ST_TILE = (long)ST_ROWS * TILE;  // floats per tile
 
-template <int ACT>
-__device__ __forceinline__ float activate(float v) {
-  if (ACT == ACT_LEAKY) return fmaxf(v, 0.01f * v);
-  if (ACT == ACT_SIN30) return sinf(30.0f * v);
-  return v;
-}
-
-// d act / d v, with autograd's convention at the leaky kink (0.01 at 0)
-template <int ACT>
-__device__ __forceinline__ float act_grad(float v) {
-  if (ACT == ACT_LEAKY) return v > 0.0f ? 1.0f : 0.01f;
-  if (ACT == ACT_SIN30) return 30.0f * cosf(30.0f * v);
-  return 1.0f;
-}
-
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-// ops/math.py sigmoid kinds, indexed like FUSED_SIGMOID_KINDS: the value
-// and its derivative
-__device__ __forceinline__ float rgb_act(float v, int kind, float* grad) {
-  const float eps = 1e-2f;
-  if (kind <= 3) {
-    const float s = sigmoid(v);
-    const float ds = s * (1.0f - s);
-    switch (kind) {
-      case 0: *grad = ds * (1.0f - 2.0f * eps);                   // thin
-              return s * (1.0f - 2.0f * eps) + 2.0f * eps;
-      case 1: *grad = ds * (1.0f + 2.0f * eps);                   // fat
-              return s * (1.0f + 2.0f * eps) - eps;
-      case 2: *grad = ds; return s;                               // normal
-      default: *grad = ds; return s + eps;                        // upshifted
-    }
-  }
-  switch (kind) {
-    case 4: { const float t = tanhf(v); *grad = 1.0f - t * t; return t; }
-    case 5: *grad = v > 0.0f ? 1.0f : 0.0f; return fmaxf(v, 0.0f);
-    case 6: *grad = v > 0.0f ? 1.0f : 0.0f; return fmaxf(v, 0.0f) + eps;
-    default: *grad = v > 0.0f ? 1.0f : 0.01f; return fmaxf(v, 0.01f * v);
-  }
-}
-
-// The sample point, rounded as the plain torch version rounds it (one
-// IEEE op per torch op, no FMA contraction): posenc multiplies it by up
-// to 64, so a contracted FMA would move the highest band's phase.
-__device__ __forceinline__ float sample_point(float o, float t, float d) {
-  return __fadd_rn(o, __fmul_rn(t, d));
-}
-
-// Per-ray constants: s[0..5] = the ray, s[6], s[7] = its elevation and
-// azimuth (ops/math.py:dir_to_elev_azim).
-__device__ __forceinline__ void ray_setup(const float* __restrict__ ray,
-                                          float* s) {
-#pragma unroll
-  for (int c = 0; c < 6; ++c) s[c] = ray[c];
-  const float norm = sqrtf(s[3] * s[3] + s[4] * s[4] + s[5] * s[5]);
-  const float inv = 1.0f / fmaxf(norm, 1e-12f);
-  const float lim = 1.0f - 1e-6f;
-  const float x = fminf(fmaxf(s[3] * inv, -lim), lim);
-  const float y = fminf(fmaxf(s[4] * inv, -lim), lim);
-  const float z = fminf(fmaxf(s[5] * inv, -lim), lim);
-  s[6] = acosf(z);
-  s[7] = atan2f(y, x);
-}
-
 // ‖x‖ of one point's raw encoding (ENC values at stride `stride`), summed
 // in one fixed order: the forward and the backward call this on the same
 // values and get the same bits.
@@ -167,84 +86,6 @@ __device__ __forceinline__ float latent_norm(const float* x, int stride) {
 #pragma unroll 8
   for (int k = 0; k < ENC; ++k) s = fmaf(x[k * stride], x[k * stride], s);
   return sqrtf(s);
-}
-
-// acc[j][i] += sum_k x[k][p0 + i] * w[k * LDW + lane + 32 j]
-template <int K, int NOUT, int NJ, int LDW>
-__device__ __forceinline__ void accumulate(const float* x,
-                                           const float* __restrict__ w,
-                                           int lane, int p0,
-                                           float (&acc)[NJ][8]) {
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const float4 x0 = *reinterpret_cast<const float4*>(x + k * PS + p0);
-    const float4 x1 = *reinterpret_cast<const float4*>(x + k * PS + p0 + 4);
-    const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int o = lane + 32 * j;
-      const float wv = (o < NOUT) ? __ldg(w + (long)k * LDW + o) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xs[i], wv, acc[j][i]);
-    }
-  }
-}
-
-// Forward layer: dst[o][p] = act(z), z = b[o] + sum_k a[k][p] w[k][o] +
-// sum_k f[k][p] w[KA + k][o] for the tile's 64 points and o < NOUT; with
-// `zst` the pre-activation z also goes to the stash rows zst[o][p]. `w` is
-// [KA + KF][NOUT] row-major with the bias after it. dst may alias a: every
-// read finishes before the barrier that precedes the writes.
-template <int KA, int KF, int NOUT, int ACT>
-__device__ __forceinline__ void dense_fwd(const float* a, const float* f,
-                                          const float* __restrict__ w,
-                                          float* dst, float* zst) {
-  constexpr int NJ = (NOUT + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  const int p0 = (threadIdx.x >> 5) * 8;
-  const float* __restrict__ b = w + (long)(KA + KF) * NOUT;
-  float acc[NJ][8];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = lane + 32 * j;
-    const float bj = (o < NOUT) ? __ldg(b + o) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = bj;
-  }
-  accumulate<KA, NOUT, NJ, NOUT>(a, w, lane, p0, acc);
-  if (KF > 0) accumulate<KF, NOUT, NJ, NOUT>(f, w + (long)KA * NOUT, lane,
-                                             p0, acc);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = lane + 32 * j;
-    if (o < NOUT) {
-      if (zst != nullptr) {
-        *reinterpret_cast<float4*>(zst + o * TILE + p0) =
-            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-        *reinterpret_cast<float4*>(zst + o * TILE + p0 + 4) =
-            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
-      }
-      float4 v0, v1;
-      v0.x = activate<ACT>(acc[j][0]); v0.y = activate<ACT>(acc[j][1]);
-      v0.z = activate<ACT>(acc[j][2]); v0.w = activate<ACT>(acc[j][3]);
-      v1.x = activate<ACT>(acc[j][4]); v1.y = activate<ACT>(acc[j][5]);
-      v1.z = activate<ACT>(acc[j][6]); v1.w = activate<ACT>(acc[j][7]);
-      *reinterpret_cast<float4*>(dst + o * PS + p0) = v0;
-      *reinterpret_cast<float4*>(dst + o * PS + p0 + 4) = v1;
-    }
-  }
-  __syncthreads();
-}
-
-// dst[r][p] = act(src[r][p]) for rows r < rows of the tile
-template <int ACT>
-__device__ __forceinline__ void act_rows(const float* src, float* dst,
-                                         int rows) {
-  for (int i = threadIdx.x; i < rows * TILE; i += THREADS) {
-    const int idx = (i / TILE) * PS + (i % TILE);
-    dst[idx] = activate<ACT>(src[idx]);
-  }
 }
 
 // The forward of one tile: the block's sample points q0 .. q0 + 63 (of
@@ -274,12 +115,7 @@ __device__ void tile_forward(float* H, float* Fb, float* FA,
   __syncthreads();
   // ---- posenc: rows 3 + j = sin(phase_j), rows 27 + j = cos(phase_j),
   // phase_j = p_{j / 8} · f_{j % 8} ----
-  for (int i = tid; i < PE * TILE; i += THREADS) {
-    const int j = i / TILE, p = i % TILE;
-    const float ph = __fmul_rn(Fb[(j / N_FREQS) * PS + p], fq[j % N_FREQS]);
-    Fb[(3 + j) * PS + p] = sinf(ph);
-    Fb[(3 + PE + j) * PS + p] = cosf(ph);
-  }
+  posenc_rows<N_FREQS>(Fb, fq);
   __syncthreads();
   for (int i = tid; i < E_IN * TILE; i += THREADS) {
     const int row = i / TILE, p = i % TILE;

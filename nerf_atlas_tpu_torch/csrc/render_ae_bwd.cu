@@ -55,188 +55,6 @@ namespace {
 constexpr int MAX_STEPS = 512;               // shared memory for res
 constexpr long WP = TOTAL + 1;               // partial row: grads ‖ loss
 
-enum Mode { MODE_Z = 0, MODE_FADD = 1, MODE_ADD = 2 };
-
-// Input gradient of a layer: r[k][p] = sum_{n < NIN} G[n][p] wt[n][k] for
-// k < NOUT (wt row-major with row stride LDW, i.e. the layer's W
-// transposed). MODE_Z: dst[k][p] = r · act'(z[k][p]), z from the stash
-// rows zst (dst may alias G). MODE_FADD: dst[k][p] += r · act'(f[k][p]),
-// f = the shared init feature rows. MODE_ADD: dst[k][p] += r.
-template <int NIN, int NOUT, int LDW, int ACT, int MODE>
-__device__ __forceinline__ void dense_bwd(const float* G,
-                                          const float* __restrict__ wt,
-                                          float* dst,
-                                          const float* __restrict__ zst,
-                                          const float* f) {
-  constexpr int NJ = (NOUT + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  const int p0 = (threadIdx.x >> 5) * 8;
-  float acc[NJ][8];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
-  }
-  accumulate<NIN, NOUT, NJ, LDW>(G, wt, lane, p0, acc);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = lane + 32 * j;
-    if (o < NOUT) {
-      float* d = dst + o * PS + p0;
-      if (MODE == MODE_Z) {
-        const float4 z0 = *reinterpret_cast<const float4*>(zst + o * TILE + p0);
-        const float4 z1 =
-            *reinterpret_cast<const float4*>(zst + o * TILE + p0 + 4);
-        const float zs[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] = acc[j][i] * act_grad<ACT>(zs[i]);
-      } else if (MODE == MODE_FADD) {
-        const float* fr = f + o * PS + p0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] += acc[j][i] * act_grad<ACT>(fr[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] += acc[j][i];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Weight gradient, wide layers (N = 256 or 128): this thread owns column
-// n of rows k = ks, ks + NS, ... < K and holds the layer's output
-// gradient g[p] = G[n][p] in registers; pw[k * N + n] += sum_p X[k][p] g[p]
-// (pw = the block's partial at the layer's first row of this segment).
-template <int N>
-__device__ __forceinline__ void dw_cols(const float* X, int K,
-                                        const float (&g)[TILE],
-                                        float* __restrict__ pw) {
-  constexpr int NS = THREADS / N;
-  const int n = threadIdx.x % N;
-  const int ks = threadIdx.x / N;
-  for (int k = ks; k < K; k += NS) {
-    const float* x = X + k * PS;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-    for (int p = 0; p < TILE; p += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(x + p);
-      a0 = fmaf(v.x, g[p], a0);
-      a1 = fmaf(v.y, g[p + 1], a1);
-      a2 = fmaf(v.z, g[p + 2], a2);
-      a3 = fmaf(v.w, g[p + 3], a3);
-    }
-    pw[(long)k * N + n] += (a0 + a1) + (a2 + a3);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_col(const float* G, float (&g)[TILE]) {
-  const float* row = G + (threadIdx.x % N) * PS;
-#pragma unroll
-  for (int p = 0; p < TILE; p += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(row + p);
-    g[p] = v.x; g[p + 1] = v.y; g[p + 2] = v.z; g[p + 3] = v.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void db_col(const float (&g)[TILE],
-                                       float* __restrict__ pb) {
-  if (threadIdx.x / N == 0) {
-    float s = 0.0f;
-#pragma unroll
-    for (int p = 0; p < TILE; ++p) s += g[p];
-    pb[threadIdx.x % N] += s;
-  }
-}
-
-// Weight + bias gradient of a narrow output layer [K][N] (N = 32, 33 or
-// 3): entries e = k * N + n spread over the threads, both operands from
-// shared memory.
-template <int K, int N>
-__device__ __forceinline__ void dw_small(const float* X, const float* G,
-                                         float* __restrict__ pw) {
-  for (int e = threadIdx.x; e < K * N; e += THREADS) {
-    const float* x = X + (e / N) * PS;
-    const float* g = G + (e % N) * PS;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll 4
-    for (int p = 0; p < TILE; p += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(x + p);
-      const float4 gv = *reinterpret_cast<const float4*>(g + p);
-      a0 = fmaf(xv.x, gv.x, a0);
-      a1 = fmaf(xv.y, gv.y, a1);
-      a2 = fmaf(xv.z, gv.z, a2);
-      a3 = fmaf(xv.w, gv.w, a3);
-    }
-    pw[e] += (a0 + a1) + (a2 + a3);
-  }
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float s = 0.0f;
-    for (int p = 0; p < TILE; ++p) s += G[n * PS + p];
-    pw[(long)K * N + n] += s;
-  }
-}
-
-// X[r][p] = act(z[r][p]) for rows r < rows, z = stash rows
-template <int ACT>
-__device__ __forceinline__ void load_act(const float* __restrict__ z,
-                                         int rows, float* X) {
-  for (int i = threadIdx.x; i < rows * (TILE / 4); i += THREADS) {
-    const int r = i / (TILE / 4), c = (i % (TILE / 4)) * 4;
-    float4 v = *reinterpret_cast<const float4*>(z + r * TILE + c);
-    v.x = activate<ACT>(v.x); v.y = activate<ACT>(v.y);
-    v.z = activate<ACT>(v.z); v.w = activate<ACT>(v.w);
-    *reinterpret_cast<float4*>(X + r * PS + c) = v;
-  }
-}
-
-// Backward of hidden layer i of a SkipConnMLP (H wide, init feature FI
-// rows in F / act(F) in FA), with its output gradient in G: weight and
-// bias gradients into the partial, the skip rows' input gradient into DF
-// (when WANT_DF), and G <- the gradient of the previous layer's
-// pre-activation z_prev.
-template <int H, int FI, bool SKIP, int ACT, bool WANT_DF>
-__device__ __forceinline__ void hidden_bwd(float* X, float* G,
-                                           const float* F, const float* FA,
-                                           float* DF,
-                                           const float* __restrict__ wt,
-                                           float* __restrict__ pw,
-                                           const float* __restrict__ z_prev) {
-  constexpr int KT = H + (SKIP ? FI : 0);
-  load_act<ACT>(z_prev, H, X);
-  __syncthreads();
-  {
-    float g[TILE];
-    load_col<H>(G, g);
-    dw_cols<H>(X, H, g, pw);
-    if (SKIP) dw_cols<H>(FA, FI, g, pw + (long)H * H);
-    db_col<H>(g, pw + (long)KT * H);
-  }
-  if (SKIP && WANT_DF)
-    dense_bwd<H, FI, KT, ACT, MODE_FADD>(G, wt + H, DF, nullptr, F);
-  dense_bwd<H, H, KT, ACT, MODE_Z>(G, wt, G, z_prev, nullptr);
-}
-
-// Backward of layer_in (input = the raw init feature F, FI rows); its
-// input gradient goes to DF when WANT_DF.
-template <int H, int FI, bool WANT_DF>
-__device__ __forceinline__ void input_bwd(const float* G, const float* F,
-                                          float* DF,
-                                          const float* __restrict__ wt,
-                                          float* __restrict__ pw) {
-  {
-    float g[TILE];
-    load_col<H>(G, g);
-    dw_cols<H>(F, FI, g, pw);
-    db_col<H>(g, pw + (long)FI * H);
-  }
-  if (WANT_DF) dense_bwd<H, FI, FI, ACT_NONE, MODE_ADD>(G, wt, DF, nullptr,
-                                                        nullptr);
-  __syncthreads();
-}
-
 size_t smem_bytes(int rays_per_block, int steps) {
   return sizeof(float) * ((size_t)(2 * E_HIDDEN + 3 * F_ROWS) * PS
                           + 8 * (size_t)rays_per_block * steps
@@ -481,17 +299,6 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
   if (tid == 0) part[TOTAL] = loss_acc;
 }
 
-// out[i] = sum over blocks b (in order) of partial[b][i], i < wp
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, int blocks,
-                                       long wp) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= wp) return;
-  float s = 0.0f;
-  for (int b = 0; b < blocks; ++b) s += partial[(long)b * wp + i];
-  out[i] = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -543,7 +350,7 @@ int render_ae_bwd_launch(const float* rays, const float* ts,
       loss_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<(int)((WP + 255) / 256), 256, 0, s>>>(
+  reduce_partials_kernel<><<<(int)((WP + 255) / 256), 256, 0, s>>>(
       partial, out, blocks, WP);
   return cudaGetLastError();
 }

@@ -1,13 +1,14 @@
-"""Model registry (the port covers PlainNeRF and NeRFAE so far)."""
+"""Model registry (the port covers TinyNeRF, PlainNeRF and NeRFAE so
+far)."""
 from .base import NeRFBase  # noqa: F401
-from .nerf import NeRFAE, PlainNeRF
+from .nerf import NeRFAE, PlainNeRF, TinyNeRF
 
-MODEL_KINDS = {"plain": PlainNeRF, "ae": NeRFAE}
+MODEL_KINDS = {"tiny": TinyNeRF, "plain": PlainNeRF, "ae": NeRFAE}
 
 
 def load_model(kind: str, **kwargs):
   ctor = MODEL_KINDS.get(kind)
   if ctor is None:
     raise NotImplementedError(
-        f"model kind {kind}: not ported yet (ROADMAP Queue 1 #3, #8, #10-#13)")
+        f"model kind {kind}: not ported yet (ROADMAP Queue 1 #8, #10-#13)")
   return ctor(**kwargs)

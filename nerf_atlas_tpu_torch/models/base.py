@@ -8,8 +8,11 @@ Counterpart of `nerf_atlas_tpu/models/base.py`. Model contract:
 Modules own their parameters; `reset_parameters(generator)` draws them
 from an explicit `torch.Generator`. Training mode (train=True) draws the
 stratified sample jitter, the density noise and the random sky colour
-from `generator`, which lives on the rays' device. Latent-conditioned
-models arrive with ROADMAP Queue 1 #9/#11.
+from `generator`, which lives on the rays' device. `mip` ("cone" or
+"cylinder") makes `mip_encode` return MipNeRF's IPE features of each
+sample's segment, which PlainNeRF feeds its density MLP in place of the
+encoded point. Latent-conditioned models arrive with ROADMAP Queue 1
+#9/#11.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from ..ops import integrate, rays as rays_ops
+from ..ops import integrate, mip as mip_ops, rays as rays_ops
 from ..ops.math import load_sigmoid
 
 class NeRFBase(nn.Module):
@@ -30,9 +33,7 @@ class NeRFBase(nn.Module):
                intermediate_size: int = 32, per_ray_jitter: bool = False,
                lindisp: bool = False, density_noise: float = 0.0):
     super().__init__()
-    if mip is not None:
-      raise NotImplementedError(
-          f"mip {mip}: the IPE encoders arrive with ROADMAP Queue 1 #7")
+    mip_ops.load_mip(mip)       # raises on an unknown kind
     if sky_kind not in integrate.SKY_KINDS:
       raise NotImplementedError(
           f"sky kind {sky_kind}: the sky MLP arrives with ROADMAP Queue 1 "
@@ -67,6 +68,16 @@ class NeRFBase(nn.Module):
           density.shape, generator=generator, dtype=density.dtype,
           device=density.device)
     return density
+
+  def rgb_act(self, v):
+    return load_sigmoid(self.sigmoid_kind)(v)
+
+  def mip_encode(self, r_o, r_d, ts):
+    """IPE features per sample [..., T, 96] when mip is set, else None
+    (a constant radius of 1e-3, shared ts broadcast to every ray)."""
+    if self.mip is None:
+      return None
+    return mip_ops.encode(self.mip, r_o, r_d, ts)
 
   def sky_color(self, weights, r_d, train: bool,
                 generator: Optional[torch.Generator] = None):

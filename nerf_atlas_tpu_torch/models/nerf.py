@@ -1,9 +1,10 @@
-"""PlainNeRF (a density MLP emitting sigma + an intermediate feature, RGB
-from a pluggable reflectance model) and NeRFAE (an auto-encoded latent
-field that density and reflectance both read).
+"""TinyNeRF (one MLP to sigma and rgb), PlainNeRF (a density MLP emitting
+sigma + an intermediate feature, RGB from a pluggable reflectance model)
+and NeRFAE (an auto-encoded latent field that density and reflectance
+both read).
 
-Counterparts of `nerf_atlas_tpu/models/nerf.py:PlainNeRF` and `NeRFAE`.
-TinyNeRF and CoarseFineNeRF arrive with ROADMAP Queue 1 #3 and #8.
+Counterparts of `nerf_atlas_tpu/models/nerf.py:TinyNeRF`, `PlainNeRF`
+and `NeRFAE`. CoarseFineNeRF arrives with ROADMAP Queue 1 #8.
 """
 from __future__ import annotations
 
@@ -16,12 +17,54 @@ from ..refl import load_refl
 from .base import NeRFBase, view_per_sample
 
 
+class TinyNeRF(NeRFBase):
+  """One SkipConnMLP (8-band positional encoding up to 2^6, 128×6) maps a
+  point to (sigma, rgb); no view dependence. Built at the JAX model's
+  default widths only: `mlp_kwargs` that change them (the reference
+  checkpoints' 6×256, --ref-compat) arrive with ROADMAP Queue 1 #13. The
+  MLP is the attribute `mlp`, so the `state_dict` keys are the flax
+  paths (`mlp.layer_in.weight`, ...)."""
+
+  DEFAULT_MLP = dict(num_layers=6, hidden_size=128)
+
+  def __init__(self, mlp_kwargs: Optional[dict] = None, device=None,
+               **base_kwargs):
+    super().__init__(**base_kwargs)
+    kw = dict(self.DEFAULT_MLP, **(mlp_kwargs or {}))
+    if kw != self.DEFAULT_MLP:
+      raise NotImplementedError(
+          f"TinyNeRF mlp_kwargs {mlp_kwargs}: other widths arrive with "
+          "--ref-compat (ROADMAP Queue 1 #13)")
+    self.mlp = SkipConnMLP(
+        in_size=3, out=1 + 3,
+        enc=PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=8),
+        device=device, **kw)
+
+  def reset_parameters(self, generator: torch.Generator):
+    self.mlp.reset_parameters(generator)
+
+  def query(self, pts, view=None, train: bool = False,
+            generator: Optional[torch.Generator] = None):
+    out = self.mlp(pts)
+    density = self.add_density_noise(out[..., 0], train, generator)
+    return density, self.rgb_act(out[..., 1:])
+
+  def forward(self, rays, train: bool = False,
+              generator: Optional[torch.Generator] = None):
+    """As PlainNeRF's."""
+    pts, ts, _, r_d = self.sample_points(rays, train, generator)
+    density, rgb = self.query(pts, train=train, generator=generator)
+    return self.finish(density, rgb, ts, r_d, train, generator=generator)
+
+
 class PlainNeRF(NeRFBase):
   """enc_kind selects the spatial encoder: "cp" (factorized feature
   volumes, the default), "hash" (the NGP hash grid, `table_size` entries
   per level; the JAX model's `enc_kwargs={"table_size": ...}`) or
-  "posenc" (frequency encoding); cp and hash take the fused kernels.
-  "ref-hash" and mip arrive with ROADMAP Queue 1 #7. The density MLP
+  "posenc" (frequency encoding); with `mip` ("cone" or "cylinder") the
+  density MLP reads MipNeRF's 96 IPE features instead of an encoded
+  point, whatever enc_kind says. Every one of them takes the fused
+  kernels. "ref-hash" arrives with ROADMAP Queue 1 #7. The density MLP
   (256x5) and View (128x5) are built at the default widths; overriding
   them arrives with --ref-compat (ROADMAP Queue 1 #13)."""
 
@@ -32,7 +75,9 @@ class PlainNeRF(NeRFBase):
     if table_size is not None and enc_kind != "hash":
       raise NotImplementedError(
           f"table_size only configures enc_kind='hash', got {enc_kind}")
-    if enc_kind == "cp":
+    if self.mip is not None:
+      enc = None
+    elif enc_kind == "cp":
       enc = CPEncoder(device=device)
     elif enc_kind == "hash":
       enc = HashEncoder(table_size=table_size or 1 << 19, device=device)
@@ -48,7 +93,8 @@ class PlainNeRF(NeRFBase):
     self.refl_space = refl_space
     self.enc_kind = enc_kind
     self.density_mlp = SkipConnMLP(
-        in_size=3, out=1 + self.intermediate_size, enc=enc, num_layers=5,
+        in_size=3 if self.mip is None else 96,
+        out=1 + self.intermediate_size, enc=enc, num_layers=5,
         hidden_size=256, device=device)
     self.refl = load_refl(
         refl_kind, latent_size=self.intermediate_size,
@@ -59,8 +105,8 @@ class PlainNeRF(NeRFBase):
     self.refl.reset_parameters(generator)
 
   def query(self, pts, view, train: bool = False,
-            generator: Optional[torch.Generator] = None):
-    out = self.density_mlp(pts)
+            generator: Optional[torch.Generator] = None, mip_feats=None):
+    out = self.density_mlp(pts if mip_feats is None else mip_feats)
     density = self.add_density_noise(out[..., 0], train, generator)
     rgb = self.refl(pts, view=view, latent=out[..., 1:])
     return density, rgb
@@ -69,9 +115,9 @@ class PlainNeRF(NeRFBase):
               generator: Optional[torch.Generator] = None):
     """train=True draws the ts jitter, the density noise and the random
     sky from `generator` (required then, on the rays' device)."""
-    pts, ts, _, r_d = self.sample_points(rays, train, generator)
+    pts, ts, r_o, r_d = self.sample_points(rays, train, generator)
     density, rgb = self.query(pts, view_per_sample(r_d, self.steps), train,
-                              generator)
+                              generator, self.mip_encode(r_o, r_d, ts))
     return self.finish(density, rgb, ts, r_d, train, generator=generator)
 
 

@@ -5,8 +5,10 @@ interface. At first use it is compiled with `nvcc` for `sm_90a` (Hopper)
 into a shared library under `build/kernels/` at the repo root, named by a
 hash of the source, of every header it includes from `csrc/` (quoted
 `#include`, followed recursively) and of the flags, so an edited source
-or header is rebuilt and an unchanged one is reused. Nothing is built or
-imported when this module is imported.
+or header is rebuilt and an unchanged one is reused. A source may be
+built in variants, each with its own `-D` defines (render_bwd.cu one per
+encoder mode, so that its instantiations compile in parallel). Nothing
+is built or imported when this module is imported.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -49,10 +52,10 @@ def nvcc() -> str:
 _QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
 
 
-def source_digest(src: Path) -> str:
+def source_digest(src: Path, defines: Tuple[str, ...] = ()) -> str:
   """16 hex digits of the sha256 of the source, then of each header it
   includes with quotes (depth first, each once, resolved beside the file
-  that includes it), then of the flags."""
+  that includes it), then of the flags (and the `-D` defines, if any)."""
   digest = hashlib.sha256()
   seen = set()
 
@@ -66,20 +69,26 @@ def source_digest(src: Path) -> str:
       add((path.parent / name.decode()).resolve())
 
   add(src.resolve())
-  digest.update(" ".join(NVCC_FLAGS).encode())
+  digest.update(" ".join(NVCC_FLAGS + _define_flags(defines)).encode())
   return digest.hexdigest()[:16]
 
 
-def build(name: str) -> Built:
-  """Compile csrc/<name>.cu into build/kernels/lib<name>-<hash>.so."""
+def _define_flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+  return tuple(f"-D{d}" for d in defines)
+
+
+def build(name: str, defines: Tuple[str, ...] = ()) -> Built:
+  """Compile csrc/<name>.cu (with `-D` for each of `defines`) into
+  build/kernels/lib<name>-<hash>.so."""
   src = CSRC / f"{name}.cu"
-  lib = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
+  lib = BUILD_DIR / f"lib{name}-{source_digest(src, defines)}.so"
   if lib.exists():
     return Built(lib, 0.0, "")
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   tmp = lib.with_suffix(f".{os.getpid()}.tmp")
   t0 = time.perf_counter()
-  proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+  proc = subprocess.run([nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o",
+                         str(tmp), str(src)],
                         capture_output=True, text=True, check=False)
   if proc.returncode != 0:
     raise RuntimeError(f"nvcc failed to build {src} (rc {proc.returncode}):"
@@ -88,6 +97,6 @@ def build(name: str) -> Built:
   return Built(lib, time.perf_counter() - t0, proc.stdout + proc.stderr)
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
   """Build (or reuse) csrc/<name>.cu and load the library."""
-  return ctypes.CDLL(str(build(name).path))
+  return ctypes.CDLL(str(build(name, defines).path))

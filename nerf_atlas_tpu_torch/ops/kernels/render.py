@@ -1,5 +1,7 @@
-"""K1 and K2/K3: the fused forward render of PlainNeRF and its backward,
-for the CP encoder and for the hash-grid feature stream.
+"""K1 and K2/K3: the fused forward render of PlainNeRF and TinyNeRF and
+its backward, for the CP encoder, the hash-grid feature stream, the
+positional encoding (posenc), TinyNeRF's one MLP (tiny) and MipNeRF's
+integrated positional encoding (cone, cylinder).
 
 Counterparts of `nerf_atlas_tpu/ops/pallas/render.py`:
 - `plain_cp_render` (K1, kernel body `_render_kernel`) launches
@@ -20,17 +22,25 @@ Counterparts of `nerf_atlas_tpu/ops/pallas/render.py`:
   (differentiable in the weights and the table) and
   `fused_plain_hash_train_step` (K5f + K3 + K5b) are the JAX functions
   of the same names.
+- The parameter-free modes (ROADMAP's K4) take the `plain_cp_*`
+  functions and `PlainCPRender` with `enc_kind` "posenc" (PlainNeRF's
+  10 frequency bands), "tiny" (TinyNeRF: 8 bands into one 128×6 MLP to
+  sigma ‖ rgb, no View) or "cone" / "cylinder" (PlainNeRF(mip=...): the
+  density MLP reads the 96 IPE features of each sample's segment), as
+  the JAX functions take `enc_kind`; `fused_plain_mip_render`,
+  `fused_plain_mip_render_train` and `fused_plain_mip_train_step` are
+  the JAX functions of those names, with `mip_kind`.
 Each wrapper launches its kernel for rays on the GPU (and raises if it
 cannot) and takes its plain version for rays on the CPU. See the kernel
 sources for their design.
 
 Weights travel as one packed float32 vector (`pack_weights`): for cp the
-four CP line tables [3, R, 8], then (both kinds) every Dense layer of the
-density MLP and of the View MLP as W [in, out] row-major followed by its
-bias; gradients come back in the same layout (`unpack_grads` maps them
-onto state_dict keys). The hash table is not packed: it travels as its
-own tensor. The other encoder variants (posenc, tiny, mip), per-ray ts
-and `want_weights` arrive with ROADMAP Queue 2 K4-K6.
+four CP line tables [3, R, 8], then every Dense layer of the density MLP
+(tiny: of its one MLP) and of the View MLP (not tiny) as W [in, out]
+row-major followed by its bias; gradients come back in the same layout
+(`unpack_grads` maps them onto state_dict keys). The hash table is not
+packed: it travels as its own tensor. Per-ray ts and `want_weights`
+arrive with ROADMAP Queue 2 K6.
 """
 from __future__ import annotations
 
@@ -42,9 +52,9 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from .. import integrate
+from .. import integrate, mip
 from ..math import dir_to_elev_azim, load_sigmoid
-from ...nn.encoders import cp_encode
+from ...nn.encoders import PositionalEncoder, cp_encode
 from . import hash_encode as hk
 
 # flagship architecture (must match models.PlainNeRF defaults)
@@ -63,13 +73,24 @@ R_HIDDEN = 128
 R_LAYERS = 5
 SIREN_W0 = 30.0
 HASH_TABLE_KEY = "density_mlp.enc.table"
+# the parameter-free encoders (models.PlainNeRF(enc_kind="posenc"),
+# models.TinyNeRF): their bands go to the kernels as float32 inputs
+POSENCS = {"posenc": PositionalEncoder(3, max_freq_log2=6, num_freqs=10),
+           "tiny": PositionalEncoder(3, max_freq_log2=6, num_freqs=8)}
+TINY_HIDDEN = 128
+TINY_LAYERS = 6
+MIP_KINDS = ("cone", "cylinder")
+MIP_DIM = 2 * 3 * 16                             # IPE at 2^0..2^15: 96
 
 # rgb activations the kernel implements, in the kernel's index order
 FUSED_SIGMOID_KINDS = ("thin", "fat", "normal", "upshifted", "tanh",
                        "relu", "upshifted_relu", "leaky_relu")
-ENC_KINDS = ("cp", "hash")                       # the kernels' `enc` index
+# the kernels' `enc` index (csrc/render_fwd.cu, render_bwd.cu `Enc`)
+ENC_KINDS = ("cp", "hash", "posenc", "tiny") + MIP_KINDS
 MAX_STEPS = 2048                                 # csrc/render_fwd.cu
-BWD_MAX_STEPS = 1024                             # csrc/render_bwd.cu
+# csrc/render_bwd.cu: shared memory holds 8 floats per point of a ray
+BWD_MAX_STEPS = {"cp": 1024, "hash": 1024, "posenc": 1024, "tiny": 1024,
+                 "cone": 460, "cylinder": 460}
 
 Params = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
@@ -92,7 +113,8 @@ def _mlp_layout(prefix: str, in_size: int, hidden: int, n_layers: int,
 @dataclass(frozen=True)
 class Layout:
   """The packed weight vector of one encoder kind: the CP line tables
-  (cp only), then the density and View MLPs' Dense layers."""
+  (cp only), then the density MLP's (tiny: the one MLP's) and the View
+  MLP's (none for tiny) Dense layers."""
   enc_kind: str
   feat_in: int
   line_shapes: Tuple[Tuple[str, Tuple[int, int, int]], ...]
@@ -108,8 +130,16 @@ class Layout:
     return self.line_count + sum(i * o + o for _, i, o in
                                  self.density_layers + self.refl_layers)
 
+  @property
+  def n_layers(self) -> int:
+    """Hidden layers of the density (tiny: the one) MLP."""
+    return len(self.density_layers) - 2
 
-def _make_layout(enc_kind: str, feat_in: int, lines) -> Layout:
+
+def _make_layout(enc_kind: str, feat_in: int, lines=()) -> Layout:
+  if enc_kind == "tiny":
+    return Layout(enc_kind, feat_in, (), tuple(_mlp_layout(
+        "mlp", feat_in, TINY_HIDDEN, TINY_LAYERS, 4)), ())
   return Layout(enc_kind, feat_in, tuple(lines),
                 tuple(_mlp_layout("density_mlp", feat_in, HIDDEN, N_LAYERS,
                                   1 + INTERMEDIATE)),
@@ -120,18 +150,32 @@ LAYOUTS = {
     "cp": _make_layout("cp", FEAT_IN,
                        [(f"density_mlp.enc.lines_{li}", (3, r, CP_RANK))
                         for li, r in enumerate(CP_RESOLUTIONS)]),
-    "hash": _make_layout("hash", HASH_FEAT_IN, []),
+    "hash": _make_layout("hash", HASH_FEAT_IN),
+    "posenc": _make_layout("posenc", 3 + POSENCS["posenc"].size()),
+    "tiny": _make_layout("tiny", 3 + POSENCS["tiny"].size()),
+    **{kind: _make_layout(kind, MIP_DIM) for kind in MIP_KINDS},
 }
 WEIGHT_COUNT = LAYOUTS["cp"].weight_count                 # 467,620
 HASH_WEIGHT_COUNT = LAYOUTS["hash"].weight_count          # 449,572
 
 
 def _layout_of(ws: torch.Tensor) -> Layout:
-  """The layout of a packed vector, by its length (the two differ)."""
+  """The layout of a packed vector, by its length: each kind's differs,
+  but for cone and cylinder, whose layouts are the same (this returns
+  cone's)."""
   for layout in LAYOUTS.values():
     if ws.ndim == 1 and ws.shape[0] == layout.weight_count:
       return layout
   raise ValueError(f"not a packed weight vector: shape {tuple(ws.shape)}")
+
+
+def freqs(enc_kind: str, device=None) -> Optional[torch.Tensor]:
+  """The posenc bands of `enc_kind` (float32 2^linspace, as the module's
+  PositionalEncoder computes them on `device`; the kernels take them as
+  an input so that kernel and plain version multiply by the same bits),
+  or None for a kind without."""
+  enc = POSENCS.get(enc_kind)
+  return None if enc is None else enc.freqs(device)
 
 
 def _expected_shapes(layout: Layout):
@@ -144,17 +188,17 @@ def _expected_shapes(layout: Layout):
 
 def flatten_params(state_dict: Mapping[str, torch.Tensor],
                    enc_kind: str = "cp") -> List[torch.Tensor]:
-  """PlainNeRF state_dict -> the kernel's tensors in packed order (Dense
-  weights transposed to [in, out]). For hash the state_dict also holds
-  the table, which is checked (`hash_table`) and not packed. Raises on a
-  divergent tree."""
+  """PlainNeRF (TinyNeRF for "tiny") state_dict -> the kernel's tensors in
+  packed order (Dense weights transposed to [in, out]). For hash the
+  state_dict also holds the table, which is checked (`hash_table`) and
+  not packed. Raises on a divergent tree."""
   layout = LAYOUTS[enc_kind]
   shapes = _expected_shapes(layout)
   known = set(shapes) | ({HASH_TABLE_KEY} if enc_kind == "hash" else set())
   missing = sorted(known - set(state_dict))
   extra = sorted(set(state_dict) - known)
   if missing or extra:
-    raise KeyError(f"not the flagship PlainNeRF-{enc_kind} parameters: "
+    raise KeyError(f"not the default {enc_kind} model's parameters: "
                    f"missing {missing}, unexpected {extra}")
   for key, shape in shapes.items():
     if tuple(state_dict[key].shape) != shape:
@@ -249,12 +293,15 @@ def hash_pts(rays: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
 
 
 def _check_call(ws: torch.Tensor, rays: torch.Tensor, steps: int,
-                sigmoid_kind: str, sky_kind: str,
+                sigmoid_kind: str, sky_kind: str, enc_kind: str,
                 max_steps: int = MAX_STEPS,
                 feats: Optional[torch.Tensor] = None):
   check_rays(ws, rays, steps, sigmoid_kind, sky_kind, max_steps)
-  if (feats is None) != (_layout_of(ws).enc_kind == "cp"):
-    raise ValueError("hash weights take feats, cp weights none")
+  if ws.ndim != 1 or ws.shape[0] != LAYOUTS[enc_kind].weight_count:
+    raise ValueError(f"not a packed {enc_kind} weight vector: shape "
+                     f"{tuple(ws.shape)}")
+  if (feats is None) == (enc_kind == "hash"):
+    raise ValueError("hash weights take feats, the other kinds none")
   if feats is not None and (
       feats.dtype != torch.float32
       or tuple(feats.shape) != (rays.shape[0] * steps, HASH_DIM)
@@ -302,29 +349,45 @@ def _mlp(init_feat, layers, act, n_layers):
   return act(h) @ w + b
 
 
+def init_feature(enc_kind: str, lines, rays: torch.Tensor, ts: torch.Tensor,
+                 feats: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """The density MLP's init feature [N·T, feat_in] at the sample points
+  `hash_pts(rays, ts)`: [p ‖ CP encode] (cp, from the packed lines),
+  [p ‖ feats] (hash, the given features [N·T, 16]), [p ‖ sin ‖ cos]
+  (posenc, tiny) or the 96 IPE features of each sample's segment (cone,
+  cylinder; `ops/mip.py`, the models' own)."""
+  if enc_kind in MIP_KINDS:
+    return mip.encode(enc_kind, rays[:, :3], rays[:, 3:6], ts).reshape(
+        -1, MIP_DIM)
+  pts = hash_pts(rays, ts)
+  if enc_kind == "cp":
+    xn = torch.clamp((pts + 1.0) * 0.5, 0.0, 1.0)   # the [-1, 1] CP bbox
+    feats = cp_encode(xn, lines)
+  elif enc_kind != "hash":
+    feats = POSENCS[enc_kind](pts)
+  return torch.cat([pts, feats], dim=-1)
+
+
 def _plain_render(ws: torch.Tensor, rays: torch.Tensor,
-                  feats: Optional[torch.Tensor], *, steps: int,
-                  t_near: float, t_far: float, sigmoid_kind: str,
+                  feats: Optional[torch.Tensor], enc_kind: str, *,
+                  steps: int, t_near: float, t_far: float, sigmoid_kind: str,
                   sky_kind: str, ts: Optional[torch.Tensor]) -> torch.Tensor:
-  """The plain K1 of either layout: the CP encode from the packed lines,
-  or the given hash features [N·T, 16]."""
-  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, feats=feats)
+  """The plain K1 of any kind (hash with the given features [N·T, 16])."""
+  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, enc_kind, feats=feats)
   lines, dense_layers, refl_layers = _unpack(ws)
   n = rays.shape[0]
   ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
   r_d = rays[:, 3:6]
-  pts = hash_pts(rays, ts)
-  if feats is None:
-    xn = torch.clamp((pts + 1.0) * 0.5, 0.0, 1.0)   # the [-1, 1] CP bbox
-    feats = cp_encode(xn, lines)
-  init_feat = torch.cat([pts, feats], dim=-1)
+  init_feat = init_feature(enc_kind, lines, rays, ts, feats)
   out = _mlp(init_feat, dense_layers, lambda v: F.leaky_relu(v, 0.01),
-             N_LAYERS)
+             LAYOUTS[enc_kind].n_layers)
+  act = load_sigmoid(sigmoid_kind)
+  if not refl_layers:                                # tiny: sigma ‖ rgb
+    return composite(out[:, 0], act(out[:, 1:4]), r_d, dists, sky_kind)
   density, latent = out[:, 0], out[:, 1:]
   elaz = dir_to_elev_azim(r_d)[:, None, :].expand(n, steps, 2).reshape(-1, 2)
-  r_in = torch.cat([pts, elaz, latent], dim=-1)
-  rgb = load_sigmoid(sigmoid_kind)(
-      _mlp(r_in, refl_layers, siren_act, R_LAYERS))
+  r_in = torch.cat([hash_pts(rays, ts), elaz, latent], dim=-1)
+  rgb = act(_mlp(r_in, refl_layers, siren_act, R_LAYERS))
   return composite(density, rgb, r_d, dists, sky_kind)
 
 
@@ -356,15 +419,16 @@ def plain_cp_render_reference(params: Params, rays: torch.Tensor, *,
                               t_far: float = 6.0,
                               sigmoid_kind: str = "thin",
                               sky_kind: str = "black",
-                              ts: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
+                              ts: Optional[torch.Tensor] = None,
+                              enc_kind: str = "cp") -> torch.Tensor:
   """Plain-torch K1: rays [N, 6] -> [N, 4] (rgb ‖ acc), on any device,
   differentiable in a packed weight vector. ts [T]: shared sample
   positions (default the uniform grid). The "random" sky is black, as
-  the kernels render it."""
-  return _plain_render(pack_weights(params, rays.device), rays, None,
-                       steps=steps, t_near=t_near, t_far=t_far,
-                       sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+  the kernels render it. enc_kind: any of ENC_KINDS but hash."""
+  return _plain_render(pack_weights(params, rays.device, enc_kind), rays,
+                       None, enc_kind, steps=steps, t_near=t_near,
+                       t_far=t_far, sigmoid_kind=sigmoid_kind,
+                       sky_kind=sky_kind, ts=ts)
 
 
 def plain_hash_render_reference(params: Params, rays: torch.Tensor,
@@ -378,8 +442,9 @@ def plain_hash_render_reference(params: Params, rays: torch.Tensor,
   features feats [N·T, 16] -> [N, 4], differentiable in the packed
   weights and in feats."""
   return _plain_render(pack_weights(params, rays.device, "hash"), rays,
-                       feats, steps=steps, t_near=t_near, t_far=t_far,
-                       sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+                       feats, "hash", steps=steps, t_near=t_near,
+                       t_far=t_far, sigmoid_kind=sigmoid_kind,
+                       sky_kind=sky_kind, ts=ts)
 
 
 def _check_cuda(rays: torch.Tensor, name: str):
@@ -402,32 +467,36 @@ def _load_library() -> ctypes.CDLL:
   """Build (at first use) and bind csrc/render_fwd.cu."""
   from . import build
   lib = build.load("render_fwd")
-  lib.render_fwd_launch.argtypes = [
-      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+  lib.render_fwd_launch.argtypes = (
+      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
   lib.render_fwd_launch.restype = ctypes.c_int
   lib.render_fwd_weight_count.argtypes = [ctypes.c_int]
   lib.render_fwd_weight_count.restype = ctypes.c_longlong
+  lib.render_fwd_freq_count.argtypes = [ctypes.c_int]
+  lib.render_fwd_freq_count.restype = ctypes.c_int
   lib.render_fwd_error_string.argtypes = [ctypes.c_int]
   lib.render_fwd_error_string.restype = ctypes.c_char_p
   for enc, kind in enumerate(ENC_KINDS):
-    if lib.render_fwd_weight_count(enc) != LAYOUTS[kind].weight_count:
+    bands = freqs(kind)
+    if (lib.render_fwd_weight_count(enc) != LAYOUTS[kind].weight_count
+        or lib.render_fwd_freq_count(enc) != (0 if bands is None
+                                              else bands.shape[0])):
       raise RuntimeError(
           f"render_fwd.cu packs {lib.render_fwd_weight_count(enc)} {kind} "
-          f"weights, the wrapper {LAYOUTS[kind].weight_count}")
+          f"weights and {lib.render_fwd_freq_count(enc)} bands, the wrapper "
+          f"{LAYOUTS[kind].weight_count} and {bands}")
   return lib
 
 
 def _forward_launch(ws: torch.Tensor, rays: torch.Tensor,
-                    feats: Optional[torch.Tensor], *, steps: int,
-                    t_near: float, t_far: float, sigmoid_kind: str,
-                    sky_kind: str, ts: Optional[torch.Tensor]
-                    ) -> torch.Tensor:
-  """One render_fwd launch (CP mode without feats, hash mode with)."""
+                    feats: Optional[torch.Tensor], enc_kind: str, *,
+                    steps: int, t_near: float, t_far: float,
+                    sigmoid_kind: str, sky_kind: str,
+                    ts: Optional[torch.Tensor]) -> torch.Tensor:
+  """One render_fwd launch in mode `enc_kind` (hash with feats)."""
   _check_cuda(rays, "render_fwd")
   ws = ws.detach()
-  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, feats=feats)
+  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, enc_kind, feats=feats)
   if not ws.is_contiguous():
     raise ValueError("packed weights must be contiguous")
   out = torch.empty((rays.shape[0], 4), dtype=torch.float32,
@@ -435,34 +504,46 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor,
   if rays.shape[0] == 0:
     return out
   ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
+  fq = freqs(enc_kind, rays.device)
   lib = _load_library()
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_fwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-      _ptr(feats), out.data_ptr(), rays.shape[0], steps,
+      _ptr(feats), _ptr(fq), out.data_ptr(), rays.shape[0], steps,
       FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
-      ENC_KINDS.index(_layout_of(ws).enc_kind), stream)
+      ENC_KINDS.index(enc_kind), stream)
   _raise_on(err, lib, "render_fwd", "render_fwd")
   return out
+
+
+def _not_hash(enc_kind: str):
+  if enc_kind not in ENC_KINDS or enc_kind == "hash":
+    raise ValueError(f"enc_kind {enc_kind!r}: one of {ENC_KINDS} but hash "
+                     "(hash takes the plain_hash_* functions)")
 
 
 def plain_cp_render(params: Params, rays: torch.Tensor, *, steps: int = 64,
                     t_near: float = 2.0, t_far: float = 6.0,
                     sigmoid_kind: str = "thin",
                     sky_kind: str = "black",
-                    ts: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    ts: Optional[torch.Tensor] = None,
+                    enc_kind: str = "cp") -> torch.Tensor:
   """Render rays [N, 6] -> [N, 4] (rgb ‖ acc) through K1.
 
-  params: a PlainNeRF-CP state_dict or its `pack_weights` vector. ts [T]:
-  shared sample positions (default the uniform grid). Rays on a CUDA
-  device launch the kernel on the current stream (and raise if it cannot
-  launch); rays on the CPU take `plain_cp_render_reference`. The "random"
-  sky is black. Each launch adds one to `plain_cp_render.launches`."""
+  params: a PlainNeRF-CP state_dict or its `pack_weights` vector (for
+  enc_kind "posenc", "cone" or "cylinder" a PlainNeRF with that encoder,
+  for "tiny" a TinyNeRF). ts [T]: shared sample positions (default the
+  uniform grid). Rays on a CUDA device launch the kernel on the current
+  stream (and raise if it cannot launch); rays on the CPU take
+  `plain_cp_render_reference`. The "random" sky is black. Each launch
+  adds one to `plain_cp_render.launches`."""
+  _not_hash(enc_kind)
   kw = dict(steps=steps, t_near=t_near, t_far=t_far,
             sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
   if rays.device.type == "cpu":
-    return plain_cp_render_reference(params, rays, **kw)
-  out = _forward_launch(pack_weights(params, rays.device), rays, None, **kw)
+    return plain_cp_render_reference(params, rays, enc_kind=enc_kind, **kw)
+  out = _forward_launch(pack_weights(params, rays.device, enc_kind), rays,
+                        None, enc_kind, **kw)
   plain_cp_render.launches += 1
   return out
 
@@ -485,7 +566,7 @@ def plain_hash_render(params: Params, rays: torch.Tensor,
   if rays.device.type == "cpu":
     return plain_hash_render_reference(params, rays, feats, **kw)
   out = _forward_launch(pack_weights(params, rays.device, "hash"), rays,
-                        feats.detach(), **kw)
+                        feats.detach(), "hash", **kw)
   plain_hash_render.launches += 1
   return out
 
@@ -507,15 +588,16 @@ def plain_cp_render_grad_reference(params: Params, rays: torch.Tensor,
                                    t_near: float = 2.0, t_far: float = 6.0,
                                    sigmoid_kind: str = "thin",
                                    sky_kind: str = "black",
-                                   ts: Optional[torch.Tensor] = None
-                                   ) -> torch.Tensor:
-  """Plain K2: d(Σ g·out)/d(packed weights) [WEIGHT_COUNT] for the
-  cotangent g [N, 4], by autograd through `plain_cp_render_reference`."""
-  ws = _leaf(params, rays.device)
+                                   ts: Optional[torch.Tensor] = None,
+                                   enc_kind: str = "cp") -> torch.Tensor:
+  """Plain K2: d(Σ g·out)/d(packed weights) for the cotangent g [N, 4],
+  by autograd through `plain_cp_render_reference`."""
+  ws = _leaf(params, rays.device, enc_kind)
   with torch.enable_grad():
     out = plain_cp_render_reference(
         ws, rays, steps=steps, t_near=t_near, t_far=t_far,
-        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts,
+        enc_kind=enc_kind)
     (dws,) = torch.autograd.grad(out, ws, g)
   return dws
 
@@ -525,15 +607,17 @@ def plain_cp_train_step_reference(params: Params, rays: torch.Tensor,
                                   t_near: float = 2.0, t_far: float = 6.0,
                                   sigmoid_kind: str = "thin",
                                   sky_kind: str = "black",
-                                  ts: Optional[torch.Tensor] = None
+                                  ts: Optional[torch.Tensor] = None,
+                                  enc_kind: str = "cp"
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain K3: (loss, d loss/d(packed weights)) for loss =
   mean((out_rgb − target)²), by autograd through the plain K1."""
-  ws = _leaf(params, rays.device)
+  ws = _leaf(params, rays.device, enc_kind)
   with torch.enable_grad():
     out = plain_cp_render_reference(
         ws, rays, steps=steps, t_near=t_near, t_far=t_far,
-        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+        sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts,
+        enc_kind=enc_kind)
     loss = torch.mean((out[:, :3] - target) ** 2)
     (dws,) = torch.autograd.grad(loss, ws)
   return loss.detach(), dws
@@ -569,29 +653,45 @@ def plain_hash_train_step_reference(params: Params, rays: torch.Tensor,
   return loss.detach(), dws, dfeat
 
 
+def bwd_defines(enc_kind: str) -> Tuple[str, ...]:
+  """The define that builds csrc/render_bwd.cu for one mode (its six
+  instantiations then compile in parallel)."""
+  return (f"RENDER_BWD_ENC={ENC_KINDS.index(enc_kind)}",)
+
+
 @functools.lru_cache(maxsize=None)
-def _load_bwd_library() -> ctypes.CDLL:
-  """Build (at first use) and bind csrc/render_bwd.cu."""
+def _load_bwd_library(enc_kind: str) -> ctypes.CDLL:
+  """Build (at first use) and bind csrc/render_bwd.cu for `enc_kind`."""
   from . import build
-  lib = build.load("render_bwd")
+  lib = build.load("render_bwd", bwd_defines(enc_kind))
   lib.render_bwd_launch.argtypes = (
-      [ctypes.c_void_p] * 11
+      [ctypes.c_void_p] * 12
       + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
   lib.render_bwd_launch.restype = ctypes.c_int
   for fn in ("render_bwd_weight_count", "render_bwd_stash_floats_per_tile"):
     getattr(lib, fn).argtypes = [ctypes.c_int]
     getattr(lib, fn).restype = ctypes.c_longlong
-  lib.render_bwd_max_steps.argtypes = []
-  lib.render_bwd_max_steps.restype = ctypes.c_int
+  for fn in ("render_bwd_max_steps", "render_bwd_freq_count"):
+    getattr(lib, fn).argtypes = [ctypes.c_int]
+    getattr(lib, fn).restype = ctypes.c_int
+  lib.render_bwd_built_enc.argtypes = []
+  lib.render_bwd_built_enc.restype = ctypes.c_int
   lib.render_bwd_error_string.argtypes = [ctypes.c_int]
   lib.render_bwd_error_string.restype = ctypes.c_char_p
-  for enc, kind in enumerate(ENC_KINDS):
-    if (lib.render_bwd_weight_count(enc) != LAYOUTS[kind].weight_count
-        or lib.render_bwd_max_steps() != BWD_MAX_STEPS):
-      raise RuntimeError(
-          f"render_bwd.cu packs {lib.render_bwd_weight_count(enc)} {kind} "
-          f"weights and takes {lib.render_bwd_max_steps()} steps, the "
-          f"wrapper {LAYOUTS[kind].weight_count} and {BWD_MAX_STEPS}")
+  enc = ENC_KINDS.index(enc_kind)
+  bands = freqs(enc_kind)
+  if (lib.render_bwd_built_enc() != enc
+      or lib.render_bwd_weight_count(enc) != LAYOUTS[enc_kind].weight_count
+      or lib.render_bwd_max_steps(enc) != BWD_MAX_STEPS[enc_kind]
+      or lib.render_bwd_freq_count(enc) != (0 if bands is None
+                                            else bands.shape[0])):
+    raise RuntimeError(
+        f"render_bwd.cu built for mode {lib.render_bwd_built_enc()} packs "
+        f"{lib.render_bwd_weight_count(enc)} {enc_kind} weights and takes "
+        f"{lib.render_bwd_max_steps(enc)} steps and "
+        f"{lib.render_bwd_freq_count(enc)} bands, the wrapper mode {enc}, "
+        f"{LAYOUTS[enc_kind].weight_count}, {BWD_MAX_STEPS[enc_kind]} and "
+        f"{bands}")
   return lib
 
 
@@ -618,16 +718,18 @@ def _transposed(ws: torch.Tensor) -> torch.Tensor:
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
                      gin: torch.Tensor, ts: Optional[torch.Tensor],
-                     feats: Optional[torch.Tensor] = None, *,
-                     steps: int, t_near: float, t_far: float,
-                     sigmoid_kind: str, sky_kind: str, loss_mode: bool
+                     feats: Optional[torch.Tensor] = None,
+                     enc_kind: str = "cp", *, steps: int, t_near: float,
+                     t_far: float, sigmoid_kind: str, sky_kind: str,
+                     loss_mode: bool
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-  """One render_bwd launch (+ its partial reduction); returns ([weight
-  count + 1] = gradient ‖ loss, dfeat [N·T, 16] in hash mode else None)."""
+  """One render_bwd launch (+ its partial reduction) in mode `enc_kind`;
+  returns ([weight count + 1] = gradient ‖ loss, dfeat [N·T, 16] in hash
+  mode else None)."""
   _check_cuda(rays, "render_bwd")
   ws = ws.detach()
-  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, BWD_MAX_STEPS, feats)
-  layout = _layout_of(ws)
+  _check_call(ws, rays, steps, sigmoid_kind, sky_kind, enc_kind,
+              BWD_MAX_STEPS[enc_kind], feats)
   width = 3 if loss_mode else 4
   if (gin.dtype != torch.float32 or tuple(gin.shape) != (rays.shape[0], width)
       or gin.device != rays.device or not gin.is_contiguous()):
@@ -636,15 +738,16 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
                      f"got {gin.dtype} {tuple(gin.shape)} on {gin.device}")
   if not ws.is_contiguous():
     raise ValueError("packed weights must be contiguous")
-  n, count = rays.shape[0], layout.weight_count
+  n, count = rays.shape[0], ws.shape[0]
   out = torch.zeros(count + 1, dtype=torch.float32, device=rays.device)
   dfeat = (None if feats is None else
            torch.empty_like(feats))
   if n == 0:
     return out, dfeat
   ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
-  lib = _load_bwd_library()
-  enc = ENC_KINDS.index(layout.enc_kind)
+  fq = freqs(enc_kind, rays.device)
+  lib = _load_bwd_library(enc_kind)
+  enc = ENC_KINDS.index(enc_kind)
   rays_per_block = 1 if steps >= 64 else 64 // steps
   ray_blocks = -(-n // rays_per_block)
   tiles = -(-(rays_per_block * steps) // 64)
@@ -659,7 +762,7 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_bwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-      wt.data_ptr(), gin.data_ptr(), _ptr(feats), _ptr(dfeat),
+      wt.data_ptr(), gin.data_ptr(), _ptr(feats), _ptr(fq), _ptr(dfeat),
       out.data_ptr(), partial.data_ptr(), stash.data_ptr(), n, steps, blocks,
       FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
       int(loss_mode), 1.0 / (3 * n) if loss_mode else 0.0, enc, stream)
@@ -671,19 +774,24 @@ def plain_cp_render_grad(params: Params, rays: torch.Tensor, g: torch.Tensor,
                          *, steps: int = 64, t_near: float = 2.0,
                          t_far: float = 6.0, sigmoid_kind: str = "thin",
                          sky_kind: str = "black",
-                         ts: Optional[torch.Tensor] = None) -> torch.Tensor:
-  """K2: d(Σ g·out)/d(packed weights) [WEIGHT_COUNT] for the render of
-  rays [N, 6] and the cotangent g [N, 4]. CUDA rays launch render_bwd.cu
-  in mode G (each launch adds one to `plain_cp_render_grad.launches`);
-  CPU rays take `plain_cp_render_grad_reference`."""
+                         ts: Optional[torch.Tensor] = None,
+                         enc_kind: str = "cp") -> torch.Tensor:
+  """K2: d(Σ g·out)/d(packed weights) [weight count of enc_kind] for the
+  render of rays [N, 6] and the cotangent g [N, 4]. CUDA rays launch
+  render_bwd.cu in mode G (each launch adds one to
+  `plain_cp_render_grad.launches`); CPU rays take
+  `plain_cp_render_grad_reference`."""
+  _not_hash(enc_kind)
   kw = dict(steps=steps, t_near=t_near, t_far=t_far,
             sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
   if rays.device.type == "cpu":
-    return plain_cp_render_grad_reference(params, rays, g, **kw)
-  out, _ = _backward_launch(pack_weights(params, rays.device), rays, g,
-                            loss_mode=False, **kw)
+    return plain_cp_render_grad_reference(params, rays, g, enc_kind=enc_kind,
+                                          **kw)
+  ws = pack_weights(params, rays.device, enc_kind)
+  out, _ = _backward_launch(ws, rays, g, enc_kind=enc_kind, loss_mode=False,
+                            **kw)
   plain_cp_render_grad.launches += 1
-  return out[:WEIGHT_COUNT]
+  return out[:ws.shape[0]]
 
 
 plain_cp_render_grad.launches = 0
@@ -693,7 +801,8 @@ def plain_cp_train_step(params: Params, rays: torch.Tensor,
                         target: torch.Tensor, *, steps: int = 64,
                         t_near: float = 2.0, t_far: float = 6.0,
                         sigmoid_kind: str = "thin", sky_kind: str = "black",
-                        ts: Optional[torch.Tensor] = None
+                        ts: Optional[torch.Tensor] = None,
+                        enc_kind: str = "cp"
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
   """K3, the one-kernel train step: (loss, d loss/d(packed weights)) for
   loss = mean((render(rays)_rgb − target)²), target [N, 3]. CUDA rays
@@ -702,14 +811,18 @@ def plain_cp_train_step(params: Params, rays: torch.Tensor,
   `plain_cp_train_step.launches`); CPU rays take
   `plain_cp_train_step_reference`. `unpack_grads` maps the gradient onto
   the state_dict keys."""
+  _not_hash(enc_kind)
   kw = dict(steps=steps, t_near=t_near, t_far=t_far,
             sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
   if rays.device.type == "cpu":
-    return plain_cp_train_step_reference(params, rays, target, **kw)
-  out, _ = _backward_launch(pack_weights(params, rays.device), rays, target,
+    return plain_cp_train_step_reference(params, rays, target,
+                                         enc_kind=enc_kind, **kw)
+  ws = pack_weights(params, rays.device, enc_kind)
+  out, _ = _backward_launch(ws, rays, target, enc_kind=enc_kind,
                             loss_mode=True, **kw)
   plain_cp_train_step.launches += 1
-  return out[WEIGHT_COUNT], out[:WEIGHT_COUNT]
+  count = ws.shape[0]
+  return out[count], out[:count]
 
 
 plain_cp_train_step.launches = 0
@@ -733,7 +846,7 @@ def plain_hash_render_grad(params: Params, rays: torch.Tensor,
     return plain_hash_render_grad_reference(params, rays, feats, g, **kw)
   out, dfeat = _backward_launch(pack_weights(params, rays.device, "hash"),
                                 rays, g, feats=feats.detach(),
-                                loss_mode=False, **kw)
+                                enc_kind="hash", loss_mode=False, **kw)
   plain_hash_render_grad.launches += 1
   return out[:HASH_WEIGHT_COUNT], dfeat
 
@@ -759,7 +872,7 @@ def plain_hash_train_step(params: Params, rays: torch.Tensor,
     return plain_hash_train_step_reference(params, rays, feats, target, **kw)
   out, dfeat = _backward_launch(pack_weights(params, rays.device, "hash"),
                                 rays, target, feats=feats.detach(),
-                                loss_mode=True, **kw)
+                                enc_kind="hash", loss_mode=True, **kw)
   plain_hash_train_step.launches += 1
   return out[HASH_WEIGHT_COUNT], out[:HASH_WEIGHT_COUNT], dfeat
 
@@ -769,15 +882,17 @@ plain_hash_train_step.launches = 0
 
 class PlainCPRender(torch.autograd.Function):
   """K1 forward, K2 backward (render.py `_make_diff_render`): packed
-  weights [WEIGHT_COUNT], rays [N, 6], ts [T] or None -> [N, 4]. The
-  gradient goes to the packed weights only; rays and ts get none."""
+  weights of `enc_kind` (any kind but hash), rays [N, 6], ts [T] or None
+  -> [N, 4]. The gradient goes to the packed weights only; rays and ts
+  get none."""
 
   @staticmethod
   def forward(ctx, ws, rays, ts, steps, t_near, t_far, sigmoid_kind,
-              sky_kind):
+              sky_kind, enc_kind="cp"):
     ctx.save_for_backward(ws, rays, ts)
     ctx.kw = dict(steps=steps, t_near=t_near, t_far=t_far,
-                  sigmoid_kind=sigmoid_kind, sky_kind=sky_kind)
+                  sigmoid_kind=sigmoid_kind, sky_kind=sky_kind,
+                  enc_kind=enc_kind)
     return plain_cp_render(ws.detach(), rays, ts=ts, **ctx.kw)
 
   @staticmethod
@@ -785,18 +900,53 @@ class PlainCPRender(torch.autograd.Function):
     ws, rays, ts = ctx.saved_tensors
     dws = plain_cp_render_grad(ws.detach(), rays, g.contiguous(), ts=ts,
                                **ctx.kw)
-    return dws, None, None, None, None, None, None, None
+    return dws, None, None, None, None, None, None, None, None
 
 
 def plain_cp_render_train(ws: torch.Tensor, rays: torch.Tensor,
                           ts: Optional[torch.Tensor] = None, *,
                           steps: int = 64, t_near: float = 2.0,
                           t_far: float = 6.0, sigmoid_kind: str = "thin",
-                          sky_kind: str = "black") -> torch.Tensor:
+                          sky_kind: str = "black",
+                          enc_kind: str = "cp") -> torch.Tensor:
   """Differentiable render (the two-kernel train path): packed weights
   (a leaf that requires grad) -> [N, 4] through `PlainCPRender`."""
   return PlainCPRender.apply(ws, rays, ts, steps, t_near, t_far,
-                             sigmoid_kind, sky_kind)
+                             sigmoid_kind, sky_kind, enc_kind)
+
+
+def _mip_kind(mip_kind: str) -> str:
+  if mip_kind not in MIP_KINDS:
+    raise NotImplementedError(f"fused kernel: mip kind {mip_kind}")
+  return mip_kind
+
+
+def fused_plain_mip_render(params: Params, rays: torch.Tensor, *,
+                           mip_kind: str = "cone", **kw) -> torch.Tensor:
+  """Render rays [N, 6] -> [N, 4] for PlainNeRF(mip=mip_kind): K1 with the
+  IPE features of each sample's segment (`plain_cp_render`'s keywords)."""
+  return plain_cp_render(params, rays, enc_kind=_mip_kind(mip_kind), **kw)
+
+
+def fused_plain_mip_render_train(ws: torch.Tensor, rays: torch.Tensor,
+                                 ts: Optional[torch.Tensor] = None, *,
+                                 mip_kind: str = "cone",
+                                 **kw) -> torch.Tensor:
+  """Differentiable render of PlainNeRF(mip=mip_kind) (the two-kernel
+  train path, K1 / K2 through `PlainCPRender`)."""
+  return plain_cp_render_train(ws, rays, ts, enc_kind=_mip_kind(mip_kind),
+                               **kw)
+
+
+def fused_plain_mip_train_step(params: Params, rays: torch.Tensor,
+                               target: torch.Tensor,
+                               ts: Optional[torch.Tensor] = None, *,
+                               mip_kind: str = "cone", **kw
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The one-kernel L2 train step of PlainNeRF(mip=mip_kind) (K3, see
+  `plain_cp_train_step`): (loss, packed gradient)."""
+  return plain_cp_train_step(params, rays, target, ts=ts,
+                             enc_kind=_mip_kind(mip_kind), **kw)
 
 
 class PlainHashRender(torch.autograd.Function):

@@ -20,6 +20,15 @@ Examples (procedural scene):
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
       --model ae --normalize-latent --latent-l2-weight 1e-3 --size 48 \
       --num-views 30 --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model plain --enc-kind posenc --size 48 --num-views 30 \
+      --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model plain --mip cone --size 48 --num-views 30 --epochs 1500 \
+      --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model tiny --size 48 --num-views 30 --epochs 3000 \
+      --batch-size 4096 -lr 1e-3 --outdir out
 """
 from __future__ import annotations
 
@@ -55,14 +64,17 @@ def _check_supported(args):
     if getattr(args, flag):
       raise NotImplementedError(
           f"--{flag.replace('_', '-')}: not ported yet (ROADMAP {item})")
-  if args.model not in ("plain", "ae"):
+  if args.model not in ("tiny", "plain", "ae"):
     raise NotImplementedError(
-        f"--model {args.model}: the port has PlainNeRF and NeRFAE so far "
-        "(ROADMAP Queue 1 #3, #8, #10-#13)")
+        f"--model {args.model}: the port has TinyNeRF, PlainNeRF and NeRFAE "
+        "so far (ROADMAP Queue 1 #8 coarse_fine, #10 volsdf/sdf, #11 "
+        "dynamic, #13 the rest)")
 
 
 def build_model(args, device):
-  """runner.py:build_model for --model plain and ae (static data). plain:
+  """runner.py:build_model for --model tiny, plain and ae (static data).
+  tiny takes the common kwargs only (runner.py:449-456). plain also takes
+  --refl-kind, --mip, --enc-kind and --space-kind (runner.py:458-466);
   --hash-table-log2 N sets the hash table to 2^N entries per level when N
   is not the default 19 (runner.py:470-471). ae takes --refl-kind,
   --encoding-size and --normalize-latent (runner.py:483-486); like the
@@ -71,8 +83,10 @@ def build_model(args, device):
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
                 lindisp=args.lindisp, per_ray_jitter=args.per_ray_jitter,
-                density_noise=args.density_noise,
-                refl_kind=args.refl_kind)
+                density_noise=args.density_noise)
+  if args.model == "tiny":
+    return load_model("tiny", device=device, **kwargs)
+  kwargs["refl_kind"] = args.refl_kind
   if args.model == "ae":
     kwargs.update(encoding_size=args.encoding_size,
                   normalize_latent=args.normalize_latent)

@@ -8,16 +8,17 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .nn.encoders import cp_encode
 from .ops.kernels import render as k1
 from .ops.kernels import render_ae as k7
 
 
 def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
                    steps: int, margin: float = 10.0,
-                   feats: Optional[torch.Tensor] = None) -> torch.Tensor:
-  """[N] bool: the rays none of whose density-MLP pre-activations lies
-  within `margin` round-offs of the leaky-relu kink at 0.
+                   feats: Optional[torch.Tensor] = None,
+                   enc_kind: Optional[str] = None) -> torch.Tensor:
+  """[N] bool: the rays none of whose density-MLP (tiny: its one MLP's)
+  hidden pre-activations lies within `margin` round-offs of the
+  leaky-relu kink at 0.
 
   Two float32 backward implementations (K2/K3 and autograd through the
   plain K1) sum in different orders; a pre-activation within round-off
@@ -26,20 +27,27 @@ def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
   ~1e-3 relative). A pre-activation counts as near the kink when its
   magnitude is under `margin` times its column's float32-vs-float64
   round-off (RMS over the points). The init features are left out:
-  render_bwd.cu rounds them exactly as the plain version does. `params`
-  are cp weights, or hash weights with the points' features `feats`
-  [N·T, 16]. Used to hold the kernels to their plain versions on the
-  rays where the two must agree to float32 summation order."""
-  ws = k1.pack_weights(params, rays.device,
-                       "cp" if feats is None else "hash")
+  render_bwd.cu rounds the cp and hash ones exactly as the plain version
+  does, and the parameter-free encoders' kink moves only the input
+  cotangent, which neither implementation forms. The parameter-free
+  encoders' features also enter both evaluations as their float32
+  values: kernel and plain version compute them with the same rounded
+  float32 operations, while their float64 values differ by far more at
+  the high bands (a mean's float32 rounding times 2^15), which would
+  flag rays the two float32 MLPs agree on. `params` are weights of
+  `enc_kind` (default cp, or hash when the points' features `feats`
+  [N·T, 16] are given). Used to hold the kernels to their plain versions
+  on the rays where the two must agree to float32 summation order."""
+  enc_kind = enc_kind or ("cp" if feats is None else "hash")
+  ws = k1.pack_weights(params, rays.device, enc_kind)
 
   def pre_activations(dtype):
     lines, dense_layers, _ = k1._unpack(ws.to(dtype))
-    r, t = rays.to(dtype), ts.to(dtype)
-    pts = k1.hash_pts(r, t)
-    enc = (cp_encode(torch.clamp((pts + 1) * 0.5, 0, 1), lines)
-           if feats is None else feats.to(dtype))
-    feat = torch.cat([pts, enc], dim=-1)
+    if enc_kind in ("cp", "hash"):
+      feat = k1.init_feature(enc_kind, lines, rays.to(dtype), ts.to(dtype),
+                             None if feats is None else feats.to(dtype))
+    else:
+      feat = k1.init_feature(enc_kind, lines, rays, ts).to(dtype)
     zs = []
 
     def act(v):
@@ -47,7 +55,7 @@ def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
       return F.leaky_relu(v, 0.01)
 
     with torch.no_grad():
-      k1._mlp(feat, dense_layers, act, k1.N_LAYERS)
+      k1._mlp(feat, dense_layers, act, k1.LAYOUTS[enc_kind].n_layers)
     return zs[1:]                    # zs[0]: act(init feature)
 
   return _kink_free(pre_activations, rays, steps, margin)

@@ -4,12 +4,13 @@ gates, tiled view rendering, per-view PSNR.
 Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
-`render_view`, `test`), for PlainNeRF (cp and hash) and NeRFAE. The
-port's modules own their parameters, so these
-functions take the model where the JAX package takes (model, params), and
-a train step is a Python closure (no jit). Unlike the JAX gates, a kernel
-gate never catches an exception: a parameter tree that diverges from the
-kernel's, or a kernel that fails to build or launch, raises.
+`render_view`, `test`), for PlainNeRF (cp, hash, posenc, and mip cone
+or cylinder), TinyNeRF and NeRFAE. The port's modules own their
+parameters, so these functions take the model where the JAX package
+takes (model, params), and a train step is a Python closure (no jit).
+Unlike the JAX gates, a kernel gate never catches an exception: a
+parameter tree that diverges from the kernel's, or a kernel that fails
+to build or launch, raises.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..data import sampler as sampler_lib
-from ..models import MODEL_KINDS, NeRFAE, PlainNeRF
+from ..models import MODEL_KINDS, NeRFAE, PlainNeRF, TinyNeRF
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
@@ -33,10 +34,10 @@ from . import checkpoints, losses as losses_lib, optim as optim_lib
 from . import regularizers
 
 # which train path the most recent train() engaged: "fused-one-kernel"
-# (K3; for hash K5f + K3 + K5b; for NeRFAE K7b in loss mode) | "fused"
-# (K1 + K2 through PlainCPRender, PlainHashRender after HashEncode, or
-# K7f + K7b through AERender) | "oracle" (the module forward under
-# autograd). Recorded into log.json by the runner.
+# (K3 in the model's mode; for hash K5f + K3 + K5b; for NeRFAE K7b in
+# loss mode) | "fused" (K1 + K2 through PlainCPRender, PlainHashRender
+# after HashEncode, or K7f + K7b through AERender) | "oracle" (the module
+# forward under autograd). Recorded into log.json by the runner.
 LAST_TRAIN_PATH: Optional[str] = None
 
 # the regularizers each model kind carries (the JAX package's
@@ -137,24 +138,36 @@ def init_model(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
 
 
 def _fused_enc_kind(model) -> Optional[str]:
-  """The kernels' kind: "cp" or "hash" for a PlainNeRF with that encoder
-  and the View refl in identity space, "ae" for a NeRFAE with the latent
-  normalized at `encoding_size` 32 (driver.py:332-336, :563-567,
-  :1138-1151); both at the kernels' widths, with the View refl, an rgb
-  activation they implement and linear-in-t samples. None otherwise.
-  The port's HashEncoder lets only `table_size` differ from the defaults,
-  which is the JAX gate's rule (train/driver.py:254-261)."""
-  if not (model.mip is None and model.refl_kind == "view"
-          and model.intermediate_size == 32
-          and model.sigmoid_kind in k1.FUSED_SIGMOID_KINDS
-          and not model.lindisp):
+  """The kernels' mode for a model at the kernels' widths, with an rgb
+  activation they implement and linear-in-t samples; None otherwise:
+  - "tiny" for a TinyNeRF without mip (driver.py:198-206, :523-528,
+    :1038-1048; the port builds TinyNeRF at the default arch only);
+  - for a PlainNeRF with the View refl in identity space and
+    intermediate_size 32: its `mip` ("cone" or "cylinder"), which
+    overrides enc_kind as in JAX, else its enc_kind if "cp", "hash" or
+    "posenc" (driver.py:230-295, :523-544, :1137-1183). The port's
+    HashEncoder lets only `table_size` differ from the defaults, which is
+    the JAX gate's rule (train/driver.py:254-261);
+  - "ae" for a NeRFAE with the View refl, intermediate_size 32 and the
+    latent normalized at `encoding_size` 32 (driver.py:332-336,
+    :563-567, :1138-1151).
+  The JAX gates also reject a latent (latent_size != 0) and timed data
+  (ds.times): the port's models take no latent and its loaders no times,
+  so neither can arise."""
+  if (model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS or model.lindisp):
+    return None
+  if isinstance(model, TinyNeRF):
+    return "tiny" if model.mip is None else None
+  if model.refl_kind != "view" or model.intermediate_size != 32:
     return None
   if isinstance(model, NeRFAE):
-    return ("ae" if model.encoding_size == 32 and model.normalize_latent
-            else None)
-  if (isinstance(model, PlainNeRF) and model.enc_kind in k1.ENC_KINDS
-      and model.refl_space == "identity"):
-    return model.enc_kind
+    return ("ae" if model.mip is None and model.encoding_size == 32
+            and model.normalize_latent else None)
+  if isinstance(model, PlainNeRF) and model.refl_space == "identity":
+    if model.mip is not None:
+      return model.mip
+    if model.enc_kind in ("cp", "hash", "posenc"):
+      return model.enc_kind
   return None
 
 
@@ -177,10 +190,20 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   regularizer but NeRFAE's latent L2 (which the step adds outside the
   kernel, `regularizers.ae_latent_l2`), no omit-bg. Unlike the JAX gate
   there is no batch-multiple rule (the CUDA kernels mask the ragged
-  edge) and no CPU rule (there the wrappers take their plain versions)."""
+  edge) and no CPU rule (there the wrappers take their plain versions).
+  The port's envelope is narrower in one rule: at most as many samples
+  per ray as the backward kernel's shared memory holds
+  (`k1.BWD_MAX_STEPS`: 460 for cone and cylinder, whose 96-row init
+  feature takes the room, 1024 for the other plain modes; 512 for
+  NeRFAE, `k7.BWD_MAX_STEPS`), where the JAX gate engages its kernel at
+  any count. A model with more steps trains through its module forward;
+  its eval render still takes K1 (up to 2048 steps)."""
   allowed = MODEL_REGULARIZERS.get(model_kind(model), ())
+  enc = _fused_enc_kind(model)
   return not (
-      _fused_enc_kind(model) is None
+      enc is None
+      or model.steps > (k7.BWD_MAX_STEPS if enc == "ae"
+                        else k1.BWD_MAX_STEPS[enc])
       or model.sky_kind not in ("black", "white")
       or model.density_noise != 0
       or model.per_ray_jitter or model.lindisp
@@ -202,9 +225,9 @@ def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
-  """The one-kernel train step (driver.py:448-580): K3, for hash K5f +
-  K3 + K5b, for NeRFAE K7b in loss mode, when the training loss is the
-  kernel's (plain l2 on rgb, no
+  """The one-kernel train step (driver.py:448-580): K3 in the model's
+  mode (`_fused_enc_kind`), for hash K5f + K3 + K5b, for NeRFAE K7b in
+  loss mode, when the training loss is the kernel's (plain l2 on rgb, no
   colour transforms, tone map, gamma or style, 3- or 4-channel labels)
   and `_fused_common_ok` holds; None otherwise. Returns fn(rays, pix,
   generator) -> (loss, {state_dict key: gradient})."""
@@ -227,24 +250,26 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
     sd = model.state_dict()
     ws = _pack(sd, rays.device, enc)
     target = pix[:, :3].contiguous()
-    if enc == "cp":
-      loss, grad = k1.plain_cp_train_step(ws, rays, target, ts=ts, **kw)
-      return loss, k1.unpack_grads(grad)
     if enc == "ae":
       loss, grad = k7.fused_ae_train_step(ws, rays, target, ts, **kw)
       return loss, k7.unpack_grads_ae(grad)
-    loss, grad, dtable = k1.fused_plain_hash_train_step(
-        ws, k1.hash_table(sd), rays, target, ts, **kw)
-    return loss, {**k1.unpack_grads(grad), k1.HASH_TABLE_KEY: dtable}
+    if enc == "hash":
+      loss, grad, dtable = k1.fused_plain_hash_train_step(
+          ws, k1.hash_table(sd), rays, target, ts, **kw)
+      return loss, {**k1.unpack_grads(grad), k1.HASH_TABLE_KEY: dtable}
+    loss, grad = k1.plain_cp_train_step(ws, rays, target, ts=ts,
+                                        enc_kind=enc, **kw)
+    return loss, k1.unpack_grads(grad)
 
   return fn
 
 
 def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   """The two-kernel path (driver.py:158-357): K1 forward and K2 backward
-  through `PlainCPRender`, for hash K5f/K5b (`HashEncode`) into K1/K2
-  (`PlainHashRender`), for NeRFAE K7f/K7b (`AERender`), with the loss
-  computed outside. Returns
+  in the model's mode through `PlainCPRender`, for hash K5f/K5b
+  (`HashEncode`) into
+  K1/K2 (`PlainHashRender`), for NeRFAE K7f/K7b (`AERender`), with the
+  loss computed outside. Returns
   fn(ws, rays, generator) -> [N, 4], differentiable in the packed
   weights ws (and, for hash, in the model's table parameter), or None."""
   del ds
@@ -256,12 +281,12 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 
   def fn(ws, rays, generator):
     ts = _step_ts(model, generator, rays.device)
-    if enc == "cp":
-      return k1.plain_cp_render_train(ws, rays, ts, **kw)
     if enc == "ae":
       return k7.fused_ae_render_train(ws, rays, ts, **kw)
-    return k1.fused_plain_hash_render_train(ws, model.density_mlp.enc.table,
-                                            rays, ts, **kw)
+    if enc == "hash":
+      return k1.fused_plain_hash_render_train(
+          ws, model.density_mlp.enc.table, rays, ts, **kw)
+    return k1.plain_cp_render_train(ws, rays, ts, enc_kind=enc, **kw)
 
   return fn
 
@@ -399,10 +424,12 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
 
 
 def _fused_render_fn(model) -> Optional[Callable]:
-  """rays [n, 6] -> rgb [n, 3] through K1 (cp), K5f + K1 (hash) or K7f
-  (ae) when the model is in the kernels' envelope (`_fused_enc_kind`,
-  any sky the kernel implements); None otherwise. A parameter tree that
-  diverges from the default one raises (in `pack_weights`)."""
+  """rays [n, 6] -> rgb [n, 3] through K1 in the model's mode (cp,
+  posenc, tiny, cone, cylinder), K5f + K1 (hash)
+  or K7f (ae) when the model is in the kernels' envelope
+  (`_fused_enc_kind`, any sky the kernel implements: the "random" sky is
+  black at eval, driver.py:1045, :1145); None otherwise. A parameter tree
+  that diverges from the default one raises (in `pack_weights`)."""
   enc = _fused_enc_kind(model)
   if enc is None or model.sky_kind not in integrate.SKY_KINDS:
     return None
@@ -413,12 +440,12 @@ def _fused_render_fn(model) -> Optional[Callable]:
             sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
 
   def fn(rays_chunk):
-    if enc == "cp":
-      return k1.plain_cp_render(ws, rays_chunk, **kw)[:, :3]
     if enc == "ae":
       return k7.fused_ae_render(ws, rays_chunk, **kw)[:, :3]
-    return k1.fused_plain_hash_render(ws, k1.hash_table(sd), rays_chunk,
-                                      **kw)[:, :3]
+    if enc == "hash":
+      return k1.fused_plain_hash_render(ws, k1.hash_table(sd), rays_chunk,
+                                        **kw)[:, :3]
+    return k1.plain_cp_render(ws, rays_chunk, enc_kind=enc, **kw)[:, :3]
 
   return fn
 

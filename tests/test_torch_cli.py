@@ -73,9 +73,11 @@ def _port_files():
 
 def test_port_and_chip_smoke_import_no_jax_and_no_root_runner():
   files = _port_files()
-  assert len(files) >= 33, files
+  assert len(files) >= 34, files
   names = {os.path.relpath(f, REPO) for f in files}
   assert {"nerf_atlas_tpu_torch/ops/kernels/render_ae.py",
+          "nerf_atlas_tpu_torch/ops/kernels/render.py",
+          "nerf_atlas_tpu_torch/ops/mip.py",
           "nerf_atlas_tpu_torch/train/regularizers.py",
           "nerf_atlas_tpu_torch/models/nerf.py"} <= names
   for path in files:

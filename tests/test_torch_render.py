@@ -148,8 +148,10 @@ def test_fused_gate_covers_the_flagship_only():
   from nerf_atlas_tpu_torch.train import driver
   assert driver._fused_render_fn(_seeded_model()) is not None
   assert driver._fused_render_fn(_seeded_model(sky_kind="white")) is not None
-  for kw in (dict(enc_kind="posenc"), dict(sigmoid_kind="softmax"),
-             dict(lindisp=True), dict(intermediate_size=16)):
+  assert driver._fused_render_fn(_seeded_model(enc_kind="posenc")) is not None
+  for kw in (dict(enc_kind="posenc", sigmoid_kind="softmax"),
+             dict(sigmoid_kind="softmax"), dict(lindisp=True),
+             dict(intermediate_size=16)):
     assert driver._fused_render_fn(_seeded_model(**kw)) is None, kw
 
 

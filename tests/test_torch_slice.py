@@ -127,9 +127,9 @@ def test_write_png_roundtrips(tmp_path):
     (["--epochs", "5", "--smooth-eps", "0.01"], NotImplementedError),
     (["--epochs", "5", "--smooth-n-ord", "1"], NotImplementedError),
     (["--param-file", "x.json"], NotImplementedError),
-    (["--model", "tiny"], NotImplementedError),
+    (["--model", "coarse_fine"], NotImplementedError),
     (["--enc-kind", "ref-hash"], NotImplementedError),
-    (["--mip", "cone"], NotImplementedError),
+    (["--model", "voxel"], NotImplementedError),
     (["--data-kind", "dnerf"], NotImplementedError),
     (["--depth-query-normal"], NotImplementedError),
 ])
@@ -157,6 +157,10 @@ def test_port_imports_no_jax():
       "bad = sorted(m for m in sys.modules "
       "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
       "assert len(mods) >= 20, mods\n"
+      "named = {p.__name__ + '.' + m for m in ('ops.mip', 'models.nerf', "
+      "'ops.kernels.render', 'ops.kernels.render_ae', "
+      "'ops.kernels.hash_encode')}\n"
+      "assert named <= set(mods), named - set(mods)\n"
       "assert not bad, bad\n")
   env = dict(os.environ, PYTHONPATH=REPO)
   proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

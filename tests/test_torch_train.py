@@ -391,9 +391,14 @@ def test_gates_pick_the_paths_of_the_jax_gates():
   l1 = driver.TrainConfig(loss_kinds=("l1",))
   assert driver._fused_step_fn(flagship, l1, ds) is None
   assert driver._fused_train_fn(flagship, l1, ds) is not None
+  posenc = driver.init_model(models.PlainNeRF(steps=STEPS, enc_kind="posenc"),
+                             seed=0)
+  assert driver._fused_step_fn(posenc, cfg, ds) is not None
+  assert driver._fused_train_fn(posenc, cfg, ds) is not None
   for kw in (dict(sky_kind="random"), dict(density_noise=0.5),
              dict(per_ray_jitter=True), dict(lindisp=True),
-             dict(enc_kind="posenc"), dict(sigmoid_kind="softmax")):
+             dict(enc_kind="posenc", density_noise=0.5),
+             dict(sigmoid_kind="softmax")):
     m = driver.init_model(models.PlainNeRF(steps=STEPS, **kw), seed=0)
     assert driver._fused_step_fn(m, cfg, ds) is None, kw
     assert driver._fused_train_fn(m, cfg, ds) is None, kw
