@@ -28,7 +28,14 @@ Phases, each printing its lines before the next starts:
      K7b launches bit for bit. Then the K4 modes of K1/K2/K3 (posenc,
      tiny, cone, cylinder) at 4096 x 64 as for cp, a ragged batch, and
      PlainCPRender's gradient against K2's and two launches of K2 and of
-     K3 bit for bit in each mode;
+     K3 bit for bit in each mode. Then VolSDF: K8f (render_volsdf_fwd)
+     with and without its eikonal column at (64 steps, 1001 rays) and
+     (16 steps, 77 rays), as for K7f (the column over the kink-free rays
+     of `testing.volsdf_kink_free_rays`); K8b (render_volsdf_bwd) in
+     modes G and L, each with and without the eikonal, at 4096 x 64 and
+     77 x 16 as for K7b, with a float64 witness of the eikonal's loss
+     mode; VolSDFRender's gradient against mode G's and two K8b launches
+     of each mode bit for bit;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
@@ -36,7 +43,8 @@ Phases, each printing its lines before the next starts:
      with --model ae --normalize-latent, which must launch K7f and no K1;
      4d-4f. the same with --enc-kind posenc, --mip cone and cylinder, and
      --model tiny, which must launch K1 in that mode and nothing else,
-     and run no module forward;
+     and run no module forward; 4g. the same with --model volsdf
+     --sigmoid-kind upshifted, which must launch K8f and nothing else;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
      500 steps) and must engage the one-kernel step, launch K3 once per
@@ -48,7 +56,10 @@ Phases, each printing its lines before the next starts:
      one-kernel step and launch K7b once per step; 5d-5f. the sweep's
      plain_posenc and plain_mip_cone recipes (500 steps, both splits 2 dB
      over all-black), --mip cylinder (100 steps) and tiny (500 steps, its
-     PSNR recorded), each through K3 in its mode once per step;
+     PSNR recorded), each through K3 in its mode once per step; 5g. the
+     sweep's volsdf_eikonal recipe (500 steps), which must engage the
+     one-kernel step, launch K8b once per step and K8f in eval, and beat
+     all-black by 2 dB on both splits;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -60,14 +71,18 @@ Phases, each printing its lines before the next starts:
      K7f + K7b, plain) and the point-sampled latent L2's share of a step.
      For each K4 mode: the K1 and plain calls at 65536 x 64 and the K3 and
      plain K3 calls at 4096 x 64; for posenc, mip cone and tiny the three
-     train steps (K3, K1 + K2, plain);
+     train steps (K3, K1 + K2, plain). For VolSDF: the K8f and plain calls
+     at 65536 x 64 with and without the eikonal column, one 800x800
+     frame, K8b calls at 4096 x 64 (mode L with and without the eikonal,
+     mode G with it) and their plain versions, and the three train steps
+     (K8b, K8f + K8b, plain) at the volsdf_eikonal recipe;
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
-     plain_hash, ae, plain_posenc and plain_mip_cone at 1500 steps and
-     tiny at 3000 for each seed;
+     plain_hash, ae, plain_posenc, plain_mip_cone and volsdf_eikonal at
+     1500 steps and tiny at 3000 for each seed;
   8. with `--profile` only: where one frame's and one train step's time
-     goes, for cp, hash, ae and posenc (torch.profiler traces: device
+     goes, for cp, hash, ae, posenc and volsdf (torch.profiler traces: device
      idle share, per-kernel shares; host-side costs; SM clock and power
      under load).
 The last three lines are the kernels' JSON record (each kernel's
@@ -164,6 +179,17 @@ QUALITY_R05_POSENC = (33.413, 33.172)
 QUALITY_R05_MIP = (33.381, 32.455)
 QUALITY_R05_TINY = (23.284, 16.67)
 K4_MODES = ("posenc", "tiny", "cone", "cylinder")
+# the quality sweep's volsdf_eikonal recipe (scripts/tpu_quality_sweep.py:
+# 78-80); QUALITY_r05 volsdf_eikonal (TPU, seed 0, one run, its one-kernel
+# path): a record, not a gate
+_LR = TRAIN_ARGV.index("-lr")
+VOLSDF_TRAIN_ARGV = (TRAIN_ARGV[:3] + ["volsdf", "--sdf-kind", "mlp",
+                                       "--sigmoid-kind", "upshifted",
+                                       "--sdf-eikonal", "0.01"]
+                     + TRAIN_ARGV[6:_LR] + ["-lr", "3e-4"]
+                     + TRAIN_ARGV[_LR + 2:])
+VOLSDF_EIKONAL = 0.01
+QUALITY_R05_VOLSDF = (34.763, 30.991)
 
 
 def _sync_time(fn):
@@ -243,7 +269,8 @@ def _build(build, k1):
   """Phase 2: one nvcc per kernel source, started together; render_bwd.cu
   once per mode (`render.bwd_defines`)."""
   jobs = [(name, ()) for name in ("render_fwd", "hash_encode",
-                                  "render_ae_fwd", "render_ae_bwd")]
+                                  "render_ae_fwd", "render_ae_bwd",
+                                  "render_volsdf_fwd", "render_volsdf_bwd")]
   jobs += [("render_bwd", k1.bwd_defines(kind)) for kind in k1.ENC_KINDS]
   with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
     built = list(pool.map(lambda job: build.build(*job), jobs))
@@ -762,23 +789,24 @@ def _module_forwards(models, fn):
   return out, calls[0]
 
 
-def _render_main_k4(port_runner, models, tag, *extra):
-  """Phases 4d-4f: the runner's 800x800 render of a K4 family must launch
-  K1 (in its mode) and nothing else, and run no module forward. Returns
-  the K1 launches."""
+def _render_main_k4(port_runner, models, tag, *extra, kernel="K1"):
+  """Phases 4d-4g: the runner's 800x800 render of a K4 family (VolSDF)
+  must launch K1 in its mode (K8f) and nothing else, and run no module
+  forward. Returns the launches."""
   (results, secs, counts), forwards = _module_forwards(
       models, lambda: _render_main(port_runner, *extra))
-  others = {k: v for k, v in counts.items() if k != "K1" and v}
-  if counts["K1"] <= 0 or others or forwards:
+  others = {k: v for k, v in counts.items() if k != kernel and v}
+  if counts[kernel] <= 0 or others or forwards:
     raise RuntimeError(f"the {tag} render launched {counts} and ran "
                        f"{forwards} module forwards")
+  name = f"K1-{tag}" if kernel == "K1" else kernel
   print(f"[main] runner {tag} {SIZE}x{SIZE}x{STEPS}, 2 views x 2 splits: "
         f"{secs:.2f} s end to end (incl. ground-truth render + PNGs), "
-        f"{2 * 2 * SIZE * SIZE / secs:,.0f} rays/s | K1-{tag} launches "
-        f"{counts['K1']}, other kernels 0, module forwards {forwards} | "
+        f"{2 * 2 * SIZE * SIZE / secs:,.0f} rays/s | {name} launches "
+        f"{counts[kernel]}, other kernels 0, module forwards {forwards} | "
         f"PSNR train {results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
-  return counts["K1"]
+  return counts[kernel]
 
 
 def _black_psnr(pixels) -> float:
@@ -792,12 +820,15 @@ def _wrappers():
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
+  from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
   return {"K1": k1.plain_cp_render, "K2": k1.plain_cp_render_grad,
           "K3": k1.plain_cp_train_step, "K1-hash": k1.plain_hash_render,
           "K2-hash": k1.plain_hash_render_grad,
           "K3-hash": k1.plain_hash_train_step, "K5f": hk.hash_encode,
           "K5b": hk.hash_encode_table_grad, "K7f": k7.fused_ae_render,
-          "K7b-G": k7.fused_ae_render_grad, "K7b": k7.fused_ae_train_step}
+          "K7b-G": k7.fused_ae_render_grad, "K7b": k7.fused_ae_train_step,
+          "K8f": k8.fused_volsdf_render, "K8b-G": k8.fused_volsdf_render_grad,
+          "K8b": k8.fused_volsdf_train_step}
 
 
 def _counted(fn):
@@ -1418,6 +1449,437 @@ def _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
             flush=True)
   return res
 
+def _volsdf_weights(models, driver, k8, dev, steps=STEPS):
+  """(state_dict, seeded, amplified) of a VolSDF at the recipe's width:
+  the amplified weights scale the View's output layer by 40, so that rgb
+  spans (0, 1)."""
+  sd = dict(driver.init_model(models.VolSDF(steps=steps, device=dev),
+                              seed=0).state_dict())
+  amp = dict(sd)
+  amp["refl.mlp.layer_out.weight"] = amp["refl.mlp.layer_out.weight"] * 40.0
+  return sd, k8.pack_weights(sd, dev), k8.pack_weights(amp, dev)
+
+
+class _Float32Features(torch.autograd.Function):
+  """The SDF init feature in float64 holding the kernels' float32 values,
+  with the float32 sin/cos in its jacobian (dy/dx = 2π·B): a float64
+  evaluation of exactly the float32 model's features."""
+
+  @staticmethod
+  def forward(ctx, pts, init32, fb):
+    ctx.save_for_backward(init32, fb)
+    return init32.double()
+
+  @staticmethod
+  def backward(ctx, g):
+    init32, fb = ctx.saved_tensors
+    sin, cos = init32[:, 3:35].double(), init32[:, 35:].double()
+    gy = g[:, 3:35] * cos - g[:, 35:] * sin
+    return g[:, :3] + gy @ (fb.double() * (2 * math.pi)).t(), None, None
+
+
+def _float64_witness(k8, ws, rays, ts, target, kw):
+  """K8b-L with the eikonal in float64 on the kernels' float32 init
+  features (`_Float32Features`): the packed gradient, for telling how far
+  each float32 implementation lies from the same function in float64."""
+  from nerf_atlas_tpu_torch.ops import integrate
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  w = ws.double().requires_grad_(True)
+  r, t = rays.double(), ts.double()
+  fb = ws[k8.B_OFFSET:k8.MLP_OFFSET].view(3, -1)
+  init32 = k8.sdf_init_feature(k1.hash_pts(rays, ts), fb)
+  with torch.enable_grad():
+    pts = k1.hash_pts(r, t).requires_grad_(True)
+    init = _Float32Features.apply(pts, init32, fb)
+    sigma, rgb, sdf = k8.volsdf_chain(w, r, t, kw["sigmoid_kind"], True,
+                                      pts=pts, init=init)
+    eik = k8.eikonal_residual(sdf, pts, r.shape[0], True)
+    out = k1.composite(sigma, rgb, r[:, 3:6], integrate.dists_from_ts(t),
+                       kw["sky_kind"], relu=True)
+    loss = (torch.mean((out[:, :3] - target.double()) ** 2)
+            + VOLSDF_EIKONAL * eik.mean())
+    (g,) = torch.autograd.grad(loss, w)
+  return g
+
+
+def _worst(k8, raw, got, ref):
+  """(max over the state_dict tensors of ‖got − ref‖/‖ref‖, its key)."""
+  ug, ur = k8.unpack_grads(got.float(), raw), k8.unpack_grads(ref.float(),
+                                                              raw)
+  errs = {k: float((ug[k].double() - ur[k].double()).norm()
+                   / ur[k].double().norm()) for k in ur}
+  key = max(errs, key=errs.get)
+  return errs[key], key
+
+
+def _eikonal_floor(k8, testing, sd, ws, rays_ops, dev):
+  """Printed, not gated: K8b-L with the eikonal against its plain version
+  and both against `_float64_witness` at fewer rays than the gated check.
+  The eikonal's weight gradient sums per-point terms that mostly cancel,
+  so its float32 rounding shrinks relative to it as 1/√rays; below 4096
+  rays it can exceed GRAD_RTOL in both implementations."""
+  raw = sd[k8.SCALE_KEY]
+  for n, seed in ((301, 2), (1001, 64)):
+    rays = torch.from_numpy(_check_rays(n, seed)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    keep = testing.volsdf_kink_free_rays(ws, rays, ts, STEPS, KINK_MARGIN)
+    kw = dict(steps=STEPS, sigmoid_kind="upshifted", sky_kind="black")
+    out = k8.volsdf_render_reference(ws, rays, ts=ts, **kw)[:, :3]
+    target = torch.where(keep[:, None], torch.rand(n, 3, device=dev,
+                                                   generator=gen),
+                         out).contiguous()
+    _, got = k8.fused_volsdf_train_step(ws, rays, target, ts,
+                                        eikonal_weight=VOLSDF_EIKONAL, **kw)
+    _, ref = k8.volsdf_train_step_reference(
+        ws, rays, target, ts=ts, eikonal_weight=VOLSDF_EIKONAL, **kw)
+    w64 = _float64_witness(k8, ws, rays, ts, target, kw)
+    line = " | ".join(f"{name} {e:.2e} ({key})" for name, (e, key) in (
+        ("kernel vs plain", _worst(k8, raw, got, ref)),
+        ("kernel vs float64", _worst(k8, raw, got, w64)),
+        ("plain vs float64", _worst(k8, raw, ref, w64))))
+    print(f"[check] K8b-L eikonal float32 floor, {n} rays x {STEPS} "
+          f"(kink-free rays {int(keep.sum())}/{n}; not gated): {line}",
+          flush=True)
+
+
+def _check_volsdf_bwd(what, k8, testing, sd, ws, rays, gen, kw,
+                      witness=False):
+  """K8b in modes G (random g) and L (random target), each without and
+  with the eikonal, against autograd through the plain K8f, over all
+  rays and over the kink-free rays (see GRAD_RTOL; the learned scale's
+  gradient is one of the tensors). Returns the max |Δ| of the kink-free
+  gradients."""
+  n = rays.shape[0]
+  keep = testing.volsdf_kink_free_rays(ws, rays, kw["ts"], kw["steps"],
+                                       KINK_MARGIN)
+  g = torch.randn(n, 5, device=rays.device, generator=gen)
+  target = torch.rand(n, 3, device=rays.device, generator=gen)
+  out = k8.volsdf_render_reference(ws, rays, **kw)[:, :3]
+  step_kw = {k: v for k, v in kw.items() if k != "ts"}
+  raw = sd[k8.SCALE_KEY]
+  max_abs = 0.0
+  for mode, eik in (("G", False), ("G", True), ("L", False), ("L", True)):
+    gm = (g if eik else g[:, :4]).contiguous()
+    arg, masked = ((gm, (gm * keep[:, None]).contiguous()) if mode == "G"
+                   else (target, torch.where(keep[:, None], target,
+                                             out).contiguous()))
+    weight = VOLSDF_EIKONAL if eik else 0.0
+    line = []
+    for name, a in (("all rays", arg), ("kink-free", masked)):
+      if mode == "G":
+        got = k8.fused_volsdf_render_grad(ws, rays, a, want_eikonal=eik, **kw)
+        ref = k8.volsdf_render_grad_reference(ws, rays, a, want_eikonal=eik,
+                                              **kw)
+      else:
+        loss, got = k8.fused_volsdf_train_step(ws, rays, a, kw["ts"],
+                                               eikonal_weight=weight,
+                                               **step_kw)
+        loss_r, ref = k8.volsdf_train_step_reference(
+            ws, rays, a, eikonal_weight=weight, **kw)
+        loss_rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
+        if not loss_rel <= LOSS_RTOL:
+          raise RuntimeError(f"{what} K8b-L loss {float(loss)} vs plain "
+                             f"{float(loss_r)}")
+        line.append(f"{name} loss rel {loss_rel:.2e}")
+      torch.cuda.synchronize()
+      ug, ur = k8.unpack_grads(got, raw), k8.unpack_grads(ref, raw)
+      errs = {k: float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur}
+      key = max(errs, key=errs.get)
+      tol = ALL_RAY_RTOL if name == "all rays" else GRAD_RTOL
+      if not (errs[key] <= tol and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"{what} K8b-{mode} eikonal {eik} ({name}): "
+                           f"gradient of {key} {errs[key]:.3e} from its "
+                           f"plain version (tol {tol})")
+      line.append(f"{name}: max_t ‖Δ‖/‖ref‖ {errs[key]:.2e} ({key}), scale "
+                  f"{errs[k8.SCALE_KEY]:.2e}")
+      if name == "kink-free":
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+        if witness and mode == "L" and eik:
+          w64 = _float64_witness(k8, ws, rays, kw["ts"], a, kw)
+          (ek, kk), (ep, kp) = (_worst(k8, raw, got, w64),
+                                _worst(k8, raw, ref, w64))
+          line.append(f"float64 witness: kernel {ek:.2e} ({kk}), plain "
+                      f"{ep:.2e} ({kp})")
+    print(f"[check] K8b-{mode} eikonal {'on ' if eik else 'off'} {what}: "
+          f"{' | '.join(line)} | kink-free rays {int(keep.sum())}/{n}",
+          flush=True)
+  return max_abs
+
+
+def _check_volsdf(k8, testing, rays_ops, models, driver, dev):
+  """Phase 3, VolSDF: K8f in both forms and K8b in both modes, each with
+  and without the eikonal, against their plain versions; VolSDFRender
+  against mode G; K8b's determinism. Returns (K8f max |Δ|, K8b max |Δ|)."""
+  sd, seeded, amplified = _volsdf_weights(models, driver, k8, dev)
+  gen = torch.Generator(device=dev).manual_seed(12)
+  max_f, max_b = 0.0, 0.0
+  for steps, n in ((STEPS, 1001), (16, 77)):
+    rays = torch.from_numpy(_check_rays(n, steps)).to(dev)
+    ts = rays_ops.compute_ts(2.0, 6.0, steps, perturb=1.0, generator=gen,
+                             device=dev)
+    for (wname, ws), sky, kind in (
+        (("seeded", seeded), "black", "upshifted"),
+        (("amplified", amplified), "black", "upshifted"),
+        (("amplified", amplified), "white", "thin")):
+      keep = testing.volsdf_kink_free_rays(ws, rays, ts, steps, KINK_MARGIN)
+      for tname, t in (("grid", None), ("jittered ts", ts)):
+        for eik in (False, True):
+          kw = dict(steps=steps, sigmoid_kind=kind, sky_kind=sky, ts=t,
+                    want_eikonal=eik)
+          out = k8.fused_volsdf_render(ws, rays, **kw)
+          ref = k8.volsdf_render_reference(ws, rays, **kw)
+          torch.cuda.synchronize()
+          e = float((out[:, :4] - ref[:, :4]).abs().max())
+          line = (f"[check] K8f {n} rays x {steps} {wname:9s} sky {sky:5s} "
+                  f"{kind:9s} {tname:11s} eikonal {'on ' if eik else 'off'}"
+                  f": rgb/acc max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
+                  f"{float(ref[:, :3].std()):.3f})")
+          ok = e <= TOL and bool(torch.isfinite(out).all())
+          if eik:
+            # the column's act′ pattern: held to TOL on the kink-free rays,
+            # to ALL_RAY_RTOL of its value over all rays
+            if t is not None:
+              kf = keep
+            else:
+              kf = testing.volsdf_kink_free_rays(
+                  ws, rays, torch.linspace(2.0, 6.0, steps, device=dev),
+                  steps, KINK_MARGIN)
+            d = (out[:, 4] - ref[:, 4]).abs()
+            e_kf = float(d[kf].max())
+            rel = float((d / ref[:, 4].abs()).max())
+            line += (f" | eikonal column kink-free max|Δ| {e_kf:.3e} (tol "
+                     f"{TOL:.0e}, values {float(ref[:, 4].min()):.2f}.."
+                     f"{float(ref[:, 4].max()):.2f}), all rays max rel "
+                     f"{rel:.2e} (tol {ALL_RAY_RTOL:.0e}), kink-free rays "
+                     f"{int(kf.sum())}/{n}")
+            ok = ok and e_kf <= TOL and rel <= ALL_RAY_RTOL
+            e = max(e, e_kf)
+          print(line, flush=True)
+          if not ok:
+            raise RuntimeError(f"K8f disagrees with its reference: {line}")
+          max_f = max(max_f, e)
+  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
+  for (wname, ws), sky, kind in (
+      (("seeded", seeded), "black", "upshifted"),
+      (("amplified", amplified), "white", "thin")):
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    max_b = max(max_b, _check_volsdf_bwd(
+        f"{N_CHECK} rays x {STEPS} {wname:9s} sky {sky:5s} {kind:9s}", k8,
+        testing, sd, ws, rays, gen,
+        dict(steps=STEPS, sigmoid_kind=kind, sky_kind=sky, ts=ts),
+        witness=True))
+  _eikonal_floor(k8, testing, sd, amplified, rays_ops, dev)
+  rays_r = torch.from_numpy(_check_rays(77, 1)).to(dev)
+  ts = rays_ops.compute_ts(2.0, 6.0, 16, perturb=1.0, generator=gen,
+                           device=dev)
+  kw = dict(steps=16, sigmoid_kind="upshifted", sky_kind="white", ts=ts)
+  max_b = max(max_b, _check_volsdf_bwd("ragged 77 rays x 16", k8, testing,
+                                       sd, amplified, rays_r, gen, kw))
+  g = torch.randn(77, 5, device=dev, generator=gen)
+  target = torch.rand(77, 3, device=dev, generator=gen)
+  leaf = amplified.clone().requires_grad_(True)
+  (k8.fused_volsdf_render_train(leaf, rays_r, ts, steps=16, sky_kind="white",
+                                sigmoid_kind="upshifted", want_eikonal=True)
+   * g).sum().backward()
+  direct = k8.fused_volsdf_render_grad(amplified, rays_r, g,
+                                       want_eikonal=True, **kw)
+  again = k8.fused_volsdf_render_grad(amplified, rays_r, g,
+                                      want_eikonal=True, **kw)
+  step_kw = {k: v for k, v in kw.items() if k != "ts"}
+  step1 = k8.fused_volsdf_train_step(amplified, rays_r, target, ts,
+                                     eikonal_weight=VOLSDF_EIKONAL, **step_kw)
+  step2 = k8.fused_volsdf_train_step(amplified, rays_r, target, ts,
+                                     eikonal_weight=VOLSDF_EIKONAL, **step_kw)
+  if not (torch.equal(leaf.grad, direct) and torch.equal(direct, again)
+          and all(torch.equal(a, b) for a, b in zip(step1, step2))):
+    raise RuntimeError("VolSDFRender's gradient differs from K8b-G's, or "
+                       "two K8b launches differ")
+  print("[check] VolSDFRender backward == K8b-G (bitwise, eikonal on); two "
+        "K8b-G and two K8b-L launches bitwise equal", flush=True)
+  return max_f, max_b
+
+
+def _train_main_volsdf(port_runner, k1, loaders, dev):
+  """Phase 5g: the quality sweep's volsdf_eikonal recipe through the
+  one-kernel step: K8b (loss mode, the eikonal inside) once per step, K8f
+  in eval, nothing else; both splits 2 dB over all-black. Returns the
+  launches per kernel."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            TRAIN_STEPS,
+                                            argv=VOLSDF_TRAIN_ARGV)
+  losses = [h["loss"] for h in results["history"]]
+  if (results["engaged_path"] != "fused-one-kernel"
+      or not all(math.isfinite(v) for v in losses)):
+    raise RuntimeError(f"volsdf: path {results['engaged_path']}, losses "
+                       f"{losses}")
+  for split in ("train", "test"):
+    if not results[split]["psnr_mean"] >= black[split] + 2.0:
+      raise RuntimeError(f"volsdf {split} PSNR {results[split]['psnr_mean']} "
+                         f"does not beat all-black {black[split]} by 2 dB")
+  others = {k: v for k, v in counts.items() if k not in ("K8b", "K8f") and v}
+  if counts["K8b"] != TRAIN_STEPS or counts["K8f"] <= 0 or others:
+    raise RuntimeError(f"volsdf training launched {counts}, expected "
+                       f"{TRAIN_STEPS} K8b, K8f in eval and nothing else")
+  print(f"[train] runner volsdf_eikonal {TRAIN_STEPS} steps x {BATCH} rays x "
+        f"{STEPS} samples (48x48, 30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | launches K8b {counts['K8b']}, K8f "
+        f"{counts['K8f']} | loss (l2 + eikonal) {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} | PSNR train {results['train']['psnr_mean']:.3f} "
+        f"test {results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts
+
+
+def _volsdf_macs(k8):
+  """Multiply-adds per sample point: (forward, backward without the
+  eikonal, the eikonal's transpose chain). The backward counts the
+  forward again, every weight gradient and the input gradients an
+  output needs: not the SDF MLP's onto its init feature (the points and
+  B take none) nor the View's onto p and elev/azim. The transpose chain
+  is the SDF MLP's input-gradient products for its sdf column (the
+  forward's MACs without layer_out, plus its column)."""
+  sdf = sum(i * o for name, i, o in k8.LAYERS if name.startswith("shape"))
+  view = sum(i * o for name, i, o in k8.LAYERS if name.startswith("refl"))
+  skip = (_no_cotangent_macs(k8.LAYERS, "shape.mlp", k8.S_HIDDEN, k8.S_IN)
+          + _no_cotangent_macs(k8.LAYERS, "refl.mlp", 128, 5))
+  chain = sdf - k8.S_HIDDEN * k8.S_OUT + k8.S_HIDDEN
+  return sdf + view, 3 * (sdf + view) - skip, chain
+
+
+def _volsdf_bound(k8, n: int, mode: str):
+  """Bound of one call on n rays x 64 steps: mode "f" (K8f), "f-eik"
+  (K8f + the transpose chain), "b" (K8b without the eikonal), "b-eik"
+  (K8b with it: + the chain, its adjoint's forward-like products and its
+  weight updates, 3 chains); 2 FLOP per multiply-add; bytes: rays, ts,
+  dists and the weights in (the backward and the eikonal also the
+  transposed copy), [n, 4 or 5] out (backward: the target or g in, the
+  gradient out)."""
+  fwd, bwd, chain = _volsdf_macs(k8)
+  pts = n * STEPS
+  fixed = 2 * STEPS
+  wc = k8.WEIGHT_COUNT
+  if mode == "f":
+    return _bound_ms(2 * fwd * pts, 4 * (n * 10 + fixed + wc))
+  if mode == "f-eik":
+    return _bound_ms(2 * (fwd + chain) * pts,
+                     4 * (n * 11 + fixed + 2 * wc))
+  extra = 3 * chain if mode == "b-eik" else 0
+  return _bound_ms(2 * (bwd + extra) * pts, 4 * (n * 11 + fixed + 3 * wc))
+
+
+def _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops, dev,
+                 frame_ds):
+  """Phase 6, VolSDF: K8f and plain calls at 65536 x 64 with and without
+  the eikonal column, one 800x800 frame, the K8b calls at 4096 x 64 (mode
+  L with and without the eikonal, mode G with it) against their plain
+  versions (plain, kernel, kernel, plain), and the three train steps at
+  the volsdf_eikonal recipe. Returns the numbers of the kernels line."""
+  model = driver.init_model(models.VolSDF(steps=STEPS, device=dev,
+                                          sigmoid_kind="upshifted"), seed=0)
+  ws = k8.pack_weights(model.state_dict(), dev)
+  frame_rays = frame_ds.view_rays(0)
+  call_rays = frame_rays[:CHUNK].contiguous()
+  kw = dict(steps=STEPS, t_near=2.0, t_far=6.0, sigmoid_kind="upshifted")
+  fwd_macs, _, chain = _volsdf_macs(k8)
+  res = {}
+  launches = {k: w.launches for k, w in _wrappers().items()}
+
+  def plain_eik():                    # 8192-ray chunks: the graph of the
+    return torch.cat([k8.volsdf_render_reference(   # chain at 65536 rays
+        ws, call_rays[i:i + 8192], want_eikonal=True, **kw)   # is ~45 GB
+                      for i in range(0, CHUNK, 8192)])
+
+  for eik, tag in ((False, "K8f"), (True, "K8f eikonal")):
+    plain = (plain_eik if eik else
+             lambda: k8.volsdf_render_reference(ws, call_rays, **kw))
+    ms = {}
+    for name, fn, reps in (
+        ("plain", plain, 1),
+        ("kernel", lambda: k8.fused_volsdf_render(ws, call_rays,
+                                                  want_eikonal=eik, **kw), 3),
+        ("kernel", lambda: k8.fused_volsdf_render(ws, call_rays,
+                                                  want_eikonal=eik, **kw), 3),
+        ("plain", plain, 1)):
+      ms.setdefault(name, []).append(_event_ms(fn, reps))
+    bound = _volsdf_bound(k8, CHUNK, "f-eik" if eik else "f")
+    tflop = 2 * (fwd_macs + (chain if eik else 0)) * CHUNK * STEPS / 1e12
+    res[tag] = (min(ms["kernel"]), min(ms["plain"]), bound)
+    print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step {tag} call "
+          f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
+          f"({tflop / (min(ms['kernel']) / 1e3):.2f} TFLOP/s; bound "
+          f"{bound[0]:.2f} ms, bf16 {bound[2]:.2f}), plain torch "
+          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+
+  def ref_frame():
+    return torch.cat([k8.volsdf_render_reference(ws, rc, **kw)[:, :3]
+                      for rc in frame_rays.split(CHUNK)])
+
+  img_ref, ref_s = _sync_time(ref_frame)
+  img_k, k_s = _sync_time(lambda: driver.render_view(model, frame_ds, 0))
+  res["frame_err"] = float(np.abs(img_k.reshape(-1, 3)
+                                  - img_ref.cpu().numpy()).max())
+  if res["frame_err"] > TOL:
+    raise RuntimeError(f"800x800 volsdf frame: kernel vs reference "
+                       f"{res['frame_err']}")
+  print(f"[time] {card}: one {SIZE}x{SIZE}x{STEPS} volsdf frame: render_view "
+        f"(K8f) {k_s:.3f} s = {SIZE * SIZE / k_s:,.0f} rays/s, plain torch "
+        f"{ref_s:.3f} s = {SIZE * SIZE / ref_s:,.0f} rays/s | frame max diff "
+        f"{res['frame_err']:.2e}", flush=True)
+
+  gen = torch.Generator(device=dev).manual_seed(13)
+  r4 = call_rays[:BATCH].contiguous()
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                           device=dev)
+  target = torch.rand(BATCH, 3, device=dev, generator=gen)
+  g5 = torch.randn(BATCH, 5, device=dev, generator=gen)
+  for tag, mode, kernel, plain in (
+      ("K8b-L", "b", lambda: k8.fused_volsdf_train_step(
+          ws, r4, target, ts, **kw),
+       lambda: k8.volsdf_train_step_reference(ws, r4, target, ts=ts, **kw)),
+      ("K8b-L eikonal", "b-eik", lambda: k8.fused_volsdf_train_step(
+          ws, r4, target, ts, eikonal_weight=VOLSDF_EIKONAL, **kw),
+       lambda: k8.volsdf_train_step_reference(
+           ws, r4, target, ts=ts, eikonal_weight=VOLSDF_EIKONAL, **kw)),
+      ("K8b-G eikonal", "b-eik", lambda: k8.fused_volsdf_render_grad(
+          ws, r4, g5, ts=ts, want_eikonal=True, **kw),
+       lambda: k8.volsdf_render_grad_reference(
+           ws, r4, g5, ts=ts, want_eikonal=True, **kw))):
+    ms = {}
+    for name, fn, reps in (("plain", plain, 3), ("kernel", kernel, 5),
+                           ("kernel", kernel, 5), ("plain", plain, 3)):
+      ms.setdefault(name, []).append(_event_ms(fn, reps))
+    bound = _volsdf_bound(k8, BATCH, mode)
+    res[tag] = (min(ms["kernel"]), min(ms["plain"]), bound)
+    print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step {tag} call "
+          f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms (bound "
+          f"{bound[0]:.2f} ms, bf16 {bound[2]:.2f}), plain torch "
+          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+  for name, w in _wrappers().items():         # timing, not the main path
+    w.launches = launches[name]
+
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  fns = _step_fns(models.VolSDF, driver, ds, dev,
+                  reg_coeffs={"eikonal": VOLSDF_EIKONAL}, with_normals=True,
+                  sigmoid_kind="upshifted")
+  order = ["K3 step", "K1+K2 step", "plain step"]
+  labels = {"K3 step": "K8b step", "K1+K2 step": "K8f+K8b step",
+            "plain step": "plain step"}
+  step_ms = {}
+  for name in order + order[::-1]:
+    step, _ = fns[name]
+    step_ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+  for name in order:
+    v = step_ms[name]
+    print(f"[time] {card}: volsdf {labels[name]} at {BATCH}x{STEPS} "
+          f"(eikonal {VOLSDF_EIKONAL}): {v[0]:.2f} / {v[1]:.2f} ms = "
+          f"{BATCH / (min(v) / 1e3):,.0f} train rays/s", flush=True)
+  return res
+
 
 def _quality(card, port_runner, k1, loaders, dev, seeds):
   """Phase 7: the sweep recipe's 1500 steps on the kernel path for
@@ -1428,12 +1890,14 @@ def _quality(card, port_runner, k1, loaders, dev, seeds):
   runs += [(seed, (), HASH_TRAIN_ARGV) for seed in seeds]
   runs += [(seed, (), AE_TRAIN_ARGV) for seed in seeds]
   runs += [(seed, (), argv) for argv in (POSENC_TRAIN_ARGV, MIP_TRAIN_ARGV,
-                                         TINY_TRAIN_ARGV) for seed in seeds]
+                                         TINY_TRAIN_ARGV, VOLSDF_TRAIN_ARGV)
+           for seed in seeds]
   records = {id(HASH_TRAIN_ARGV): ("plain_hash T=2^14 ", QUALITY_R05_HASH),
              id(AE_TRAIN_ARGV): ("ae ", QUALITY_R05_AE),
              id(POSENC_TRAIN_ARGV): ("plain_posenc ", QUALITY_R05_POSENC),
              id(MIP_TRAIN_ARGV): ("plain_mip_cone ", QUALITY_R05_MIP),
-             id(TINY_TRAIN_ARGV): ("tiny ", QUALITY_R05_TINY)}
+             id(TINY_TRAIN_ARGV): ("tiny ", QUALITY_R05_TINY),
+             id(VOLSDF_TRAIN_ARGV): ("volsdf_eikonal ", QUALITY_R05_VOLSDF)}
   for seed, extra, argv in runs:
     # tiny trains the sweep's EPOCH_MULT = 2 times the budget
     steps = QUALITY_STEPS * (2 if argv is TINY_TRAIN_ARGV else 1)
@@ -1552,7 +2016,8 @@ def _profile_train(card, model_cls, driver, loaders, sampler, dev,
         f"{busy * 1e3:.2f} ms, idle share "
         f"{(1 - busy / wall if busy else float('nan')):.4f}; shares: K3 "
         f"{share('render_bwd_kernel'):.4f}, K7b "
-        f"{share('render_ae_bwd_kernel'):.4f}, reduction "
+        f"{share('render_ae_bwd_kernel'):.4f}, K8b "
+        f"{share('render_volsdf_bwd_kernel'):.4f}, reduction "
         f"{share('reduce_partials'):.4f}, K5f {share('hash_fwd'):.4f}, K5b "
         f"{share('hash_bwd'):.4f}, Adam "
         f"{share('adam', 'foreach', 'lerp', 'addcdiv', 'sqrt'):.4f}, "
@@ -1615,6 +2080,7 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
+  from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
@@ -1631,6 +2097,8 @@ def main(argv=None):
                                             dev)
   max_k7f, max_k7b = _check_ae(k7, testing, rays_ops, models, driver, dev)
   max_k4 = _check_k4(k1, rays_ops, models, driver, dev)
+  max_k8f, max_k8b = _check_volsdf(k8, testing, rays_ops, models, driver,
+                                   dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
   results, secs, counts = _render_main(port_runner)
@@ -1675,6 +2143,10 @@ def main(argv=None):
                                   "cylinder"),
       "tiny": _render_main_k4(port_runner, models, "tiny", "--model",
                               "tiny")}
+  # ---- 4g. the same for VolSDF at the volsdf_eikonal recipe's model ----
+  render_k8 = _render_main_k4(port_runner, models, "volsdf", "--model",
+                              "volsdf", "--sigmoid-kind", "upshifted",
+                              kernel="K8f")
 
   # ---- 5. main path, train ----
   k3_launches = _train_main(port_runner, k1, loaders, dev)
@@ -1693,6 +2165,8 @@ def main(argv=None):
                                  gate=False),
       "tiny": _train_main_k4(port_runner, k1, loaders, dev, "tiny",
                              TINY_TRAIN_ARGV, TRAIN_STEPS, gate=False)}
+  # ---- 5g. VolSDF at the volsdf_eikonal recipe ----
+  train_k8 = _train_main_volsdf(port_runner, k1, loaders, dev)
 
   # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
@@ -1740,6 +2214,8 @@ def main(argv=None):
                   ds)
   k4_t = _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
                   ds)
+  k8_t = _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops,
+                      dev, ds)
   print(f"[time] phases 1-6 (the run without --quality and --profile): "
         f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1760,6 +2236,12 @@ def main(argv=None):
         steps=STEPS, enc_kind="posenc", device=dev), seed=0), ds, "posenc")
     _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev,
                    "posenc K3", enc_kind="posenc")
+    _profile_frame(card, driver.init_model(models.VolSDF(
+        steps=STEPS, sigmoid_kind="upshifted", device=dev), seed=0), ds,
+                   "volsdf")
+    _profile_train(card, models.VolSDF, driver, loaders, sampler, dev,
+                   "volsdf K8b", reg_coeffs={"eikonal": VOLSDF_EIKONAL},
+                   with_normals=True, sigmoid_kind="upshifted")
 
   k5f = hash_t["k5"][(CHUNK * STEPS, HASH_T)]["fwd"]
   k5b = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["bwd"]
@@ -1789,6 +2271,11 @@ def main(argv=None):
          render_k4[mode], max_k4[mode][0], *k4_t[mode][0], None),
         (f"render_bwd_{mode}", "render_bwd.cu", "render.py:915",
          train_k4[mode], max_k4[mode][1], *k4_t[mode][1], None)]
+  rows += [
+      ("render_volsdf_fwd", "render_volsdf_fwd.cu", "render_volsdf.py:262",
+       render_k8, max(max_k8f, k8_t["frame_err"]), *k8_t["K8f"], None),
+      ("render_volsdf_bwd", "render_volsdf_bwd.cu", "render_volsdf.py:306",
+       train_k8["K8b"], max_k8b, *k8_t["K8b-L eikonal"], None)]
   for name, *_, bound, _ in rows:
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores), {bound[2]:.4f} ms at the bf16 "

@@ -7,7 +7,12 @@ given as a nested dict of numpy arrays (e.g.
   params/density_mlp/{enc/lines_0..3, layer_in, layer_0..4, layer_out}
   params/refl/mlp/{layer_in, layer_0..4, layer_out}
 (PlainNeRF-hash has enc/table, posenc and mip no enc at all), and for
-TinyNeRF params/mlp/{layer_in, layer_0..5, layer_out}.
+TinyNeRF params/mlp/{layer_in, layer_0..5, layer_out}. One path moves:
+flax binds an encoder built inside a shape's call to the shape, so the
+VolSDF tree holds the Fourier matrix at params/shape/FourierEncoder_0/B,
+beside params/shape/mlp, where the port's SkipConnMLP keeps its encoder
+at shape.mlp.enc (`shape.mlp.enc.B`). VolSDF's raw scale `density_scale`
+is a 0-d array and stays one.
 A flax `Dense.kernel` is [in, out] and a torch `Linear.weight` is
 [out, in], so kernels are transposed. A skip layer's input rows are
 ordered [hidden ; init_feat] in both packages, so nothing else moves.
@@ -41,4 +46,8 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
         out[prefix + key] = tensor(value)
 
   walk(tree, "")
+  for key in [k for k in out if k.endswith("FourierEncoder_0.B")]:
+    prefix = key[:-len("FourierEncoder_0.B")]
+    if prefix + "mlp.layer_in.weight" in out:
+      out[prefix + "mlp.enc.B"] = out.pop(key)
   return out

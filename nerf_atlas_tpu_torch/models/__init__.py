@@ -1,9 +1,11 @@
-"""Model registry (the port covers TinyNeRF, PlainNeRF and NeRFAE so
-far)."""
+"""Model registry (the port covers TinyNeRF, PlainNeRF, NeRFAE and VolSDF
+so far)."""
 from .base import NeRFBase  # noqa: F401
 from .nerf import NeRFAE, PlainNeRF, TinyNeRF
+from .volsdf import VolSDF
 
-MODEL_KINDS = {"tiny": TinyNeRF, "plain": PlainNeRF, "ae": NeRFAE}
+MODEL_KINDS = {"tiny": TinyNeRF, "plain": PlainNeRF, "ae": NeRFAE,
+               "volsdf": VolSDF}
 
 
 def load_model(kind: str, **kwargs):

@@ -1,11 +1,12 @@
-"""Input encoders: positional sin/cos bands, CP factorized volumes and
-the NGP hash grid.
+"""Input encoders: positional sin/cos bands, random Fourier features, CP
+factorized volumes and the NGP hash grid.
 
 Counterpart of `nerf_atlas_tpu/nn/encoders.py` (the encoders PlainNeRF
-builds). Every encoder maps [..., D] -> [..., size()].
+and the VolSDF shape build). Every encoder maps [..., D] -> [..., size()].
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -44,6 +45,48 @@ class PositionalEncoder(nn.Module):
     if self.include_input:
       enc = torch.cat([x, enc], dim=-1)
     return enc
+
+
+TWO_PI = 2 * math.pi
+
+
+def fourier_phases(x, B):
+  """2π·(x·B) [..., F] for x [..., D] and B [D, F]: the dot as D explicit
+  products summed in dimension order, then one multiply by 2π, each
+  rounded on its own (the fused VolSDF kernels round the same operations
+  in the same order; phases reach hundreds of radians, where one ulp
+  moves sin by ~3e-5)."""
+  xb = x[..., 0:1] * B[0]
+  for d in range(1, B.shape[0]):
+    xb = xb + x[..., d:d + 1] * B[d]
+  return xb * TWO_PI
+
+
+class FourierEncoder(nn.Module):
+  """Random Gaussian Fourier features: [sin(2π·x·B) ‖ cos(2π·x·B)]. The
+  frequency matrix B [input_dims, freqs], drawn N(0, sigma²), is a
+  parameter that takes no gradient (the JAX encoder's stop_gradient)."""
+
+  def __init__(self, input_dims: int = 3, freqs: int = 16,
+               sigma: float = 1 << 5, device=None):
+    super().__init__()
+    self.input_dims = input_dims
+    self.freqs = freqs
+    self.sigma = sigma
+    self.B = nn.Parameter(torch.zeros(input_dims, freqs, device=device),
+                          requires_grad=False)
+
+  def size(self) -> int:
+    return 2 * self.freqs
+
+  def reset_parameters(self, generator: torch.Generator):
+    with torch.no_grad():
+      self.B.copy_(torch.randn(self.B.shape, generator=generator)
+                   * self.sigma)
+
+  def forward(self, x):
+    mapped = fourier_phases(x, self.B)
+    return torch.cat([torch.sin(mapped), torch.cos(mapped)], dim=-1)
 
 
 class CPEncoder(nn.Module):

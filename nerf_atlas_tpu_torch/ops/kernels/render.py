@@ -396,13 +396,16 @@ def siren_act(v):
 
 
 def composite(density: torch.Tensor, rgb: torch.Tensor, r_d: torch.Tensor,
-              dists: torch.Tensor, sky_kind: str) -> torch.Tensor:
+              dists: torch.Tensor, sky_kind: str,
+              relu: bool = False) -> torch.Tensor:
   """The kernels' compositing in plain torch: raw density [N·T] and rgb
   [N·T, 3] of N rays -> [N, 4] (rgb ‖ acc); sigma = softplus(density −
-  1), the exclusive transmittance of max(1 − alpha, 1e-10), a white sky
-  over the leftover transmittance without the 1e10 tail."""
+  1) (relu(density) with `relu`, VolSDF's), the exclusive transmittance
+  of max(1 − alpha, 1e-10), a white sky over the leftover transmittance
+  without the 1e10 tail."""
   n, steps = r_d.shape[0], dists.shape[0]
-  sigma = F.softplus(density - 1.0).reshape(n, steps)
+  sigma = (F.relu(density) if relu
+           else F.softplus(density - 1.0)).reshape(n, steps)
   seg = dists[None, :] * torch.linalg.vector_norm(r_d, dim=-1, keepdim=True)
   alpha = 1.0 - torch.exp(-sigma * seg)
   trans = integrate.exclusive_cumprod(torch.clamp(1.0 - alpha, min=1e-10))

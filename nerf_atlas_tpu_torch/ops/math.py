@@ -1,5 +1,5 @@
-"""Elementwise math: the sigmoid zoo, view-direction angles, PSNR, colour
-spaces.
+"""Elementwise math: the sigmoid zoo, the Laplace CDF, view-direction
+angles, PSNR, colour spaces.
 
 Counterpart of `nerf_atlas_tpu/ops/math.py` (the parts the main path
 needs). Everything is a plain function on tensors.
@@ -67,6 +67,23 @@ def load_sigmoid(kind: str = "thin"):
   if fn is None:
     raise NotImplementedError(f"Unknown sigmoid kind({kind})")
   return fn
+
+
+# ---------------------------------------------------------------------------
+# distributions
+# ---------------------------------------------------------------------------
+
+def laplace_cdf(sdf_vals, scale):
+  """CDF of a zero-mean Laplace distribution of scale `scale` at
+  `sdf_vals` (VolSDF's density is laplace_cdf(−sdf, scale)/scale), in the
+  JAX function's form: the clamps keep the branch `where` does not take
+  finite, so no NaN leaks into its gradient (and at 0 the gradient splits
+  as jnp.minimum's does)."""
+  scaled = sdf_vals / scale
+  zero = torch.zeros_like(scaled)
+  return torch.where(scaled <= 0,
+                     torch.exp(torch.minimum(scaled, zero)) / 2,
+                     1 - torch.exp(-torch.maximum(scaled, zero)) / 2)
 
 
 def mse2psnr(x):

@@ -29,6 +29,10 @@ Examples (procedural scene):
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
       --model tiny --size 48 --num-views 30 --epochs 3000 \
       --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model volsdf --sdf-kind mlp --sigmoid-kind upshifted \
+      --sdf-eikonal 0.01 --size 48 --num-views 30 --epochs 1500 \
+      --batch-size 4096 -lr 3e-4 --outdir out
 """
 from __future__ import annotations
 
@@ -64,21 +68,26 @@ def _check_supported(args):
     if getattr(args, flag):
       raise NotImplementedError(
           f"--{flag.replace('_', '-')}: not ported yet (ROADMAP {item})")
-  if args.model not in ("tiny", "plain", "ae"):
+  if args.model not in ("tiny", "plain", "ae", "volsdf"):
     raise NotImplementedError(
-        f"--model {args.model}: the port has TinyNeRF, PlainNeRF and NeRFAE "
-        "so far (ROADMAP Queue 1 #8 coarse_fine, #10 volsdf/sdf, #11 "
+        f"--model {args.model}: the port has TinyNeRF, PlainNeRF, NeRFAE "
+        "and VolSDF so far (ROADMAP Queue 1 #8 coarse_fine, #10 sdf, #11 "
         "dynamic, #13 the rest)")
 
 
 def build_model(args, device):
-  """runner.py:build_model for --model tiny, plain and ae (static data).
-  tiny takes the common kwargs only (runner.py:449-456). plain also takes
-  --refl-kind, --mip, --enc-kind and --space-kind (runner.py:458-466);
-  --hash-table-log2 N sets the hash table to 2^N entries per level when N
-  is not the default 19 (runner.py:470-471). ae takes --refl-kind,
-  --encoding-size and --normalize-latent (runner.py:483-486); like the
-  root runner it ignores --mip, --enc-kind and --space-kind."""
+  """runner.py:build_model for --model tiny, plain, ae and volsdf (static
+  data). tiny takes the common kwargs only (runner.py:449-456). plain
+  also takes --refl-kind, --mip, --enc-kind and --space-kind
+  (runner.py:458-466); --hash-table-log2 N sets the hash table to 2^N
+  entries per level when N is not the default 19 (runner.py:470-471). ae
+  takes --refl-kind, --encoding-size and --normalize-latent
+  (runner.py:483-486); like the root runner it ignores --mip, --enc-kind
+  and --space-kind. volsdf takes --sdf-kind, --refl-kind,
+  --sphere-init / --no-sphere-init, --occ-kind and --integrator-kind
+  (which the port's VolSDF refuses, ROADMAP Queue 1 #13), and computes
+  normals when --sdf-eikonal or --surface-eikonal is set, so that the
+  eikonal reads them (runner.py:503-531)."""
   kwargs = dict(steps=args.steps, t_near=args.near, t_far=args.far,
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
@@ -87,6 +96,13 @@ def build_model(args, device):
   if args.model == "tiny":
     return load_model("tiny", device=device, **kwargs)
   kwargs["refl_kind"] = args.refl_kind
+  if args.model == "volsdf":
+    kwargs.update(sdf_kind=args.sdf_kind, occ_kind=args.occ_kind,
+                  integrator_kind=args.integrator_kind,
+                  with_normals=(args.eikonal_weight > 0
+                                or args.surface_eikonal > 0),
+                  sdf_kwargs={"sphere_init": args.sphere_init})
+    return load_model("volsdf", device=device, **kwargs)
   if args.model == "ae":
     kwargs.update(encoding_size=args.encoding_size,
                   normalize_latent=args.normalize_latent)

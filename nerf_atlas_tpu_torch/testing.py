@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from .ops.kernels import render as k1
 from .ops.kernels import render_ae as k7
+from .ops.kernels import render_volsdf as k8
 
 
 def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
@@ -83,6 +84,43 @@ def ae_kink_free_rays(params: k7.Params, rays: torch.Tensor,
     with torch.no_grad():
       k7.ae_chain(ws.to(dtype), rays.to(dtype), ts.to(dtype), "thin", act)
     return zs[1:]                    # zs[0]: act(the encoder's init feature)
+
+  return _kink_free(pre_activations, rays, steps, margin)
+
+
+def volsdf_kink_free_rays(params: k8.Params, rays: torch.Tensor,
+                          ts: torch.Tensor, steps: int,
+                          margin: float = 10.0,
+                          exact_features: bool = False) -> torch.Tensor:
+  """`kink_free_rays` for VolSDF (`params`: its state_dict or packed
+  weights): the same rule over the SDF MLP's hidden pre-activations, the
+  inputs of its leaky-relus. Their act′ (1 or 0.01) gates the backward
+  and, in the eikonal, ∇ₓsdf itself, whose value jumps where one of them
+  crosses 0. The View MLP is a siren, smooth everywhere. The init
+  feature [p ‖ sin ‖ cos] enters both evaluations as its float32 values
+  (the kernels and the plain version compute it with the same rounded
+  operations), unless `exact_features`, which takes its float64 values in
+  the float64 evaluation: the rule for holding the port against another
+  implementation (the JAX package) whose Fourier phases, hundreds of
+  radians, round differently."""
+  ws = k8.pack_weights(params, rays.device)
+  pts = k1.hash_pts(rays, ts)
+  init32 = k8.sdf_init_feature(pts, ws[k8.B_OFFSET:k8.MLP_OFFSET].view(3, -1))
+
+  def pre_activations(dtype):
+    zs = []
+
+    def act(v):
+      zs.append(v)
+      return F.leaky_relu(v, 0.01)
+
+    init = init32.to(dtype)
+    if exact_features and dtype == torch.float64:
+      init = None
+    with torch.no_grad():
+      k8.volsdf_chain(ws.to(dtype), rays.to(dtype), ts.to(dtype), "thin",
+                      True, pts=pts.to(dtype), act=act, init=init)
+    return zs[1:]                    # zs[0]: act(the init feature)
 
   return _kink_free(pre_activations, rays, steps, margin)
 

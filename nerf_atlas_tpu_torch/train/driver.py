@@ -5,7 +5,7 @@ Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
 `render_view`, `test`), for PlainNeRF (cp, hash, posenc, and mip cone
-or cylinder), TinyNeRF and NeRFAE. The port's modules own their
+or cylinder), TinyNeRF, NeRFAE and VolSDF. The port's modules own their
 parameters, so these functions take the model where the JAX package
 takes (model, params), and a train step is a Python closure (no jit).
 Unlike the JAX gates, a kernel gate never catches an exception: a
@@ -26,23 +26,26 @@ import numpy as np
 import torch
 
 from ..data import sampler as sampler_lib
-from ..models import MODEL_KINDS, NeRFAE, PlainNeRF, TinyNeRF
+from ..models import MODEL_KINDS, NeRFAE, PlainNeRF, TinyNeRF, VolSDF
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
+from ..ops.kernels import render_volsdf as k8
 from . import checkpoints, losses as losses_lib, optim as optim_lib
 from . import regularizers
 
 # which train path the most recent train() engaged: "fused-one-kernel"
 # (K3 in the model's mode; for hash K5f + K3 + K5b; for NeRFAE K7b in
-# loss mode) | "fused" (K1 + K2 through PlainCPRender, PlainHashRender
-# after HashEncode, or K7f + K7b through AERender) | "oracle" (the module
+# loss mode; for VolSDF K8b in loss mode) | "fused" (K1 + K2 through
+# PlainCPRender, PlainHashRender after HashEncode, K7f + K7b through
+# AERender, or K8f + K8b through VolSDFRender) | "oracle" (the module
 # forward under autograd). Recorded into log.json by the runner.
 LAST_TRAIN_PATH: Optional[str] = None
 
 # the regularizers each model kind carries (the JAX package's
 # REGULARIZERS keys); every other active coefficient raises
-MODEL_REGULARIZERS = {"ae": ("latent_l2",)}
+MODEL_REGULARIZERS = {"ae": ("latent_l2",),
+                      "volsdf": ("eikonal", "volsdf_scale")}
 
 # the options of the smoothness regularizers (their models are not ported)
 _SMOOTH_REGS = {"item": "Queue 1 #10/#13"}
@@ -150,12 +153,22 @@ def _fused_enc_kind(model) -> Optional[str]:
     the JAX gate's rule (train/driver.py:254-261);
   - "ae" for a NeRFAE with the View refl, intermediate_size 32 and the
     latent normalized at `encoding_size` 32 (driver.py:332-336,
-    :563-567, :1138-1151).
+    :563-567, :1138-1151);
+  - "volsdf" for a VolSDF with the MLP shape at its default widths (no
+    sdf option but `sphere_init`), the View refl, `sdf_latent` 32, the
+    softplus scale and no mip (driver.py:366-378, :587-597, :1104-1117).
+    The port's VolSDF has no occlusion, integrator or light, so those
+    rules cannot fail.
   The JAX gates also reject a latent (latent_size != 0) and timed data
   (ds.times): the port's models take no latent and its loaders no times,
   so neither can arise."""
   if (model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS or model.lindisp):
     return None
+  if isinstance(model, VolSDF):
+    return ("volsdf" if model.sdf_kind == "mlp" and model.refl_kind == "view"
+            and model.scale_kind == "softplus" and model.sdf_latent == 32
+            and model.mip is None
+            and set(model.sdf_kwargs) <= {"sphere_init"} else None)
   if isinstance(model, TinyNeRF):
     return "tiny" if model.mip is None else None
   if model.refl_kind != "view" or model.intermediate_size != 32:
@@ -175,12 +188,18 @@ def _pack(state_dict, device, enc: str) -> torch.Tensor:
   """The packed weights of a model in the kernels' envelope."""
   if enc == "ae":
     return k7.pack_weights_ae(state_dict, device)
+  if enc == "volsdf":
+    return k8.pack_weights(state_dict, device)
   return k1.pack_weights(state_dict, device, enc)
 
 
-def _unpack_grads(enc: str, packed: torch.Tensor) -> Dict[str, torch.Tensor]:
-  return (k7.unpack_grads_ae(packed) if enc == "ae"
-          else k1.unpack_grads(packed))
+def _unpack_grads(model, enc: str,
+                  packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+  if enc == "ae":
+    return k7.unpack_grads_ae(packed)
+  if enc == "volsdf":                 # d/ds chained to the raw scale
+    return k8.unpack_grads(packed, model.density_scale)
+  return k1.unpack_grads(packed)
 
 
 def _fused_common_ok(model, cfg: TrainConfig) -> bool:
@@ -195,15 +214,20 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   per ray as the backward kernel's shared memory holds
   (`k1.BWD_MAX_STEPS`: 460 for cone and cylinder, whose 96-row init
   feature takes the room, 1024 for the other plain modes; 512 for
-  NeRFAE, `k7.BWD_MAX_STEPS`), where the JAX gate engages its kernel at
-  any count. A model with more steps trains through its module forward;
-  its eval render still takes K1 (up to 2048 steps)."""
+  NeRFAE, `k7.BWD_MAX_STEPS`, and VolSDF, `k8.BWD_MAX_STEPS`), where the
+  JAX gate engages its kernel at any count. A model with more steps
+  trains through its module forward; its eval render still takes its
+  forward kernel (up to 2048 steps). A VolSDF that computes normals
+  engages only with the eikonal active, whose residual the kernels
+  compute themselves (driver.py:374, :595)."""
   allowed = MODEL_REGULARIZERS.get(model_kind(model), ())
   enc = _fused_enc_kind(model)
+  max_steps = {"ae": k7.BWD_MAX_STEPS, "volsdf": k8.BWD_MAX_STEPS}
   return not (
       enc is None
-      or model.steps > (k7.BWD_MAX_STEPS if enc == "ae"
-                        else k1.BWD_MAX_STEPS[enc])
+      or model.steps > max_steps.get(enc, k1.BWD_MAX_STEPS.get(enc))
+      or (enc == "volsdf" and model.with_normals
+          and not (cfg.reg_coeffs or {}).get("eikonal"))
       or model.sky_kind not in ("black", "white")
       or model.density_noise != 0
       or model.per_ray_jitter or model.lindisp
@@ -214,8 +238,11 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
 
 
 def _kernel_kw(model) -> dict:
-  return dict(steps=model.steps, t_near=model.t_near, t_far=model.t_far,
-              sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
+  kw = dict(steps=model.steps, t_near=model.t_near, t_far=model.t_far,
+            sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
+  if isinstance(model, VolSDF):
+    kw["sphere_init"] = model.shape.sphere_init
+  return kw
 
 
 def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
@@ -225,11 +252,14 @@ def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
-  """The one-kernel train step (driver.py:448-580): K3 in the model's
+  """The one-kernel train step (driver.py:448-615): K3 in the model's
   mode (`_fused_enc_kind`), for hash K5f + K3 + K5b, for NeRFAE K7b in
-  loss mode, when the training loss is the kernel's (plain l2 on rgb, no
-  colour transforms, tone map, gamma or style, 3- or 4-channel labels)
-  and `_fused_common_ok` holds; None otherwise. Returns fn(rays, pix,
+  loss mode, for VolSDF K8b in loss mode with the eikonal inside, when
+  the training loss is the kernel's (plain l2 on rgb, no colour
+  transforms, tone map, gamma or style, 3- or 4-channel labels) and
+  `_fused_common_ok` holds; None otherwise. VolSDF's scale decay reads
+  the raw scale, which the kernel step does not return: with it the
+  two-kernel path trains (driver.py:582-586). Returns fn(rays, pix,
   generator) -> (loss, {state_dict key: gradient})."""
   if cfg.no_fused:
     return None
@@ -239,17 +269,23 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   style_active = bool(cfg.style_img) and cfg.style_weight > 0
   if (tuple(cfg.loss_kinds) != ("l2",) or tuple(cfg.color_spaces) != ("rgb",)
       or gamma_active or style_active or ds.pixels.shape[-1] not in (3, 4)
-      or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)):
+      or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)
+      or (cfg.reg_coeffs or {}).get("volsdf_scale")):
     return None
   enc = _fused_enc_kind(model)
   _pack(model.state_dict(), None, enc)             # raises on divergence
   kw = _kernel_kw(model)
+  eikonal = float((cfg.reg_coeffs or {}).get("eikonal") or 0.0)
 
   def fn(rays, pix, generator):
     ts = _step_ts(model, generator, rays.device)
     sd = model.state_dict()
     ws = _pack(sd, rays.device, enc)
     target = pix[:, :3].contiguous()
+    if enc == "volsdf":
+      loss, grad = k8.fused_volsdf_train_step(ws, rays, target, ts,
+                                              eikonal_weight=eikonal, **kw)
+      return loss, k8.unpack_grads(grad, model.density_scale)
     if enc == "ae":
       loss, grad = k7.fused_ae_train_step(ws, rays, target, ts, **kw)
       return loss, k7.unpack_grads_ae(grad)
@@ -265,22 +301,27 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 
 
 def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
-  """The two-kernel path (driver.py:158-357): K1 forward and K2 backward
+  """The two-kernel path (driver.py:158-401): K1 forward and K2 backward
   in the model's mode through `PlainCPRender`, for hash K5f/K5b
-  (`HashEncode`) into
-  K1/K2 (`PlainHashRender`), for NeRFAE K7f/K7b (`AERender`), with the
-  loss computed outside. Returns
-  fn(ws, rays, generator) -> [N, 4], differentiable in the packed
-  weights ws (and, for hash, in the model's table parameter), or None."""
+  (`HashEncode`) into K1/K2 (`PlainHashRender`), for NeRFAE K7f/K7b
+  (`AERender`), for VolSDF K8f/K8b-G (`VolSDFRender`; with the eikonal
+  active K8f's 5th column, its per-ray mean residual), with the loss
+  computed outside. Returns fn(ws, rays, generator) -> [N, 4] (VolSDF
+  with the eikonal [N, 5]), differentiable in the packed weights ws
+  (and, for hash, in the model's table parameter), or None."""
   del ds
   if cfg.no_fused or not _fused_common_ok(model, cfg):
     return None
   enc = _fused_enc_kind(model)
   _pack(model.state_dict(), None, enc)             # raises on divergence
   kw = _kernel_kw(model)
+  want_eikonal = bool((cfg.reg_coeffs or {}).get("eikonal"))
 
   def fn(ws, rays, generator):
     ts = _step_ts(model, generator, rays.device)
+    if enc == "volsdf":
+      return k8.fused_volsdf_render_train(ws, rays, ts,
+                                          want_eikonal=want_eikonal, **kw)
     if enc == "ae":
       return k7.fused_ae_render_train(ws, rays, ts, **kw)
     if enc == "hash":
@@ -301,11 +342,33 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   comes from K5b. NeRFAE's latent L2 (driver.py:672-683, :813-818) is
   the module's out["latent_l2"] on the oracle path; the fused paths add
   the point-sampled `regularizers.ae_latent_l2` and its autograd
-  gradient to the kernel's."""
+  gradient to the kernel's. VolSDF's regularizers: on the oracle path
+  the module's out["eikonal"] and out["scale"]
+  (`regularizers.total_regularizer`); on the two-kernel path K8f's
+  eikonal column (its mean over the rays) and the scale computed from
+  the raw parameter (driver.py:724-735); the one-kernel step computes
+  the eikonal inside K8b. A parameter that takes no gradient (VolSDF's
+  Fourier matrix) gets a zero one, so that the optimizer steps it as
+  optax steps a stop-gradient parameter: weight decay shrinks it."""
   params = dict(model.named_parameters())
+  fixed = [p for p in params.values() if not p.requires_grad]
   device = next(model.parameters()).device
   enc = _fused_enc_kind(model)
-  latent_l2 = float((cfg.reg_coeffs or {}).get("latent_l2") or 0.0)
+  coeffs = cfg.reg_coeffs or {}
+  latent_l2 = float(coeffs.get("latent_l2") or 0.0)
+  eikonal = float(coeffs.get("eikonal") or 0.0)
+  scale_decay = float(coeffs.get("volsdf_scale") or 0.0)
+
+  def fused_regularizer(out, generator):
+    """The regularizer of the two-kernel path, outside the kernels."""
+    reg = 0.0
+    if latent_l2:
+      reg = reg + latent_l2 * regularizers.ae_latent_l2(model, generator)
+    if out.shape[-1] == 5:
+      reg = reg + eikonal * torch.mean(out[:, 4])
+    if scale_decay:
+      reg = reg + scale_decay * model.density_params()
+    return reg
 
   def add_grads(grads):
     for key, grad in grads.items():
@@ -327,19 +390,18 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
       add_grads(grads)
     elif fused_train is not None:
       ws = _pack(model.state_dict(), device, enc).requires_grad_(True)
-      main = loss_fn(fused_train(ws, rays, generator)[:, :3], pix)
-      loss = main
-      if latent_l2:
-        loss = main + latent_l2 * regularizers.ae_latent_l2(model, generator)
-      loss.backward()       # for hash the table's .grad, for ae the encoder's
-      add_grads(_unpack_grads(enc, ws.grad))
+      out = fused_train(ws, rays, generator)
+      main = loss_fn(out[:, :3], pix)
+      loss = main + fused_regularizer(out, generator)
+      loss.backward()       # hash: the table's .grad, ae: the encoder's,
+      add_grads(_unpack_grads(model, enc, ws.grad))  # volsdf: the scale's
     else:
       out = model(rays, train=True, generator=generator)
       main = loss_fn(out["rgb"], pix)
-      loss = main
-      if latent_l2:
-        loss = main + latent_l2 * regularizers.latent_l2(out)
+      loss = main + regularizers.total_regularizer(out, coeffs)
       loss.backward()
+    for p in fixed:
+      p.grad = torch.zeros_like(p)
     for key, p in params.items():
       keep = (cfg.train_only is None
               or any(k in key for k in cfg.train_only))
@@ -425,8 +487,8 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
 
 def _fused_render_fn(model) -> Optional[Callable]:
   """rays [n, 6] -> rgb [n, 3] through K1 in the model's mode (cp,
-  posenc, tiny, cone, cylinder), K5f + K1 (hash)
-  or K7f (ae) when the model is in the kernels' envelope
+  posenc, tiny, cone, cylinder), K5f + K1 (hash), K7f (ae) or K8f
+  (volsdf) when the model is in the kernels' envelope
   (`_fused_enc_kind`, any sky the kernel implements: the "random" sky is
   black at eval, driver.py:1045, :1145); None otherwise. A parameter tree
   that diverges from the default one raises (in `pack_weights`)."""
@@ -436,10 +498,11 @@ def _fused_render_fn(model) -> Optional[Callable]:
   device = next(model.parameters()).device
   sd = model.state_dict()
   ws = _pack(sd, device, enc)                 # raises on divergence
-  kw = dict(steps=model.steps, t_near=model.t_near, t_far=model.t_far,
-            sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
+  kw = _kernel_kw(model)
 
   def fn(rays_chunk):
+    if enc == "volsdf":
+      return k8.fused_volsdf_render(ws, rays_chunk, **kw)[:, :3]
     if enc == "ae":
       return k7.fused_ae_render(ws, rays_chunk, **kw)[:, :3]
     if enc == "hash":

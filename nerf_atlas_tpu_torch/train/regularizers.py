@@ -1,11 +1,13 @@
 """The regularizers the port's models carry: NeRFAE's latent L2, in its
-two forms.
+two forms, and VolSDF's eikonal and scale decay.
 
-Counterpart of `nerf_atlas_tpu/train/regularizers.py:latent_l2` and
-`ae_latent_l2`; the other terms arrive with their models (ROADMAP Queue 1
-#10, #11, #13).
+Counterpart of `nerf_atlas_tpu/train/regularizers.py:latent_l2`,
+`eikonal`, `volsdf_scale`, `total_regularizer` and `ae_latent_l2`; the
+other terms arrive with their models (ROADMAP Queue 1 #11, #13).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -14,6 +16,33 @@ def latent_l2(out):
   """The module forward's latent L2 (NeRFAE's out["latent_l2"], the mean
   over sample points of ‖raw encoding‖²); 0 for a model without one."""
   return out.get("latent_l2", 0.0)
+
+
+def eikonal(out):
+  """VolSDF's out["eikonal"] (the mean over sample points of
+  (‖∇ₓsdf‖ − 1)², present with `with_normals`); 0 without."""
+  return out.get("eikonal", 0.0)
+
+
+def volsdf_scale(out):
+  """VolSDF's learned Laplace scale out["scale"]: its coefficient anneals
+  the scale down (sharper surfaces)."""
+  return out.get("scale", 0.0)
+
+
+REGULARIZERS = {"latent_l2": latent_l2, "eikonal": eikonal,
+                "volsdf_scale": volsdf_scale}
+
+
+def total_regularizer(out, coeffs: Dict[str, float]):
+  """Σ coeff·term(out) over the active coefficients of REGULARIZERS (the
+  module-forward path's regularizer)."""
+  total = 0.0
+  for name, fn in REGULARIZERS.items():
+    c = (coeffs or {}).get(name)
+    if c:
+      total = total + c * fn(out)
+  return total
 
 
 def uniform_points(generator: torch.Generator, n: int) -> torch.Tensor:

@@ -73,13 +73,16 @@ def _port_files():
 
 def test_port_and_chip_smoke_import_no_jax_and_no_root_runner():
   files = _port_files()
-  assert len(files) >= 34, files
+  assert len(files) >= 37, files
   names = {os.path.relpath(f, REPO) for f in files}
   assert {"nerf_atlas_tpu_torch/ops/kernels/render_ae.py",
           "nerf_atlas_tpu_torch/ops/kernels/render.py",
+          "nerf_atlas_tpu_torch/ops/kernels/render_volsdf.py",
           "nerf_atlas_tpu_torch/ops/mip.py",
           "nerf_atlas_tpu_torch/train/regularizers.py",
-          "nerf_atlas_tpu_torch/models/nerf.py"} <= names
+          "nerf_atlas_tpu_torch/models/nerf.py",
+          "nerf_atlas_tpu_torch/models/sdf.py",
+          "nerf_atlas_tpu_torch/models/volsdf.py"} <= names
   for path in files:
     for name in _imports(path):
       top = name.split(".")[0]
