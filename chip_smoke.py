@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]]
-[--profile]`.
+Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]
+[--recipes R ...]] [--profile]`.
 Phases, each printing its lines before the next starts:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
@@ -35,7 +35,14 @@ Phases, each printing its lines before the next starts:
      modes G and L, each with and without the eikonal, at 4096 x 64 and
      77 x 16 as for K7b, with a float64 witness of the eikonal's loss
      mode; VolSDFRender's gradient against mode G's and two K8b launches
-     of each mode bit for bit;
+     of each mode bit for bit. Then D-NeRF, in four modes (cp and posenc
+     canonical, Δx and the spline at S = 4), seeded and amplified weights
+     with the warp active: K9f (render_dyn_fwd) with and without its dp²
+     column at 4096 x 64 and 77 x 16, on the grid and a jittered ts; K9b
+     (render_dyn_bwd) in modes G and L, each with and without the dp²
+     term, as for K8b over the rays `testing.dyn_kink_free_rays` clears;
+     DynRender's gradient against mode G's and two K9b launches bit for
+     bit;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
@@ -45,21 +52,27 @@ Phases, each printing its lines before the next starts:
      --model tiny, which must launch K1 in that mode and nothing else,
      and run no module forward; 4g. the same with --model volsdf
      --sigmoid-kind upshifted, which must launch K8f and nothing else;
+     4h. dnerf-render-800: --data-kind synthetic-dyn --dyn-model plain,
+     each view at its own time, which must launch K9f and nothing else;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
-     500 steps) and must engage the one-kernel step, launch K3 once per
+     300 steps) and must engage the one-kernel step, launch K3 once per
      step and K1 in eval, and beat the all-black PSNR by 2 dB on both
      splits; 5b. the same for PlainNeRF-hash at the quality sweep's
      plain_hash recipe (--hash-table-log2 14), which must launch K5f,
      K3-hash and K5b once per step; 5c. NeRFAE at the sweep's ae recipe
      (--normalize-latent --latent-l2-weight 1e-3), which must engage the
      one-kernel step and launch K7b once per step; 5d-5f. the sweep's
-     plain_posenc and plain_mip_cone recipes (500 steps, both splits 2 dB
-     over all-black), --mip cylinder (100 steps) and tiny (500 steps, its
+     plain_posenc and plain_mip_cone recipes (300 steps, both splits 2 dB
+     over all-black), --mip cylinder (100 steps) and tiny (300 steps, its
      PSNR recorded), each through K3 in its mode once per step; 5g. the
-     sweep's volsdf_eikonal recipe (500 steps), which must engage the
+     sweep's volsdf_eikonal recipe (300 steps), which must engage the
      one-kernel step, launch K8b once per step and K8f in eval, and beat
-     all-black by 2 dB on both splits;
+     all-black by 2 dB on both splits; 5h. dnerf-train-4096, the sweep's
+     dnerf_dx recipe (500 steps), and 5i. dnerf-spline-train-4096, its
+     dnerf_spline_dp recipe (--spline 4 --dp-weight 1e-3, 300 steps), each
+     through the one-kernel step (K9b once per step, K9f in eval, nothing
+     else), both splits 2 dB over all-black;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -75,14 +88,21 @@ Phases, each printing its lines before the next starts:
      at 65536 x 64 with and without the eikonal column, one 800x800
      frame, K8b calls at 4096 x 64 (mode L with and without the eikonal,
      mode G with it) and their plain versions, and the three train steps
-     (K8b, K8f + K8b, plain) at the volsdf_eikonal recipe;
+     (K8b, K8f + K8b, plain) at the volsdf_eikonal recipe. For D-NeRF, Δx
+     and the spline at S = 4: K9f and plain calls at 65536 x 64 with and
+     without the dp² column, K9b-L and K9b-G calls at 4096 x 64 with and
+     without the dp² term, one 800x800 frame, and the three train steps
+     of the dnerf_dx and dnerf_spline_dp recipes;
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
-     plain_hash, ae, plain_posenc, plain_mip_cone and volsdf_eikonal at
-     1500 steps and tiny at 3000 for each seed;
+     plain_hash, ae, plain_posenc, plain_mip_cone, volsdf_eikonal,
+     dnerf_dx and dnerf_spline_dp at 1500 steps and tiny at 3000 for each
+     seed (`--recipes` picks some of them; the D-NeRF runs must beat
+     all-black by 2 dB on both splits);
   8. with `--profile` only: where one frame's and one train step's time
-     goes, for cp, hash, ae, posenc and volsdf (torch.profiler traces: device
+     goes, for cp, hash, ae, posenc, volsdf and dnerf_dx (torch.profiler
+     traces: device
      idle share, per-kernel shares; host-side costs; SM clock and power
      under load).
 The last three lines are the kernels' JSON record (each kernel's
@@ -135,7 +155,9 @@ TRAIN_ARGV = ["--data-kind", "synthetic", "--model", "plain", "--enc-kind",
               "4096", "--steps", "64", "--near", "2", "--far", "6", "-lr",
               "1e-3", "--loss-fns", "l2", "--seed", "0", "--nosave",
               "--valid-freq", "0"]
-TRAIN_STEPS = 500
+# the earlier families' train phases (once 500 steps: cut to keep the run
+# without arguments inside its time limit as the D-NeRF phases joined)
+TRAIN_STEPS = 300
 QUALITY_STEPS = 1500
 BATCH = 4096
 # the quality sweep's plain_hash recipe (scripts/tpu_quality_sweep.py:58-60)
@@ -190,6 +212,30 @@ VOLSDF_TRAIN_ARGV = (TRAIN_ARGV[:3] + ["volsdf", "--sdf-kind", "mlp",
                      + TRAIN_ARGV[_LR + 2:])
 VOLSDF_EIKONAL = 0.01
 QUALITY_R05_VOLSDF = (34.763, 30.991)
+# the quality sweep's dnerf_dx and dnerf_spline_dp recipes
+# (scripts/tpu_quality_sweep.py:81-87) on the dynamic procedural scene;
+# QUALITY_r05 (TPU, seed 0, one run each, the fused one-kernel path):
+# records, not gates
+DNERF_TRAIN_ARGV = (["--data-kind", "synthetic-dyn"] + TRAIN_ARGV[2:]
+                    + ["--dyn-model", "plain"])
+DNERF_SPLINE_ARGV = DNERF_TRAIN_ARGV + ["--spline", "4", "--dp-weight",
+                                        "1e-3"]
+DNERF_SPLINE = 4
+DNERF_DP = 1e-3
+DNERF_STEPS = 500
+DNERF_SPLINE_STEPS = 300
+QUALITY_R05_DNERF = (33.236, 26.654)
+QUALITY_R05_DNERF_SPLINE = (33.279, 26.543)
+DNERF_MODES = (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0),
+               ("posenc", DNERF_SPLINE))
+# K9b vs its plain version over all rays (ALL_RAY_RTOL) at 16384 rays: a
+# warped point's CP tap (and a leaky-relu kink) can fall on the other side
+# in the two float32 implementations, and the position gradient jumps
+# there; under a random cotangent these jumps add up like the gradient
+# itself, so they set a relative floor that does not fall with the ray
+# count but whose spread does (at 4096 rays it ran 1e-4 to 1.1e-2 across
+# the modes). `_dyn_floor` prints the float64 witness at 4096.
+N_DYN_CHECK = 16384
 
 
 def _sync_time(fn):
@@ -265,13 +311,18 @@ def _ptxas_entries(log: str):
   return out
 
 
-def _build(build, k1):
+def _build(build, k1, k9):
   """Phase 2: one nvcc per kernel source, started together; render_bwd.cu
-  once per mode (`render.bwd_defines`)."""
+  once per mode (`render.bwd_defines`), render_dyn_fwd.cu and
+  render_dyn_bwd.cu once per (canonical encoder, warp kind)
+  (`render_dyn.defines`)."""
   jobs = [(name, ()) for name in ("render_fwd", "hash_encode",
                                   "render_ae_fwd", "render_ae_bwd",
                                   "render_volsdf_fwd", "render_volsdf_bwd")]
   jobs += [("render_bwd", k1.bwd_defines(kind)) for kind in k1.ENC_KINDS]
+  jobs += [(name, k9.defines(enc, spline))
+           for name in ("render_dyn_bwd", "render_dyn_fwd")
+           for enc, spline in k9.variants()]
   with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
     built = list(pool.map(lambda job: build.build(*job), jobs))
   for (name, defines), b in zip(jobs, built):
@@ -771,7 +822,8 @@ def _module_forwards(models, fn):
   """(fn(), calls of any model class's forward during it): a render that
   takes the kernel gate calls none."""
   calls = [0]
-  saved = {cls: cls.forward for cls in set(models.MODEL_KINDS.values())}
+  saved = {cls: cls.forward for cls in set(models.MODEL_KINDS.values())
+           | set(models.DYN_MODEL_KINDS.values())}
 
   def counting(forward):
     def wrapped(self, *a, **kw):
@@ -820,6 +872,7 @@ def _wrappers():
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
+  from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9
   from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
   return {"K1": k1.plain_cp_render, "K2": k1.plain_cp_render_grad,
           "K3": k1.plain_cp_train_step, "K1-hash": k1.plain_hash_render,
@@ -828,7 +881,8 @@ def _wrappers():
           "K5b": hk.hash_encode_table_grad, "K7f": k7.fused_ae_render,
           "K7b-G": k7.fused_ae_render_grad, "K7b": k7.fused_ae_train_step,
           "K8f": k8.fused_volsdf_render, "K8b-G": k8.fused_volsdf_render_grad,
-          "K8b": k8.fused_volsdf_train_step}
+          "K8b": k8.fused_volsdf_train_step, "K9f": k9.fused_dyn_render,
+          "K9b-G": k9.fused_dyn_render_grad, "K9b": k9.fused_dyn_train_step}
 
 
 def _counted(fn):
@@ -854,9 +908,12 @@ def _train_run(port_runner, k1, loaders, dev, steps: int, extra=(),
     raise RuntimeError(f"log.json says {logged}, the run "
                        f"{results['engaged_path']}")
   black = {}
+  kind = argv[argv.index("--data-kind") + 1]
   for split, training in (("train", True), ("test", False)):
-    px = loaders.load("", data_kind="synthetic", training=training, size=48,
+    px = loaders.load("", data_kind=kind, training=training, size=48,
                       num_views=30, device=dev).labels
+    if isinstance(px, tuple):                    # dynamic: (imgs, times)
+      px = px[0]
     black[split] = _black_psnr(torch.as_tensor(px))
   return results, secs, counts, black
 
@@ -1881,38 +1938,456 @@ def _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops, dev,
   return res
 
 
-def _quality(card, port_runner, k1, loaders, dev, seeds):
-  """Phase 7: the sweep recipe's 1500 steps on the kernel path for
-  each seed, and with --no-fused for the first; prints both splits' PSNR
-  and the wall time of each run."""
-  runs = [(seeds[0], (), TRAIN_ARGV), (seeds[0], ("--no-fused",), TRAIN_ARGV)]
-  runs += [(seed, (), TRAIN_ARGV) for seed in seeds[1:]]
-  runs += [(seed, (), HASH_TRAIN_ARGV) for seed in seeds]
-  runs += [(seed, (), AE_TRAIN_ARGV) for seed in seeds]
-  runs += [(seed, (), argv) for argv in (POSENC_TRAIN_ARGV, MIP_TRAIN_ARGV,
-                                         TINY_TRAIN_ARGV, VOLSDF_TRAIN_ARGV)
-           for seed in seeds]
-  records = {id(HASH_TRAIN_ARGV): ("plain_hash T=2^14 ", QUALITY_R05_HASH),
-             id(AE_TRAIN_ARGV): ("ae ", QUALITY_R05_AE),
-             id(POSENC_TRAIN_ARGV): ("plain_posenc ", QUALITY_R05_POSENC),
-             id(MIP_TRAIN_ARGV): ("plain_mip_cone ", QUALITY_R05_MIP),
-             id(TINY_TRAIN_ARGV): ("tiny ", QUALITY_R05_TINY),
-             id(VOLSDF_TRAIN_ARGV): ("volsdf_eikonal ", QUALITY_R05_VOLSDF)}
-  for seed, extra, argv in runs:
+def _dyn_weights(models, driver, k9, dev, enc, spline, steps=STEPS):
+  """(seeded, amplified) packed weights of a DynamicNeRF at full width with
+  the warp active: its zero layer_out replaced by seeded 0.03·N(0, 1)
+  weights and 0.01·N(0, 1) biases (numpy's generator); amplified also
+  scales the View's output layer by 40, so that rgb spans (0, 1)."""
+  sd = dict(driver.init_model(models.DynamicNeRF(
+      steps=steps, spline_points=spline, canonical_kwargs={"enc_kind": enc},
+      device=dev), seed=0).state_dict())
+  rng = np.random.default_rng(3)
+  for key, scale in (("warp.layer_out.weight", 0.03),
+                     ("warp.layer_out.bias", 0.01)):
+    sd[key] = torch.from_numpy((scale * rng.normal(size=tuple(sd[key].shape))
+                                ).astype(np.float32)).to(dev)
+  amp = dict(sd)
+  amp["canonical.refl.mlp.layer_out.weight"] = (
+      amp["canonical.refl.mlp.layer_out.weight"] * 40.0)
+  return (k9.pack_weights(sd, dev, enc, spline),
+          k9.pack_weights(amp, dev, enc, spline))
+
+
+def _dyn_rays(n: int, seed: int, dev):
+  """Rays from (0, 0, 3.5) about −z (they cross the CP box) and each ray's
+  time in [0, 1], from numpy's seeded generator."""
+  rng = np.random.default_rng(seed)
+  r_o = np.tile([[0.0, 0.0, 3.5]], (n, 1))
+  r_d = rng.normal(size=(n, 3)) * 0.2 + np.array([0.0, 0.0, -1.0])
+  rays = np.concatenate([r_o, r_d], -1).astype(np.float32)
+  return (torch.from_numpy(rays).to(dev),
+          torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev))
+
+
+def _check_dyn_bwd(what, k9, testing, ws, rays, times, gen, kw):
+  """K9b in modes G (random g) and L (random target), each without and
+  with the dp² term, against autograd through the plain K9f, over all
+  rays and over the rays `testing.dyn_kink_free_rays` clears alone (see
+  GRAD_RTOL: the dp² term's cotangent reaches every ray it is given, so
+  the kink-free check gives the kernels only the clear rays); the warp's
+  and the rigidity's gradients must be non-zero. g is uniform in [0, 1):
+  the rigidity's output bias is a one-element tensor, the sum over every
+  point of its cotangent, and under a zero-mean g that sum is a random
+  walk whose value can fall near 0 while its rounding does not, so its
+  relative error has a heavy tail (posenc, spline S = 4, the same
+  weights, an H100: 2.67e-4 in one draw, 1.2e-5 in another); a cotangent
+  of one sign keeps it away from 0. Returns the max |Δ| of
+  the kink-free gradients."""
+  n = rays.shape[0]
+  enc, spline = kw["enc_kind"], kw["spline_points"]
+  keep = testing.dyn_kink_free_rays(ws, rays, times, kw["ts"], kw["steps"],
+                                    enc, spline, KINK_MARGIN)
+  g = torch.rand(n, 5, device=rays.device, generator=gen)
+  target = torch.rand(n, 3, device=rays.device, generator=gen)
+  step_kw = {k: v for k, v in kw.items() if k != "ts"}
+  lay = k9.layout(enc, spline)
+  max_abs = 0.0
+  for mode, dp in (("G", False), ("G", True), ("L", False), ("L", True)):
+    arg = ((g if dp else g[:, :4]) if mode == "G" else target).contiguous()
+    weight = DNERF_DP if dp else 0.0
+    line = []
+    for name, sel in (("all rays", slice(None)), ("kink-free", keep)):
+      r, t, a = (x[sel].contiguous() for x in (rays, times, arg))
+      if mode == "G":
+        got = k9.fused_dyn_render_grad(ws, r, t, a, want_dp=dp, **kw)
+        ref = k9.dyn_render_grad_reference(ws, r, t, a, want_dp=dp, **kw)
+      else:
+        loss, got = k9.fused_dyn_train_step(ws, r, t, a, kw["ts"],
+                                            dp_weight=weight, **step_kw)
+        loss_r, ref = k9.dyn_train_step_reference(ws, r, t, a,
+                                                  dp_weight=weight, **kw)
+        loss_rel = abs(float(loss) - float(loss_r)) / abs(float(loss_r))
+        if not loss_rel <= LOSS_RTOL:
+          raise RuntimeError(f"{what} K9b-L loss {float(loss)} vs plain "
+                             f"{float(loss_r)}")
+        line.append(f"{name} loss rel {loss_rel:.2e}")
+      torch.cuda.synchronize()
+      ug, ur = (k9.unpack_grads(got, enc, spline),
+                k9.unpack_grads(ref, enc, spline))
+      errs = {k: float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur}
+      key = max(errs, key=errs.get)
+      tol = ALL_RAY_RTOL if name == "all rays" else GRAD_RTOL
+      dead = [k for k in ug if k.startswith(("warp.", "rigidity."))
+              and not float(ug[k].norm()) > 0]
+      if not (errs[key] <= tol and bool(torch.isfinite(got).all())
+              and not dead and not got[:lay.warp_offset].any()):
+        raise RuntimeError(f"{what} K9b-{mode} dp {dp} ({name}): gradient "
+                           f"of {key} {errs[key]:.3e} from its plain version "
+                           f"(tol {tol}); zero warp/rigidity gradients "
+                           f"{dead}")
+      line.append(f"{name}: max_t ‖Δ‖/‖ref‖ {errs[key]:.2e} ({key}), warp "
+                  f"{errs['warp.layer_in.weight']:.2e}, rigidity "
+                  f"{errs['rigidity.layer_in.weight']:.2e}")
+      if name == "kink-free":
+        max_abs = max(max_abs, float((got - ref).abs().max()))
+    print(f"[check] K9b-{mode} dp {'on ' if dp else 'off'} {what}: "
+          f"{' | '.join(line)} | kink-free rays {int(keep.sum())}/{n}",
+          flush=True)
+  return max_abs
+
+
+def _check_dyn(k9, testing, rays_ops, models, driver, dev):
+  """Phase 3, D-NeRF: in each mode (cp and posenc canonical, Δx and the
+  spline at S = 4), K9f with and without its dp² column and K9b in both
+  modes, each with and without the dp² term, against their plain
+  versions at 4096 x 64 and 77 x 16, seeded and amplified weights with
+  the warp active; DynRender's gradient against mode G's and two K9b
+  launches of each mode bit for bit; the all-ray floor (`_dyn_floor`).
+  Returns (K9f max |Δ|, K9b max |Δ|)."""
+  gen = torch.Generator(device=dev).manual_seed(14)
+  max_f, max_b = 0.0, 0.0
+  for enc, spline in DNERF_MODES:
+    seeded, amplified = _dyn_weights(models, driver, k9, dev, enc, spline)
+    for steps, n in ((STEPS, N_DYN_CHECK), (16, 77)):
+      rays, times = _dyn_rays(n, steps, dev)
+      ts = rays_ops.compute_ts(2.0, 6.0, steps, perturb=1.0, generator=gen,
+                               device=dev)
+      for (wname, ws), sky, kind in (
+          (("seeded", seeded), "black", "thin"),
+          (("amplified", amplified), "white", "thin")):
+        tag = (f"{enc} {'dx' if spline == 0 else f'spline S={spline}'} "
+               f"{n} rays x {steps} {wname:9s} sky {sky:5s}")
+        kw = dict(steps=steps, sigmoid_kind=kind, sky_kind=sky,
+                  spline_points=spline, enc_kind=enc)
+        for tname, t in (("grid", None), ("jittered ts", ts)):
+          for dp in (False, True):
+            out = k9.fused_dyn_render(ws, rays, times, ts=t, want_dp=dp, **kw)
+            ref = k9.dyn_render_reference(ws, rays, times, ts=t, want_dp=dp,
+                                          **kw)
+            torch.cuda.synchronize()
+            e = float((out - ref).abs().max())
+            line = (f"[check] K9f {tag} {tname:11s} dp {'on ' if dp else 'off'}"
+                    f": max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
+                    f"{float(ref[:, :3].std()):.3f}"
+                    + (f", dp column max {float(ref[:, 4].max()):.2e}"
+                       if dp else "") + ")")
+            print(line, flush=True)
+            if not (e <= TOL and bool(torch.isfinite(out).all())):
+              raise RuntimeError(f"K9f disagrees with its reference: {line}")
+            if dp and not float(ref[:, 4].max()) > 1e-8:
+              raise RuntimeError(f"the warp is not active: {line}")
+            max_f = max(max_f, e)
+        if steps == STEPS or wname == "amplified":
+          max_b = max(max_b, _check_dyn_bwd(tag, k9, testing, ws, rays,
+                                            times, gen, dict(kw, ts=ts)))
+  # the autograd Function's backward is K9b-G; two launches bit for bit
+  _, ws = _dyn_weights(models, driver, k9, dev, "cp", DNERF_SPLINE)
+  rays, times = _dyn_rays(77, 1, dev)
+  ts = rays_ops.compute_ts(2.0, 6.0, 16, perturb=1.0, generator=gen,
+                           device=dev)
+  kw = dict(steps=16, sky_kind="white", spline_points=DNERF_SPLINE,
+            enc_kind="cp")
+  g = torch.randn(77, 5, device=dev, generator=gen)
+  target = torch.rand(77, 3, device=dev, generator=gen)
+  leaf = ws.clone().requires_grad_(True)
+  (k9.fused_dyn_render_train(leaf, rays, times, ts, want_dp=True, **kw)
+   * g).sum().backward()
+  direct = k9.fused_dyn_render_grad(ws, rays, times, g, ts=ts, want_dp=True,
+                                    **kw)
+  again = k9.fused_dyn_render_grad(ws, rays, times, g, ts=ts, want_dp=True,
+                                   **kw)
+  step1 = k9.fused_dyn_train_step(ws, rays, times, target, ts,
+                                  dp_weight=DNERF_DP, **kw)
+  step2 = k9.fused_dyn_train_step(ws, rays, times, target, ts,
+                                  dp_weight=DNERF_DP, **kw)
+  if not (torch.equal(leaf.grad, direct) and torch.equal(direct, again)
+          and all(torch.equal(a, b) for a, b in zip(step1, step2))):
+    raise RuntimeError("DynRender's gradient differs from K9b-G's, or two "
+                       "K9b launches differ")
+  print("[check] DynRender backward == K9b-G (bitwise, dp on); two K9b-G "
+        "and two K9b-L launches bitwise equal", flush=True)
+  _dyn_floor(k9, models, driver, rays_ops, dev)
+  return max_f, max_b
+
+
+def _dyn_floor(k9, models, driver, rays_ops, dev):
+  """Printed, not gated: K9b-G (random g) over all rays at 4096 x 64,
+  against its plain version and both against the plain version in
+  float64 on the same float32 warp features, for cp Δx, cp spline and
+  posenc Δx with amplified weights: how far each float32 implementation
+  lies from the same function, the floor under the all-ray gate."""
+  from nerf_atlas_tpu_torch.ops import integrate
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  gen = torch.Generator(device=dev).manual_seed(16)
+  for enc, spline in (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0)):
+    _, ws = _dyn_weights(models, driver, k9, dev, enc, spline)
+    rays, times = _dyn_rays(N_CHECK, STEPS, dev)
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    g = torch.randn(N_CHECK, 4, device=dev, generator=gen)
+    kw = dict(steps=STEPS, sky_kind="white", spline_points=spline,
+              enc_kind=enc, ts=ts)
+    got = k9.fused_dyn_render_grad(ws, rays, times, g, **kw)
+    ref = k9.dyn_render_grad_reference(ws, rays, times, g, **kw)
+    lay = k9.layout(enc, spline)
+    pts = k1.hash_pts(rays, ts)
+    x_in = pts if spline else torch.cat(
+        [pts, times[:, None].expand(-1, STEPS).reshape(-1, 1)], -1)
+    init32 = k9.warp_init_feature(x_in, ws[:lay.warp_offset].view(
+        lay.w_in, -1))
+    w64 = ws.double().requires_grad_(True)
+    with torch.enable_grad():
+      dens, rgb, _, _ = k9.dyn_chain(w64, rays.double(), times.double(),
+                                     ts.double(), lay, spline, "thin",
+                                     warp_init=init32.double())
+      out = k1.composite(dens, rgb, rays[:, 3:6].double(),
+                         integrate.dists_from_ts(ts.double()), "white")
+      (w64g,) = torch.autograd.grad(out, w64, g.double())
+
+    def worst(a, b):
+      ua = k9.unpack_grads(a.double(), enc, spline)
+      ub = k9.unpack_grads(b.double(), enc, spline)
+      errs = {k: float((ua[k] - ub[k]).norm() / ub[k].norm()) for k in ub}
+      key = max(errs, key=errs.get)
+      return f"{errs[key]:.2e} ({key})"
+
+    print(f"[check] K9b-G all-ray float32 floor, {enc} "
+          f"{'dx' if spline == 0 else f'spline S={spline}'} {N_CHECK} rays x "
+          f"{STEPS} amplified (not gated): kernel vs plain "
+          f"{worst(got, ref)} | kernel vs float64 {worst(got, w64g)} | "
+          f"plain vs float64 {worst(ref, w64g)}", flush=True)
+
+
+def _train_main_dyn(port_runner, k1, loaders, dev, tag, argv, steps):
+  """Phases 5h / 5i: a D-NeRF recipe through the one-kernel step: K9b
+  (loss mode) once per step, K9f in eval, nothing else; both splits 2 dB
+  over all-black. Returns the launches per kernel."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            steps, argv=argv)
+  losses = _check_trained(results, black)
+  others = {k: v for k, v in counts.items() if k not in ("K9b", "K9f") and v}
+  if counts["K9b"] != steps or counts["K9f"] <= 0 or others:
+    raise RuntimeError(f"{tag} training launched {counts}, expected {steps} "
+                       "K9b, K9f in eval and nothing else")
+  print(f"[train] runner {tag} {steps} steps x {BATCH} rays x {STEPS} "
+        f"samples (48x48, 30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | launches K9b {counts['K9b']}, K9f "
+        f"{counts['K9f']} | loss {losses[0]:.5f} -> {losses[-1]:.5f} | PSNR "
+        f"train {results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts
+
+
+def _dyn_macs(k9, enc: str, spline: int):
+  """Multiply-adds per sample point: (forward, backward). The forward
+  counts the warp at its real width (3 or 3·(S − 1) outputs; the kernel
+  also computes the spline's padding columns, which no output needs), the
+  rigidity MLP and the canonical density and View MLPs. The backward
+  counts the forward again, every weight gradient and the input gradients
+  an output needs: not the warp's nor the rigidity's onto their init
+  features (the points are leaves, B is fixed) nor the View's onto
+  elev/azim; the density MLP's and the View's onto x' are needed."""
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  lay = k9.layout(enc, spline)
+  out_w = 3 if spline == 0 else 3 * (spline - 1)
+  warp = [(n, i, out_w if n.endswith("layer_out") else o)
+          for n, i, o in lay.warp_layers]
+  canon = k1.LAYOUTS[enc]
+  layers = warp + list(lay.rig_layers) + [
+      (f"canonical.{n}", i, o)
+      for n, i, o in canon.density_layers + canon.refl_layers]
+  fwd = sum(i * o for _, i, o in layers)
+  skip = (_no_cotangent_macs(layers, "warp", k9.W_HIDDEN, lay.w_in + 64)
+          + _no_cotangent_macs(layers, "rigidity", k9.G_HIDDEN, 3)
+          + _no_cotangent_macs(layers, "canonical.refl.mlp", k1.R_HIDDEN, 2))
+  return fwd, 3 * fwd - skip
+
+
+def _dyn_bound(k9, enc: str, spline: int, n: int, backward: bool):
+  """Bound of one K9f (backward: K9b) call on n rays x 64 steps: 2 FLOP per
+  multiply-add (`_dyn_macs`); bytes: rays, times, ts, dists and the
+  weights in, [n, 4 or 5] out (backward: the target or g in, the
+  transposed weights too, the gradient out)."""
+  fwd, bwd = _dyn_macs(k9, enc, spline)
+  wc = k9.layout(enc, spline).weight_count
+  pts = n * STEPS
+  if backward:
+    return _bound_ms(2 * bwd * pts, 4 * (n * 12 + 2 * STEPS + 3 * wc))
+  return _bound_ms(2 * fwd * pts, 4 * (n * 12 + 2 * STEPS + wc))
+
+
+def _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev):
+  """Phase 6, D-NeRF, for the cp Δx and the spline S = 4 modes: K9f and its
+  plain version per 65536 x 64 call with and without the dp² column,
+  K9b-L and K9b-G per 4096 x 64 call with and without the dp² term
+  (plain, kernel, kernel, plain); one 800x800 frame of the Δx model; the
+  three train steps of each recipe at 4096 x 64. Returns {(tag, kernel):
+  (ms, plain ms, bound)} and the frame's max difference."""
+  res = {}
+  frame = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic-dyn", size=SIZE, num_views=2,
+                   device=dev), size=SIZE, device=dev)
+  frame_rays = frame.view_rays(1)
+  call_rays = frame_rays[:CHUNK].contiguous()
+  call_t = torch.full((CHUNK,), float(frame.times[1]), device=dev)
+  gen = torch.Generator(device=dev).manual_seed(15)
+  launches = {k: w.launches for k, w in _wrappers().items()}
+  for enc, spline in (("cp", 0), ("cp", DNERF_SPLINE)):
+    tag = "dx" if spline == 0 else f"spline S={spline}"
+    _, ws = _dyn_weights(models, driver, k9, dev, enc, spline)
+    kw = dict(steps=STEPS, spline_points=spline, enc_kind=enc)
+    fwd_macs, _ = _dyn_macs(k9, enc, spline)
+    for dp in (False, True):
+      ms = {}
+      for name, fn, reps in (
+          ("plain", lambda: k9.dyn_render_reference(
+              ws, call_rays, call_t, want_dp=dp, **kw), 1),
+          ("kernel", lambda: k9.fused_dyn_render(ws, call_rays, call_t,
+                                                 want_dp=dp, **kw), 3),
+          ("kernel", lambda: k9.fused_dyn_render(ws, call_rays, call_t,
+                                                 want_dp=dp, **kw), 3),
+          ("plain", lambda: k9.dyn_render_reference(
+              ws, call_rays, call_t, want_dp=dp, **kw), 1)):
+        ms.setdefault(name, []).append(_event_ms(fn, reps))
+      bound = _dyn_bound(k9, enc, spline, CHUNK, False)
+      key = (tag, "K9f dp" if dp else "K9f")
+      res[key] = (min(ms["kernel"]), min(ms["plain"]), bound)
+      tflop = 2 * fwd_macs * CHUNK * STEPS / 1e12
+      print(f"[time] {card}: D-NeRF {tag}: one {CHUNK}-ray x {STEPS}-step "
+            f"{key[1]} call {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
+            f"({tflop / (min(ms['kernel']) / 1e3):.2f} TFLOP/s; bound "
+            f"{bound[0]:.2f} ms by {bound[1]}, bf16 {bound[2]:.2f}), plain "
+            f"torch {ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms",
+            flush=True)
+    r4 = call_rays[:BATCH].contiguous()
+    t4 = torch.rand(BATCH, device=dev, generator=gen)
+    ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                             device=dev)
+    target = torch.rand(BATCH, 3, device=dev, generator=gen)
+    g5 = torch.randn(BATCH, 5, device=dev, generator=gen)
+    for name_k, dp in (("K9b-L", False), ("K9b-L dp", True),
+                       ("K9b-G", False), ("K9b-G dp", True)):
+      if name_k.startswith("K9b-L"):
+        w = DNERF_DP if dp else 0.0
+        kernel = (lambda w=w: k9.fused_dyn_train_step(
+            ws, r4, t4, target, ts, dp_weight=w, **kw))
+        plain = (lambda w=w: k9.dyn_train_step_reference(
+            ws, r4, t4, target, ts=ts, dp_weight=w, **kw))
+      else:
+        gg = (g5 if dp else g5[:, :4]).contiguous()
+        kernel = (lambda gg=gg, dp=dp: k9.fused_dyn_render_grad(
+            ws, r4, t4, gg, ts=ts, want_dp=dp, **kw))
+        plain = (lambda gg=gg, dp=dp: k9.dyn_render_grad_reference(
+            ws, r4, t4, gg, ts=ts, want_dp=dp, **kw))
+      ms = {}
+      for name, fn, reps in (("plain", plain, 1), ("kernel", kernel, 5),
+                             ("kernel", kernel, 5), ("plain", plain, 1)):
+        ms.setdefault(name, []).append(_event_ms(fn, reps))
+      bound = _dyn_bound(k9, enc, spline, BATCH, True)
+      res[(tag, name_k)] = (min(ms["kernel"]), min(ms["plain"]), bound)
+      print(f"[time] {card}: D-NeRF {tag}: one {BATCH}-ray x {STEPS}-step "
+            f"{name_k} call {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
+            f"(bound {bound[0]:.2f} ms by {bound[1]}, bf16 {bound[2]:.2f}), "
+            f"plain torch {ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms",
+            flush=True)
+  for name, w in _wrappers().items():         # timing, not the main path
+    w.launches = launches[name]
+
+  model = driver.init_model(models.DynamicNeRF(steps=STEPS, device=dev),
+                            seed=0)
+  with torch.no_grad():
+    _, amp = _dyn_weights(models, driver, k9, dev, "cp", 0)
+    model.load_state_dict({**model.state_dict(),
+                           **k9.unpack_grads(amp, "cp", 0)})
+  ws = k9.pack_weights(model.state_dict(), dev, "cp", 0)
+  t_frame = torch.full((frame_rays.shape[0],), float(frame.times[1]),
+                       device=dev)
+
+  def ref_frame():
+    return torch.cat([k9.dyn_render_reference(
+        ws, rc, tc, steps=STEPS)[:, :3] for rc, tc in zip(
+            frame_rays.split(CHUNK), t_frame.split(CHUNK))])
+
+  img_ref, ref_s = _sync_time(ref_frame)
+  img_k, k_s = _sync_time(lambda: driver.render_view(model, frame, 1))
+  res["frame_err"] = float(np.abs(img_k.reshape(-1, 3)
+                                  - img_ref.cpu().numpy()).max())
+  if res["frame_err"] > TOL:
+    raise RuntimeError(f"800x800 D-NeRF frame: kernel vs reference "
+                       f"{res['frame_err']}")
+  print(f"[time] {card}: one {SIZE}x{SIZE}x{STEPS} D-NeRF dx frame (view 1, "
+        f"t = {float(frame.times[1]):.1f}): render_view (K9f) {k_s:.3f} s = "
+        f"{SIZE * SIZE / k_s:,.0f} rays/s, plain torch {ref_s:.3f} s = "
+        f"{SIZE * SIZE / ref_s:,.0f} rays/s | frame max diff "
+        f"{res['frame_err']:.2e}", flush=True)
+
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic-dyn", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  for tag, model_kw, regs in (
+      ("dnerf_dx", {}, {}),
+      ("dnerf_spline_dp", dict(spline_points=DNERF_SPLINE),
+       {"delta_x": DNERF_DP})):
+    fns = _step_fns(models.DynamicNeRF, driver, ds, dev, reg_coeffs=regs,
+                    **model_kw)
+    order = ["K3 step", "K1+K2 step", "plain step"]
+    labels = {"K3 step": "K9b step", "K1+K2 step": "K9f+K9b step",
+              "plain step": "plain step"}
+    step_ms = {}
+    for name in order + order[::-1]:
+      step, _ = fns[name]
+      step_ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+    for name in order:
+      v = step_ms[name]
+      print(f"[time] {card}: {tag} {labels[name]} at {BATCH}x{STEPS}: "
+            f"{v[0]:.2f} / {v[1]:.2f} ms = {BATCH / (min(v) / 1e3):,.0f} "
+            "train rays/s", flush=True)
+  return res
+
+
+# phase 7's recipes: (name, argv, steps, QUALITY_r05 record or None)
+QUALITY_RECIPES = (
+    ("plain_cp", TRAIN_ARGV, QUALITY_STEPS, None),
+    ("plain_hash", HASH_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_HASH),
+    ("ae", AE_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_AE),
+    ("plain_posenc", POSENC_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_POSENC),
+    ("plain_mip_cone", MIP_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_MIP),
     # tiny trains the sweep's EPOCH_MULT = 2 times the budget
-    steps = QUALITY_STEPS * (2 if argv is TINY_TRAIN_ARGV else 1)
+    ("tiny", TINY_TRAIN_ARGV, 2 * QUALITY_STEPS, QUALITY_R05_TINY),
+    ("volsdf_eikonal", VOLSDF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_VOLSDF),
+    ("dnerf_dx", DNERF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_DNERF),
+    ("dnerf_spline_dp", DNERF_SPLINE_ARGV, QUALITY_STEPS,
+     QUALITY_R05_DNERF_SPLINE))
+
+
+def _quality(card, port_runner, k1, loaders, dev, seeds, recipes=None):
+  """Phase 7: each sweep recipe's budget (`recipes`: their names, default
+  all) on the kernel path for each seed, and plain_cp with --no-fused for
+  the first; prints both splits' PSNR and the wall time of each run. The
+  D-NeRF recipes must beat all-black by 2 dB on both splits."""
+  runs = []
+  for name, argv, steps, record in QUALITY_RECIPES:
+    if recipes and name not in recipes:
+      continue
+    runs += [(name, seeds[0], (), argv, steps, record)]
+    if name == "plain_cp":
+      runs += [(name, seeds[0], ("--no-fused",), argv, steps, record)]
+    runs += [(name, seed, (), argv, steps, record) for seed in seeds[1:]]
+  for name, seed, extra, argv, steps, record in runs:
     results, secs, _, black = _train_run(
         port_runner, k1, loaders, dev, steps,
         ("--seed", str(seed), *extra), argv=argv)
-    tag, record = records.get(id(argv), ("", None))
-    note = (f" (QUALITY_r05 {tag.split()[0]}, TPU: {record[0]} / "
-            f"{record[1]})" if record else "")
-    print(f"[quality] {card}: {tag}{steps} steps, seed {seed}, path "
+    note = (f" (QUALITY_r05 {name}, TPU: {record[0]} / {record[1]})"
+            if record else "")
+    print(f"[quality] {card}: {name} {steps} steps, seed {seed}, path "
           f"{results['engaged_path']}: PSNR train "
           f"{results['train']['psnr_mean']:.3f} test "
           f"{results['test']['psnr_mean']:.3f} (all-black "
           f"{black['train']:.3f} / {black['test']:.3f}) in {secs:.1f} s"
           f"{note}", flush=True)
+    if name.startswith("dnerf"):
+      _check_trained(results, black)
 
 
 def _trace(fn, warm: int = 2):
@@ -1993,12 +2468,13 @@ def _profile(card, model, ds, ws):
 
 
 def _profile_train(card, model_cls, driver, loaders, sampler, dev,
-                   tag="K3", reg_coeffs=None, **model_kw):
+                   tag="K3", reg_coeffs=None, data_kind="synthetic",
+                   **model_kw):
   """Phase 8, train half: one traced one-kernel train step at batch 4096
   (device idle share; shares of K3 or K7b, its reduction, K5f/K5b for
   hash, sampling and Adam) and the host time per step."""
   ds = sampler.RayDataset.from_bundle(
-      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+      loaders.load("", data_kind=data_kind, size=48, num_views=30,
                    device=dev), size=48, device=dev)
   step, _ = _step_fns(model_cls, driver, ds, dev, reg_coeffs=reg_coeffs,
                       **model_kw)["K3 step"]
@@ -2017,7 +2493,8 @@ def _profile_train(card, model_cls, driver, loaders, sampler, dev,
         f"{(1 - busy / wall if busy else float('nan')):.4f}; shares: K3 "
         f"{share('render_bwd_kernel'):.4f}, K7b "
         f"{share('render_ae_bwd_kernel'):.4f}, K8b "
-        f"{share('render_volsdf_bwd_kernel'):.4f}, reduction "
+        f"{share('render_volsdf_bwd_kernel'):.4f}, K9b "
+        f"{share('render_dyn_bwd_kernel'):.4f}, reduction "
         f"{share('reduce_partials'):.4f}, K5f {share('hash_fwd'):.4f}, K5b "
         f"{share('hash_bwd'):.4f}, Adam "
         f"{share('adam', 'foreach', 'lerp', 'addcdiv', 'sqrt'):.4f}, "
@@ -2057,6 +2534,9 @@ def main(argv=None):
   parser.add_argument("--seeds", type=int, nargs="+", default=[0],
                       help="phase 7's seeds: the kernel path for each, "
                            "--no-fused for the first")
+  parser.add_argument("--recipes", nargs="+", default=None,
+                      choices=[r[0] for r in QUALITY_RECIPES],
+                      help="phase 7's recipes (default: all)")
   args = parser.parse_args(argv)
   t_start = time.perf_counter()
   # ---- 1. device ----
@@ -2080,11 +2560,12 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
+  from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9
   from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
-  _build(build, k1)
+  _build(build, k1, k9)
 
   # ---- 3. kernels vs reference on the card ----
   dev = torch.device("cuda")
@@ -2099,6 +2580,7 @@ def main(argv=None):
   max_k4 = _check_k4(k1, rays_ops, models, driver, dev)
   max_k8f, max_k8b = _check_volsdf(k8, testing, rays_ops, models, driver,
                                    dev)
+  max_k9f, max_k9b = _check_dyn(k9, testing, rays_ops, models, driver, dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
   results, secs, counts = _render_main(port_runner)
@@ -2147,6 +2629,10 @@ def main(argv=None):
   render_k8 = _render_main_k4(port_runner, models, "volsdf", "--model",
                               "volsdf", "--sigmoid-kind", "upshifted",
                               kernel="K8f")
+  # ---- 4h. dnerf-render-800: D-NeRF (Δx) at each view's time ----
+  render_k9 = _render_main_k4(port_runner, models, "dnerf", "--data-kind",
+                              "synthetic-dyn", "--dyn-model", "plain",
+                              kernel="K9f")
 
   # ---- 5. main path, train ----
   k3_launches = _train_main(port_runner, k1, loaders, dev)
@@ -2167,6 +2653,12 @@ def main(argv=None):
                              TINY_TRAIN_ARGV, TRAIN_STEPS, gate=False)}
   # ---- 5g. VolSDF at the volsdf_eikonal recipe ----
   train_k8 = _train_main_volsdf(port_runner, k1, loaders, dev)
+  # ---- 5h / 5i. dnerf-train-4096 and dnerf-spline-train-4096 ----
+  train_k9 = _train_main_dyn(port_runner, k1, loaders, dev, "dnerf_dx",
+                             DNERF_TRAIN_ARGV, DNERF_STEPS)
+  train_k9s = _train_main_dyn(port_runner, k1, loaders, dev,
+                              "dnerf_spline_dp", DNERF_SPLINE_ARGV,
+                              DNERF_SPLINE_STEPS)
 
   # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
@@ -2216,11 +2708,12 @@ def main(argv=None):
                   ds)
   k8_t = _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops,
                       dev, ds)
+  k9_t = _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev)
   print(f"[time] phases 1-6 (the run without --quality and --profile): "
         f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
   if args.quality:
-    _quality(card, port_runner, k1, loaders, dev, args.seeds)
+    _quality(card, port_runner, k1, loaders, dev, args.seeds, args.recipes)
   if args.profile:
     _profile(card, model, ds, ws)
     _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev)
@@ -2242,6 +2735,13 @@ def main(argv=None):
     _profile_train(card, models.VolSDF, driver, loaders, sampler, dev,
                    "volsdf K8b", reg_coeffs={"eikonal": VOLSDF_EIKONAL},
                    with_normals=True, sigmoid_kind="upshifted")
+    dyn_ds = sampler.RayDataset.from_bundle(
+        loaders.load("", data_kind="synthetic-dyn", size=SIZE, num_views=1,
+                     device=dev), size=SIZE, device=dev)
+    _profile_frame(card, driver.init_model(models.DynamicNeRF(
+        steps=STEPS, device=dev), seed=0), dyn_ds, "dnerf")
+    _profile_train(card, models.DynamicNeRF, driver, loaders, sampler, dev,
+                   "dnerf_dx K9b", data_kind="synthetic-dyn")
 
   k5f = hash_t["k5"][(CHUNK * STEPS, HASH_T)]["fwd"]
   k5b = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["bwd"]
@@ -2275,7 +2775,18 @@ def main(argv=None):
       ("render_volsdf_fwd", "render_volsdf_fwd.cu", "render_volsdf.py:262",
        render_k8, max(max_k8f, k8_t["frame_err"]), *k8_t["K8f"], None),
       ("render_volsdf_bwd", "render_volsdf_bwd.cu", "render_volsdf.py:306",
-       train_k8["K8b"], max_k8b, *k8_t["K8b-L eikonal"], None)]
+       train_k8["K8b"], max_k8b, *k8_t["K8b-L eikonal"], None),
+      ("render_dyn_fwd", "render_dyn_fwd.cu", "render_dyn.py:157",
+       render_k9, max(max_k9f, k9_t["frame_err"]), *k9_t[("dx", "K9f")],
+       None),
+      ("render_dyn_fwd_spline", "render_dyn_fwd.cu", "render_dyn.py:157",
+       train_k9s["K9f"], max_k9f,
+       *k9_t[(f"spline S={DNERF_SPLINE}", "K9f")], None),
+      ("render_dyn_bwd", "render_dyn_bwd.cu", "render_dyn.py:231",
+       train_k9["K9b"], max_k9b, *k9_t[("dx", "K9b-L")], None),
+      ("render_dyn_bwd_spline_dp", "render_dyn_bwd.cu", "render_dyn.py:231",
+       train_k9s["K9b"], max_k9b,
+       *k9_t[(f"spline S={DNERF_SPLINE}", "K9b-L dp")], None)]
   for name, *_, bound, _ in rows:
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores), {bound[2]:.4f} ms at the bf16 "

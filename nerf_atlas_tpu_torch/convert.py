@@ -6,8 +6,12 @@ given as a nested dict of numpy arrays (e.g.
 `state_dict`. Paths map one to one, joined with "."; for PlainNeRF:
   params/density_mlp/{enc/lines_0..3, layer_in, layer_0..4, layer_out}
   params/refl/mlp/{layer_in, layer_0..4, layer_out}
-(PlainNeRF-hash has enc/table, posenc and mip no enc at all), and for
-TinyNeRF params/mlp/{layer_in, layer_0..5, layer_out}. One path moves:
+(PlainNeRF-hash has enc/table, posenc and mip no enc at all), for
+TinyNeRF params/mlp/{layer_in, layer_0..5, layer_out}, and for
+DynamicNeRF params/warp/{enc/B, layer_in, layer_0..4, layer_out},
+params/rigidity/{layer_in, layer_0..2, layer_out} and the canonical
+PlainNeRF under params/canonical (the warp's B lands at `warp.enc.B`,
+where the port's SkipConnMLP keeps its encoder). One path moves:
 flax binds an encoder built inside a shape's call to the shape, so the
 VolSDF tree holds the Fourier matrix at params/shape/FourierEncoder_0/B,
 beside params/shape/mlp, where the port's SkipConnMLP keeps its encoder

@@ -100,29 +100,6 @@ struct BwdLayout : Layout<ENC> {
                                            : STEP_CAP;
 };
 
-// The sample point and its CP encoding are rounded exactly as the plain
-// torch version rounds them (one IEEE op per torch op, no FMA
-// contraction): r_o + t·r_d, the clamp((p + 1)·0.5) box, the tap and its
-// fraction, (l0·(1 − fr)) + (l1·fr), and the product over the axes. The
-// init features then agree bit for bit, so no leaky-relu input there sits
-// on the other side of its kink in one of the two implementations.
-
-// tap i0 (and i1 = min(i0 + 1, R - 1)) and fraction of coordinate x on a
-// line of res_l entries
-__device__ __forceinline__ float cp_tap(float x, int res_l, int* i0,
-                                        int* i1) {
-  const float xn = fminf(fmaxf(__fmul_rn(__fadd_rn(x, 1.0f), 0.5f), 0.0f),
-                         1.0f);
-  const float v = __fmul_rn(xn, (float)(res_l - 1));
-  *i0 = min((int)floorf(v), res_l - 1);
-  *i1 = min(*i0 + 1, res_l - 1);
-  return __fsub_rn(v, (float)*i0);
-}
-
-__device__ __forceinline__ float cp_lerp(float l0, float l1, float fr) {
-  return __fadd_rn(__fmul_rn(l0, __fsub_rn(1.0f, fr)), __fmul_rn(l1, fr));
-}
-
 template <int ENC>
 size_t smem_bytes(int rays_per_block, int steps) {
   return sizeof(float) * ((size_t)BwdLayout<ENC>::FIXED
@@ -216,27 +193,9 @@ render_bwd_kernel(const float* __restrict__ rays,
         }
         __syncthreads();
         if constexpr (ENC == ENC_CP) {
-          // CP encode: one (point, level) per thread -> rows 3 + 8 l + k
-          const int p = tid & (TILE - 1);
-          const int l = tid / TILE;
-          const int res_l = 16 << l;
-          const float* __restrict__ lines = w + line_offset(l);
-          float f[RANK];
-#pragma unroll
-          for (int k = 0; k < RANK; ++k) f[k] = 1.0f;
-#pragma unroll
-          for (int axis = 0; axis < 3; ++axis) {
-            int i0, i1;
-            const float fr = cp_tap(F[axis * PS + p], res_l, &i0, &i1);
-            const float* __restrict__ l0 = lines + (axis * res_l + i0) * RANK;
-            const float* __restrict__ l1 = lines + (axis * res_l + i1) * RANK;
-#pragma unroll
-            for (int k = 0; k < RANK; ++k)
-              f[k] = __fmul_rn(f[k], cp_lerp(__ldg(l0 + k), __ldg(l1 + k),
-                                             fr));
-          }
-#pragma unroll
-          for (int k = 0; k < RANK; ++k) F[(3 + l * RANK + k) * PS + p] = f[k];
+          // CP encode (render_plain.cuh): rows 3 + 8 l + k, rounded as the
+          // plain version rounds it
+          cp_encode_rows(F, w);
         }
       } else {
         encode_tile<ENC>(F, X, ray_s, ts, fq, q0, n_pts, steps);
@@ -441,58 +400,8 @@ render_bwd_kernel(const float* __restrict__ rays,
         }
         __syncthreads();
       } else if constexpr (ENC == ENC_CP) {
-        // CP lines: d enc = DF rows 3..34. Stage per point the factor
-        // gradients and taps in X, then one thread per (level, axis, rank)
-        // scatters them in point order into LG.
-        {
-          const int p = tid & (TILE - 1);
-          const int l = tid / TILE;
-          const int res_l = 16 << l;
-          const float* __restrict__ lines = w + line_offset(l);
-          float f[3][RANK];
-          float fr[3];
-          int i0s[3];
-#pragma unroll
-          for (int axis = 0; axis < 3; ++axis) {
-            int i0, i1;
-            fr[axis] = cp_tap(F[axis * PS + p], res_l, &i0, &i1);
-            i0s[axis] = i0;
-            const float* __restrict__ l0 = lines + (axis * res_l + i0) * RANK;
-            const float* __restrict__ l1 = lines + (axis * res_l + i1) * RANK;
-#pragma unroll
-            for (int k = 0; k < RANK; ++k)
-              f[axis][k] = cp_lerp(__ldg(l0 + k), __ldg(l1 + k), fr[axis]);
-          }
-#pragma unroll
-          for (int axis = 0; axis < 3; ++axis) {
-            const int b = axis == 0 ? 1 : 0, c = axis == 2 ? 1 : 2;
-#pragma unroll
-            for (int k = 0; k < RANK; ++k) {
-              const float denc = DF[(3 + l * RANK + k) * PS + p];
-              X[((l * 3 + axis) * RANK + k) * PS + p] =
-                  denc * f[b][k] * f[c][k];
-            }
-            X[(96 + l * 3 + axis) * PS + p] = (float)i0s[axis];
-            X[(108 + l * 3 + axis) * PS + p] = fr[axis];
-          }
-        }
-        __syncthreads();
-        if (tid < 3 * N_LEVELS * RANK) {
-          const int l = tid / (3 * RANK), axis = (tid / RANK) % 3;
-          const int k = tid % RANK;
-          const int res_l = 16 << l;
-          float* lg = LG + line_offset(l) + axis * res_l * RANK + k;
-          const float* df = X + tid * PS;
-          const float* i0r = X + (96 + l * 3 + axis) * PS;
-          const float* frr = X + (108 + l * 3 + axis) * PS;
-          for (int p = 0; p < TILE; ++p) {
-            const int i0 = (int)i0r[p];
-            const int i1 = min(i0 + 1, res_l - 1);
-            lg[i0 * RANK] += df[p] * (1.0f - frr[p]);
-            lg[i1 * RANK] += df[p] * frr[p];
-          }
-        }
-        __syncthreads();
+        // CP lines: d enc = DF rows 3..34 -> LG (render_plain.cuh)
+        cp_backward<false>(F, DF, X, LG, w);
       }
     }
   }

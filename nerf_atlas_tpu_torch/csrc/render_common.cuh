@@ -1,6 +1,7 @@
-// Device code shared by the six render kernels: K1 (render_fwd.cu), K2/K3
+// Device code shared by the eight render kernels: K1 (render_fwd.cu), K2/K3
 // (render_bwd.cu), K7f (render_ae_fwd.cu), K7b (render_ae_bwd.cu), K8f
-// (render_volsdf_fwd.cu) and K8b (render_volsdf_bwd.cu).
+// (render_volsdf_fwd.cu), K8b (render_volsdf_bwd.cu), K9f
+// (render_dyn_fwd.cu) and K9b (render_dyn_bwd.cu).
 //
 // Activations of a 64-point tile live feature-major in shared memory
 // ([row][PS], 64 points per row); weights are read per layer through

@@ -1,10 +1,11 @@
 """Dataset loaders. Contract: `load(...) -> DatasetBundle(labels, camera,
-lights|None)` with labels imgs [N,S,S,C] float32 in [0, 1].
+lights|None)` with labels imgs [N,S,S,C] float32 in [0, 1], or (imgs,
+times [N]) for a dynamic scene.
 
 Counterpart of `nerf_atlas_tpu/data/loaders.py`. Only the procedural
-`synthetic` scene is ported; the on-disk formats (original, dnerf, dtu,
-nerv_point, shiny, video, single image) arrive with ROADMAP Queue 1
-#4/#11.
+scene is ported, static (`synthetic`) and dynamic (`synthetic-dyn`); the
+on-disk formats (original, dnerf, dtu, nerv_point, shiny, video, single
+image) arrive with ROADMAP Queue 1 #4/#11.
 """
 from __future__ import annotations
 
@@ -15,23 +16,30 @@ from . import synthetic
 
 
 class DatasetBundle(NamedTuple):
-  labels: Any            # imgs [N,S,S,C]
+  labels: Any            # imgs [N,S,S,C], or (imgs, times [N])
   camera: Any
   lights: Optional[Any]  # point-light positions [N, L, 3] or None
 
 
 def synthetic_spheres(path: str = "", training: bool = True, size: int = 64,
-                      num_views: int = 8, device=None):
+                      num_views: int = 8, dynamic: bool = False,
+                      device=None):
   """Procedural golden scene (see synthetic.py). `path` ignored; the train
   split draws its poses from seed 0, the test split from seed 1."""
   del path
   labels, camera, lights = synthetic.dataset(
-      num_views=num_views, size=size, seed=0 if training else 1,
-      device=device)
+      num_views=num_views, size=size, dynamic=dynamic,
+      seed=0 if training else 1, device=device)
   return DatasetBundle(labels, camera, lights)
 
 
-LOADER_KINDS = {"synthetic": synthetic_spheres}
+def synthetic_dynamic(*args, **kwargs):
+  """The dynamic procedural scene (`--data-kind synthetic-dyn`)."""
+  return synthetic_spheres(*args, dynamic=True, **kwargs)
+
+
+LOADER_KINDS = {"synthetic": synthetic_spheres,
+                "synthetic-dyn": synthetic_dynamic}
 
 
 def kind_from_path(path: str) -> str:
@@ -62,6 +70,7 @@ def load(data_path: str, data_kind: Optional[str] = None,
   fn = LOADER_KINDS.get(kind)
   if fn is None:
     raise NotImplementedError(
-        f"data kind {kind}: only the procedural 'synthetic' scene is ported "
-        "(the other loaders arrive with ROADMAP Queue 1 #4/#11)")
+        f"data kind {kind}: only the procedural 'synthetic' and "
+        "'synthetic-dyn' scenes are ported (the other loaders arrive with "
+        "ROADMAP Queue 1 #4/#11)")
   return fn(data_path, training=training, size=size, device=device, **kwargs)

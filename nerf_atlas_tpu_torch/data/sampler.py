@@ -15,20 +15,24 @@ import torch
 
 @dataclass
 class RayDataset:
-  """Labels [N, S, S, C] and camera on one device."""
+  """Labels [N, S, S, C], camera and, for a dynamic scene, each view's
+  time [N], on one device."""
   pixels: torch.Tensor
   camera: Any
   size: int = 256
+  times: Optional[torch.Tensor] = None
 
   @classmethod
   def from_bundle(cls, bundle, size: int, device=None):
-    labels = bundle.labels
+    labels, times = bundle.labels, None
     if isinstance(labels, tuple):
-      raise NotImplementedError(
-          "timed (dynamic) datasets arrive with ROADMAP Queue 1 #11")
+      labels, times = labels
     pixels = torch.as_tensor(labels, dtype=torch.float32, device=device)
+    if times is not None:
+      times = torch.as_tensor(times, dtype=torch.float32,
+                              device=pixels.device)
     return cls(pixels=pixels, camera=bundle.camera.to(pixels.device),
-               size=size)
+               size=size, times=times)
 
   @property
   def num_views(self) -> int:
@@ -49,7 +53,8 @@ class RayDataset:
     train views in turn (view = step % N, --serial-idxs). end_bias > 0
     adds `end_bias` extra draws each of the first and last view to the
     pool (--higher-end-chance). jitter: centred sub-pixel ray jitter.
-    Returns (rays [B, 6], pix [B, C], None (no per-view times), view [B]).
+    Returns (rays [B, 6], pix [B, C], times [B] (each ray's view's time;
+    None for a static scene), view [B]).
     """
     n, s, dev = self.num_views, self.size, self.device
     lo, hi = view_range if view_range is not None else (0, n)
@@ -70,7 +75,7 @@ class RayDataset:
     pix = self.pixels[view, xy[:, 1], xy[:, 0]]
     rays = self.camera.rays_at(view, xy.to(torch.float32) + 0.5, s,
                                jitter=jitter, generator=generator)
-    return rays, pix, None, view
+    return rays, pix, None if self.times is None else self.times[view], view
 
   def view_rays(self, view: int, render_size: Optional[int] = None):
     """All rays of one view at `render_size` (default: dataset size),

@@ -1,6 +1,7 @@
-"""Model registry (the port covers TinyNeRF, PlainNeRF, NeRFAE and VolSDF
-so far)."""
+"""Model registry (the port covers TinyNeRF, PlainNeRF, NeRFAE, VolSDF and,
+among the dynamic wrappers, DynamicNeRF so far)."""
 from .base import NeRFBase  # noqa: F401
+from .dyn import DYN_MODEL_KINDS, DynamicNeRF, load_dyn_model  # noqa: F401
 from .nerf import NeRFAE, PlainNeRF, TinyNeRF
 from .volsdf import VolSDF
 

@@ -7,8 +7,9 @@ hash of the source, of every header it includes from `csrc/` (quoted
 `#include`, followed recursively) and of the flags, so an edited source
 or header is rebuilt and an unchanged one is reused. A source may be
 built in variants, each with its own `-D` defines (render_bwd.cu one per
-encoder mode, so that its instantiations compile in parallel). Nothing
-is built or imported when this module is imported.
+encoder mode, render_dyn_fwd.cu and render_dyn_bwd.cu one per canonical
+encoder and warp kind, so that the instantiations compile in parallel).
+Nothing is built or imported when this module is imported.
 """
 from __future__ import annotations
 

@@ -33,6 +33,10 @@ Examples (procedural scene):
       --model volsdf --sdf-kind mlp --sigmoid-kind upshifted \
       --sdf-eikonal 0.01 --size 48 --num-views 30 --epochs 1500 \
       --batch-size 4096 -lr 3e-4 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic-dyn \
+      --model plain --enc-kind cp --dyn-model plain [--spline 4 \
+      --dp-weight 1e-3] --size 48 --num-views 30 --epochs 1500 \
+      --batch-size 4096 -lr 1e-3 --outdir out
 """
 from __future__ import annotations
 
@@ -45,12 +49,12 @@ import torch
 
 from . import cli
 from .data import load, sampler
-from .models import load_model
+from .models import load_dyn_model, load_model
 from .train import checkpoints, driver
 
 # flags the port does not carry yet: (attribute, ROADMAP item)
 _UNSUPPORTED = (
-    ("bendy", "Queue 1 #13"), ("dyn_model", "Queue 1 #11"),
+    ("bendy", "Queue 1 #13"),
     ("ref_compat", "Queue 1 #13"), ("neural_upsample", "Queue 1 #13"),
     ("with_canon", "Queue 1 #11"), ("light_kind", "Queue 1 #13"),
     ("replace", "Queue 1 #13"), ("cam_save_load", "Queue 1 #13"),
@@ -60,6 +64,7 @@ _UNSUPPORTED = (
     ("draw_colormap", "Queue 1 #13"), ("normals_from_depth", "Queue 1 #13"),
     ("depth_query_normal", "Queue 1 #10"),
     ("long_vid_progressive_train", "Queue 1 #11"),
+    ("render_bezier_keyframes", "Queue 1 #11"),
 )
 
 
@@ -71,13 +76,34 @@ def _check_supported(args):
   if args.model not in ("tiny", "plain", "ae", "volsdf"):
     raise NotImplementedError(
         f"--model {args.model}: the port has TinyNeRF, PlainNeRF, NeRFAE "
-        "and VolSDF so far (ROADMAP Queue 1 #8 coarse_fine, #10 sdf, #11 "
-        "dynamic, #13 the rest)")
+        "and VolSDF so far (ROADMAP Queue 1 #8 coarse_fine, #10 sdf, #13 "
+        "the rest)")
+  if args.dyn_model not in (None, "plain"):
+    raise NotImplementedError(
+        f"--dyn-model {args.dyn_model}: the port has DynamicNeRF ('plain') "
+        "so far (ROADMAP Queue 1 #11)")
+  if args.dyn_refl_latent:
+    raise NotImplementedError(
+        "--dyn-refl-latent: the per-time refl latent arrives with ROADMAP "
+        "Queue 1 #11")
 
 
-def build_model(args, device):
-  """runner.py:build_model for --model tiny, plain, ae and volsdf (static
-  data). tiny takes the common kwargs only (runner.py:449-456). plain
+def _check_dynamic(args):
+  """The options that act on a dynamic run only (runner.py:1004-1025)."""
+  for flag, on in (("render_over_time", args.render_over_time >= 0),
+                   ("cluster_movement", args.cluster_movement > 0)):
+    if on:
+      raise NotImplementedError(
+          f"--{flag.replace('_', '-')}: not ported yet (ROADMAP Queue 1 #11)")
+
+
+def build_model(args, device, dynamic: bool = False):
+  """runner.py:build_model for --model tiny, plain, ae and volsdf, and on
+  timed data (`dynamic`) with --dyn-model plain a DynamicNeRF over the
+  plain canonical (--spline, --refl-kind, --enc-kind, --dyn-refl-latent;
+  runner.py:562-576; another canonical raises, ROADMAP Queue 1 #11); as
+  in the root runner, --dyn-model on static data builds the static
+  model. tiny takes the common kwargs only (runner.py:449-456). plain
   also takes --refl-kind, --mip, --enc-kind and --space-kind
   (runner.py:458-466); --hash-table-log2 N sets the hash table to 2^N
   entries per level when N is not the default 19 (runner.py:470-471). ae
@@ -93,6 +119,18 @@ def build_model(args, device):
                 intermediate_size=args.intermediate_size,
                 lindisp=args.lindisp, per_ray_jitter=args.per_ray_jitter,
                 density_noise=args.density_noise)
+  if dynamic and args.dyn_model is not None:
+    if args.model != "plain":
+      raise NotImplementedError(
+          f"--dyn-model {args.dyn_model} over --model {args.model}: the "
+          "port's dynamic wrapper takes the plain canonical so far (ROADMAP "
+          "Queue 1 #11)")
+    return load_dyn_model(
+        args.dyn_model, device=device, canonical_kind="plain",
+        spline_points=args.spline,
+        canonical_kwargs={"refl_kind": args.refl_kind,
+                          "enc_kind": args.enc_kind},
+        time_latent_size=args.dyn_refl_latent, **kwargs)
   if args.model == "tiny":
     return load_model("tiny", device=device, **kwargs)
   kwargs["refl_kind"] = args.refl_kind
@@ -114,8 +152,9 @@ def build_model(args, device):
   return load_model(args.model, device=device, **kwargs)
 
 
-def make_train_config(args) -> driver.TrainConfig:
-  """runner.py:make_train_config for the fields the port trains with.
+def make_train_config(args, dynamic: bool = False) -> driver.TrainConfig:
+  """runner.py:make_train_config for the fields the port trains with
+  (`dynamic`: the model is a DynamicNeRF, whose --dp-weight is carried).
   Flags whose path is not ported raise NotImplementedError naming their
   ROADMAP item (here, or in `driver.check_config`)."""
   if args.crop_size > 0 or set(args.loss_fns) & {"ssim", "fft"}:
@@ -184,7 +223,7 @@ def make_train_config(args) -> driver.TrainConfig:
       smooth_eps=args.smooth_eps, smooth_eps_rng=args.smooth_eps_rng,
       smooth_ords=tuple(args.smooth_n_ord),
       volsdf_alternate=args.volsdf_alternate, no_fused=args.no_fused)
-  driver.check_config(cfg, args.model)
+  driver.check_config(cfg, "dynamic" if dynamic else args.model)
   return cfg
 
 
@@ -195,7 +234,8 @@ def _slice_views(ds, n: int):
   cam = ds.camera
   return sampler.RayDataset(
       pixels=ds.pixels[:n],
-      camera=type(cam)(cam.cam_to_world[:n], cam.focal), size=ds.size)
+      camera=type(cam)(cam.cam_to_world[:n], cam.focal), size=ds.size,
+      times=None if ds.times is None else ds.times[:n])
 
 
 def main(argv=None, device="cuda"):
@@ -211,7 +251,6 @@ def main(argv=None, device="cuda"):
   _check_supported(args)
   if args.nosave:
     args.save_freq = 0
-  cfg = make_train_config(args) if args.epochs > 0 else None
   if not args.derive_kind and args.data_kind is None:
     raise ValueError("--data-kind is required when --derive-kind is unset")
   if args.timed_outdir:
@@ -219,13 +258,17 @@ def main(argv=None, device="cuda"):
   os.makedirs(args.outdir, exist_ok=True)
 
   load_kwargs = {}
-  if args.data_kind == "synthetic":
+  if args.data_kind in ("synthetic", "synthetic-dyn"):
     load_kwargs["num_views"] = args.num_views
   bundle = load(args.data, data_kind=args.data_kind, training=True,
                 size=args.size, device=device, **load_kwargs)
   ds = sampler.RayDataset.from_bundle(bundle, size=args.size, device=device)
   ds = _slice_views(ds, args.train_imgs)
-  model = build_model(args, device)
+  dynamic = ds.times is not None and args.dyn_model is not None
+  if dynamic:
+    _check_dynamic(args)
+  cfg = make_train_config(args, dynamic) if args.epochs > 0 else None
+  model = build_model(args, device, dynamic)
 
   config_dict = {**vars(args), "argv": sys.argv, "name": args.name,
                  "device": str(device),

@@ -10,6 +10,7 @@ import torch.nn.functional as F
 
 from .ops.kernels import render as k1
 from .ops.kernels import render_ae as k7
+from .ops.kernels import render_dyn as k9
 from .ops.kernels import render_volsdf as k8
 
 
@@ -123,6 +124,84 @@ def volsdf_kink_free_rays(params: k8.Params, rays: torch.Tensor,
     return zs[1:]                    # zs[0]: act(the init feature)
 
   return _kink_free(pre_activations, rays, steps, margin)
+
+
+def dyn_kink_free_rays(params: k9.Params, rays: torch.Tensor,
+                       times: torch.Tensor, ts: torch.Tensor, steps: int,
+                       enc_kind: str = "cp", spline_points: int = 0,
+                       margin: float = 10.0, exact_features: bool = False
+                       ) -> torch.Tensor:
+  """`kink_free_rays` for a DynamicNeRF (`params`: its state_dict or
+  packed weights of `enc_kind`, `spline_points`): the same rule over the
+  leaky-relu inputs of the warp's and the rigidity's hidden layers and of
+  the canonical density MLP's; the View is a siren, smooth everywhere.
+  Two things differ from the static models, because the warped points x'
+  come out of the warp MLP, whose sums the kernel and the plain version
+  order differently, and their cotangent is formed:
+  - the density MLP's init feature [x' ‖ enc] is held too, per value: a
+    value is near its kink when its magnitude is under `margin` times its
+    own float32-vs-float64 difference, or under `margin`/10 times its
+    column's RMS difference (the column rule at `margin` would flag most
+    rays: CP features, products of three line values, cluster near 0,
+    where their error is far below the column's);
+  - for the cp canonical, the CP taps of x', where the position gradient
+    jumps: a point's xn·(R − 1) within `margin` round-offs of an integer
+    at some level R inside the box, or xn = (x' + 1)/2 within `margin`
+    round-offs of the box's faces (the round-off: the RMS over the points
+    of the float32-vs-float64 difference of xn).
+  The warp's init feature [x ‖ sin ‖ cos] enters both evaluations as its
+  float32 values, unless `exact_features` (the rule against the JAX
+  package, whose Fourier phases, up to ~1000 radians, round differently),
+  which takes its float64 values in the float64 evaluation."""
+  lay = k9.layout(enc_kind, spline_points)
+  ws = k9.pack_weights(params, rays.device, enc_kind, spline_points)
+  pts = k1.hash_pts(rays, ts)
+  x_in = pts if lay.warp == "spline" else torch.cat(
+      [pts, times[:, None].expand(-1, steps).reshape(-1, 1)], dim=-1)
+  init32 = k9.warp_init_feature(x_in, ws[:lay.warp_offset].view(lay.w_in, -1))
+  evals = {}
+  for dtype in (torch.float32, torch.float64):
+    zs = []
+
+    def act(v):
+      zs.append(v.double())
+      return F.leaky_relu(v, 0.01)
+
+    init = init32.to(dtype)
+    if exact_features and dtype == torch.float64:
+      init = None
+    with torch.no_grad():
+      *_, warped = k9.dyn_chain(
+          ws.to(dtype), rays.to(dtype), times.to(dtype), ts.to(dtype), lay,
+          spline_points, "thin", act=act, warp_init=init)
+    evals[dtype] = (zs, warped.double())
+  (z32, x32), (z64, x64) = evals[torch.float32], evals[torch.float64]
+  # the leaky-relu inputs in call order: the warp's init feature and its 6
+  # pre-activations, the rigidity's init (p) and 4, the density MLP's init
+  # feature and 6; no input cotangent of the warp's or the rigidity's is
+  # formed, so their init features are left out
+  n_w, n_g = k9.W_LAYERS + 2, k9.G_LAYERS + 2
+  keep = list(range(1, n_w)) + list(range(n_w + 1, n_w + n_g)) + list(
+      range(n_w + n_g + 1, len(z32)))
+  fragile = torch.zeros(z32[0].shape[0], dtype=torch.bool, device=rays.device)
+  for i in keep:
+    rms = (z32[i] - z64[i]).pow(2).mean(dim=0).sqrt()
+    fragile |= (z32[i].abs() < margin * rms).any(dim=-1)
+  f32, f64 = z32[n_w + n_g], z64[n_w + n_g]              # [x' ‖ enc]
+  diff = (f32 - f64).abs()
+  fragile |= ((f32.abs() < margin * diff)
+              | (f32.abs() < 0.1 * margin * diff.pow(2).mean(dim=0).sqrt())
+              ).any(dim=-1)
+  if enc_kind == "cp":
+    u32, u64 = (x32 + 1.0) * 0.5, (x64 + 1.0) * 0.5
+    tol = margin * (u32 - u64).pow(2).mean(dim=0).sqrt()          # [3]
+    near = (u32.abs() < tol) | ((u32 - 1.0).abs() < tol)
+    inside = (u32 > 0.0) & (u32 < 1.0)          # outside, no gradient
+    for res in k1.CP_RESOLUTIONS:
+      v = u32 * (res - 1)
+      near |= inside & ((v - torch.round(v)).abs() < tol * (res - 1))
+    fragile |= near.any(dim=-1)
+  return ~fragile.view(rays.shape[0], steps).any(dim=-1)
 
 
 def _kink_free(pre_activations, rays, steps: int, margin: float):

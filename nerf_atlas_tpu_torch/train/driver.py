@@ -5,7 +5,8 @@ Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
 `render_view`, `test`), for PlainNeRF (cp, hash, posenc, and mip cone
-or cylinder), TinyNeRF, NeRFAE and VolSDF. The port's modules own their
+or cylinder), TinyNeRF, NeRFAE, VolSDF and DynamicNeRF (D-NeRF's Δx warp
+and Spline-NeRF over a plain canonical). The port's modules own their
 parameters, so these functions take the model where the JAX package
 takes (model, params), and a train step is a Python closure (no jit).
 Unlike the JAX gates, a kernel gate never catches an exception: a
@@ -26,26 +27,33 @@ import numpy as np
 import torch
 
 from ..data import sampler as sampler_lib
-from ..models import MODEL_KINDS, NeRFAE, PlainNeRF, TinyNeRF, VolSDF
+from ..models import (MODEL_KINDS, DynamicNeRF, NeRFAE, PlainNeRF, TinyNeRF,
+                      VolSDF)
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
+from ..ops.kernels import render_dyn as k9
 from ..ops.kernels import render_volsdf as k8
 from . import checkpoints, losses as losses_lib, optim as optim_lib
 from . import regularizers
 
 # which train path the most recent train() engaged: "fused-one-kernel"
 # (K3 in the model's mode; for hash K5f + K3 + K5b; for NeRFAE K7b in
-# loss mode; for VolSDF K8b in loss mode) | "fused" (K1 + K2 through
-# PlainCPRender, PlainHashRender after HashEncode, K7f + K7b through
-# AERender, or K8f + K8b through VolSDFRender) | "oracle" (the module
-# forward under autograd). Recorded into log.json by the runner.
+# loss mode; for VolSDF K8b in loss mode; for DynamicNeRF K9b in loss
+# mode) | "fused" (K1 + K2 through PlainCPRender, PlainHashRender after
+# HashEncode, K7f + K7b through AERender, K8f + K8b through VolSDFRender,
+# or K9f + K9b through DynRender) | "oracle" (the module forward under
+# autograd). Recorded into log.json by the runner.
 LAST_TRAIN_PATH: Optional[str] = None
 
 # the regularizers each model kind carries (the JAX package's
-# REGULARIZERS keys); every other active coefficient raises
+# REGULARIZERS keys; "dynamic" is DynamicNeRF); every other active
+# coefficient raises
 MODEL_REGULARIZERS = {"ae": ("latent_l2",),
-                      "volsdf": ("eikonal", "volsdf_scale")}
+                      "volsdf": ("eikonal", "volsdf_scale"),
+                      "dynamic": ("delta_x",)}
+# the in-kernel regularizer column (the 5th output) of each kernel family
+_COLUMN_REGULARIZER = {"volsdf": "eikonal", "dynamic": "delta_x"}
 
 # the options of the smoothness regularizers (their models are not ported)
 _SMOOTH_REGS = {"item": "Queue 1 #10/#13"}
@@ -125,11 +133,15 @@ def check_config(cfg: TrainConfig, model_kind: str = "plain"):
   if active:
     raise NotImplementedError(
         f"regularizers {active} for --model {model_kind}: arrive with their "
-        "models (ROADMAP Queue 1 #10-#13)")
+        "models (ROADMAP Queue 1 "
+        f"{'#11' if model_kind == 'dynamic' else '#10-#13'})")
 
 
 def model_kind(model) -> str:
-  """The `models.MODEL_KINDS` key of a model."""
+  """The `models.MODEL_KINDS` key of a model ("dynamic" for a
+  DynamicNeRF)."""
+  if isinstance(model, DynamicNeRF):
+    return "dynamic"
   return next(k for k, c in MODEL_KINDS.items() if isinstance(model, c))
 
 
@@ -159,11 +171,29 @@ def _fused_enc_kind(model) -> Optional[str]:
     softplus scale and no mip (driver.py:366-378, :587-597, :1104-1117).
     The port's VolSDF has no occlusion, integrator or light, so those
     rules cannot fail.
-  The JAX gates also reject a latent (latent_size != 0) and timed data
-  (ds.times): the port's models take no latent and its loaders no times,
-  so neither can arise."""
+  - "dyn-cp" / "dyn-posenc" for a DynamicNeRF over a plain canonical
+    whose canonical_kwargs set nothing but enc_kind (cp or posenc),
+    refl_kind (view), steps, t_near, t_far, sky_kind and sigmoid_kind,
+    with the rigidity gate, no mip, and spline_points at most
+    k9.MAX_SPLINE, the kernels' packed width (driver.py:405-422,
+    :617-629, :1064-1082; the JAX gates' other rules cannot fail here:
+    the port's DynamicNeRF refuses spline_points 1 and a time latent, and
+    its canonical is always plain). The train gates also need the data's
+    times (`_dyn_data_ok`).
+  The JAX gates also reject a latent (latent_size != 0) and, for the
+  static models, timed data: the port's models take no latent, and a
+  static model on timed data trains as on static data (the JAX gates
+  check the times only for their dynamic branch)."""
   if (model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS or model.lindisp):
     return None
+  if isinstance(model, DynamicNeRF):
+    ck = model.canonical_kwargs
+    return (f"dyn-{ck.get('enc_kind', 'cp')}"
+            if (model.mip is None and model.with_rigidity
+                and model.spline_points <= k9.MAX_SPLINE
+                and ck.get("enc_kind", "cp") in k9.ENC_KINDS
+                and ck.get("refl_kind", "view") == "view"
+                and set(ck) <= _DYN_CANONICAL_KEYS) else None)
   if isinstance(model, VolSDF):
     return ("volsdf" if model.sdf_kind == "mlp" and model.refl_kind == "view"
             and model.scale_kind == "softplus" and model.sdf_latent == 32
@@ -184,8 +214,21 @@ def _fused_enc_kind(model) -> Optional[str]:
   return None
 
 
-def _pack(state_dict, device, enc: str) -> torch.Tensor:
+_DYN_CANONICAL_KEYS = {"enc_kind", "refl_kind", "steps", "t_near", "t_far",
+                       "sky_kind", "sigmoid_kind"}
+
+
+def _dyn_enc(enc: Optional[str]) -> Optional[str]:
+  """The canonical encoder of a D-NeRF kernel mode ("dyn-cp" -> "cp"),
+  None for the other modes."""
+  return enc[4:] if enc is not None and enc.startswith("dyn-") else None
+
+
+def _pack(state_dict, device, enc: str, spline_points: int = 0
+          ) -> torch.Tensor:
   """The packed weights of a model in the kernels' envelope."""
+  if _dyn_enc(enc):
+    return k9.pack_weights(state_dict, device, _dyn_enc(enc), spline_points)
   if enc == "ae":
     return k7.pack_weights_ae(state_dict, device)
   if enc == "volsdf":
@@ -195,6 +238,8 @@ def _pack(state_dict, device, enc: str) -> torch.Tensor:
 
 def _unpack_grads(model, enc: str,
                   packed: torch.Tensor) -> Dict[str, torch.Tensor]:
+  if _dyn_enc(enc):
+    return k9.unpack_grads(packed, _dyn_enc(enc), model.spline_points)
   if enc == "ae":
     return k7.unpack_grads_ae(packed)
   if enc == "volsdf":                 # d/ds chained to the raw scale
@@ -214,15 +259,18 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   per ray as the backward kernel's shared memory holds
   (`k1.BWD_MAX_STEPS`: 460 for cone and cylinder, whose 96-row init
   feature takes the room, 1024 for the other plain modes; 512 for
-  NeRFAE, `k7.BWD_MAX_STEPS`, and VolSDF, `k8.BWD_MAX_STEPS`), where the
-  JAX gate engages its kernel at any count. A model with more steps
-  trains through its module forward; its eval render still takes its
-  forward kernel (up to 2048 steps). A VolSDF that computes normals
-  engages only with the eikonal active, whose residual the kernels
-  compute themselves (driver.py:374, :595)."""
+  NeRFAE, `k7.BWD_MAX_STEPS`, and VolSDF, `k8.BWD_MAX_STEPS`; 389 for
+  the D-NeRF modes with the cp canonical and 1024 with posenc,
+  `k9.BWD_MAX_STEPS`, whose four MLP chains take the room), where the JAX
+  gate engages its kernel at any count. A model with more steps trains
+  through its module forward; its eval render still takes its forward
+  kernel (up to 2048 steps). A VolSDF that computes normals engages only
+  with the eikonal active, whose residual the kernels compute themselves
+  (driver.py:374, :595)."""
   allowed = MODEL_REGULARIZERS.get(model_kind(model), ())
   enc = _fused_enc_kind(model)
-  max_steps = {"ae": k7.BWD_MAX_STEPS, "volsdf": k8.BWD_MAX_STEPS}
+  max_steps = {"ae": k7.BWD_MAX_STEPS, "volsdf": k8.BWD_MAX_STEPS,
+               **{f"dyn-{e}": k9.BWD_MAX_STEPS[e] for e in k9.ENC_KINDS}}
   return not (
       enc is None
       or model.steps > max_steps.get(enc, k1.BWD_MAX_STEPS.get(enc))
@@ -242,7 +290,18 @@ def _kernel_kw(model) -> dict:
             sigmoid_kind=model.sigmoid_kind, sky_kind=model.sky_kind)
   if isinstance(model, VolSDF):
     kw["sphere_init"] = model.shape.sphere_init
+  if isinstance(model, DynamicNeRF):
+    kw.update(spline_points=model.spline_points,
+              enc_kind=_dyn_enc(_fused_enc_kind(model)))
   return kw
+
+
+def _dyn_data_ok(model, ds) -> bool:
+  """A D-NeRF train gate engages only on timed data (driver.py:421,
+  :628: `ds.times is None` refuses); the other models' gates do not look
+  at the times."""
+  return (not isinstance(model, DynamicNeRF)
+          or getattr(ds, "times", None) is not None)
 
 
 def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
@@ -259,8 +318,10 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   transforms, tone map, gamma or style, 3- or 4-channel labels) and
   `_fused_common_ok` holds; None otherwise. VolSDF's scale decay reads
   the raw scale, which the kernel step does not return: with it the
-  two-kernel path trains (driver.py:582-586). Returns fn(rays, pix,
-  generator) -> (loss, {state_dict key: gradient})."""
+  two-kernel path trains (driver.py:582-586). For DynamicNeRF K9b in
+  loss mode, with --dp-weight's mean dp² inside (driver.py:617-641).
+  Returns fn(rays, pix, generator, times=None) -> (loss, {state_dict key:
+  gradient}); times [B] are the rays' times (DynamicNeRF's)."""
   if cfg.no_fused:
     return None
   g = cfg.gamma_correct
@@ -270,18 +331,25 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   if (tuple(cfg.loss_kinds) != ("l2",) or tuple(cfg.color_spaces) != ("rgb",)
       or gamma_active or style_active or ds.pixels.shape[-1] not in (3, 4)
       or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)
+      or not _dyn_data_ok(model, ds)
       or (cfg.reg_coeffs or {}).get("volsdf_scale")):
     return None
   enc = _fused_enc_kind(model)
-  _pack(model.state_dict(), None, enc)             # raises on divergence
+  spline = getattr(model, "spline_points", 0)
+  _pack(model.state_dict(), None, enc, spline)     # raises on divergence
   kw = _kernel_kw(model)
   eikonal = float((cfg.reg_coeffs or {}).get("eikonal") or 0.0)
+  dp_weight = float((cfg.reg_coeffs or {}).get("delta_x") or 0.0)
 
-  def fn(rays, pix, generator):
+  def fn(rays, pix, generator, times=None):
     ts = _step_ts(model, generator, rays.device)
     sd = model.state_dict()
-    ws = _pack(sd, rays.device, enc)
+    ws = _pack(sd, rays.device, enc, spline)
     target = pix[:, :3].contiguous()
+    if _dyn_enc(enc):
+      loss, grad = k9.fused_dyn_train_step(ws, rays, times, target, ts,
+                                           dp_weight=dp_weight, **kw)
+      return loss, _unpack_grads(model, enc, grad)
     if enc == "volsdf":
       loss, grad = k8.fused_volsdf_train_step(ws, rays, target, ts,
                                               eikonal_weight=eikonal, **kw)
@@ -305,20 +373,27 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   in the model's mode through `PlainCPRender`, for hash K5f/K5b
   (`HashEncode`) into K1/K2 (`PlainHashRender`), for NeRFAE K7f/K7b
   (`AERender`), for VolSDF K8f/K8b-G (`VolSDFRender`; with the eikonal
-  active K8f's 5th column, its per-ray mean residual), with the loss
-  computed outside. Returns fn(ws, rays, generator) -> [N, 4] (VolSDF
-  with the eikonal [N, 5]), differentiable in the packed weights ws
-  (and, for hash, in the model's table parameter), or None."""
-  del ds
-  if cfg.no_fused or not _fused_common_ok(model, cfg):
+  active K8f's 5th column, its per-ray mean residual), for DynamicNeRF
+  K9f/K9b-G (`DynRender`; with --dp-weight K9f's 5th column, the per-ray
+  mean dp²), with the loss computed outside. Returns fn(ws, rays,
+  generator, times=None) -> [N, 4] (with an in-kernel regularizer column
+  [N, 5]), differentiable in the packed weights ws (and, for hash, in the
+  model's table parameter), or None."""
+  if (cfg.no_fused or not _fused_common_ok(model, cfg)
+      or not _dyn_data_ok(model, ds)):
     return None
   enc = _fused_enc_kind(model)
-  _pack(model.state_dict(), None, enc)             # raises on divergence
+  _pack(model.state_dict(), None, enc,
+        getattr(model, "spline_points", 0))        # raises on divergence
   kw = _kernel_kw(model)
   want_eikonal = bool((cfg.reg_coeffs or {}).get("eikonal"))
+  want_dp = bool((cfg.reg_coeffs or {}).get("delta_x"))
 
-  def fn(ws, rays, generator):
+  def fn(ws, rays, generator, times=None):
     ts = _step_ts(model, generator, rays.device)
+    if _dyn_enc(enc):
+      return k9.fused_dyn_render_train(ws, rays, times, ts, want_dp=want_dp,
+                                       **kw)
     if enc == "volsdf":
       return k8.fused_volsdf_render_train(ws, rays, ts,
                                           want_eikonal=want_eikonal, **kw)
@@ -347,16 +422,23 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   (`regularizers.total_regularizer`); on the two-kernel path K8f's
   eikonal column (its mean over the rays) and the scale computed from
   the raw parameter (driver.py:724-735); the one-kernel step computes
-  the eikonal inside K8b. A parameter that takes no gradient (VolSDF's
-  Fourier matrix) gets a zero one, so that the optimizer steps it as
-  optax steps a stop-gradient parameter: weight decay shrinks it."""
+  the eikonal inside K8b. DynamicNeRF's --dp-weight: on the oracle path
+  the mean of out["dp"]² (`regularizers.delta_x`); on the two-kernel
+  path K9f's dp² column (its mean over the rays, driver.py:724-731); the
+  one-kernel step computes it inside K9b. A dynamic model's batch carries
+  each ray's time (its view's). A parameter that takes no gradient
+  (VolSDF's and DynamicNeRF's Fourier matrices) gets a zero one, so that
+  the optimizer steps it as optax steps a stop-gradient parameter: weight
+  decay shrinks it."""
   params = dict(model.named_parameters())
   fixed = [p for p in params.values() if not p.requires_grad]
   device = next(model.parameters()).device
   enc = _fused_enc_kind(model)
+  dynamic = isinstance(model, DynamicNeRF)
   coeffs = cfg.reg_coeffs or {}
   latent_l2 = float(coeffs.get("latent_l2") or 0.0)
-  eikonal = float(coeffs.get("eikonal") or 0.0)
+  column = float(coeffs.get(_COLUMN_REGULARIZER.get(model_kind(model), ""))
+                 or 0.0)
   scale_decay = float(coeffs.get("volsdf_scale") or 0.0)
 
   def fused_regularizer(out, generator):
@@ -365,7 +447,7 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
     if latent_l2:
       reg = reg + latent_l2 * regularizers.ae_latent_l2(model, generator)
     if out.shape[-1] == 5:
-      reg = reg + eikonal * torch.mean(out[:, 4])
+      reg = reg + column * torch.mean(out[:, 4])
     if scale_decay:
       reg = reg + scale_decay * model.density_params()
     return reg
@@ -377,11 +459,12 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
 
   def step(i: int, generator: torch.Generator):
     opt.zero_grad()
-    rays, pix, _, _ = ds.sample(
+    rays, pix, t, _ = ds.sample(
         generator, cfg.batch_size, jitter=cfg.pixel_jitter,
         serial_step=i if cfg.serial_idxs else None, end_bias=cfg.end_bias)
+    timed = {"times": t} if dynamic else {}
     if fused_step is not None:
-      main, grads = fused_step(rays, pix, generator)
+      main, grads = fused_step(rays, pix, generator, **timed)
       loss = main
       if latent_l2:
         reg = latent_l2 * regularizers.ae_latent_l2(model, generator)
@@ -389,14 +472,15 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
         loss = main + reg.detach()
       add_grads(grads)
     elif fused_train is not None:
-      ws = _pack(model.state_dict(), device, enc).requires_grad_(True)
-      out = fused_train(ws, rays, generator)
+      ws = _pack(model.state_dict(), device, enc,
+                 getattr(model, "spline_points", 0)).requires_grad_(True)
+      out = fused_train(ws, rays, generator, **timed)
       main = loss_fn(out[:, :3], pix)
       loss = main + fused_regularizer(out, generator)
       loss.backward()       # hash: the table's .grad, ae: the encoder's,
       add_grads(_unpack_grads(model, enc, ws.grad))  # volsdf: the scale's
     else:
-      out = model(rays, train=True, generator=generator)
+      out = model(rays, train=True, generator=generator, **timed)
       main = loss_fn(out["rgb"], pix)
       loss = main + regularizers.total_regularizer(out, coeffs)
       loss.backward()
@@ -487,20 +571,25 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
 
 def _fused_render_fn(model) -> Optional[Callable]:
   """rays [n, 6] -> rgb [n, 3] through K1 in the model's mode (cp,
-  posenc, tiny, cone, cylinder), K5f + K1 (hash), K7f (ae) or K8f
-  (volsdf) when the model is in the kernels' envelope
-  (`_fused_enc_kind`, any sky the kernel implements: the "random" sky is
-  black at eval, driver.py:1045, :1145); None otherwise. A parameter tree
-  that diverges from the default one raises (in `pack_weights`)."""
+  posenc, tiny, cone, cylinder), K5f + K1 (hash), K7f (ae), K8f (volsdf)
+  or K9f (a DynamicNeRF, at each ray's time times [n]: fn(rays, times))
+  when the model is in the kernels' envelope (`_fused_enc_kind`, any sky
+  the kernel implements: the "random" sky is black at eval,
+  driver.py:1045, :1145; D-NeRF's eval gate takes black and white only,
+  driver.py:1075); None otherwise. A parameter tree that diverges from
+  the default one raises (in `pack_weights`)."""
   enc = _fused_enc_kind(model)
-  if enc is None or model.sky_kind not in integrate.SKY_KINDS:
+  if enc is None or model.sky_kind not in integrate.SKY_KINDS or (
+      _dyn_enc(enc) and model.sky_kind not in ("black", "white")):
     return None
   device = next(model.parameters()).device
   sd = model.state_dict()
-  ws = _pack(sd, device, enc)                 # raises on divergence
+  ws = _pack(sd, device, enc, getattr(model, "spline_points", 0))
   kw = _kernel_kw(model)
 
-  def fn(rays_chunk):
+  def fn(rays_chunk, times_chunk=None):
+    if _dyn_enc(enc):
+      return k9.fused_dyn_render(ws, rays_chunk, times_chunk, **kw)[:, :3]
     if enc == "volsdf":
       return k8.fused_volsdf_render(ws, rays_chunk, **kw)[:, :3]
     if enc == "ae":
@@ -516,26 +605,39 @@ def _fused_render_fn(model) -> Optional[Callable]:
 @torch.no_grad()
 def render_view(model, ds: sampler_lib.RayDataset, view: int,
                 render_size: Optional[int] = None, chunk: int = 65536,
-                mode: str = "rgb") -> np.ndarray:
+                mode: str = "rgb",
+                time_val: Optional[float] = None) -> np.ndarray:
   """Tiled no-grad rendering of one full view -> [S, S, C] numpy.
 
   mode: "rgb" | "depth" (expected termination depth) | "acc" (opacity).
-  rgb goes through the K1 kernel wrapper when the model is in its
-  envelope, everything else through the model's forward."""
+  rgb goes through the model's kernel when the model is in its
+  envelope, everything else through the model's forward. A dynamic model
+  renders at `time_val`, else at the view's time ds.times[view]
+  (driver.py:1320-1338); with neither it raises."""
   if mode not in ("rgb", "depth", "acc"):
     raise NotImplementedError(
         f"render mode {mode}: normals/flow/rigidity maps arrive with their "
         "models (ROADMAP Queue 1 #10/#11)")
   rs = render_size or ds.size
   rays = ds.view_rays(view, rs)
+  timed = {}
+  if isinstance(model, DynamicNeRF):
+    if time_val is None:
+      if ds.times is None:
+        raise ValueError("a dynamic model renders at a time: pass time_val "
+                         "or give the dataset its views' times")
+      time_val = float(ds.times[view])
+    timed["times"] = torch.full((rays.shape[0],), time_val,
+                                dtype=torch.float32, device=rays.device)
   fused = _fused_render_fn(model) if mode == "rgb" else None
   outs = []
   for i in range(0, rays.shape[0], chunk):
     rc = rays[i:i + chunk]
+    tc = {k: v[i:i + chunk] for k, v in timed.items()}
     if fused is not None:
-      outs.append(fused(rc))
+      outs.append(fused(rc, *tc.values()))
       continue
-    out = model(rc)
+    out = model(rc, **tc)
     if mode == "depth":
       outs.append(integrate.depth_from_weights(out["weights"], out["ts"]))
     elif mode == "acc":

@@ -1,9 +1,10 @@
 """The regularizers the port's models carry: NeRFAE's latent L2, in its
-two forms, and VolSDF's eikonal and scale decay.
+two forms, VolSDF's eikonal and scale decay, and DynamicNeRF's delta-x.
 
 Counterpart of `nerf_atlas_tpu/train/regularizers.py:latent_l2`,
-`eikonal`, `volsdf_scale`, `total_regularizer` and `ae_latent_l2`; the
-other terms arrive with their models (ROADMAP Queue 1 #11, #13).
+`eikonal`, `delta_x`, `volsdf_scale`, `total_regularizer` and
+`ae_latent_l2`; the other terms arrive with their models (ROADMAP Queue 1
+#11, #13).
 """
 from __future__ import annotations
 
@@ -24,6 +25,13 @@ def eikonal(out):
   return out.get("eikonal", 0.0)
 
 
+def delta_x(out):
+  """The mean squared deformation of a dynamic model's out["dp"] (D-NeRF's
+  regularizer, --dp-weight); 0 without one."""
+  dp = out.get("dp")
+  return 0.0 if dp is None else torch.mean(torch.square(dp))
+
+
 def volsdf_scale(out):
   """VolSDF's learned Laplace scale out["scale"]: its coefficient anneals
   the scale down (sharper surfaces)."""
@@ -31,7 +39,7 @@ def volsdf_scale(out):
 
 
 REGULARIZERS = {"latent_l2": latent_l2, "eikonal": eikonal,
-                "volsdf_scale": volsdf_scale}
+                "delta_x": delta_x, "volsdf_scale": volsdf_scale}
 
 
 def total_regularizer(out, coeffs: Dict[str, float]):
