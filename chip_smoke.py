@@ -42,7 +42,13 @@ Phases, each printing its lines before the next starts:
      (render_dyn_bwd) in modes G and L, each with and without the dp²
      term, as for K8b over the rays `testing.dyn_kink_free_rays` clears;
      DynRender's gradient against mode G's and two K9b launches bit for
-     bit;
+     bit. Then per-ray ts and the weights output (K6) in CoarseFineNeRF's
+     modes (cp, posenc, cone, cylinder): K1 on the merged per-ray ts of a
+     coarse pass at 4096 x 128 and ragged at 77 x 16, seeded and
+     amplified, against its plain version (rgb, acc, weights); a shared
+     ts against the same ts per ray, bit for bit; K2 and K3 on those ts as
+     for cp; PlainCPRender (weights output on) against K2 and two K2
+     launches, bit for bit;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
@@ -54,6 +60,10 @@ Phases, each printing its lines before the next starts:
      --sigmoid-kind upshifted, which must launch K8f and nothing else;
      4h. dnerf-render-800: --data-kind synthetic-dyn --dyn-model plain,
      each view at its own time, which must launch K9f and nothing else;
+     4j. coarse_fine-render-800: --model coarse_fine --mip cone (BASELINE
+     config #2), which must launch K1 twice per 65536-ray chunk (the
+     coarse pass with weights, the fine pass on 128 per-ray ts), nothing
+     else, and run no module forward;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
      300 steps) and must engage the one-kernel step, launch K3 once per
@@ -72,7 +82,10 @@ Phases, each printing its lines before the next starts:
      dnerf_dx recipe (500 steps), and 5i. dnerf-spline-train-4096, its
      dnerf_spline_dp recipe (--spline 4 --dp-weight 1e-3, 300 steps), each
      through the one-kernel step (K9b once per step, K9f in eval, nothing
-     else), both splits 2 dB over all-black;
+     else), both splits 2 dB over all-black; 5j. coarse_fine-train-4096,
+     the sweep's coarse_fine_mip recipe (300 steps), through the
+     two-kernel path (K1 and K2 twice per step, K1 twice per eval chunk,
+     nothing else), both splits 2 dB over all-black;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -92,14 +105,18 @@ Phases, each printing its lines before the next starts:
      and the spline at S = 4: K9f and plain calls at 65536 x 64 with and
      without the dp² column, K9b-L and K9b-G calls at 4096 x 64 with and
      without the dp² term, one 800x800 frame, and the three train steps
-     of the dnerf_dx and dnerf_spline_dp recipes;
+     of the dnerf_dx and dnerf_spline_dp recipes. For coarse_fine: one
+     800x800 mip-cone frame through render_view and through the plain
+     version, K1 on per-ray ts at 65536 x 128 in each of its four modes
+     and K2-cone on per-ray ts at 4096 x 128 with their plain versions,
+     and the coarse_fine_mip train steps (K1 + K2 twice, plain);
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
      plain_hash, ae, plain_posenc, plain_mip_cone, volsdf_eikonal,
-     dnerf_dx and dnerf_spline_dp at 1500 steps and tiny at 3000 for each
-     seed (`--recipes` picks some of them; the D-NeRF runs must beat
-     all-black by 2 dB on both splits);
+     dnerf_dx, dnerf_spline_dp and coarse_fine_mip at 1500 steps and tiny
+     at 3000 for each seed (`--recipes` picks some of them; the D-NeRF and
+     coarse_fine runs must beat all-black by 2 dB on both splits);
   8. with `--profile` only: where one frame's and one train step's time
      goes, for cp, hash, ae, posenc, volsdf and dnerf_dx (torch.profiler
      traces: device
@@ -201,6 +218,17 @@ QUALITY_R05_POSENC = (33.413, 33.172)
 QUALITY_R05_MIP = (33.381, 32.455)
 QUALITY_R05_TINY = (23.284, 16.67)
 K4_MODES = ("posenc", "tiny", "cone", "cylinder")
+# the quality sweep's coarse_fine_mip recipe (scripts/tpu_quality_sweep.py:
+# 63-64): BASELINE config #2, CoarseFineNeRF with the cone IPE and 64
+# fine samples per ray (the fine pass composites 128); QUALITY_r05 (TPU,
+# seed 0, one run, the two-kernel path): a record, not a gate
+CF_TRAIN_ARGV = (TRAIN_ARGV[:3] + ["coarse_fine", "--mip", "cone"]
+                 + TRAIN_ARGV[6:])
+CF_STEPS = 300
+FINE_STEPS = 64
+QUALITY_R05_CF = (33.359, 32.386)
+# the kernel modes CoarseFineNeRF takes (K1/K2 with per-ray ts, K6)
+CF_MODES = ("cp", "posenc", "cone", "cylinder")
 # the quality sweep's volsdf_eikonal recipe (scripts/tpu_quality_sweep.py:
 # 78-80); QUALITY_r05 volsdf_eikonal (TPU, seed 0, one run, its one-kernel
 # path): a record, not a gate
@@ -918,11 +946,10 @@ def _train_run(port_runner, k1, loaders, dev, steps: int, extra=(),
   return results, secs, counts, black
 
 
-def _check_trained(results, black):
+def _check_trained(results, black, path="fused-one-kernel"):
   losses = [h["loss"] for h in results["history"]]
-  if results["engaged_path"] != "fused-one-kernel":
-    raise RuntimeError(f"engaged {results['engaged_path']}, not the "
-                       "one-kernel step")
+  if results["engaged_path"] != path:
+    raise RuntimeError(f"engaged {results['engaged_path']}, not {path}")
   if not (all(math.isfinite(v) for v in losses)
           and losses[-1] < 0.5 * losses[0]):
     raise RuntimeError(f"loss not finite and falling: {losses}")
@@ -1132,8 +1159,10 @@ def _no_cotangent_macs(layers, prefix: str, hidden: int, rows: int) -> int:
              if name.startswith(prefix) and i != hidden)
 
 
-def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool):
-  """Bound of one K1 (or, backward, K2/K3) call on n rays: 2 FLOP per
+def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool,
+               per_ray: bool = False):
+  """Bound of one K1 (or, backward, K2/K3) call on n rays (`per_ray`: with
+  each ray's own ts and dists, [n, steps] each): 2 FLOP per
   multiply-add of the MLPs per sample point (3x that backward: the
   forward, the input- and the weight-gradient products, less the input
   gradients no output needs: the View's p and elev/azim rows, and for
@@ -1145,6 +1174,7 @@ def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool):
   macs = sum(i * o for _, i, o in lay.density_layers + lay.refl_layers)
   pts = n * steps
   feat = pts * 16 if enc == "hash" else 0
+  ts_floats = 2 * steps * (n if per_ray else 1)
   if backward:
     skip = _no_cotangent_macs(lay.refl_layers, "refl.mlp", k1.R_HIDDEN, 5)
     if enc not in ("cp", "hash"):
@@ -1152,9 +1182,9 @@ def _mlp_bound(k1, enc: str, n: int, steps: int, backward: bool):
       skip += _no_cotangent_macs(lay.density_layers, name.rsplit(".", 1)[0],
                                  hidden, lay.feat_in)
     return _bound_ms(2 * (3 * macs - skip) * pts,
-                     4 * (n * 9 + 2 * steps + 2 * lay.weight_count
+                     4 * (n * 9 + ts_floats + 2 * lay.weight_count
                           + 2 * feat))
-  return _bound_ms(2 * macs * pts, 4 * (n * 10 + 2 * steps + lay.weight_count
+  return _bound_ms(2 * macs * pts, 4 * (n * 10 + ts_floats + lay.weight_count
                                         + feat))
 
 
@@ -1505,6 +1535,239 @@ def _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
             f"{v[1]:.2f} ms = {BATCH / (min(v) / 1e3):,.0f} train rays/s",
             flush=True)
   return res
+
+def _cf_model(models, mode, dev, **kw):
+  """The CoarseFineNeRF of a kernel mode at full width (64 + 64 steps)."""
+  mip = mode if mode in ("cone", "cylinder") else None
+  return models.CoarseFineNeRF(steps=STEPS, fine_steps=FINE_STEPS, mip=mip,
+                               enc_kind="cp" if mip else mode, device=dev,
+                               **kw)
+
+
+def _merged_ts(k1, sampling, ws, rays, mode, coarse: int, gen):
+  """Real per-ray ts [N, 2·coarse]: a coarse pass (K1 with weights on the
+  uniform grid of `coarse` steps), u from `gen`, the inverse CDF and the
+  merge, as CoarseFineNeRF's training draws its fine positions."""
+  _, w = k1.plain_cp_render(ws, rays, steps=coarse, enc_kind=mode,
+                            want_weights=True)
+  grid = torch.linspace(2.0, 6.0, coarse, device=rays.device).expand(
+      rays.shape[0], coarse)
+  return sampling.merge_ts(grid, sampling.sample_pdf(
+      grid, w, coarse, generator=gen)).contiguous()
+
+
+def _check_coarse_fine(k1, sampling, models, driver, dev):
+  """Phase 3, per-ray ts and the weights output (K6) in CoarseFineNeRF's
+  modes: K1 with per-ray ts and weights at 4096 x 128 (the merged ts of a
+  coarse pass of the seeded weights) and ragged at 77 x 16, seeded and
+  amplified, against the plain version (rgb, acc and weights); K1 on a
+  shared [T] ts against the same ts expanded to [N, T], bit for bit; K2
+  (mode G) and K3 (mode L) on the per-ray ts against autograd through the
+  plain K1, over all rays and the kink-free ones; PlainCPRender's
+  gradient (with its weights output) against K2's and two K2 launches,
+  bit for bit. Returns {mode: (K1 max |Δ|, K2/K3 max |Δ|)}."""
+  rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
+  rays_r = torch.from_numpy(_check_rays(77, 2)).to(dev)
+  out = {}
+  for i, mode in enumerate(CF_MODES):
+    sd = driver.init_model(_cf_model(models, mode, dev), seed=0).state_dict()
+    seeded = k1.pack_weights(sd, dev, mode)
+    amplified = k1.pack_weights(_k4_amplified(sd, mode), dev, mode)
+    gen = torch.Generator(device=dev).manual_seed(20 + i)
+    per_ray = {n: (r, _merged_ts(k1, sampling, seeded, r, mode, t // 2, gen))
+               for n, r, t in ((N_CHECK, rays, 2 * STEPS), (77, rays_r, 16))}
+    max_k1, max_bwd = 0.0, 0.0
+    for wname, sky, kind in (("seeded", "black", "thin"),
+                             ("amplified", "white", "normal")):
+      ws = seeded if wname == "seeded" else amplified
+      for n, (r, ts) in per_ray.items():
+        kw = dict(steps=ts.shape[1], t_near=2.0, t_far=6.0, sigmoid_kind=kind,
+                  sky_kind=sky, ts=ts, enc_kind=mode)
+        got, w = k1.plain_cp_render(ws, r, want_weights=True, **kw)
+        ref, w_ref = k1.plain_cp_render_reference(ws, r, want_weights=True,
+                                                  **kw)
+        torch.cuda.synchronize()
+        errs = [float((got[:, :3] - ref[:, :3]).abs().max()),
+                float((got[:, 3] - ref[:, 3]).abs().max()),
+                float((w - w_ref).abs().max())]
+        print(f"[check] K1-{mode} per-ray {wname:9s} sky {sky:5s} {kind:6s} "
+              f"{n} x {ts.shape[1]}: max|rgb| {errs[0]:.3e} max|acc| "
+              f"{errs[1]:.3e} max|weights| {errs[2]:.3e} (tol {TOL:.0e}; "
+              f"ref rgb std {float(ref[:, :3].std()):.3f})", flush=True)
+        if not (max(errs) <= TOL and bool(torch.isfinite(got).all())
+                and bool(torch.isfinite(w).all())):
+          raise RuntimeError(f"K1-{mode} per-ray disagrees with its plain "
+                             f"version: {errs}")
+        max_k1 = max([max_k1] + errs)
+        max_bwd = max(max_bwd, _check_bwd(
+            f"per-ray {wname:9s} sky {sky:5s} {kind:6s} {n} x {ts.shape[1]}",
+            k1, ws, r, gen, kw))
+      ts = per_ray[N_CHECK][1]
+      kw = dict(steps=ts.shape[1], sigmoid_kind=kind, sky_kind=sky,
+                enc_kind=mode, want_weights=True)
+      shared = k1.plain_cp_render(ws, rays, ts=ts[0].contiguous(), **kw)
+      expanded = k1.plain_cp_render(
+          ws, rays, ts=ts[0].expand(N_CHECK, ts.shape[1]).contiguous(), **kw)
+      if not all(torch.equal(a, b) for a, b in zip(shared, expanded)):
+        raise RuntimeError(f"K1-{mode}: a shared ts and the same ts per ray "
+                           "differ")
+    r, ts = per_ray[77]
+    kw = dict(steps=16, ts=ts, sky_kind="white", enc_kind=mode)
+    g = torch.randn(77, 4, device=dev, generator=gen)
+    leaf = amplified.clone().requires_grad_(True)
+    o, w = k1.plain_cp_render_train(leaf, r, ts, steps=16, sky_kind="white",
+                                    enc_kind=mode, want_weights=True)
+    (o * g).sum().backward()
+    direct = k1.plain_cp_render_grad(amplified, r, g, **kw)
+    again = k1.plain_cp_render_grad(amplified, r, g, **kw)
+    if w.requires_grad or not (torch.equal(leaf.grad, direct)
+                               and torch.equal(direct, again)):
+      raise RuntimeError(f"PlainCPRender-{mode} per-ray: its gradient "
+                         "differs from K2's, two K2 launches differ, or its "
+                         "weights output takes a gradient")
+    print(f"[check] K1-{mode}: shared ts == the same ts per ray (bitwise, "
+          f"rgb ‖ acc and weights); PlainCPRender-{mode} per-ray backward == "
+          f"K2-{mode} (bitwise), its weights output non-differentiable; two "
+          f"K2-{mode} per-ray launches bitwise equal", flush=True)
+    out[mode] = (max_k1, max_bwd)
+  return out
+
+
+def _train_main_cf(port_runner, k1, loaders, dev):
+  """Phase 5j: the coarse_fine_mip recipe through the two-kernel path: K1
+  twice (coarse with weights, fine on the merged per-ray ts) and K2 twice
+  per step, K1 twice per chunk in eval, nothing else; both splits 2 dB
+  over all-black. Returns the launches per kernel."""
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            CF_STEPS, argv=CF_TRAIN_ARGV)
+  losses = _check_trained(results, black, path="fused")
+  eval_k1 = counts["K1"] - 2 * CF_STEPS
+  others = {k: v for k, v in counts.items() if k not in ("K1", "K2") and v}
+  if (counts["K2"] != 2 * CF_STEPS or eval_k1 <= 0 or eval_k1 % 2
+      or others):
+    raise RuntimeError(f"coarse_fine training launched {counts}, expected "
+                       f"{2 * CF_STEPS} K2, {2 * CF_STEPS} K1 and two K1 per "
+                       "eval chunk, nothing else")
+  print(f"[train] runner coarse_fine_mip {CF_STEPS} steps x {BATCH} rays x "
+        f"{STEPS} + {FINE_STEPS} samples (48x48, 30 views): {secs:.2f} s end "
+        f"to end | path {results['engaged_path']} | launches K1 "
+        f"{counts['K1']} ({2 * CF_STEPS} in training, {eval_k1} in eval), K2 "
+        f"{counts['K2']} | loss {losses[0]:.5f} -> {losses[-1]:.5f} | PSNR "
+        f"train {results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts
+
+
+def _time_coarse_fine(card, models, driver, loaders, sampler, k1, sampling,
+                      dev, frame_ds):
+  """Phase 6, coarse_fine: one 800x800 mip-cone frame through render_view
+  (K1 twice per chunk) and through the plain version (the plain coarse
+  pass, its own sampling, the plain fine pass; held to TOL); K1 per ray
+  at 65536 x 128 (the merged ts of a coarse pass) and its plain version
+  in each mode, K2 per ray at 4096 x 128 in cone and its plain version
+  (autograd through the plain K1), plain, kernel, kernel, plain; the
+  coarse_fine_mip train steps at 4096 (K1 + K2 twice, plain). Returns
+  {"frame_err", "fwd": {mode: (ms, plain ms, bound)}, "bwd": (...)}."""
+  model = driver.init_model(_cf_model(models, "cone", dev), seed=0)
+  frame_rays = frame_ds.view_rays(0)
+  ws = k1.pack_weights(model.state_dict(), dev, "cone")
+  grid = torch.linspace(2.0, 6.0, STEPS, device=dev)
+  total = STEPS + FINE_STEPS
+
+  def ref_frame():
+    outs = []
+    for i in range(0, frame_rays.shape[0], CHUNK):
+      rc = frame_rays[i:i + CHUNK]
+      _, w = k1.plain_cp_render_reference(ws, rc, steps=STEPS,
+                                          enc_kind="cone", want_weights=True)
+      tb = grid.expand(rc.shape[0], STEPS)
+      ts = sampling.merge_ts(tb, sampling.sample_pdf(tb, w, FINE_STEPS))
+      for j in range(0, rc.shape[0], CHUNK // 2):    # halves, as below
+        outs.append(k1.plain_cp_render_reference(
+            ws, rc[j:j + CHUNK // 2], steps=total,
+            ts=ts[j:j + CHUNK // 2].contiguous(), enc_kind="cone")[:, :3])
+    return torch.cat(outs)
+
+  img_ref, ref_s = _sync_time(ref_frame)
+  img_k, k_s = _sync_time(lambda: driver.render_view(model, frame_ds, 0))
+  frame_err = float(np.abs(img_k.reshape(-1, 3)
+                           - img_ref.cpu().numpy()).max())
+  print(f"[time] {card}: one {SIZE}x{SIZE} coarse_fine (cone, {STEPS} + "
+        f"{FINE_STEPS}) frame: render_view (K1 x 2 per chunk) {k_s:.3f} s = "
+        f"{SIZE * SIZE / k_s:,.0f} rays/s, plain torch {ref_s:.3f} s | frame "
+        f"max diff {frame_err:.2e}", flush=True)
+  if frame_err > TOL:
+    raise RuntimeError(f"coarse_fine frame: kernel vs plain {frame_err}")
+
+  call_rays = frame_rays[:CHUNK].contiguous()
+  half = CHUNK // 2
+  gen = torch.Generator(device=dev).manual_seed(12)
+  res = {"frame_err": frame_err, "fwd": {}}
+  for mode in CF_MODES:
+    wm = k1.pack_weights(driver.init_model(_cf_model(models, mode, dev),
+                                           seed=0).state_dict(), dev, mode)
+    ts = _merged_ts(k1, sampling, wm, call_rays, mode, STEPS, gen)
+    kw = dict(steps=total, enc_kind=mode)
+
+    # the plain version in two halves: its MLP's activations at 65536 x
+    # 128 points would take most of the card's memory
+    def plain():
+      return [k1.plain_cp_render_reference(
+          wm, call_rays[i:i + half], ts=ts[i:i + half], **kw)
+          for i in (0, half)]
+
+    ms = {}
+    for name, fn, reps in (
+        ("plain", plain, 2),
+        ("kernel", lambda: k1.plain_cp_render(wm, call_rays, ts=ts, **kw), 3),
+        ("kernel", lambda: k1.plain_cp_render(wm, call_rays, ts=ts, **kw), 3),
+        ("plain", plain, 2)):
+      ms.setdefault(name, []).append(_event_ms(fn, reps))
+    b1 = _mlp_bound(k1, mode, CHUNK, total, False, per_ray=True)
+    print(f"[time] {card}: one {CHUNK}-ray x {total}-step K1-{mode} call on "
+          f"per-ray ts {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
+          f"(bound {b1[0]:.2f} ms, bf16 {b1[2]:.2f}), plain torch "
+          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+    res["fwd"][mode] = (min(ms["kernel"]), min(ms["plain"]), b1)
+
+  r4 = call_rays[:BATCH].contiguous()
+  ts = _merged_ts(k1, sampling, ws, r4, "cone", STEPS, gen)
+  g = torch.randn(BATCH, 4, device=dev, generator=gen)
+  kw = dict(steps=total, ts=ts, enc_kind="cone")
+  launches = k1.plain_cp_render_grad.launches
+  k2 = {}
+  for name, fn, reps in (
+      ("plain", lambda: k1.plain_cp_render_grad_reference(ws, r4, g, **kw), 3),
+      ("kernel", lambda: k1.plain_cp_render_grad(ws, r4, g, **kw), 5),
+      ("kernel", lambda: k1.plain_cp_render_grad(ws, r4, g, **kw), 5),
+      ("plain", lambda: k1.plain_cp_render_grad_reference(ws, r4, g, **kw),
+       3)):
+    k2.setdefault(name, []).append(_event_ms(fn, reps))
+  k1.plain_cp_render_grad.launches = launches        # timing, not the path
+  b2 = _mlp_bound(k1, "cone", BATCH, total, True, per_ray=True)
+  print(f"[time] {card}: one {BATCH}-ray x {total}-step K2-cone call on "
+        f"per-ray ts {k2['kernel'][0]:.2f} / {k2['kernel'][1]:.2f} ms (bound "
+        f"{b2[0]:.2f} ms, bf16 {b2[2]:.2f}), plain torch {k2['plain'][0]:.2f} "
+        f"/ {k2['plain'][1]:.2f} ms", flush=True)
+  res["bwd"] = (min(k2["kernel"]), min(k2["plain"]), b2)
+
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=48, num_views=30,
+                   device=dev), size=48, device=dev)
+  fns = _step_fns(models.CoarseFineNeRF, driver, ds, dev,
+                  names=("K1+K2 step", "plain step"), mip="cone",
+                  enc_kind="cp", fine_steps=FINE_STEPS)
+  step_ms = {}
+  for name in ("K1+K2 step", "plain step", "plain step", "K1+K2 step"):
+    step, _ = fns[name]
+    step_ms.setdefault(name, []).append(_event_ms(lambda: step(0, gen), 5))
+  for name, v in step_ms.items():
+    print(f"[time] {card}: coarse_fine_mip {name} at {BATCH}x({STEPS} + "
+          f"{total}): {v[0]:.2f} / {v[1]:.2f} ms = "
+          f"{BATCH / (min(v) / 1e3):,.0f} train rays/s", flush=True)
+  return res
+
 
 def _volsdf_weights(models, driver, k8, dev, steps=STEPS):
   """(state_dict, seeded, amplified) of a VolSDF at the recipe's width:
@@ -2358,7 +2621,8 @@ QUALITY_RECIPES = (
     ("volsdf_eikonal", VOLSDF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_VOLSDF),
     ("dnerf_dx", DNERF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_DNERF),
     ("dnerf_spline_dp", DNERF_SPLINE_ARGV, QUALITY_STEPS,
-     QUALITY_R05_DNERF_SPLINE))
+     QUALITY_R05_DNERF_SPLINE),
+    ("coarse_fine_mip", CF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_CF))
 
 
 def _quality(card, port_runner, k1, loaders, dev, seeds, recipes=None):
@@ -2388,6 +2652,8 @@ def _quality(card, port_runner, k1, loaders, dev, seeds, recipes=None):
           f"{note}", flush=True)
     if name.startswith("dnerf"):
       _check_trained(results, black)
+    if name == "coarse_fine_mip":
+      _check_trained(results, black, path="fused")
 
 
 def _trace(fn, warm: int = 2):
@@ -2556,6 +2822,7 @@ def main(argv=None):
   from nerf_atlas_tpu_torch import runner as port_runner
   from nerf_atlas_tpu_torch.data import loaders, sampler
   from nerf_atlas_tpu_torch.ops import rays as rays_ops
+  from nerf_atlas_tpu_torch.ops import sampling
   from nerf_atlas_tpu_torch.ops.kernels import build
   from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
@@ -2581,6 +2848,7 @@ def main(argv=None):
   max_k8f, max_k8b = _check_volsdf(k8, testing, rays_ops, models, driver,
                                    dev)
   max_k9f, max_k9b = _check_dyn(k9, testing, rays_ops, models, driver, dev)
+  max_cf = _check_coarse_fine(k1, sampling, models, driver, dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
   results, secs, counts = _render_main(port_runner)
@@ -2633,6 +2901,13 @@ def main(argv=None):
   render_k9 = _render_main_k4(port_runner, models, "dnerf", "--data-kind",
                               "synthetic-dyn", "--dyn-model", "plain",
                               kernel="K9f")
+  # ---- 4j. coarse_fine-render-800: BASELINE config #2, K1 twice a chunk
+  render_cf = _render_main_k4(port_runner, models, "coarse_fine", "--model",
+                              "coarse_fine", "--mip", "cone")
+  cf_chunks = 2 * 2 * -(-SIZE * SIZE // CHUNK)
+  if render_cf != 2 * cf_chunks:
+    raise RuntimeError(f"the coarse_fine render launched K1 {render_cf} "
+                       f"times for {cf_chunks} chunks, not twice a chunk")
 
   # ---- 5. main path, train ----
   k3_launches = _train_main(port_runner, k1, loaders, dev)
@@ -2659,6 +2934,8 @@ def main(argv=None):
   train_k9s = _train_main_dyn(port_runner, k1, loaders, dev,
                               "dnerf_spline_dp", DNERF_SPLINE_ARGV,
                               DNERF_SPLINE_STEPS)
+  # ---- 5j. coarse_fine-train-4096, the coarse_fine_mip recipe ----
+  train_cf = _train_main_cf(port_runner, k1, loaders, dev)
 
   # ---- 6. timing at the main path's shapes ----
   ds = sampler.RayDataset.from_bundle(
@@ -2709,6 +2986,8 @@ def main(argv=None):
   k8_t = _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops,
                       dev, ds)
   k9_t = _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev)
+  cf_t = _time_coarse_fine(card, models, driver, loaders, sampler, k1,
+                           sampling, dev, ds)
   print(f"[time] phases 1-6 (the run without --quality and --profile): "
         f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2787,6 +3066,17 @@ def main(argv=None):
       ("render_dyn_bwd_spline_dp", "render_dyn_bwd.cu", "render_dyn.py:231",
        train_k9s["K9b"], max_k9b,
        *k9_t[(f"spline S={DNERF_SPLINE}", "K9b-L dp")], None)]
+  # per-ray ts (K6): the fine pass's launches on the main paths, half of
+  # K1's in 4j and of K2's in 5j (the coarse pass takes the shared grid)
+  for mode in CF_MODES:
+    err = max_cf[mode][0]
+    if mode == "cone":
+      err = max(err, cf_t["frame_err"])
+    rows.append((f"render_fwd_perray_{mode}", "render_fwd.cu",
+                 "render.py:586", render_cf // 2 if mode == "cone" else 0,
+                 err, *cf_t["fwd"][mode], None))
+  rows.append(("render_bwd_perray_cone", "render_bwd.cu", "render.py:915",
+               train_cf["K2"] // 2, max_cf["cone"][1], *cf_t["bwd"], None))
   for name, *_, bound, _ in rows:
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores), {bound[2]:.4f} ms at the bf16 "

@@ -3,7 +3,8 @@
 // "cylinder" (K1's, render_fwd.cu).
 //
 // Replaces nerf_atlas_tpu/ops/pallas/render.py:_render_bwd_kernel (every
-// enc_kind), both of its modes, in one source:
+// enc_kind, [1, T] or [B, T] ts: K1's shared or per-ray sample positions,
+// by the same row stride), both of its modes, in one source:
 //   mode G (K2, the autograd backward of K1): takes the output cotangent
 //     g [N, 4] (rgb ‖ acc) and returns d(Σ g·out)/d(weights);
 //   mode L (K3, the one-kernel train step): takes target [N, 3] and
@@ -120,9 +121,9 @@ render_bwd_kernel(const float* __restrict__ rays,
                   float* __restrict__ dfeat,
                   float* __restrict__ partial,
                   float* __restrict__ stash,
-                  int n_rays, int steps, int rays_per_block, int n_rb,
-                  int tiles, int sigmoid_kind, int sky_white, int loss_mode,
-                  float loss_scale) {
+                  int n_rays, int steps, int ts_stride, int rays_per_block,
+                  int n_rb, int tiles, int sigmoid_kind, int sky_white,
+                  int loss_mode, float loss_scale) {
   using L = BwdLayout<ENC>;
   constexpr int FEAT_IN = L::FEAT_IN;
   constexpr int F_ROWS = L::F_ROWS;
@@ -176,7 +177,8 @@ render_bwd_kernel(const float* __restrict__ rays,
         if (tid < TILE) {
           const int q = min(q0 + tid, n_pts - 1);
           const float* s = ray_s + 8 * (q / steps);
-          const float t = ts[q % steps];
+          const float t =
+              ray_row(ts, ts_stride, ray0 + q / steps, n_rays)[q % steps];
 #pragma unroll
           for (int c = 0; c < 3; ++c)
             F[c * PS + tid] = sample_point(s[c], t, s[3 + c]);
@@ -198,7 +200,8 @@ render_bwd_kernel(const float* __restrict__ rays,
           cp_encode_rows(F, w);
         }
       } else {
-        encode_tile<ENC>(F, X, ray_s, ts, fq, q0, n_pts, steps);
+        encode_tile<ENC>(F, X, ray_s, ts, ts_stride, ray0, n_rays, fq, q0,
+                         n_pts, steps);
       }
       __syncthreads();
       for (int i = tid; i < FEAT_IN * TILE; i += THREADS) {
@@ -227,7 +230,8 @@ render_bwd_kernel(const float* __restrict__ rays,
           const float* s = ray_s + 8 * (qc / steps);
           if constexpr (L::MIP) {
             // mip's init feature holds no p: the point again, rounded alike
-            const float t = ts[qc % steps];
+            const float t = ray_row(ts, ts_stride, ray0 + qc / steps,
+                                    n_rays)[qc % steps];
 #pragma unroll
             for (int c = 0; c < 3; ++c)
               F[c * PS + tid] = sample_point(s[c], t, s[3 + c]);
@@ -263,6 +267,7 @@ render_bwd_kernel(const float* __restrict__ rays,
     for (int r = tid; r < rays_per_block; r += THREADS) {
       const bool valid = ray0 + r < n_rays;
       const float* s = ray_s + 8 * r;
+      const float* dr = ray_row(dists, ts_stride, ray0 + r, n_rays);
       const float rd_norm = sqrtf(s[3] * s[3] + s[4] * s[4] + s[5] * s[5]);
       float* e = res + 8 * r * steps;
       float trans = 1.0f, acc = 0.0f, w_last = 0.0f;
@@ -270,7 +275,7 @@ render_bwd_kernel(const float* __restrict__ rays,
       for (int t = 0; t < steps; ++t) {
         float* et = e + 8 * t;
         const float alpha = 1.0f - expf(-softplus(et[0] - 1.0f)
-                                        * (dists[t] * rd_norm));
+                                        * (dr[t] * rd_norm));
         const float wt_ = alpha * trans;
         float dummy;
         acc += wt_;
@@ -318,7 +323,7 @@ render_bwd_kernel(const float* __restrict__ rays,
                         + g[2] * (rgb[2] - mask);
         const float dalpha = A * tr - S / fmaxf(1.0f - alpha, 1e-10f);
         S += A * wt_;
-        const float dsig = dalpha * (dists[t] * rd_norm) * (1.0f - alpha);
+        const float dsig = dalpha * (dr[t] * rd_norm) * (1.0f - alpha);
         et[4] = dsig * sigmoid(et[0] - 1.0f);       // d density (raw)
 #pragma unroll
         for (int c = 0; c < 3; ++c) et[5 + c] = g[c] * wt_ * drgb[c];
@@ -415,9 +420,9 @@ template <int ENC>
 int launch(const float* rays, const float* ts, const float* dists,
            const float* weights, const float* weights_t, const float* gin,
            const float* feats, const float* freqs, float* dfeat, float* out,
-           float* partial, float* stash, int n_rays, int steps, int blocks,
-           int sigmoid_kind, int sky_white, int loss_mode, float loss_scale,
-           cudaStream_t s) {
+           float* partial, float* stash, int n_rays, int steps, int ts_stride,
+           int blocks, int sigmoid_kind, int sky_white, int loss_mode,
+           float loss_scale, cudaStream_t s) {
   constexpr long WP = BwdLayout<ENC>::WP;
   if (steps > BwdLayout<ENC>::MAX_STEPS) return cudaErrorInvalidValue;
   const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
@@ -433,8 +438,8 @@ int launch(const float* rays, const float* ts, const float* dists,
   if (err != cudaSuccess) return err;
   render_bwd_kernel<ENC><<<blocks, THREADS, smem, s>>>(
       rays, ts, dists, weights, weights_t, gin, feats, freqs, dfeat, partial,
-      stash, n_rays, steps, rays_per_block, n_rb, tiles, sigmoid_kind,
-      sky_white, loss_mode, loss_scale);
+      stash, n_rays, steps, ts_stride, rays_per_block, n_rb, tiles,
+      sigmoid_kind, sky_white, loss_mode, loss_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials_kernel<><<<(int)((WP + 255) / 256), 256, 0, s>>>(
@@ -487,7 +492,9 @@ const char* render_bwd_error_string(int code) {
 }
 
 // Enqueues one backward on `stream`; returns the cudaError_t of the
-// launches. gin: g [N, 4] (loss_mode 0) or target [N, 3] (loss_mode 1).
+// launches. ts, dists: [steps] shared by every ray (ts_stride 0) or [N,
+// steps] per ray (ts_stride = steps). gin: g [N, 4] (loss_mode 0) or
+// target [N, 3] (loss_mode 1).
 // feats, dfeat: [N·steps, 16] for enc hash, else unused; freqs: the
 // posenc bands (`render_bwd_freq_count`) for enc posenc and tiny, else
 // unused. out: [weight count + 1] (gradient ‖ loss). partial: blocks ×
@@ -499,19 +506,20 @@ int render_bwd_launch(const float* rays, const float* ts, const float* dists,
                       const float* gin, const float* feats,
                       const float* freqs, float* dfeat, float* out,
                       float* partial, float* stash, int n_rays, int steps,
-                      int blocks, int sigmoid_kind, int sky_white,
-                      int loss_mode, float loss_scale, int enc,
-                      void* stream) {
+                      int ts_stride, int blocks, int sigmoid_kind,
+                      int sky_white, int loss_mode, float loss_scale,
+                      int enc, void* stream) {
   if (n_rays <= 0) return cudaSuccess;
-  if (steps < 2 || sigmoid_kind < 0 || sigmoid_kind > 7 || blocks <= 0
+  if (steps < 2 || (ts_stride != 0 && ts_stride != steps) || sigmoid_kind < 0
+      || sigmoid_kind > 7 || blocks <= 0
       || enc != RENDER_BWD_ENC
       || (enc == ENC_HASH && (feats == nullptr || dfeat == nullptr))
       || (render_bwd_freq_count(enc) > 0 && freqs == nullptr))
     return cudaErrorInvalidValue;
   return launch<RENDER_BWD_ENC>(
       rays, ts, dists, weights, weights_t, gin, feats, freqs, dfeat, out,
-      partial, stash, n_rays, steps, blocks, sigmoid_kind, sky_white,
-      loss_mode, loss_scale, static_cast<cudaStream_t>(stream));
+      partial, stash, n_rays, steps, ts_stride, blocks, sigmoid_kind,
+      sky_white, loss_mode, loss_scale, static_cast<cudaStream_t>(stream));
 }
 
 #undef RENDER_BWD_SWITCH

@@ -267,7 +267,8 @@ __device__ __forceinline__ void posenc_rows(float* F, const float* fq) {
 // (the tail reuses the last finite width, clamped at 1e-5: not the 1e10
 // tail the compositing uses), the conical frustum's (CONE) or the
 // cylinder's moments at radius 1e-3, lifted along r_d -> mean[3] and the
-// diagonal covariance cov[3].
+// diagonal covariance cov[3]. `ts` is the ray's own row of sample
+// positions: t1 and the tail's last two positions come from it too.
 template <bool CONE>
 __device__ __forceinline__ void ipe_moments(const float* s,
                                             const float* __restrict__ ts,

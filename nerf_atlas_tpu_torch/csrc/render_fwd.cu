@@ -3,8 +3,14 @@
 // "cylinder".
 //
 // Replaces nerf_atlas_tpu/ops/pallas/render.py:_render_kernel (every
-// enc_kind). One launch renders rays [N, 6] -> [N, 4] (rgb ‖ acc):
-//   p = r_o + t·r_d for the T shared sample positions
+// enc_kind, its [1, T] and [B, T] ts and its want_weights output). One
+// launch renders rays [N, 6] -> [N, 4] (rgb ‖ acc), and on request the
+// compositing weights [N, T] (CoarseFineNeRF's coarse pass samples its
+// fine positions from them):
+//   p = r_o + t·r_d for the T sample positions, shared by every ray ([T]
+//   ts and dists, row stride 0) or each ray's own ([N, T], stride T: the
+//   fine pass's merged positions; a ray past the ragged edge reads the
+//   last ray's row)
 //   -> the density MLP's init feature:
 //      cp: CP encode (4 levels × rank 8, 2-tap linear interpolation per
 //        axis, product over the three axes) -> [p ‖ cp] (35);
@@ -24,8 +30,9 @@
 //      activation sin(30·h) (tiny: none; rgb = the MLP's outputs 1..3)
 //   -> rgb activation (FUSED_SIGMOID_KINDS), sigma = softplus(density-1)
 //   -> per-ray compositing: alpha = 1 - exp(-sigma·Δt·‖r_d‖), running
-//      transmittance product of max(1 - alpha, 1e-10); a white sky adds
-//      the leftover transmittance excluding the 1e10 tail sample.
+//      transmittance product of max(1 - alpha, 1e-10), weight alpha·T
+//      (written out when asked); a white sky adds the leftover
+//      transmittance excluding the 1e10 tail sample.
 //
 // What bounds it: compute. Each sample point costs 0.89-1.01 MFLOP of
 // matmul for the PlainNeRF modes (459,520 multiply-adds for cp, 447,232
@@ -82,7 +89,8 @@ render_fwd_kernel(const float* __restrict__ rays,
                   const float* __restrict__ feats,
                   const float* __restrict__ freqs,
                   float* __restrict__ out,
-                  int n_rays, int steps, int rays_per_block,
+                  float* __restrict__ wout,
+                  int n_rays, int steps, int ts_stride, int rays_per_block,
                   int sigmoid_kind, int sky_white) {
   using L = Layout<ENC>;
   constexpr int FEAT_IN = L::FEAT_IN;
@@ -111,7 +119,8 @@ render_fwd_kernel(const float* __restrict__ rays,
       if (tid < TILE) {
         const int q = min(q0 + tid, n_pts - 1);
         const float* s = ray_s + 8 * (q / steps);
-        const float t = ts[q % steps];
+        const float t =
+            ray_row(ts, ts_stride, ray0 + q / steps, n_rays)[q % steps];
         if constexpr (ENC == ENC_CP) {
 #pragma unroll
           for (int c = 0; c < 3; ++c)
@@ -163,7 +172,8 @@ render_fwd_kernel(const float* __restrict__ rays,
           fbuf[(3 + l * RANK + k) * PS + p] = f[k];
       }
     } else {
-      encode_tile<ENC>(fbuf, hbuf, ray_s, ts, fq, q0, n_pts, steps);
+      encode_tile<ENC>(fbuf, hbuf, ray_s, ts, ts_stride, ray0, n_rays, fq,
+                       q0, n_pts, steps);
     }
     __syncthreads();
     act_rows<ACT_LEAKY>(fbuf, fact, FEAT_IN);
@@ -192,7 +202,8 @@ render_fwd_kernel(const float* __restrict__ rays,
         const float* s = ray_s + 8 * (qc / steps);
         if constexpr (L::MIP) {
           // mip's init feature holds no p: the point again, rounded alike
-          const float t = ts[qc % steps];
+          const float t =
+              ray_row(ts, ts_stride, ray0 + qc / steps, n_rays)[qc % steps];
 #pragma unroll
           for (int c = 0; c < 3; ++c)
             fbuf[c * PS + tid] = sample_point(s[c], t, s[3 + c]);
@@ -223,17 +234,21 @@ render_fwd_kernel(const float* __restrict__ rays,
     __syncthreads();
   }
 
-  // ---- compositing: one thread per ray, front to back ----
+  // ---- compositing: one thread per ray, front to back; with `wout`
+  // each sample's weight to [N, T] ----
   const int r = tid;
   if (r < rays_per_block && ray0 + r < n_rays) {
     const float* s = ray_s + 8 * r;
+    const float* dr = ray_row(dists, ts_stride, ray0 + r, n_rays);
+    float* wr = wout == nullptr ? nullptr : wout + (long)(ray0 + r) * steps;
     const float rd_norm = sqrtf(s[3] * s[3] + s[4] * s[4] + s[5] * s[5]);
     float trans = 1.0f, acc = 0.0f, w_last = 0.0f;
     float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
     for (int t = 0; t < steps; ++t) {
       const float* e = res + 4 * (r * steps + t);
-      const float alpha = 1.0f - expf(-e[0] * (dists[t] * rd_norm));
+      const float alpha = 1.0f - expf(-e[0] * (dr[t] * rd_norm));
       const float wt = alpha * trans;
+      if (wr != nullptr) wr[t] = wt;
       acc += wt;
       c0 += wt * e[1];
       c1 += wt * e[2];
@@ -253,8 +268,8 @@ render_fwd_kernel(const float* __restrict__ rays,
 template <int ENC>
 int launch(const float* rays, const float* ts, const float* dists,
            const float* weights, const float* feats, const float* freqs,
-           float* out, int n_rays, int steps, int sigmoid_kind,
-           int sky_white, cudaStream_t stream) {
+           float* out, float* wout, int n_rays, int steps, int ts_stride,
+           int sigmoid_kind, int sky_white, cudaStream_t stream) {
   const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
   const size_t smem = smem_bytes<ENC>(rays_per_block, steps);
   cudaError_t err = cudaFuncSetAttribute(
@@ -263,8 +278,8 @@ int launch(const float* rays, const float* ts, const float* dists,
   if (err != cudaSuccess) return err;
   const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
   render_fwd_kernel<ENC><<<blocks, THREADS, smem, stream>>>(
-      rays, ts, dists, weights, feats, freqs, out, n_rays, steps,
-      rays_per_block, sigmoid_kind, sky_white);
+      rays, ts, dists, weights, feats, freqs, out, wout, n_rays, steps,
+      ts_stride, rays_per_block, sigmoid_kind, sky_white);
   return cudaGetLastError();
 }
 
@@ -297,15 +312,19 @@ const char* render_fwd_error_string(int code) {
 }
 
 // Enqueues one render on `stream`; returns the cudaError_t of the launch.
-// feats: [n_rays·steps, 16] for enc hash, else unused; freqs: the posenc
-// bands (`render_fwd_freq_count`) for enc posenc and tiny, else unused.
+// ts, dists: [steps] shared by every ray (ts_stride 0) or [n_rays, steps]
+// per ray (ts_stride = steps); wout: the compositing weights [n_rays,
+// steps], or null for none; feats: [n_rays·steps, 16] for enc hash, else
+// unused; freqs: the posenc bands (`render_fwd_freq_count`) for enc posenc
+// and tiny, else unused.
 int render_fwd_launch(const float* rays, const float* ts, const float* dists,
                       const float* weights, const float* feats,
-                      const float* freqs, float* out, int n_rays, int steps,
-                      int sigmoid_kind, int sky_white, int enc,
-                      void* stream) {
+                      const float* freqs, float* out, float* wout,
+                      int n_rays, int steps, int ts_stride, int sigmoid_kind,
+                      int sky_white, int enc, void* stream) {
   if (n_rays <= 0) return cudaSuccess;
-  if (steps < 2 || steps > MAX_STEPS || sigmoid_kind < 0 || sigmoid_kind > 7
+  if (steps < 2 || steps > MAX_STEPS || (ts_stride != 0 && ts_stride != steps)
+      || sigmoid_kind < 0 || sigmoid_kind > 7
       || enc < 0 || enc >= N_ENC
       || (enc == ENC_HASH && feats == nullptr)
       || (render_fwd_freq_count(enc) > 0 && freqs == nullptr))
@@ -313,7 +332,8 @@ int render_fwd_launch(const float* rays, const float* ts, const float* dists,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RENDER_FWD_CASE(E)                                                  \
   case E: return launch<E>(rays, ts, dists, weights, feats, freqs, out,    \
-                           n_rays, steps, sigmoid_kind, sky_white, s);
+                           wout, n_rays, steps, ts_stride, sigmoid_kind,    \
+                           sky_white, s);
   switch (enc) {
     RENDER_FWD_CASE(ENC_CP)
     RENDER_FWD_CASE(ENC_HASH)

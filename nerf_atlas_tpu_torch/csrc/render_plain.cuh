@@ -70,31 +70,44 @@ struct Layout {
   static_assert(FEAT_IN <= F_ROWS && R_IN <= F_ROWS, "init feature rows");
 };
 
+// The sample positions (or segment lengths) of ray `ray` of a launch: the
+// one shared row of a [T] grid (stride 0) or the ray's own row of [N, T]
+// (stride T). A ray past the ragged edge reads the last ray's row, as its
+// constants repeat the last ray's, so the last block stays inside [N, T].
+__device__ __forceinline__ const float* ray_row(const float* __restrict__ p,
+                                                int stride, int ray,
+                                                int n_rays) {
+  return p + (long)stride * min(ray, n_rays - 1);
+}
+
 // The init feature of a tile in the posenc, tiny and mip modes, the same
-// in K1 and in K2/K3's forward: points q0 .. q0 + 63 of the block
-// (padding points repeat the last one) -> F rows 0..FEAT_IN-1; mip uses S
-// (rows 0..5) as scratch for its Gaussian moments.
+// in K1 and in K2/K3's forward: points q0 .. q0 + 63 of the block of rays
+// from ray0 (padding points repeat the last one) -> F rows 0..FEAT_IN-1;
+// each point reads its ray's row of ts (`ray_row`); mip uses S (rows
+// 0..5) as scratch for its Gaussian moments.
 template <int ENC>
 __device__ __forceinline__ void encode_tile(float* F, float* S,
                                             const float* ray_s,
                                             const float* __restrict__ ts,
-                                            const float* fq, int q0,
-                                            int n_pts, int steps) {
+                                            int ts_stride, int ray0,
+                                            int n_rays, const float* fq,
+                                            int q0, int n_pts, int steps) {
   using L = Layout<ENC>;
   const int tid = threadIdx.x;
   if (tid < TILE) {
     const int q = min(q0 + tid, n_pts - 1);
     const float* s = ray_s + 8 * (q / steps);
+    const float* row = ray_row(ts, ts_stride, ray0 + q / steps, n_rays);
     if constexpr (L::MIP) {
       float mean[3], cov[3];
-      ipe_moments<ENC == ENC_CONE>(s, ts, q % steps, steps, mean, cov);
+      ipe_moments<ENC == ENC_CONE>(s, row, q % steps, steps, mean, cov);
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
         S[c * PS + tid] = mean[c];
         S[(3 + c) * PS + tid] = cov[c];
       }
     } else {
-      const float t = ts[q % steps];
+      const float t = row[q % steps];
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         F[c * PS + tid] = sample_point(s[c], t, s[3 + c]);

@@ -1,10 +1,11 @@
 """TinyNeRF (one MLP to sigma and rgb), PlainNeRF (a density MLP emitting
-sigma + an intermediate feature, RGB from a pluggable reflectance model)
-and NeRFAE (an auto-encoded latent field that density and reflectance
-both read).
+sigma + an intermediate feature, RGB from a pluggable reflectance model),
+NeRFAE (an auto-encoded latent field that density and reflectance both
+read) and CoarseFineNeRF (PlainNeRF's field queried by a coarse pass and
+by a fine pass at positions drawn from the coarse weights).
 
-Counterparts of `nerf_atlas_tpu/models/nerf.py:TinyNeRF`, `PlainNeRF`
-and `NeRFAE`. CoarseFineNeRF arrives with ROADMAP Queue 1 #8.
+Counterparts of `nerf_atlas_tpu/models/nerf.py:TinyNeRF`, `PlainNeRF`,
+`NeRFAE` and `CoarseFineNeRF`.
 """
 from __future__ import annotations
 
@@ -13,8 +14,29 @@ from typing import Optional
 import torch
 
 from ..nn import CPEncoder, HashEncoder, PositionalEncoder, SkipConnMLP
+from ..ops import sampling
 from ..refl import load_refl
 from .base import NeRFBase, view_per_sample
+
+
+def _density_encoder(enc_kind: str, mip: Optional[str],
+                     table_size: Optional[int], device):
+  """The density MLP's spatial encoder of PlainNeRF and CoarseFineNeRF:
+  none with mip (the IPE features replace it), else cp, hash or
+  posenc."""
+  if mip is not None:
+    return None
+  if enc_kind == "cp":
+    return CPEncoder(device=device)
+  if enc_kind == "hash":
+    return HashEncoder(table_size=table_size or 1 << 19, device=device)
+  if enc_kind == "posenc":
+    return PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=10)
+  if enc_kind == "ref-hash":
+    raise NotImplementedError(
+        "enc kind ref-hash: the reference-exact RefHashEncoder arrives "
+        "with ROADMAP Queue 1 #7")
+  raise NotImplementedError(f"unknown enc kind {enc_kind}")
 
 
 class TinyNeRF(NeRFBase):
@@ -75,20 +97,7 @@ class PlainNeRF(NeRFBase):
     if table_size is not None and enc_kind != "hash":
       raise NotImplementedError(
           f"table_size only configures enc_kind='hash', got {enc_kind}")
-    if self.mip is not None:
-      enc = None
-    elif enc_kind == "cp":
-      enc = CPEncoder(device=device)
-    elif enc_kind == "hash":
-      enc = HashEncoder(table_size=table_size or 1 << 19, device=device)
-    elif enc_kind == "posenc":
-      enc = PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=10)
-    elif enc_kind == "ref-hash":
-      raise NotImplementedError(
-          "enc kind ref-hash: the reference-exact RefHashEncoder arrives "
-          "with ROADMAP Queue 1 #7")
-    else:
-      raise NotImplementedError(f"unknown enc kind {enc_kind}")
+    enc = _density_encoder(enc_kind, self.mip, table_size, device)
     self.refl_kind = refl_kind
     self.refl_space = refl_space
     self.enc_kind = enc_kind
@@ -195,3 +204,68 @@ class NeRFAE(NeRFBase):
     out = self.finish(density, rgb, ts, r_d, train, generator=generator)
     out["latent_l2"] = torch.mean(torch.sum(torch.square(raw), dim=-1))
     return out
+
+
+class CoarseFineNeRF(NeRFBase):
+  """Hierarchical NeRF (JAX `models/nerf.py:CoarseFineNeRF`): a coarse
+  pass on the stratified ts drives inverse-CDF importance sampling of
+  `fine_steps` more positions per ray (from the coarse weights under
+  stop-grad; `generator` draws u in training, linspace at eval), and the
+  fine pass composites the merged steps + fine_steps per-ray ts. One
+  field serves both: the density MLP (`density_mlp`, 256×5 → 1 + 32) on
+  the encoder of `enc_kind` ("hash", the JAX class's default, "cp" or
+  "posenc"; with `mip`, the IPE features of each segment) and the
+  reflectance `refl`, named as the flax paths. The output is the fine
+  pass's dict with `coarse_rgb` and `coarse_weights`; the training loss
+  supervises both images. The fused kernels take cp, posenc and mip
+  (`ops/kernels/render.py:fused_coarse_fine_*`)."""
+
+  def __init__(self, refl_kind: str = "view", fine_steps: int = 64,
+               enc_kind: str = "hash", device=None, **base_kwargs):
+    super().__init__(**base_kwargs)
+    self.refl_kind = refl_kind
+    self.fine_steps = fine_steps
+    self.enc_kind = enc_kind
+    self.density_mlp = SkipConnMLP(
+        in_size=3 if self.mip is None else 96,
+        out=1 + self.intermediate_size,
+        enc=_density_encoder(enc_kind, self.mip, None, device), num_layers=5,
+        hidden_size=256, device=device)
+    self.refl = load_refl(refl_kind, latent_size=self.intermediate_size,
+                          act=self.sigmoid_kind, device=device)
+
+  def reset_parameters(self, generator: torch.Generator):
+    self.density_mlp.reset_parameters(generator)
+    self.refl.reset_parameters(generator)
+
+  def query(self, pts, view, train: bool = False,
+            generator: Optional[torch.Generator] = None, mip_feats=None):
+    out = self.density_mlp(pts if mip_feats is None else mip_feats)
+    density = self.add_density_noise(out[..., 0], train, generator)
+    rgb = self.refl(pts, view=view, latent=out[..., 1:])
+    return density, rgb
+
+  def _pass(self, rays, ts, r_o, r_d, train, generator):
+    """One pass on ts [T] or [N, T] -> the composited output dict."""
+    pts = rays[..., None, :3] + ts[..., :, None] * rays[..., None, 3:6]
+    density, rgb = self.query(pts, view_per_sample(r_d, ts.shape[-1]),
+                              train, generator,
+                              self.mip_encode(r_o, r_d, ts))
+    return self.finish(density, rgb, ts, r_d, train, generator=generator)
+
+  def forward(self, rays, train: bool = False,
+              generator: Optional[torch.Generator] = None):
+    """train=True draws the ts jitter, the fine u, the density noise and
+    the random sky from `generator` (required then, on the rays'
+    device)."""
+    _, ts, r_o, r_d = self.sample_points(rays, train, generator)
+    coarse = self._pass(rays, ts, r_o, r_d, train, generator)
+    w = coarse["weights"].detach()
+    ts_b = ts.expand(w.shape) if ts.ndim == 1 else ts
+    fine_ts = sampling.sample_pdf(ts_b, w, self.fine_steps,
+                                  generator=generator if train else None)
+    fine = self._pass(rays, sampling.merge_ts(ts_b, fine_ts), r_o, r_d,
+                      train, generator)
+    fine["coarse_rgb"] = coarse["rgb"]
+    fine["coarse_weights"] = coarse["weights"]
+    return fine

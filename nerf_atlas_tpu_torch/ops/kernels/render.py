@@ -39,8 +39,16 @@ four CP line tables [3, R, 8], then every Dense layer of the density MLP
 (tiny: of its one MLP) and of the View MLP (not tiny) as W [in, out]
 row-major followed by its bias; gradients come back in the same layout
 (`unpack_grads` maps them onto state_dict keys). The hash table is not
-packed: it travels as its own tensor. Per-ray ts and `want_weights`
-arrive with ROADMAP Queue 2 K6.
+packed: it travels as its own tensor.
+
+Sample positions ts are [T], shared by every ray, or [N, T], each ray's
+own (render.py's [1, T] / [B, T] `ts_ref`); K1 and K2/K3 take either, by
+a row stride of 0 or T. `plain_cp_render(..., want_weights=True)` also
+returns K1's compositing weights [N, T]. CoarseFineNeRF's hierarchical
+render (`fused_coarse_fine_render`, `fused_coarse_fine_train`, render.py
+`_coarse_fine`) runs K1 with weights on the coarse ts, inverts their CDF
+(`ops/sampling.py`) and runs K1 again (K2 in training) on the merged
+per-ray ts.
 """
 from __future__ import annotations
 
@@ -52,7 +60,7 @@ from typing import Dict, List, Mapping, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from .. import integrate, mip
+from .. import integrate, mip, sampling
 from ..math import dir_to_elev_azim, load_sigmoid
 from ...nn.encoders import PositionalEncoder, cp_encode
 from . import hash_encode as hk
@@ -270,25 +278,30 @@ def unpack_grads(packed: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def sample_grid(steps: int, t_near: float, t_far: float, device=None,
-                ts: Optional[torch.Tensor] = None):
-  """The shared sample positions ts [T] (the uniform grid, or the given
-  ones, e.g. a stratified-jittered draw) and their segment lengths
-  dists [T] with the 1e10 tail and 1e-5 clamp, unscaled by ||r_d||
-  (render.py `_linspace_ts` / `_dists_base`)."""
+                ts: Optional[torch.Tensor] = None,
+                n_rays: Optional[int] = None):
+  """The sample positions ts and their segment lengths dists (the same
+  shape) with the 1e10 tail and 1e-5 clamp, unscaled by ||r_d||
+  (render.py `_linspace_ts` / `_dists_base`): the uniform grid [T], the
+  given shared ts [T] (e.g. a stratified-jittered draw) or, where
+  `n_rays` is given, also each ray's own ts [n_rays, T]."""
+  shapes = [(steps,)] + ([(n_rays, steps)] if n_rays is not None else [])
   if ts is None:
     ts = torch.linspace(t_near, t_far, steps, device=device)
-  elif (ts.dtype != torch.float32 or tuple(ts.shape) != (steps,)
+  elif (ts.dtype != torch.float32 or tuple(ts.shape) not in shapes
         or ts.device != torch.device(device) or not ts.is_contiguous()):
-    raise ValueError(f"ts must be contiguous float32 [{steps}] on {device}, "
-                     f"got {ts.dtype} {tuple(ts.shape)} on {ts.device}")
+    raise ValueError(f"ts must be contiguous float32 "
+                     f"{' or '.join(str(list(x)) for x in shapes)} on "
+                     f"{device}, got {ts.dtype} {tuple(ts.shape)} on "
+                     f"{ts.device}")
   return ts, integrate.dists_from_ts(ts)
 
 
 def hash_pts(rays: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
   """Sample points [N·T, 3], r_o + t·r_d rounded after the product and
-  after the sum (render.py `_hash_pts`): the points K5f encodes are the
-  points K1/K2/K3 feed the MLP."""
-  return (rays[:, None, :3] + ts[None, :, None] * rays[:, None, 3:6]
+  after the sum (render.py `_hash_pts`), for ts [T] or [N, T]: the points
+  K5f encodes are the points K1/K2/K3 feed the MLP."""
+  return (rays[:, None, :3] + ts[..., None] * rays[:, None, 3:6]
           ).reshape(-1, 3)
 
 
@@ -352,10 +365,10 @@ def _mlp(init_feat, layers, act, n_layers):
 def init_feature(enc_kind: str, lines, rays: torch.Tensor, ts: torch.Tensor,
                  feats: Optional[torch.Tensor] = None) -> torch.Tensor:
   """The density MLP's init feature [N·T, feat_in] at the sample points
-  `hash_pts(rays, ts)`: [p ‖ CP encode] (cp, from the packed lines),
-  [p ‖ feats] (hash, the given features [N·T, 16]), [p ‖ sin ‖ cos]
-  (posenc, tiny) or the 96 IPE features of each sample's segment (cone,
-  cylinder; `ops/mip.py`, the models' own)."""
+  `hash_pts(rays, ts)` (ts [T] or [N, T]): [p ‖ CP encode] (cp, from the
+  packed lines), [p ‖ feats] (hash, the given features [N·T, 16]),
+  [p ‖ sin ‖ cos] (posenc, tiny) or the 96 IPE features of each sample's
+  segment (cone, cylinder; `ops/mip.py`, the models' own)."""
   if enc_kind in MIP_KINDS:
     return mip.encode(enc_kind, rays[:, :3], rays[:, 3:6], ts).reshape(
         -1, MIP_DIM)
@@ -371,24 +384,28 @@ def init_feature(enc_kind: str, lines, rays: torch.Tensor, ts: torch.Tensor,
 def _plain_render(ws: torch.Tensor, rays: torch.Tensor,
                   feats: Optional[torch.Tensor], enc_kind: str, *,
                   steps: int, t_near: float, t_far: float, sigmoid_kind: str,
-                  sky_kind: str, ts: Optional[torch.Tensor]) -> torch.Tensor:
-  """The plain K1 of any kind (hash with the given features [N·T, 16])."""
+                  sky_kind: str, ts: Optional[torch.Tensor],
+                  want_weights: bool = False):
+  """The plain K1 of any kind (hash with the given features [N·T, 16]),
+  with ts [T] or [N, T]; with `want_weights`, (out, weights [N, T])."""
   _check_call(ws, rays, steps, sigmoid_kind, sky_kind, enc_kind, feats=feats)
   lines, dense_layers, refl_layers = _unpack(ws)
   n = rays.shape[0]
-  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
+  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts, n)
   r_d = rays[:, 3:6]
   init_feat = init_feature(enc_kind, lines, rays, ts, feats)
   out = _mlp(init_feat, dense_layers, lambda v: F.leaky_relu(v, 0.01),
              LAYOUTS[enc_kind].n_layers)
   act = load_sigmoid(sigmoid_kind)
   if not refl_layers:                                # tiny: sigma ‖ rgb
-    return composite(out[:, 0], act(out[:, 1:4]), r_d, dists, sky_kind)
+    return composite(out[:, 0], act(out[:, 1:4]), r_d, dists, sky_kind,
+                     want_weights=want_weights)
   density, latent = out[:, 0], out[:, 1:]
   elaz = dir_to_elev_azim(r_d)[:, None, :].expand(n, steps, 2).reshape(-1, 2)
   r_in = torch.cat([hash_pts(rays, ts), elaz, latent], dim=-1)
   rgb = act(_mlp(r_in, refl_layers, siren_act, R_LAYERS))
-  return composite(density, rgb, r_d, dists, sky_kind)
+  return composite(density, rgb, r_d, dists, sky_kind,
+                   want_weights=want_weights)
 
 
 def siren_act(v):
@@ -396,17 +413,18 @@ def siren_act(v):
 
 
 def composite(density: torch.Tensor, rgb: torch.Tensor, r_d: torch.Tensor,
-              dists: torch.Tensor, sky_kind: str,
-              relu: bool = False) -> torch.Tensor:
+              dists: torch.Tensor, sky_kind: str, relu: bool = False,
+              want_weights: bool = False):
   """The kernels' compositing in plain torch: raw density [N·T] and rgb
-  [N·T, 3] of N rays -> [N, 4] (rgb ‖ acc); sigma = softplus(density −
-  1) (relu(density) with `relu`, VolSDF's), the exclusive transmittance
-  of max(1 − alpha, 1e-10), a white sky over the leftover transmittance
-  without the 1e10 tail."""
-  n, steps = r_d.shape[0], dists.shape[0]
+  [N·T, 3] of N rays with segment lengths dists [T] or [N, T] -> [N, 4]
+  (rgb ‖ acc); sigma = softplus(density − 1) (relu(density) with `relu`,
+  VolSDF's), the exclusive transmittance of max(1 − alpha, 1e-10), a
+  white sky over the leftover transmittance without the 1e10 tail. With
+  `want_weights`, (out, the weights [N, T])."""
+  n, steps = r_d.shape[0], dists.shape[-1]
   sigma = (F.relu(density) if relu
            else F.softplus(density - 1.0)).reshape(n, steps)
-  seg = dists[None, :] * torch.linalg.vector_norm(r_d, dim=-1, keepdim=True)
+  seg = dists * torch.linalg.vector_norm(r_d, dim=-1, keepdim=True)
   alpha = 1.0 - torch.exp(-sigma * seg)
   trans = integrate.exclusive_cumprod(torch.clamp(1.0 - alpha, min=1e-10))
   weights = alpha * trans
@@ -414,7 +432,8 @@ def composite(density: torch.Tensor, rgb: torch.Tensor, r_d: torch.Tensor,
   img = (weights[..., None] * rgb.reshape(n, steps, 3)).sum(1)
   if sky_kind == "white":
     img = img + (1.0 - (acc - weights[:, -1:]))
-  return torch.cat([img, acc], dim=-1)
+  out = torch.cat([img, acc], dim=-1)
+  return (out, weights) if want_weights else out
 
 
 def plain_cp_render_reference(params: Params, rays: torch.Tensor, *,
@@ -423,15 +442,17 @@ def plain_cp_render_reference(params: Params, rays: torch.Tensor, *,
                               sigmoid_kind: str = "thin",
                               sky_kind: str = "black",
                               ts: Optional[torch.Tensor] = None,
-                              enc_kind: str = "cp") -> torch.Tensor:
+                              enc_kind: str = "cp",
+                              want_weights: bool = False):
   """Plain-torch K1: rays [N, 6] -> [N, 4] (rgb ‖ acc), on any device,
-  differentiable in a packed weight vector. ts [T]: shared sample
-  positions (default the uniform grid). The "random" sky is black, as
-  the kernels render it. enc_kind: any of ENC_KINDS but hash."""
+  differentiable in a packed weight vector. ts: shared sample positions
+  [T] (default the uniform grid) or each ray's own [N, T]. The "random"
+  sky is black, as the kernels render it. enc_kind: any of ENC_KINDS but
+  hash. With `want_weights`, (out, the compositing weights [N, T])."""
   return _plain_render(pack_weights(params, rays.device, enc_kind), rays,
                        None, enc_kind, steps=steps, t_near=t_near,
                        t_far=t_far, sigmoid_kind=sigmoid_kind,
-                       sky_kind=sky_kind, ts=ts)
+                       sky_kind=sky_kind, ts=ts, want_weights=want_weights)
 
 
 def plain_hash_render_reference(params: Params, rays: torch.Tensor,
@@ -471,7 +492,7 @@ def _load_library() -> ctypes.CDLL:
   from . import build
   lib = build.load("render_fwd")
   lib.render_fwd_launch.argtypes = (
-      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
   lib.render_fwd_launch.restype = ctypes.c_int
   lib.render_fwd_weight_count.argtypes = [ctypes.c_int]
   lib.render_fwd_weight_count.restype = ctypes.c_longlong
@@ -495,28 +516,30 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor,
                     feats: Optional[torch.Tensor], enc_kind: str, *,
                     steps: int, t_near: float, t_far: float,
                     sigmoid_kind: str, sky_kind: str,
-                    ts: Optional[torch.Tensor]) -> torch.Tensor:
-  """One render_fwd launch in mode `enc_kind` (hash with feats)."""
+                    ts: Optional[torch.Tensor], want_weights: bool = False):
+  """One render_fwd launch in mode `enc_kind` (hash with feats), with ts
+  [T] or [N, T]; with `want_weights`, (out, weights [N, T])."""
   _check_cuda(rays, "render_fwd")
   ws = ws.detach()
   _check_call(ws, rays, steps, sigmoid_kind, sky_kind, enc_kind, feats=feats)
   if not ws.is_contiguous():
     raise ValueError("packed weights must be contiguous")
-  out = torch.empty((rays.shape[0], 4), dtype=torch.float32,
-                    device=rays.device)
-  if rays.shape[0] == 0:
-    return out
-  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
-  fq = freqs(enc_kind, rays.device)
-  lib = _load_library()
-  stream = torch.cuda.current_stream(rays.device).cuda_stream
-  err = lib.render_fwd_launch(
-      rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-      _ptr(feats), _ptr(fq), out.data_ptr(), rays.shape[0], steps,
-      FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
-      ENC_KINDS.index(enc_kind), stream)
-  _raise_on(err, lib, "render_fwd", "render_fwd")
-  return out
+  n = rays.shape[0]
+  out = torch.empty((n, 4), dtype=torch.float32, device=rays.device)
+  wout = (torch.empty((n, steps), dtype=torch.float32, device=rays.device)
+          if want_weights else None)
+  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts, n)
+  if n > 0:
+    fq = freqs(enc_kind, rays.device)
+    lib = _load_library()
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    err = lib.render_fwd_launch(
+        rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
+        _ptr(feats), _ptr(fq), out.data_ptr(), _ptr(wout), n, steps,
+        steps if ts.ndim == 2 else 0, FUSED_SIGMOID_KINDS.index(sigmoid_kind),
+        int(sky_kind == "white"), ENC_KINDS.index(enc_kind), stream)
+    _raise_on(err, lib, "render_fwd", "render_fwd")
+  return (out, wout) if want_weights else out
 
 
 def _not_hash(enc_kind: str):
@@ -530,19 +553,22 @@ def plain_cp_render(params: Params, rays: torch.Tensor, *, steps: int = 64,
                     sigmoid_kind: str = "thin",
                     sky_kind: str = "black",
                     ts: Optional[torch.Tensor] = None,
-                    enc_kind: str = "cp") -> torch.Tensor:
-  """Render rays [N, 6] -> [N, 4] (rgb ‖ acc) through K1.
+                    enc_kind: str = "cp", want_weights: bool = False):
+  """Render rays [N, 6] -> [N, 4] (rgb ‖ acc) through K1; with
+  `want_weights`, (out, the compositing weights [N, T]).
 
   params: a PlainNeRF-CP state_dict or its `pack_weights` vector (for
   enc_kind "posenc", "cone" or "cylinder" a PlainNeRF with that encoder,
-  for "tiny" a TinyNeRF). ts [T]: shared sample positions (default the
-  uniform grid). Rays on a CUDA device launch the kernel on the current
-  stream (and raise if it cannot launch); rays on the CPU take
-  `plain_cp_render_reference`. The "random" sky is black. Each launch
-  adds one to `plain_cp_render.launches`."""
+  for "tiny" a TinyNeRF; a CoarseFineNeRF's tree is the PlainNeRF's of
+  its encoder). ts: shared sample positions [T] (default the uniform
+  grid) or each ray's own [N, T]. Rays on a CUDA device launch the
+  kernel on the current stream (and raise if it cannot launch); rays on
+  the CPU take `plain_cp_render_reference`. The "random" sky is black.
+  Each launch adds one to `plain_cp_render.launches`."""
   _not_hash(enc_kind)
   kw = dict(steps=steps, t_near=t_near, t_far=t_far,
-            sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
+            sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts,
+            want_weights=want_weights)
   if rays.device.type == "cpu":
     return plain_cp_render_reference(params, rays, enc_kind=enc_kind, **kw)
   out = _forward_launch(pack_weights(params, rays.device, enc_kind), rays,
@@ -669,7 +695,7 @@ def _load_bwd_library(enc_kind: str) -> ctypes.CDLL:
   lib = build.load("render_bwd", bwd_defines(enc_kind))
   lib.render_bwd_launch.argtypes = (
       [ctypes.c_void_p] * 12
-      + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+      + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
   lib.render_bwd_launch.restype = ctypes.c_int
   for fn in ("render_bwd_weight_count", "render_bwd_stash_floats_per_tile"):
     getattr(lib, fn).argtypes = [ctypes.c_int]
@@ -726,9 +752,9 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
                      t_far: float, sigmoid_kind: str, sky_kind: str,
                      loss_mode: bool
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-  """One render_bwd launch (+ its partial reduction) in mode `enc_kind`;
-  returns ([weight count + 1] = gradient ‖ loss, dfeat [N·T, 16] in hash
-  mode else None)."""
+  """One render_bwd launch (+ its partial reduction) in mode `enc_kind`,
+  with ts [T] or [N, T]; returns ([weight count + 1] = gradient ‖ loss,
+  dfeat [N·T, 16] in hash mode else None)."""
   _check_cuda(rays, "render_bwd")
   ws = ws.detach()
   _check_call(ws, rays, steps, sigmoid_kind, sky_kind, enc_kind,
@@ -745,9 +771,9 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
   out = torch.zeros(count + 1, dtype=torch.float32, device=rays.device)
   dfeat = (None if feats is None else
            torch.empty_like(feats))
+  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts, n)
   if n == 0:
     return out, dfeat
-  ts, dists = sample_grid(steps, t_near, t_far, rays.device, ts)
   fq = freqs(enc_kind, rays.device)
   lib = _load_bwd_library(enc_kind)
   enc = ENC_KINDS.index(enc_kind)
@@ -766,7 +792,8 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
   err = lib.render_bwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
       wt.data_ptr(), gin.data_ptr(), _ptr(feats), _ptr(fq), _ptr(dfeat),
-      out.data_ptr(), partial.data_ptr(), stash.data_ptr(), n, steps, blocks,
+      out.data_ptr(), partial.data_ptr(), stash.data_ptr(), n, steps,
+      steps if ts.ndim == 2 else 0, blocks,
       FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
       int(loss_mode), 1.0 / (3 * n) if loss_mode else 0.0, enc, stream)
   _raise_on(err, lib, "render_bwd", "render_bwd")
@@ -780,7 +807,8 @@ def plain_cp_render_grad(params: Params, rays: torch.Tensor, g: torch.Tensor,
                          ts: Optional[torch.Tensor] = None,
                          enc_kind: str = "cp") -> torch.Tensor:
   """K2: d(Σ g·out)/d(packed weights) [weight count of enc_kind] for the
-  render of rays [N, 6] and the cotangent g [N, 4]. CUDA rays launch
+  render of rays [N, 6] (ts [T] or [N, T]) and the cotangent g [N, 4]
+  (the weights output takes none). CUDA rays launch
   render_bwd.cu in mode G (each launch adds one to
   `plain_cp_render_grad.launches`); CPU rays take
   `plain_cp_render_grad_reference`."""
@@ -885,37 +913,44 @@ plain_hash_train_step.launches = 0
 
 class PlainCPRender(torch.autograd.Function):
   """K1 forward, K2 backward (render.py `_make_diff_render`): packed
-  weights of `enc_kind` (any kind but hash), rays [N, 6], ts [T] or None
-  -> [N, 4]. The gradient goes to the packed weights only; rays and ts
-  get none."""
+  weights of `enc_kind` (any kind but hash), rays [N, 6], ts [T], [N, T]
+  or None -> [N, 4], or with `want_weights` ([N, 4], the compositing
+  weights [N, T]). The gradient goes to the packed weights only; rays
+  and ts get none, and the weights output is not differentiable (it
+  drives the hierarchical sampling under stop-grad)."""
 
   @staticmethod
   def forward(ctx, ws, rays, ts, steps, t_near, t_far, sigmoid_kind,
-              sky_kind, enc_kind="cp"):
+              sky_kind, enc_kind="cp", want_weights=False):
     ctx.save_for_backward(ws, rays, ts)
     ctx.kw = dict(steps=steps, t_near=t_near, t_far=t_far,
                   sigmoid_kind=sigmoid_kind, sky_kind=sky_kind,
                   enc_kind=enc_kind)
-    return plain_cp_render(ws.detach(), rays, ts=ts, **ctx.kw)
+    out = plain_cp_render(ws.detach(), rays, ts=ts,
+                          want_weights=want_weights, **ctx.kw)
+    if want_weights:
+      ctx.mark_non_differentiable(out[1])
+    return out
 
   @staticmethod
-  def backward(ctx, g):
+  def backward(ctx, g, *_):
     ws, rays, ts = ctx.saved_tensors
     dws = plain_cp_render_grad(ws.detach(), rays, g.contiguous(), ts=ts,
                                **ctx.kw)
-    return dws, None, None, None, None, None, None, None, None
+    return dws, None, None, None, None, None, None, None, None, None
 
 
 def plain_cp_render_train(ws: torch.Tensor, rays: torch.Tensor,
                           ts: Optional[torch.Tensor] = None, *,
                           steps: int = 64, t_near: float = 2.0,
                           t_far: float = 6.0, sigmoid_kind: str = "thin",
-                          sky_kind: str = "black",
-                          enc_kind: str = "cp") -> torch.Tensor:
+                          sky_kind: str = "black", enc_kind: str = "cp",
+                          want_weights: bool = False):
   """Differentiable render (the two-kernel train path): packed weights
-  (a leaf that requires grad) -> [N, 4] through `PlainCPRender`."""
+  (a leaf that requires grad) -> [N, 4] through `PlainCPRender` (with
+  `want_weights`, also the non-differentiable weights [N, T])."""
   return PlainCPRender.apply(ws, rays, ts, steps, t_near, t_far,
-                             sigmoid_kind, sky_kind, enc_kind)
+                             sigmoid_kind, sky_kind, enc_kind, want_weights)
 
 
 def _mip_kind(mip_kind: str) -> str:
@@ -1026,3 +1061,80 @@ def fused_plain_hash_train_step(ws: Params, table: torch.Tensor,
       sigmoid_kind=sigmoid_kind, sky_kind=sky_kind, ts=ts)
   return loss, dws, hk.hash_encode_table_grad(pts, dfeat,
                                               hk._table_size(table))
+
+
+# ---------------------------------------------------------------------------
+# CoarseFineNeRF: the hierarchical render through K1 (and K2 in training)
+# ---------------------------------------------------------------------------
+
+COARSE_FINE_KINDS = ("cp", "posenc") + MIP_KINDS
+
+
+def _coarse_fine(ws: Params, rays: torch.Tensor,
+                 generator: Optional[torch.Generator],
+                 ts: Optional[torch.Tensor], *, enc_kind: str, steps: int,
+                 fine_steps: int, t_near: float, t_far: float,
+                 sigmoid_kind: str, sky_kind: str, train: bool):
+  """render.py `_coarse_fine`: K1 with the weights output on the coarse
+  ts (shared [T], the uniform grid by default), the fine ts drawn by
+  inverting the CDF of the stop-grad coarse weights (`generator`: a
+  uniform u, else linspace), merged with the coarse ts into per-ray
+  [N, steps + fine_steps], and K1 again on those. `train` renders both
+  passes through `PlainCPRender` (K2 backward). Returns (fine [N, 4],
+  coarse [N, 4])."""
+  if enc_kind not in COARSE_FINE_KINDS:
+    raise ValueError(f"coarse_fine kernels: enc_kind one of "
+                     f"{COARSE_FINE_KINDS}, got {enc_kind!r}")
+  ws = pack_weights(ws, rays.device, enc_kind)
+  kw = dict(t_near=t_near, t_far=t_far, sigmoid_kind=sigmoid_kind,
+            sky_kind=sky_kind, enc_kind=enc_kind)
+  ts, _ = sample_grid(steps, t_near, t_far, rays.device, ts)
+
+  def render(t, n_steps, want_weights):
+    if train:
+      return plain_cp_render_train(ws, rays, t, steps=n_steps,
+                                   want_weights=want_weights, **kw)
+    return plain_cp_render(ws, rays, steps=n_steps, ts=t,
+                           want_weights=want_weights, **kw)
+
+  out_c, w_c = render(ts, steps, True)
+  ts_b = ts.expand(rays.shape[0], steps)
+  fine = sampling.sample_pdf(ts_b, w_c.detach(), fine_steps,
+                             generator=generator)
+  all_ts = sampling.merge_ts(ts_b, fine).contiguous()
+  return render(all_ts, steps + fine_steps, False), out_c
+
+
+def fused_coarse_fine_render(params: Params, rays: torch.Tensor, *,
+                             enc_kind: str = "cp", steps: int = 64,
+                             fine_steps: int = 64, t_near: float = 2.0,
+                             t_far: float = 6.0, sigmoid_kind: str = "thin",
+                             sky_kind: str = "black") -> torch.Tensor:
+  """Eval render of CoarseFineNeRF (enc_kind: cp, posenc or its mip kind):
+  rays [N, 6] -> fine [N, 4], the deterministic CDF inversion (u =
+  linspace). Two K1 launches: the coarse pass with weights, the fine pass
+  on the merged per-ray ts."""
+  out_f, _ = _coarse_fine(params, rays, None, None, enc_kind=enc_kind,
+                          steps=steps, fine_steps=fine_steps, t_near=t_near,
+                          t_far=t_far, sigmoid_kind=sigmoid_kind,
+                          sky_kind=sky_kind, train=False)
+  return out_f
+
+
+def fused_coarse_fine_train(ws: torch.Tensor, rays: torch.Tensor,
+                            ts: Optional[torch.Tensor] = None,
+                            generator: Optional[torch.Generator] = None, *,
+                            enc_kind: str = "cp", steps: int = 64,
+                            fine_steps: int = 64, t_near: float = 2.0,
+                            t_far: float = 6.0, sigmoid_kind: str = "thin",
+                            sky_kind: str = "black"
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Differentiable hierarchical render (the two-kernel path): packed
+  weights ws (a leaf that requires grad), the step's shared coarse ts
+  [T] and the generator of the fine u -> (fine [N, 4], coarse [N, 4]),
+  each through `PlainCPRender` (K1 forward, K2 backward); the training
+  loss supervises both."""
+  return _coarse_fine(ws, rays, generator, ts, enc_kind=enc_kind,
+                      steps=steps, fine_steps=fine_steps, t_near=t_near,
+                      t_far=t_far, sigmoid_kind=sigmoid_kind,
+                      sky_kind=sky_kind, train=True)

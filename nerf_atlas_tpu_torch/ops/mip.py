@@ -69,14 +69,20 @@ def cylinder_to_gaussian(r_d, t0, t1, rad):
   return lift_gaussian(r_d, t_mean, t_var, r_var)
 
 
+def ipe_scales(min_deg: int, max_deg: int, dtype=torch.float32,
+               device=None) -> torch.Tensor:
+  """The IPE scales 2^min_deg..2^(max_deg-1), exact powers of two (as the
+  kernels multiply by them)."""
+  return 2.0 ** torch.arange(min_deg, max_deg, dtype=dtype, device=device)
+
+
 def integrated_pos_enc_diag(x, x_cov, min_deg: int, max_deg: int):
   """IPE features: E[sin] at 2^min_deg..2^(max_deg-1) scales, sin+cos
   pairs, scale-major / axis-minor.
 
   x, x_cov: [..., 3] -> [..., 2·(max_deg − min_deg)·3].
   """
-  scales = 2.0 ** torch.arange(min_deg, max_deg, dtype=x.dtype,
-                               device=x.device)
+  scales = ipe_scales(min_deg, max_deg, x.dtype, x.device)
   shape = x.shape[:-1] + (-1,)
   y = (x[..., None, :] * scales[:, None]).reshape(shape)
   y_var = (x_cov[..., None, :] * (scales * scales)[:, None]).reshape(shape)

@@ -27,6 +27,9 @@ Examples (procedural scene):
       --model plain --mip cone --size 48 --num-views 30 --epochs 1500 \
       --batch-size 4096 -lr 1e-3 --outdir out
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model coarse_fine --mip cone --size 48 --num-views 30 \
+      --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
       --model tiny --size 48 --num-views 30 --epochs 3000 \
       --batch-size 4096 -lr 1e-3 --outdir out
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
@@ -73,11 +76,11 @@ def _check_supported(args):
     if getattr(args, flag):
       raise NotImplementedError(
           f"--{flag.replace('_', '-')}: not ported yet (ROADMAP {item})")
-  if args.model not in ("tiny", "plain", "ae", "volsdf"):
+  if args.model not in ("tiny", "plain", "ae", "coarse_fine", "volsdf"):
     raise NotImplementedError(
-        f"--model {args.model}: the port has TinyNeRF, PlainNeRF, NeRFAE "
-        "and VolSDF so far (ROADMAP Queue 1 #8 coarse_fine, #10 sdf, #13 "
-        "the rest)")
+        f"--model {args.model}: the port has TinyNeRF, PlainNeRF, NeRFAE, "
+        "CoarseFineNeRF and VolSDF so far (ROADMAP Queue 1 #10 sdf, #13 the "
+        "rest)")
   if args.dyn_model not in (None, "plain"):
     raise NotImplementedError(
         f"--dyn-model {args.dyn_model}: the port has DynamicNeRF ('plain') "
@@ -98,22 +101,24 @@ def _check_dynamic(args):
 
 
 def build_model(args, device, dynamic: bool = False):
-  """runner.py:build_model for --model tiny, plain, ae and volsdf, and on
-  timed data (`dynamic`) with --dyn-model plain a DynamicNeRF over the
-  plain canonical (--spline, --refl-kind, --enc-kind, --dyn-refl-latent;
-  runner.py:562-576; another canonical raises, ROADMAP Queue 1 #11); as
-  in the root runner, --dyn-model on static data builds the static
-  model. tiny takes the common kwargs only (runner.py:449-456). plain
+  """runner.py:build_model for --model tiny, plain, ae, coarse_fine and
+  volsdf, and on timed data (`dynamic`) with --dyn-model plain a DynamicNeRF
+  over the plain canonical (--spline, --refl-kind, --enc-kind,
+  --dyn-refl-latent; runner.py:562-576; another canonical raises, ROADMAP
+  Queue 1 #11); as in the root runner, --dyn-model on static data builds the
+  static model. tiny takes the common kwargs only (runner.py:449-456). plain
   also takes --refl-kind, --mip, --enc-kind and --space-kind
   (runner.py:458-466); --hash-table-log2 N sets the hash table to 2^N
-  entries per level when N is not the default 19 (runner.py:470-471). ae
-  takes --refl-kind, --encoding-size and --normalize-latent
-  (runner.py:483-486); like the root runner it ignores --mip, --enc-kind
-  and --space-kind. volsdf takes --sdf-kind, --refl-kind,
-  --sphere-init / --no-sphere-init, --occ-kind and --integrator-kind
-  (which the port's VolSDF refuses, ROADMAP Queue 1 #13), and computes
-  normals when --sdf-eikonal or --surface-eikonal is set, so that the
-  eikonal reads them (runner.py:503-531)."""
+  entries per level when N is not the default 19 (runner.py:470-471).
+  coarse_fine takes --refl-kind, --mip and --enc-kind (cp by default, not
+  the class's hash; runner.py:459-467), and as in the root runner neither
+  --space-kind nor --hash-table-log2. ae takes --refl-kind, --encoding-size
+  and --normalize-latent (runner.py:483-486); like the root runner it
+  ignores --mip, --enc-kind and --space-kind. volsdf takes --sdf-kind,
+  --refl-kind, --sphere-init / --no-sphere-init, --occ-kind and
+  --integrator-kind (which the port's VolSDF refuses, ROADMAP Queue 1 #13),
+  and computes normals when --sdf-eikonal or --surface-eikonal is set, so
+  that the eikonal reads them (runner.py:503-531)."""
   kwargs = dict(steps=args.steps, t_near=args.near, t_far=args.far,
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
@@ -144,6 +149,8 @@ def build_model(args, device, dynamic: bool = False):
   if args.model == "ae":
     kwargs.update(encoding_size=args.encoding_size,
                   normalize_latent=args.normalize_latent)
+  elif args.model == "coarse_fine":
+    kwargs.update(mip=args.mip, enc_kind=args.enc_kind)
   else:
     kwargs.update(mip=args.mip, enc_kind=args.enc_kind,
                   refl_space=args.space_kind)

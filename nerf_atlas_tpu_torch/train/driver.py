@@ -4,14 +4,14 @@ gates, tiled view rendering, per-view PSNR.
 Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
-`render_view`, `test`), for PlainNeRF (cp, hash, posenc, and mip cone
-or cylinder), TinyNeRF, NeRFAE, VolSDF and DynamicNeRF (D-NeRF's Δx warp
-and Spline-NeRF over a plain canonical). The port's modules own their
-parameters, so these functions take the model where the JAX package
-takes (model, params), and a train step is a Python closure (no jit).
-Unlike the JAX gates, a kernel gate never catches an exception: a
-parameter tree that diverges from the kernel's, or a kernel that fails
-to build or launch, raises.
+`render_view`, `test`), for PlainNeRF (cp, hash, posenc, and mip cone or
+cylinder), TinyNeRF, NeRFAE, CoarseFineNeRF, VolSDF and DynamicNeRF
+(D-NeRF's Δx warp and Spline-NeRF over a plain canonical). The port's
+modules own their parameters, so these functions take the model where the
+JAX package takes (model, params), and a train step is a Python closure (no
+jit). Unlike the JAX gates, a kernel gate never catches an exception: a
+parameter tree that diverges from the kernel's, or a kernel that fails to
+build or launch, raises.
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from ..data import sampler as sampler_lib
-from ..models import (MODEL_KINDS, DynamicNeRF, NeRFAE, PlainNeRF, TinyNeRF,
-                      VolSDF)
+from ..models import (MODEL_KINDS, CoarseFineNeRF, DynamicNeRF, NeRFAE,
+                      PlainNeRF, TinyNeRF, VolSDF)
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
@@ -42,7 +42,8 @@ from . import regularizers
 # loss mode; for VolSDF K8b in loss mode; for DynamicNeRF K9b in loss
 # mode) | "fused" (K1 + K2 through PlainCPRender, PlainHashRender after
 # HashEncode, K7f + K7b through AERender, K8f + K8b through VolSDFRender,
-# or K9f + K9b through DynRender) | "oracle" (the module forward under
+# K9f + K9b through DynRender, or for CoarseFineNeRF K1 + K2 twice, the
+# coarse and the fine pass) | "oracle" (the module forward under
 # autograd). Recorded into log.json by the runner.
 LAST_TRAIN_PATH: Optional[str] = None
 
@@ -166,6 +167,10 @@ def _fused_enc_kind(model) -> Optional[str]:
   - "ae" for a NeRFAE with the View refl, intermediate_size 32 and the
     latent normalized at `encoding_size` 32 (driver.py:332-336,
     :563-567, :1138-1151);
+  - for a CoarseFineNeRF with the View refl and intermediate_size 32:
+    its `mip`, else its enc_kind if "cp" or "posenc" (hash has no
+    coarse_fine kernel path; driver.py:297-303, :1137-1152). The train
+    gates also refuse timed data for it (`_data_ok`);
   - "volsdf" for a VolSDF with the MLP shape at its default widths (no
     sdf option but `sphere_init`), the View refl, `sdf_latent` 32, the
     softplus scale and no mip (driver.py:366-378, :587-597, :1104-1117).
@@ -179,7 +184,7 @@ def _fused_enc_kind(model) -> Optional[str]:
     :617-629, :1064-1082; the JAX gates' other rules cannot fail here:
     the port's DynamicNeRF refuses spline_points 1 and a time latent, and
     its canonical is always plain). The train gates also need the data's
-    times (`_dyn_data_ok`).
+    times (`_data_ok`).
   The JAX gates also reject a latent (latent_size != 0) and, for the
   static models, timed data: the port's models take no latent, and a
   static model on timed data trains as on static data (the JAX gates
@@ -206,6 +211,9 @@ def _fused_enc_kind(model) -> Optional[str]:
   if isinstance(model, NeRFAE):
     return ("ae" if model.mip is None and model.encoding_size == 32
             and model.normalize_latent else None)
+  if isinstance(model, CoarseFineNeRF):
+    return model.mip or (model.enc_kind if model.enc_kind in ("cp", "posenc")
+                         else None)
   if isinstance(model, PlainNeRF) and model.refl_space == "identity":
     if model.mip is not None:
       return model.mip
@@ -256,9 +264,10 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   there is no batch-multiple rule (the CUDA kernels mask the ragged
   edge) and no CPU rule (there the wrappers take their plain versions).
   The port's envelope is narrower in one rule: at most as many samples
-  per ray as the backward kernel's shared memory holds
-  (`k1.BWD_MAX_STEPS`: 460 for cone and cylinder, whose 96-row init
-  feature takes the room, 1024 for the other plain modes; 512 for
+  per ray as the backward kernel's shared memory holds (CoarseFineNeRF's
+  fine pass takes steps + fine_steps; `k1.BWD_MAX_STEPS`: 460 for cone
+  and cylinder, whose 96-row init feature takes the room, 1024 for the
+  other plain modes; 512 for
   NeRFAE, `k7.BWD_MAX_STEPS`, and VolSDF, `k8.BWD_MAX_STEPS`; 389 for
   the D-NeRF modes with the cp canonical and 1024 with posenc,
   `k9.BWD_MAX_STEPS`, whose four MLP chains take the room), where the JAX
@@ -271,9 +280,10 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   enc = _fused_enc_kind(model)
   max_steps = {"ae": k7.BWD_MAX_STEPS, "volsdf": k8.BWD_MAX_STEPS,
                **{f"dyn-{e}": k9.BWD_MAX_STEPS[e] for e in k9.ENC_KINDS}}
+  samples = model.steps + getattr(model, "fine_steps", 0)
   return not (
       enc is None
-      or model.steps > max_steps.get(enc, k1.BWD_MAX_STEPS.get(enc))
+      or samples > max_steps.get(enc, k1.BWD_MAX_STEPS.get(enc))
       or (enc == "volsdf" and model.with_normals
           and not (cfg.reg_coeffs or {}).get("eikonal"))
       or model.sky_kind not in ("black", "white")
@@ -296,12 +306,15 @@ def _kernel_kw(model) -> dict:
   return kw
 
 
-def _dyn_data_ok(model, ds) -> bool:
+def _data_ok(model, ds) -> bool:
   """A D-NeRF train gate engages only on timed data (driver.py:421,
-  :628: `ds.times is None` refuses); the other models' gates do not look
-  at the times."""
-  return (not isinstance(model, DynamicNeRF)
-          or getattr(ds, "times", None) is not None)
+  :628: `ds.times is None` refuses), a CoarseFineNeRF one only on static
+  data (driver.py:303); the other models' gates do not look at the
+  times."""
+  timed = getattr(ds, "times", None) is not None
+  if isinstance(model, DynamicNeRF):
+    return timed
+  return not (timed and isinstance(model, CoarseFineNeRF))
 
 
 def _step_ts(model, generator: torch.Generator, device) -> torch.Tensor:
@@ -320,6 +333,8 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   the raw scale, which the kernel step does not return: with it the
   two-kernel path trains (driver.py:582-586). For DynamicNeRF K9b in
   loss mode, with --dp-weight's mean dp² inside (driver.py:617-641).
+  None for a CoarseFineNeRF: it has no one-kernel step (its loss sums
+  two passes, the fine one on positions drawn from the coarse one).
   Returns fn(rays, pix, generator, times=None) -> (loss, {state_dict key:
   gradient}); times [B] are the rays' times (DynamicNeRF's)."""
   if cfg.no_fused:
@@ -330,8 +345,8 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   style_active = bool(cfg.style_img) and cfg.style_weight > 0
   if (tuple(cfg.loss_kinds) != ("l2",) or tuple(cfg.color_spaces) != ("rgb",)
       or gamma_active or style_active or ds.pixels.shape[-1] not in (3, 4)
-      or cfg.volsdf_alternate or not _fused_common_ok(model, cfg)
-      or not _dyn_data_ok(model, ds)
+      or cfg.volsdf_alternate or isinstance(model, CoarseFineNeRF)
+      or not _fused_common_ok(model, cfg) or not _data_ok(model, ds)
       or (cfg.reg_coeffs or {}).get("volsdf_scale")):
     return None
   enc = _fused_enc_kind(model)
@@ -375,12 +390,14 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   (`AERender`), for VolSDF K8f/K8b-G (`VolSDFRender`; with the eikonal
   active K8f's 5th column, its per-ray mean residual), for DynamicNeRF
   K9f/K9b-G (`DynRender`; with --dp-weight K9f's 5th column, the per-ray
-  mean dp²), with the loss computed outside. Returns fn(ws, rays,
-  generator, times=None) -> [N, 4] (with an in-kernel regularizer column
-  [N, 5]), differentiable in the packed weights ws (and, for hash, in the
-  model's table parameter), or None."""
+  mean dp²), for CoarseFineNeRF `fused_coarse_fine_train` (K1 with
+  weights and K1 on the fine ts, K2 behind each; driver.py:297-320), with
+  the loss computed outside. Returns fn(ws, rays, generator, times=None)
+  -> [N, 4] (with an in-kernel regularizer column [N, 5]; CoarseFineNeRF:
+  (fine, coarse)), differentiable in the packed weights ws (and, for
+  hash, in the model's table parameter), or None."""
   if (cfg.no_fused or not _fused_common_ok(model, cfg)
-      or not _dyn_data_ok(model, ds)):
+      or not _data_ok(model, ds)):
     return None
   enc = _fused_enc_kind(model)
   _pack(model.state_dict(), None, enc,
@@ -391,6 +408,10 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 
   def fn(ws, rays, generator, times=None):
     ts = _step_ts(model, generator, rays.device)
+    if isinstance(model, CoarseFineNeRF):
+      return k1.fused_coarse_fine_train(ws, rays, ts, generator,
+                                        enc_kind=enc,
+                                        fine_steps=model.fine_steps, **kw)
     if _dyn_enc(enc):
       return k9.fused_dyn_render_train(ws, rays, times, ts, want_dp=want_dp,
                                        **kw)
@@ -425,11 +446,12 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   the eikonal inside K8b. DynamicNeRF's --dp-weight: on the oracle path
   the mean of out["dp"]² (`regularizers.delta_x`); on the two-kernel
   path K9f's dp² column (its mean over the rays, driver.py:724-731); the
-  one-kernel step computes it inside K9b. A dynamic model's batch carries
-  each ray's time (its view's). A parameter that takes no gradient
-  (VolSDF's and DynamicNeRF's Fourier matrices) gets a zero one, so that
-  the optimizer steps it as optax steps a stop-gradient parameter: weight
-  decay shrinks it."""
+  one-kernel step computes it inside K9b. CoarseFineNeRF's loss sums the fine
+  and the coarse image's (driver.py:716-718, :786-787), on both paths. A
+  dynamic model's batch carries each ray's time (its view's). A parameter
+  that takes no gradient (VolSDF's and DynamicNeRF's Fourier matrices) gets
+  a zero one, so that the optimizer steps it as optax steps a stop-gradient
+  parameter: weight decay shrinks it."""
   params = dict(model.named_parameters())
   fixed = [p for p in params.values() if not p.requires_grad]
   device = next(model.parameters()).device
@@ -475,13 +497,19 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
       ws = _pack(model.state_dict(), device, enc,
                  getattr(model, "spline_points", 0)).requires_grad_(True)
       out = fused_train(ws, rays, generator, **timed)
-      main = loss_fn(out[:, :3], pix)
+      if isinstance(out, tuple):        # coarse_fine: (fine, coarse)
+        main = loss_fn(out[0][:, :3], pix) + loss_fn(out[1][:, :3], pix)
+        out = out[0]
+      else:
+        main = loss_fn(out[:, :3], pix)
       loss = main + fused_regularizer(out, generator)
       loss.backward()       # hash: the table's .grad, ae: the encoder's,
       add_grads(_unpack_grads(model, enc, ws.grad))  # volsdf: the scale's
     else:
       out = model(rays, train=True, generator=generator, **timed)
       main = loss_fn(out["rgb"], pix)
+      if "coarse_rgb" in out:
+        main = main + loss_fn(out["coarse_rgb"], pix)
       loss = main + regularizers.total_regularizer(out, coeffs)
       loss.backward()
     for p in fixed:
@@ -571,7 +599,9 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
 
 def _fused_render_fn(model) -> Optional[Callable]:
   """rays [n, 6] -> rgb [n, 3] through K1 in the model's mode (cp,
-  posenc, tiny, cone, cylinder), K5f + K1 (hash), K7f (ae), K8f (volsdf)
+  posenc, tiny, cone, cylinder), K5f + K1 (hash), K7f (ae), K8f (volsdf),
+  K1 twice (a CoarseFineNeRF: the coarse pass with weights, the fine pass
+  on the merged per-ray ts; `fused_coarse_fine_render`, driver.py:1180)
   or K9f (a DynamicNeRF, at each ray's time times [n]: fn(rays, times))
   when the model is in the kernels' envelope (`_fused_enc_kind`, any sky
   the kernel implements: the "random" sky is black at eval,
@@ -588,6 +618,10 @@ def _fused_render_fn(model) -> Optional[Callable]:
   kw = _kernel_kw(model)
 
   def fn(rays_chunk, times_chunk=None):
+    if isinstance(model, CoarseFineNeRF):
+      return k1.fused_coarse_fine_render(ws, rays_chunk, enc_kind=enc,
+                                         fine_steps=model.fine_steps,
+                                         **kw)[:, :3]
     if _dyn_enc(enc):
       return k9.fused_dyn_render(ws, rays_chunk, times_chunk, **kw)[:, :3]
     if enc == "volsdf":

@@ -127,7 +127,8 @@ def test_write_png_roundtrips(tmp_path):
     (["--epochs", "5", "--smooth-eps", "0.01"], NotImplementedError),
     (["--epochs", "5", "--smooth-n-ord", "1"], NotImplementedError),
     (["--param-file", "x.json"], NotImplementedError),
-    (["--model", "coarse_fine"], NotImplementedError),
+    (["--model", "coarse_fine", "--enc-kind", "ref-hash"],
+     NotImplementedError),
     (["--enc-kind", "ref-hash"], NotImplementedError),
     (["--model", "voxel"], NotImplementedError),
     (["--data-kind", "dnerf"], NotImplementedError),
@@ -159,7 +160,7 @@ def test_port_imports_no_jax():
       "assert len(mods) >= 20, mods\n"
       "named = {p.__name__ + '.' + m for m in ('ops.mip', 'models.nerf', "
       "'ops.kernels.render', 'ops.kernels.render_ae', "
-      "'ops.kernels.hash_encode')}\n"
+      "'ops.kernels.hash_encode', 'ops.sampling')}\n"
       "assert named <= set(mods), named - set(mods)\n"
       "assert not bad, bad\n")
   env = dict(os.environ, PYTHONPATH=REPO)
