@@ -2,12 +2,13 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]
-[--recipes R ...]] [--profile]`.
+[--recipes R ...] [--quality-steps N]] [--profile]`.
 Phases, each printing its lines before the next starts:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
      (one nvcc per source, all started together) and prints ptxas'
-     registers and spills;
+     registers and spills, and the tensor-core (HMMA) instructions in the
+     SASS of each render_bwd library (K2/K3's split-TF32 products);
   3. kernels vs plain torch on the card, 4096 seeded rays at full width,
      64 steps, over sky and rgb-activation kinds and seeded/amplified
      weights: K1 (render_fwd) on the uniform grid and on a jittered ts;
@@ -17,7 +18,10 @@ Phases, each printing its lines before the next starts:
      PlainCPRender's gradient against K2's. Then the hash grid: K5f
      (hash_fwd) and K5b (hash_bwd) at T = 2^19 and 2^14 over the check
      rays' 4096 x 64 points, bbox-face and out-of-bbox points, with the
-     table seeded and amplified to +-1; K1/K2/K3 in hash mode at T = 2^19
+     table seeded and amplified to +-1; K5b bit for bit across two
+     launches and a permutation of the points, and its fixed point
+     against the float64 sum of the same products within its bound;
+     K1/K2/K3 in hash mode at T = 2^19
      as for cp; the chained table gradient (K3-hash -> K5b) against
      autograd through the plain path; a ragged batch; PlainHashRender's
      gradient against K2-hash's. Then NeRFAE: K7f (render_ae_fwd) at
@@ -70,7 +74,9 @@ Phases, each printing its lines before the next starts:
      step and K1 in eval, and beat the all-black PSNR by 2 dB on both
      splits; 5b. the same for PlainNeRF-hash at the quality sweep's
      plain_hash recipe (--hash-table-log2 14), which must launch K5f,
-     K3-hash and K5b once per step; 5c. NeRFAE at the sweep's ae recipe
+     K3-hash and K5b once per step, then two 50-step hash runs from seed
+     0 that must give the same loss curve and parameters bit for bit;
+     5c. NeRFAE at the sweep's ae recipe
      (--normalize-latent --latent-l2-weight 1e-3), which must engage the
      one-kernel step and launch K7b once per step; 5d-5f. the sweep's
      plain_posenc and plain_mip_cone recipes (300 steps, both splits 2 dB
@@ -181,11 +187,13 @@ BATCH = 4096
 HASH_TRAIN_ARGV = (TRAIN_ARGV[:5] + ["hash", "--hash-table-log2", "14"]
                    + TRAIN_ARGV[6:])
 HASH_T = 1 << 19                           # HashEncoder's default table
+HASH_REPEAT_STEPS = 50                     # phase 5b's repeatability runs
 HASH_TRAIN_T = 1 << 14
 # QUALITY_r05 plain_hash (TPU, seed 0, one run): a record, not a gate
 QUALITY_R05_HASH = (33.686, 31.062)
 # K5f vs plain torch: the same float operations in the same order, 1e-6
-# abs; K5b: float atomics add in another order, 1e-5 relative per level
+# abs; K5b vs plain torch: its order-free 64-bit fixed point against
+# index_add_'s float32 sums, 1e-5 relative per level
 HASH_TOL = 1e-6
 HASH_GRAD_RTOL = 1e-5
 # published H100 SXM peaks (NVIDIA's H100 datasheet): float32 outside
@@ -194,6 +202,10 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # dense bf16 on the tensor cores: the bound a bf16 port could reach
 PEAK_BF16 = 989e12
+# dense TF32 on the tensor cores: K2/K3 run each float32 product as three
+# TF32 products (csrc/mma_tf32.cuh), so their bound is 3 x the float32
+# operations at this peak
+PEAK_TF32 = 495e12
 # float operations per (point, level) of K5f and of K5b: the cell (13),
 # then per corner its weight and the two products and sums (7.5)
 HASH_FLOP_PER_LEVEL = 73
@@ -358,6 +370,32 @@ def _build(build, k1, k9):
     entries = [f"{n}: {r}" for n, r in _ptxas_entries(b.log)]
     print(f"[build] {name}.cu{tag} -> {b.path.name} in {b.seconds:.1f} s | "
           f"{' | '.join(entries)}", flush=True)
+    if name == "render_bwd":
+      _tensor_core_count(build, b.path, tag)
+
+
+def _tensor_core_count(build, path, tag):
+  """Phase 2: the tensor-core instructions (HMMA) in a render_bwd
+  library's SASS (cuobjdump beside nvcc), per kernel; raises if the
+  backward kernel has none."""
+  import re
+  tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+  sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                        text=True, check=True).stdout
+  counts, name = {}, None
+  for ln in sass.splitlines():
+    m = re.search(r"Function : (\w+)", ln)
+    if m:
+      name = _kernel_name(m.group(1))
+      counts[name] = 0
+    elif name and re.search(r"\bHMMA\.", ln):
+      counts[name] += 1
+  ops = sorted({m for m in re.findall(r"\bHMMA\.[\w.]+", sass)})
+  per_kernel = ", ".join(f"{k} {v}" for k, v in counts.items())
+  print(f"[build] render_bwd.cu{tag} SASS tensor-core instructions: "
+        f"{per_kernel} ({', '.join(ops)})", flush=True)
+  if not any(v for k, v in counts.items() if k.startswith("render_bwd_kernel")):
+    raise RuntimeError(f"render_bwd.cu{tag}: no HMMA in the backward kernel")
 
 
 def _rel_error(k1, grad, ref):
@@ -542,7 +580,46 @@ def _check_hash_encoder(hk, k1, dev):
     if not max(errs) <= HASH_GRAD_RTOL:
       raise RuntimeError(f"K5b disagrees with its plain version: {errs}")
     max_b = max(max_b, err_abs)
+    _check_hash_bits(hk, pts, g, size, got)
   return max_f, max_b
+
+
+def _check_hash_bits(hk, pts, g, size, got):
+  """K5b's order-free sum: a second launch, the points in a permuted
+  order (another grid of blocks over other point runs), and the fixed
+  point against the float64 sum of the same float32 products (each row
+  off by at most half an ulp of its float32 result plus n·m·P·2^-61, n
+  its contributions, m the column's max |dfeat|, P the points: the bound
+  hash_encode.cu states)."""
+  tag = f"T=2^{size.bit_length() - 1}"
+  again = hk.hash_encode_table_grad(pts, g, size)
+  perm = torch.from_numpy(np.random.default_rng(size).permutation(
+      pts.shape[0])).to(pts.device)
+  permuted = hk.hash_encode_table_grad(pts[perm].contiguous(),
+                                       g[perm].contiguous(), size)
+  torch.cuda.synchronize()
+  same = (torch.equal(got, again), torch.equal(got, permuted))
+  ref64 = torch.zeros(8 * size, 2, dtype=torch.float64, device=pts.device)
+  count = torch.zeros(8 * size, dtype=torch.float64, device=pts.device)
+  for li, _, idx, w in hk._corners(pts, size):
+    ref64.index_add_(0, idx, (w[:, None] * g[:, 2 * li:2 * li + 2]).double())
+    count.index_add_(0, idx, torch.ones_like(w, dtype=torch.float64))
+  m = g.abs().amax(dim=0).double().view(8, 1, 2)
+  step = (m * pts.shape[0] * 2.0 ** -61).expand(8, size, 2).reshape(-1, 2)
+  ulp = (torch.nextafter(got.abs(), torch.full_like(got, math.inf))
+         - got.abs()).double()
+  err = (got.double() - ref64).abs()
+  bound = 0.5 * ulp + count[:, None] * step + ref64.abs() * 2.0 ** -52
+  worst = float((err / bound).max())
+  print(f"[check] K5b {tag}: bit for bit across two launches {same[0]}, "
+        f"across a permutation of the {pts.shape[0]} points {same[1]}; "
+        f"fixed point vs the float64 sum of the same products: max|Δ| "
+        f"{float(err.max()):.3e}, at most {worst:.3f} of its bound (half "
+        f"an ulp + n·m·P·2^-61; the fixed-point part ≤ "
+        f"{float((count[:, None] * step).max()):.3e})", flush=True)
+  if not (all(same) and worst <= 1.0):
+    raise RuntimeError(f"K5b is not order-free or exceeds its bound: {same}, "
+                       f"{worst}")
 
 
 def _check_hash_render(k1, hk, rays_ops, models, driver, dev):
@@ -1004,6 +1081,36 @@ def _train_main_hash(port_runner, k1, loaders, dev):
   return counts
 
 
+def _hash_repeat(port_runner):
+  """Phase 5b, the repeat: two HASH_REPEAT_STEPS-step hash trains from one
+  seed (the plain_hash recipe, no eval) must give the same loss curve and
+  the same parameters bit for bit: K5b's sums are order-free."""
+  argv = [a for a in HASH_TRAIN_ARGV if a != "--nosave"]
+  runs = []
+  for _ in range(2):
+    with tempfile.TemporaryDirectory() as outdir:
+      extra = ["--epochs", str(HASH_REPEAT_STEPS), "--notest",
+               "--notraintest", "--save-freq", str(HASH_REPEAT_STEPS),
+               "--outdir", outdir]
+      (results, secs), counts = _counted(
+          lambda: _sync_time(lambda: port_runner.main(argv + extra)))
+      params = torch.load(os.path.join(outdir, "model.ckpt"),
+                          map_location="cpu", weights_only=True)["params"]
+    runs.append(([h["loss"] for h in results["history"]], params, counts,
+                 secs))
+  (loss_a, par_a, counts, secs), (loss_b, par_b, _, _) = runs
+  same_loss = loss_a == loss_b
+  same_params = (par_a.keys() == par_b.keys()
+                 and all(torch.equal(par_a[k], par_b[k]) for k in par_a))
+  print(f"[train] hash T=2^14 repeat, two {HASH_REPEAT_STEPS}-step runs from "
+        f"seed 0: loss curves equal {same_loss} (last {loss_a[-1]!r} / "
+        f"{loss_b[-1]!r}), all {len(par_a)} parameter tensors bit for bit "
+        f"{same_params} | K5b launches {counts['K5b']} per run, {secs:.2f} s",
+        flush=True)
+  if not (same_loss and same_params and counts["K5b"] == HASH_REPEAT_STEPS):
+    raise RuntimeError("two hash trains from one seed differ")
+
+
 def _train_main_ae(port_runner, k1, loaders, dev):
   """Phase 5c: NeRFAE at the quality sweep's ae recipe. Returns the
   launches per kernel."""
@@ -1127,27 +1234,40 @@ def _time_training(card, model_cls, driver, loaders, sampler, k1, rays_ops,
   k1.plain_cp_render_grad.launches = launches        # timing, not the path
   b2 = _mlp_bound(k1, "cp", rays.shape[0], STEPS, True)
   print(f"[time] {card}: one {rays.shape[0]}-ray x {STEPS}-step K2 call "
-        f"{kk1:.2f} / {kk2:.2f} ms (bound {b2[0]:.2f} ms, bf16 tensor-core "
-        f"{b2[2]:.2f} ms), plain torch {p1:.2f} / {p2:.2f} ms", flush=True)
+        f"{kk1:.2f} / {kk2:.2f} ms (bound {b2[0]:.2f} ms, split TF32 "
+        f"{b2[3]:.2f} ms, bf16 tensor-core {b2[2]:.2f} ms), plain torch "
+        f"{p1:.2f} / {p2:.2f} ms", flush=True)
   target = torch.rand(BATCH, 3, device=dev, generator=gen)
   r4 = rays[:BATCH].contiguous()
-  k3_ms = _event_ms(lambda: k1.plain_cp_train_step(ws, r4, target, **kw), 5)
-  plain_k3_ms = _event_ms(lambda: k1.plain_cp_train_step_reference(
-      ws, r4, target, **kw), 5)
+  k3 = {}
+  for name, fn, reps in (
+      ("plain", lambda: k1.plain_cp_train_step_reference(ws, r4, target,
+                                                         **kw), 5),
+      ("kernel", lambda: k1.plain_cp_train_step(ws, r4, target, **kw), 5),
+      ("kernel", lambda: k1.plain_cp_train_step(ws, r4, target, **kw), 5),
+      ("plain", lambda: k1.plain_cp_train_step_reference(ws, r4, target,
+                                                         **kw), 5)):
+    k3.setdefault(name, []).append(_event_ms(fn, reps))
   print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3 call "
-        f"{k3_ms:.2f} ms, plain torch {plain_k3_ms:.2f} ms", flush=True)
-  return k3_ms, plain_k3_ms
+        f"{k3['kernel'][0]:.2f} / {k3['kernel'][1]:.2f} ms, plain torch "
+        f"{k3['plain'][0]:.2f} / {k3['plain'][1]:.2f} ms", flush=True)
+  return min(k3["kernel"]), min(k3["plain"])
 
 
 def _bound_ms(flop: float, nbytes: float):
-  """(ms, "bytes" or "operations", bf16 ms): the least time the card
-  could take, the larger of the bytes over the HBM rate and the float32
-  operations over the float32 peak; last, the same with the operations
-  over the bf16 tensor-core peak."""
+  """(ms, "bytes" or "operations", bf16 ms, split-TF32 ms, its "bytes"
+  or "operations"): the least time the card could take, the larger of
+  the bytes over the HBM rate and the float32 operations over the float32
+  peak; then the same with the operations over the bf16 tensor-core
+  peak, and with three times the operations over the TF32 tensor-core
+  peak (the split-TF32 products K2/K3 run)."""
   t_ops, t_bytes = flop / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
   t_bf16 = max(flop / PEAK_BF16 * 1e3, t_bytes)
-  return ((t_ops, "operations", t_bf16) if t_ops >= t_bytes
-          else (t_bytes, "bytes", t_bf16))
+  t_tf32 = 3 * flop / PEAK_TF32 * 1e3
+  tf32 = ((t_tf32, "operations") if t_tf32 >= t_bytes
+          else (t_bytes, "bytes"))
+  return ((t_ops, "operations", t_bf16, *tf32) if t_ops >= t_bytes
+          else (t_bytes, "bytes", t_bf16, *tf32))
 
 
 def _no_cotangent_macs(layers, prefix: str, hidden: int, rows: int) -> int:
@@ -1306,14 +1426,23 @@ def _time_hash(card, models, driver, loaders, sampler, k1, hk, rays_ops, dev,
                            device=dev)
   f4 = hk.hash_encode(table, k1.hash_pts(r4, ts))
   target = torch.rand(BATCH, 3, device=dev, generator=gen)
-  k3_ms = _event_ms(lambda: k1.plain_hash_train_step(ws, r4, f4, target,
-                                                     ts=ts, steps=STEPS), 5)
-  plain_ms = _event_ms(lambda: k1.plain_hash_train_step_reference(
-      ws, r4, f4, target, ts=ts, steps=STEPS), 5)
-  res["k3"] = (k3_ms, plain_ms, _mlp_bound(k1, "hash", BATCH, STEPS, True))
+  k3 = {}
+  for name, fn in (
+      ("plain", lambda: k1.plain_hash_train_step_reference(
+          ws, r4, f4, target, ts=ts, steps=STEPS)),
+      ("kernel", lambda: k1.plain_hash_train_step(ws, r4, f4, target, ts=ts,
+                                                  steps=STEPS)),
+      ("kernel", lambda: k1.plain_hash_train_step(ws, r4, f4, target, ts=ts,
+                                                  steps=STEPS)),
+      ("plain", lambda: k1.plain_hash_train_step_reference(
+          ws, r4, f4, target, ts=ts, steps=STEPS))):
+    k3.setdefault(name, []).append(_event_ms(fn, 5))
+  res["k3"] = (min(k3["kernel"]), min(k3["plain"]),
+               _mlp_bound(k1, "hash", BATCH, STEPS, True))
   print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3-hash call "
-        f"{k3_ms:.2f} ms (bound {res['k3'][2][0]:.2f} ms), plain torch "
-        f"{plain_ms:.2f} ms", flush=True)
+        f"{k3['kernel'][0]:.2f} / {k3['kernel'][1]:.2f} ms (bound "
+        f"{res['k3'][2][3]:.2f} ms in split TF32), plain torch "
+        f"{k3['plain'][0]:.2f} / {k3['plain'][1]:.2f} ms", flush=True)
 
   ds = sampler.RayDataset.from_bundle(
       loaders.load("", data_kind="synthetic", size=48, num_views=30,
@@ -1511,8 +1640,8 @@ def _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
           f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
     print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3-{mode} call "
           f"{k3['kernel'][0]:.2f} / {k3['kernel'][1]:.2f} ms (bound "
-          f"{b3[0]:.2f} ms, bf16 {b3[2]:.2f}), plain torch "
-          f"{k3['plain'][0]:.2f} / {k3['plain'][1]:.2f} ms", flush=True)
+          f"{b3[0]:.2f} ms, split TF32 {b3[3]:.2f}, bf16 {b3[2]:.2f}), plain "
+          f"torch {k3['plain'][0]:.2f} / {k3['plain'][1]:.2f} ms", flush=True)
     res[mode] = ((min(ms["kernel"]), min(ms["plain"]), b1),
                  (min(k3["kernel"]), min(k3["plain"]), b3))
 
@@ -1748,8 +1877,8 @@ def _time_coarse_fine(card, models, driver, loaders, sampler, k1, sampling,
   b2 = _mlp_bound(k1, "cone", BATCH, total, True, per_ray=True)
   print(f"[time] {card}: one {BATCH}-ray x {total}-step K2-cone call on "
         f"per-ray ts {k2['kernel'][0]:.2f} / {k2['kernel'][1]:.2f} ms (bound "
-        f"{b2[0]:.2f} ms, bf16 {b2[2]:.2f}), plain torch {k2['plain'][0]:.2f} "
-        f"/ {k2['plain'][1]:.2f} ms", flush=True)
+        f"{b2[0]:.2f} ms, split TF32 {b2[3]:.2f}, bf16 {b2[2]:.2f}), plain "
+        f"torch {k2['plain'][0]:.2f} / {k2['plain'][1]:.2f} ms", flush=True)
   res["bwd"] = (min(k2["kernel"]), min(k2["plain"]), b2)
 
   ds = sampler.RayDataset.from_bundle(
@@ -2625,15 +2754,18 @@ QUALITY_RECIPES = (
     ("coarse_fine_mip", CF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_CF))
 
 
-def _quality(card, port_runner, k1, loaders, dev, seeds, recipes=None):
+def _quality(card, port_runner, k1, loaders, dev, seeds, recipes=None,
+             budget=QUALITY_STEPS):
   """Phase 7: each sweep recipe's budget (`recipes`: their names, default
-  all) on the kernel path for each seed, and plain_cp with --no-fused for
-  the first; prints both splits' PSNR and the wall time of each run. The
+  all; `budget` in place of the sweep's 1500 steps, tiny keeping its 2x)
+  on the kernel path for each seed, and plain_cp with --no-fused for the
+  first; prints both splits' PSNR and the wall time of each run. The
   D-NeRF recipes must beat all-black by 2 dB on both splits."""
   runs = []
   for name, argv, steps, record in QUALITY_RECIPES:
     if recipes and name not in recipes:
       continue
+    steps = steps * budget // QUALITY_STEPS
     runs += [(name, seeds[0], (), argv, steps, record)]
     if name == "plain_cp":
       runs += [(name, seeds[0], ("--no-fused",), argv, steps, record)]
@@ -2803,6 +2935,10 @@ def main(argv=None):
   parser.add_argument("--recipes", nargs="+", default=None,
                       choices=[r[0] for r in QUALITY_RECIPES],
                       help="phase 7's recipes (default: all)")
+  parser.add_argument("--quality-steps", type=int, default=QUALITY_STEPS,
+                      help="phase 7's budget in place of the sweep's 1500 "
+                           "steps (tiny trains twice it), e.g. 300 for the "
+                           "spread of phase 5's runs over seeds")
   args = parser.parse_args(argv)
   t_start = time.perf_counter()
   # ---- 1. device ----
@@ -2913,6 +3049,7 @@ def main(argv=None):
   k3_launches = _train_main(port_runner, k1, loaders, dev)
   # ---- 5b. hash training at the plain_hash recipe ----
   train_h = _train_main_hash(port_runner, k1, loaders, dev)
+  _hash_repeat(port_runner)
   # ---- 5c. NeRFAE at the ae recipe ----
   train_ae = _train_main_ae(port_runner, k1, loaders, dev)
   # ---- 5d-5f. the K4 families at their sweep recipes ----
@@ -2992,7 +3129,8 @@ def main(argv=None):
         f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
   if args.quality:
-    _quality(card, port_runner, k1, loaders, dev, args.seeds, args.recipes)
+    _quality(card, port_runner, k1, loaders, dev, args.seeds, args.recipes,
+             args.quality_steps)
   if args.profile:
     _profile(card, model, ds, ws)
     _profile_train(card, models.PlainNeRF, driver, loaders, sampler, dev)
@@ -3078,9 +3216,15 @@ def main(argv=None):
   rows.append(("render_bwd_perray_cone", "render_bwd.cu", "render.py:915",
                train_cf["K2"] // 2, max_cf["cone"][1], *cf_t["bwd"], None))
   for name, *_, bound, _ in rows:
+    tf32 = (f", {bound[3]:.4f} ms by {bound[4]} in split TF32 (3 x the "
+            "operations at the TF32 tensor-core peak: the products it runs)"
+            if name.startswith("render_bwd") else "")
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
-          f"outside the tensor cores), {bound[2]:.4f} ms at the bf16 "
+          f"outside the tensor cores){tf32}, {bound[2]:.4f} ms at the bf16 "
           "tensor-core peak", flush=True)
+  # K2/K3 run their products in split TF32: their bound is that one
+  rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith("render_bwd")
+           else r[7][:2], r[8]) for r in rows]
   print(json.dumps({"kernels": [{
       "name": name, "route": "cuda",
       "source": f"nerf_atlas_tpu_torch/csrc/{src}",

@@ -39,25 +39,36 @@
 // layer the input-gradient and the weight-gradient products; the density
 // MLP's input gradient is skipped where no encoder parameter needs it),
 // plus the stash (608 KB per 64-point tile for cp, written once and read
-// once) and the per-block weight-gradient partials.
+// once) and the per-block weight-gradient partials (each tile adds into
+// its block's row: 1.87 MB read and written per tile for cp).
 //
-// Design (simple and exact, not yet fast): float32 FMAs on the CUDA
-// cores, one 256-thread block per SM (cp: about 197 KB of shared memory:
-// two 256-row activation/gradient tiles, the init features, their
-// activations and gradient, and the CP line gradients; mip's 96-row init
-// feature takes ~218 KB). The grid is at most one block per SM; each
-// block loops over ray blocks. The weight gradient is deterministic:
-// every block accumulates into its own partial row of WEIGHT_COUNT + 1
-// floats (each entry owned by one thread, tiles in a fixed order; the CP
-// line gradients first in shared memory, one thread per (level, axis,
-// rank) walking the points in order), and a second kernel sums the rows
-// in block order. No float atomics anywhere.
+// Design: every MLP product (the forward's recompute, the input
+// gradients, the weight gradients) runs on the tensor cores in split TF32
+// (mma_tf32.cuh: three TF32 products per float32 product, float32
+// accumulation, error ~3·2^-22 per term), the weights pre-split by the
+// wrapper (`tc_pack`) and staged through shared memory by cp.async, one
+// 16-row slice ahead: in pass 1 through the gradient rows G, which the
+// forward does not use, in pass 2 through the activation rows X once the
+// layer's weight gradient has read them. The encoders (CP encode, posenc
+// and IPE phases), the CP line gradients, the activations and the
+// compositing stay float32 on the CUDA cores, rounded as before. One
+// 256-thread block per SM (cp: about 197 KB of shared memory: two
+// 256-row activation/gradient tiles, the init features, their activations
+// and gradient, and the CP line gradients; mip's 96-row init feature
+// takes ~218 KB). The grid is at most one block per SM; each block loops
+// over ray blocks. The weight gradient is deterministic: every block
+// accumulates into its own partial row of WEIGHT_COUNT + 1 floats (each
+// entry owned by one thread, tiles in a fixed order; the CP line
+// gradients first in shared memory, one thread per (level, axis, rank)
+// walking the points in order), and a second kernel sums the rows in
+// block order. No float atomics anywhere.
 //
 // Plain C interface for ctypes (built with nvcc into a shared library).
 // build.py compiles it once per mode, with -DRENDER_BWD_ENC=<enc>, so
 // that the six instantiations compile in parallel; a library holds and
 // launches its own mode only.
 
+#include "mma_tf32.cuh"
 #include "render_plain.cuh"
 
 #ifndef RENDER_BWD_ENC
@@ -84,6 +95,19 @@ struct BwdLayout : Layout<ENC> {
   // the density MLP's input cotangent: the CP lines' and K5b's
   static constexpr bool WANT_DF = ENC == ENC_CP || ENC == ENC_HASH;
   static constexpr long WP = L::TOTAL + 1;        // partial row: grads ‖ loss
+  // the TC pack (mma_tf32.cuh): the density MLP's, then the View MLP's
+  static constexpr long TC_R =
+      tc::tc_mlp_floats(L::FEAT_IN, L::D_HIDDEN, L::D_LAYERS, L::D_OUT_W);
+  static constexpr long TC_TOTAL =
+      TC_R + (L::VIEW ? tc::tc_mlp_floats(R_IN, R_HIDDEN, R_LAYERS, R_OUT_W)
+                      : 0);
+  // the products stage their weights in the G rows (pass 1) or the X rows
+  // (pass 2): the widest staged product fits either
+  static_assert(tc::stage_floats(L::D_HIDDEN) <= L::H_ROWS * PS &&
+                tc::stage_floats(L::FEAT_IN) <= L::H_ROWS * PS &&
+                tc::stage_floats(R_HIDDEN) <= L::H_ROWS * PS &&
+                tc::stage_floats(R_IN) <= L::H_ROWS * PS,
+                "weight staging");
   // ---- stash rows per tile (each row holds TILE floats)
   static constexpr int ST_D = 0;                  // density z_in, z_0..
   static constexpr int ST_R =                     // View z_in, z_0..z_4
@@ -114,7 +138,7 @@ render_bwd_kernel(const float* __restrict__ rays,
                   const float* __restrict__ ts,
                   const float* __restrict__ dists,
                   const float* __restrict__ w,
-                  const float* __restrict__ wt,
+                  const float* __restrict__ tcw,
                   const float* __restrict__ gin,
                   const float* __restrict__ feats,
                   const float* __restrict__ freqs,
@@ -212,8 +236,8 @@ render_bwd_kernel(const float* __restrict__ rays,
       }
       __syncthreads();
 
-      mlp_fwd<FEAT_IN, L::D_HIDDEN, L::D_LAYERS, L::D_OUT_W, ACT_LEAKY>(
-          F, FA, w + L::D_IN, X, st + L::ST_D * TILE);
+      tc::mlp_fwd<FEAT_IN, L::D_HIDDEN, L::D_LAYERS, L::D_OUT_W, ACT_LEAKY>(
+          F, FA, w + L::D_IN, tcw, X, st + L::ST_D * TILE, G);
 
       if constexpr (!L::VIEW) {
         // tiny: density and rgb (raw) straight from the MLP's outputs
@@ -252,8 +276,8 @@ render_bwd_kernel(const float* __restrict__ rays,
         }
         __syncthreads();
 
-        mlp_fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30>(
-            F, FA, w + L::R_IN_, X, st + L::ST_R * TILE);
+        tc::mlp_fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30>(
+            F, FA, w + L::R_IN_, tcw + L::TC_R, X, st + L::ST_R * TILE, G);
         if (tid < TILE && q0 + tid < n_pts) {
 #pragma unroll
           for (int c = 0; c < 3; ++c)
@@ -364,8 +388,8 @@ render_bwd_kernel(const float* __restrict__ rays,
         }
         load_act<ACT_SIN30>(zr + R_LAYERS * R_HIDDEN * TILE, R_HIDDEN, X);
         __syncthreads();
-        mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, true>(
-            X, G, F, FA, DF, wt + L::R_IN_, part + L::R_IN_, zr);
+        tc::mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, true>(
+            X, G, F, FA, DF, tcw + L::TC_R, part + L::R_IN_, zr);
 
         // density MLP: G <- [d density ‖ d feats (DF rows 5..36)]
         for (int i = tid; i < L::D_OUT_W * TILE; i += THREADS) {
@@ -390,8 +414,8 @@ render_bwd_kernel(const float* __restrict__ rays,
       load_act<ACT_LEAKY>(zd + L::D_LAYERS * L::D_HIDDEN * TILE, L::D_HIDDEN,
                           X);
       __syncthreads();
-      mlp_bwd<FEAT_IN, L::D_HIDDEN, L::D_LAYERS, L::D_OUT_W, ACT_LEAKY,
-              L::WANT_DF>(X, G, F, FA, DF, wt + L::D_IN, part + L::D_IN, zd);
+      tc::mlp_bwd<FEAT_IN, L::D_HIDDEN, L::D_LAYERS, L::D_OUT_W, ACT_LEAKY,
+                  L::WANT_DF>(X, G, F, FA, DF, tcw, part + L::D_IN, zd);
 
       if constexpr (ENC == ENC_HASH) {
         // dfeat = DF rows 3..18 for the points of real rays (a padding
@@ -418,7 +442,7 @@ render_bwd_kernel(const float* __restrict__ rays,
 
 template <int ENC>
 int launch(const float* rays, const float* ts, const float* dists,
-           const float* weights, const float* weights_t, const float* gin,
+           const float* weights, const float* tcw, const float* gin,
            const float* feats, const float* freqs, float* dfeat, float* out,
            float* partial, float* stash, int n_rays, int steps, int ts_stride,
            int blocks, int sigmoid_kind, int sky_white, int loss_mode,
@@ -437,7 +461,7 @@ int launch(const float* rays, const float* ts, const float* dists,
   err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)blocks * WP, s);
   if (err != cudaSuccess) return err;
   render_bwd_kernel<ENC><<<blocks, THREADS, smem, s>>>(
-      rays, ts, dists, weights, weights_t, gin, feats, freqs, dfeat, partial,
+      rays, ts, dists, weights, tcw, gin, feats, freqs, dfeat, partial,
       stash, n_rays, steps, ts_stride, rays_per_block, n_rb, tiles,
       sigmoid_kind, sky_white, loss_mode, loss_scale);
   err = cudaGetLastError();
@@ -466,6 +490,11 @@ extern "C" {
 // index of render.py ENC_KINDS); -1 for an unknown enc.
 long long render_bwd_weight_count(int enc) {
   RENDER_BWD_SWITCH(Layout<E>::TOTAL, -1)
+}
+
+// Floats of the TC pack (render.py `tc_pack`) the kernel expects for `enc`.
+long long render_bwd_tc_floats(int enc) {
+  RENDER_BWD_SWITCH(BwdLayout<E>::TC_TOTAL, -1)
 }
 
 // Floats of stash per 64-point tile (the wrapper sizes the scratch).
@@ -497,12 +526,14 @@ const char* render_bwd_error_string(int code) {
 // target [N, 3] (loss_mode 1).
 // feats, dfeat: [N·steps, 16] for enc hash, else unused; freqs: the
 // posenc bands (`render_bwd_freq_count`) for enc posenc and tiny, else
-// unused. out: [weight count + 1] (gradient ‖ loss). partial: blocks ×
+// unused. weights: the packed vector (the CP lines and the biases are read
+// from it); tcw: its TC pack (`render_bwd_tc_floats` floats, 16-byte
+// aligned). out: [weight count + 1] (gradient ‖ loss). partial: blocks ×
 // (weight count + 1) floats; stash: blocks × tiles ×
 // stash_floats_per_tile(enc) floats, tiles = ceil(rays_per_block · steps /
 // 64), rays_per_block = max(1, 64 / steps).
 int render_bwd_launch(const float* rays, const float* ts, const float* dists,
-                      const float* weights, const float* weights_t,
+                      const float* weights, const float* tcw,
                       const float* gin, const float* feats,
                       const float* freqs, float* dfeat, float* out,
                       float* partial, float* stash, int n_rays, int steps,
@@ -514,10 +545,11 @@ int render_bwd_launch(const float* rays, const float* ts, const float* dists,
       || sigmoid_kind > 7 || blocks <= 0
       || enc != RENDER_BWD_ENC
       || (enc == ENC_HASH && (feats == nullptr || dfeat == nullptr))
-      || (render_bwd_freq_count(enc) > 0 && freqs == nullptr))
+      || (render_bwd_freq_count(enc) > 0 && freqs == nullptr)
+      || reinterpret_cast<uintptr_t>(tcw) % 16)
     return cudaErrorInvalidValue;
   return launch<RENDER_BWD_ENC>(
-      rays, ts, dists, weights, weights_t, gin, feats, freqs, dfeat, out,
+      rays, ts, dists, weights, tcw, gin, feats, freqs, dfeat, out,
       partial, stash, n_rays, steps, ts_stride, blocks, sigmoid_kind,
       sky_white, loss_mode, loss_scale, static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,8 @@ Counterparts of `nerf_atlas_tpu/ops/pallas/hash_encode.py`:
   plain torch (the index math and `table[idx]`, as
   `nerf_atlas_tpu.nn.HashEncoder` computes it).
 - `hash_encode_table_grad` (K5b, `_hash_bwd_kernel`) launches
-  `hash_bwd_kernel`; `hash_encode_table_grad_reference` is an
+  `hash_bwd_kernel` (with its max and convert passes: an order-free
+  64-bit fixed-point sum); `hash_encode_table_grad_reference` is an
   `index_add_` per level and corner.
 - `HashEncode` is the autograd Function K5f forward / K5b backward
   (`_make_hash_encode`): the gradient reaches the table only, points get
@@ -128,11 +129,11 @@ def _load_library() -> ctypes.CDLL:
   """Build (at first use) and bind csrc/hash_encode.cu."""
   from . import build
   lib = build.load("hash_encode")
-  args = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
-                                   ctypes.c_int * LEVELS, ctypes.c_float,
-                                   ctypes.c_float, ctypes.c_void_p])
+  tail = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int * LEVELS,
+          ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+  lib.hash_fwd_launch.argtypes = [ctypes.c_void_p] * 3 + tail
+  lib.hash_bwd_launch.argtypes = [ctypes.c_void_p] * 5 + tail
   for fn in (lib.hash_fwd_launch, lib.hash_bwd_launch):
-    fn.argtypes = args
     fn.restype = ctypes.c_int
   lib.hash_encode_error_string.argtypes = [ctypes.c_int]
   lib.hash_encode_error_string.restype = ctypes.c_char_p
@@ -140,21 +141,26 @@ def _load_library() -> ctypes.CDLL:
 
 
 def _launch(name: str, a: torch.Tensor, pts: torch.Tensor, out: torch.Tensor,
-            table_size: int):
-  """One hash_fwd / hash_bwd launch on the current stream."""
+            table_size: int, scratch=()):
+  """One hash_fwd / hash_bwd launch on the current stream (`scratch`: the
+  backward's integer table and maxima)."""
   if pts.device.type != "cuda":
     raise ValueError(f"{name} runs on cuda or cpu, not {pts.device}")
   for t, what in ((a, "input"), (pts, "pts")):
     if not t.is_contiguous():
       raise ValueError(f"{name}: {what} must be contiguous")
-  if a.data_ptr() % 8 or out.data_ptr() % 8:
-    raise ValueError(f"{name}: the float2 rows must be 8-byte aligned")
+  # K5f reads float2 table rows, K5b float4 quarters of dfeat rows
+  align = 16 if scratch else 8
+  if a.data_ptr() % align or out.data_ptr() % 8:
+    raise ValueError(f"{name}: the input must be {align}-byte and the "
+                     "output 8-byte aligned")
   lib = _load_library()
   res = (ctypes.c_int * LEVELS)(*resolutions())
   stream = torch.cuda.current_stream(pts.device).cuda_stream
   err = getattr(lib, f"{name}_launch")(
-      a.data_ptr(), pts.data_ptr(), out.data_ptr(), pts.shape[0], table_size,
-      res, BBOX[0], BBOX[1], stream)
+      a.data_ptr(), pts.data_ptr(), out.data_ptr(),
+      *[t.data_ptr() for t in scratch], pts.shape[0], table_size, res,
+      BBOX[0], BBOX[1], stream)
   if err != 0:
     msg = lib.hash_encode_error_string(err).decode()
     raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
@@ -183,10 +189,12 @@ hash_encode.launches = 0
 def hash_encode_table_grad(pts: torch.Tensor, dfeat: torch.Tensor,
                            table_size: int) -> torch.Tensor:
   """K5b: the table gradient [8·T, 2] for pts [P, 3] and the feature
-  cotangent dfeat [P, 16]. CUDA points launch csrc/hash_encode.cu (float
-  atomics: the sum's order, and so its last bits, vary from run to run;
-  each launch adds one to `hash_encode_table_grad.launches`); CPU points
-  take `hash_encode_table_grad_reference`."""
+  cotangent dfeat [P, 16]. CUDA points launch csrc/hash_encode.cu, which
+  adds in 64-bit fixed point (one power-of-two scale per level and
+  feature): integer adds are associative, so the result is the same bits
+  whatever the order of the points or of the threads (each launch adds
+  one to `hash_encode_table_grad.launches`); CPU points take
+  `hash_encode_table_grad_reference`."""
   if (dfeat.dtype != torch.float32
       or tuple(dfeat.shape) != (pts.shape[0], LEVELS * FEATURES)
       or dfeat.device != pts.device):
@@ -197,12 +205,18 @@ def hash_encode_table_grad(pts: torch.Tensor, dfeat: torch.Tensor,
     return hash_encode_table_grad_reference(pts, dfeat, table_size)
   if table_size < 1 or table_size & (table_size - 1):
     raise ValueError(f"table size must be a power of two, got {table_size}")
-  dtable = torch.zeros(LEVELS * table_size, FEATURES, dtype=torch.float32,
+  _check_pts(pts, dfeat)
+  if not pts.shape[0]:
+    return torch.zeros(LEVELS * table_size, FEATURES, dtype=torch.float32,
                        device=pts.device)
-  _check_pts(pts, dtable)
-  if pts.shape[0]:
-    _launch("hash_bwd", dfeat, pts, dtable, table_size)
-    hash_encode_table_grad.launches += 1
+  dtable = torch.empty(LEVELS * table_size, FEATURES, dtype=torch.float32,
+                       device=pts.device)
+  acc = torch.zeros(LEVELS * table_size, FEATURES, dtype=torch.int64,
+                    device=pts.device)
+  max_bits = torch.zeros(LEVELS * FEATURES, dtype=torch.int32,
+                         device=pts.device)
+  _launch("hash_bwd", dfeat, pts, dtable, table_size, (acc, max_bits))
+  hash_encode_table_grad.launches += 1
   return dtable
 
 

@@ -345,21 +345,26 @@ def check_rays(ws: torch.Tensor, rays: torch.Tensor, steps: int,
     raise NotImplementedError(f"fused kernel: sky {sky_kind}")
 
 
+# the plain versions' dense product (tests/test_torch_tf32_split.py puts
+# the split-TF32 emulation of K2/K3's tensor-core products in its place)
+_matmul = torch.matmul
+
+
 def _mlp(init_feat, layers, act, n_layers):
   """SkipConnMLP with split skip matmuls: layer i's weight splits into its
   hidden rows and init-feature rows, act(h)·W_h + act(f)·W_f."""
   f_act = act(init_feat)
   w, b = layers[0]
-  h = init_feat @ w + b
+  h = _matmul(init_feat, w) + b
   for i in range(n_layers):
     w, b = layers[i + 1]
     if _skip_at(i, n_layers):
       hidden = w.shape[1]
-      h = act(h) @ w[:hidden] + f_act @ w[hidden:] + b
+      h = _matmul(act(h), w[:hidden]) + _matmul(f_act, w[hidden:]) + b
     else:
-      h = act(h) @ w + b
+      h = _matmul(act(h), w) + b
   w, b = layers[-1]
-  return act(h) @ w + b
+  return _matmul(act(h), w) + b
 
 
 def init_feature(enc_kind: str, lines, rays: torch.Tensor, ts: torch.Tensor,
@@ -697,7 +702,8 @@ def _load_bwd_library(enc_kind: str) -> ctypes.CDLL:
       [ctypes.c_void_p] * 12
       + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
   lib.render_bwd_launch.restype = ctypes.c_int
-  for fn in ("render_bwd_weight_count", "render_bwd_stash_floats_per_tile"):
+  for fn in ("render_bwd_weight_count", "render_bwd_stash_floats_per_tile",
+             "render_bwd_tc_floats"):
     getattr(lib, fn).argtypes = [ctypes.c_int]
     getattr(lib, fn).restype = ctypes.c_longlong
   for fn in ("render_bwd_max_steps", "render_bwd_freq_count"):
@@ -712,37 +718,112 @@ def _load_bwd_library(enc_kind: str) -> ctypes.CDLL:
   if (lib.render_bwd_built_enc() != enc
       or lib.render_bwd_weight_count(enc) != LAYOUTS[enc_kind].weight_count
       or lib.render_bwd_max_steps(enc) != BWD_MAX_STEPS[enc_kind]
+      or lib.render_bwd_tc_floats(enc) != tc_pack_index(enc_kind)[0].numel()
       or lib.render_bwd_freq_count(enc) != (0 if bands is None
                                             else bands.shape[0])):
     raise RuntimeError(
         f"render_bwd.cu built for mode {lib.render_bwd_built_enc()} packs "
         f"{lib.render_bwd_weight_count(enc)} {enc_kind} weights and takes "
         f"{lib.render_bwd_max_steps(enc)} steps and "
-        f"{lib.render_bwd_freq_count(enc)} bands, the wrapper mode {enc}, "
-        f"{LAYOUTS[enc_kind].weight_count}, {BWD_MAX_STEPS[enc_kind]} and "
-        f"{bands}")
+        f"{lib.render_bwd_freq_count(enc)} bands in a TC pack of "
+        f"{lib.render_bwd_tc_floats(enc)} floats, the wrapper mode {enc}, "
+        f"{LAYOUTS[enc_kind].weight_count}, {BWD_MAX_STEPS[enc_kind]}, "
+        f"{bands} and {tc_pack_index(enc_kind)[0].numel()}")
   return lib
 
 
-_TRANSPOSE_INDEX: Dict[Tuple[torch.device, str], torch.Tensor] = {}
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+  """float32 x rounded to TF32 (10 stored mantissa bits), to nearest with
+  ties away from zero, as `cvt.rna.tf32.f32` rounds and as
+  csrc/mma_tf32.cuh `tf32_bits` computes it: the magnitude's bits plus
+  half an ulp, the low 13 bits cleared."""
+  bits = x.contiguous().view(torch.int32)
+  return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _transposed(ws: torch.Tensor) -> torch.Tensor:
-  """The packed vector with every Dense W [in, out] stored as [out, in]
-  at the same offset (render_bwd.cu reads W row by output unit for the
-  input-gradient products)."""
-  layout = _layout_of(ws)
-  index = _TRANSPOSE_INDEX.get((ws.device, layout.enc_kind))
-  if index is None:
-    index = torch.arange(layout.weight_count)
-    pos = layout.line_count
-    for _, i, o in layout.density_layers + layout.refl_layers:
-      index[pos:pos + i * o] = pos + torch.arange(i * o).view(i, o).t(
-      ).reshape(-1)
-      pos += i * o + o
-    index = _TRANSPOSE_INDEX.setdefault((ws.device, layout.enc_kind),
-                                        index.to(ws.device))
-  return ws[index]
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(hi, lo) = (tf32(x), tf32(x − hi)): x ≈ hi + lo to 2^-22·|x|."""
+  hi = tf32_round(x)
+  return hi, tf32_round(x - hi)
+
+
+_TC_SLICE = 16                                   # csrc/mma_tf32.cuh SK
+
+
+def _pad16(n: int) -> int:
+  return -(-n // 16) * 16
+
+
+def _tc_block(a: torch.Tensor, pad: int) -> torch.Tensor:
+  """A K-major index block a [k][m] (A[m][k] = a[k][m]) -> its TC-pack
+  order [Kp/16, 2 (hi, lo slot), 2 (k-step), Mp/16 (m-tile), 32 (lane),
+  4]: lane (g, t) of m-tile mt and k-step kk holds A[16mt + g][8kk + t],
+  A[16mt + g + 8][8kk + t], A[16mt + g][8kk + t + 4], A[16mt + g +
+  8][8kk + t + 4] (mma.m16n8k8's A fragment), padded with `pad` (the
+  index of a zero)."""
+  k, m = a.shape
+  kp, mp = _pad16(k), _pad16(m)
+  full = torch.full((kp, mp), pad, dtype=torch.long)
+  full[:k, :m] = a
+  s = torch.arange(kp // _TC_SLICE).view(-1, 1, 1, 1, 1)
+  kk = torch.arange(2).view(1, -1, 1, 1, 1)
+  mt = torch.arange(mp // 16).view(1, 1, -1, 1, 1)
+  lane = torch.arange(32).view(1, 1, 1, -1, 1)
+  j = torch.arange(4).view(1, 1, 1, 1, -1)
+  rows = _TC_SLICE * s + 8 * kk + lane % 4 + 4 * (j // 2)
+  cols = 16 * mt + lane // 4 + 8 * (j % 2)
+  out = full[rows, cols].unsqueeze(1)
+  return torch.cat([out, out], dim=1)
+
+
+def tc_pack_index(enc_kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(index, is_lo) of csrc/mma_tf32.cuh's TC pack for `enc_kind`: each
+  entry picks a float of the packed weight vector (its length: a zero
+  pad) and whether it holds that float's hi or lo TF32 part. Per MLP
+  (density, then View) and Dense layer W [in, out] (in = kh hidden rows ‖
+  kf init rows), in order: the forward product's block, W itself, K-major
+  [in (kh rows padded to 16, then kf rows padded to 16)][out]; the hidden
+  rows' input-gradient block, W[:kh]ᵀ as [out][kh]; the init rows',
+  W[kh:]ᵀ as [out][kf] (each present where kh, kf > 0); each block in
+  16-deep slices, a slice's hi part then its lo part, each in mma
+  fragment order (`_tc_block`)."""
+  layout = LAYOUTS[enc_kind]
+  pad = layout.weight_count
+  blocks = []
+  pos = layout.line_count
+  for layers in (layout.density_layers, layout.refl_layers):
+    for j, (_, n_in, n_out) in enumerate(layers):
+      kh = 0 if j == 0 else layers[0][2]
+      w = pos + torch.arange(n_in * n_out).view(n_in, n_out)
+      fwd = torch.full((_pad16(kh) + _pad16(n_in - kh), n_out), pad,
+                       dtype=torch.long)
+      fwd[:kh] = w[:kh]
+      fwd[_pad16(kh):_pad16(kh) + n_in - kh] = w[kh:]
+      blocks.append(_tc_block(fwd, pad))
+      for part in (w[:kh], w[kh:]):
+        if part.shape[0]:
+          blocks.append(_tc_block(part.t(), pad))
+      pos += n_in * n_out + n_out
+  index = torch.cat([b.reshape(-1) for b in blocks])
+  is_lo = torch.cat([torch.zeros_like(b, dtype=torch.bool).index_fill_(
+      1, torch.tensor([1]), True).reshape(-1) for b in blocks])
+  return index, is_lo
+
+
+_TC_INDEX: Dict[Tuple[torch.device, str], Tuple[torch.Tensor,
+                                                torch.Tensor]] = {}
+
+
+def tc_pack(ws: torch.Tensor, enc_kind: str) -> torch.Tensor:
+  """The packed weights `ws` of `enc_kind` pre-split into csrc/
+  mma_tf32.cuh's TC pack (`tc_pack_index`): the tensor-core operands of
+  K2/K3's dense products, once per call."""
+  key = (ws.device, enc_kind)
+  if key not in _TC_INDEX:
+    _TC_INDEX[key] = tuple(t.to(ws.device) for t in tc_pack_index(enc_kind))
+  index, is_lo = _TC_INDEX[key]
+  hi, lo = tf32_split(F.pad(ws, (0, 1))[index])
+  return torch.where(is_lo, lo, hi)
 
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
@@ -787,11 +868,11 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
   stash = torch.empty(
       blocks * tiles * lib.render_bwd_stash_floats_per_tile(enc),
       dtype=torch.float32, device=rays.device)
-  wt = _transposed(ws)
+  tcw = tc_pack(ws, enc_kind)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_bwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-      wt.data_ptr(), gin.data_ptr(), _ptr(feats), _ptr(fq), _ptr(dfeat),
+      tcw.data_ptr(), gin.data_ptr(), _ptr(feats), _ptr(fq), _ptr(dfeat),
       out.data_ptr(), partial.data_ptr(), stash.data_ptr(), n, steps,
       steps if ts.ndim == 2 else 0, blocks,
       FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),

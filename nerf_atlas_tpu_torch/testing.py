@@ -14,6 +14,37 @@ from .ops.kernels import render_dyn as k9
 from .ops.kernels import render_volsdf as k8
 
 
+def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """a @ b as K2/K3's tensor cores form it (csrc/mma_tf32.cuh): each
+  operand split into TF32 hi and lo parts, the three products lo_a·hi_b,
+  hi_a·lo_b and hi_a·hi_b summed in float32; lo_a·lo_b is dropped."""
+  a_hi, a_lo = k1.tf32_split(a)
+  b_hi, b_lo = k1.tf32_split(b)
+  return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+class SplitTF32Matmul(torch.autograd.Function):
+  """a @ b whose forward and both backward products (g @ bᵀ, aᵀ @ g) go
+  through the split-TF32 emulation: the three dense products K2/K3 runs
+  per layer (the recompute, the input and the weight gradient)."""
+
+  @staticmethod
+  def forward(ctx, a, b):
+    ctx.save_for_backward(a, b)
+    return _split_product(a, b)
+
+  @staticmethod
+  def backward(ctx, g):
+    a, b = ctx.saved_tensors
+    return _split_product(g, b.t()), _split_product(a.t(), g)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """`SplitTF32Matmul.apply`: put in place of `render._matmul` to run a
+  plain version's MLP products as K2/K3's tensor cores do."""
+  return SplitTF32Matmul.apply(a, b)
+
+
 def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
                    steps: int, margin: float = 10.0,
                    feats: Optional[torch.Tensor] = None,

@@ -524,8 +524,8 @@ def test_cuda_k1_per_ray_matches_plain(mode, steps, n):
 def test_cuda_k2_per_ray_matches_plain(mode, steps, n):
   """K2 (and K3) with per-ray ts vs autograd through the plain K1: loss
   1e-5 relative, each gradient tensor 1e-4 relative with a zero
-  cotangent on the rays near a leaky-relu kink; two launches bit for
-  bit."""
+  cotangent on the rays near a leaky-relu kink; two launches of K2 and
+  of K3 bit for bit."""
   ws, rays, ts, gen, kw = _cuda_case(mode, n, steps, 2)
   keep = testing.kink_free_rays(ws, rays, ts, steps, enc_kind=mode)
   g = torch.randn(n, 4, device="cuda", generator=gen) * keep[:, None]
@@ -543,3 +543,5 @@ def test_cuda_k2_per_ray_matches_plain(mode, steps, n):
   assert abs(float(loss) - float(loss_r)) <= 1e-5 * float(loss_r)
   ug, ur = k1.unpack_grads(dws), k1.unpack_grads(dws_r)
   assert max(float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur) <= 1e-4
+  again = k1.plain_cp_train_step(ws, rays, target.contiguous(), **kw)
+  assert torch.equal(loss, again[0]) and torch.equal(dws, again[1])

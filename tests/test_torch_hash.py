@@ -172,8 +172,9 @@ def test_cuda_hash_encode_matches_plain(size):
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", [1 << 14, 1 << 19])
 def test_cuda_table_grad_matches_plain(size):
-  """K5b vs the plain K5b: float atomics sum in another order, so per level
-  ‖Δ‖/‖ref‖ ≤ 1e-5."""
+  """K5b vs the plain K5b: K5b sums in 64-bit fixed point (order-free),
+  the plain version in float32 with index_add_, so per level ‖Δ‖/‖ref‖ ≤
+  1e-5."""
   pts = _cuda_points(5000, 6)
   g = torch.randn(pts.shape[0], 16, device="cuda",
                   generator=torch.Generator(device="cuda").manual_seed(0))
@@ -185,3 +186,32 @@ def test_cuda_table_grad_matches_plain(size):
   for level in range(8):
     sl = slice(level * size, (level + 1) * size)
     assert float((got[sl] - ref[sl]).norm() / ref[sl].norm()) <= 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+  """The card, or a skip where there is none (decided when the test runs)."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device (and nvcc) to build and run K5b")
+  return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1 << 14, 1 << 19])
+def test_cuda_table_grad_is_order_free(cuda_device, size):
+  """K5b's integer sums are associative: two launches, and the points
+  (with their cotangents) in a permuted order, give the same bits."""
+  base = _points(7)
+  pts = torch.from_numpy(np.concatenate([base] * (20000 // len(base) + 1))
+                         [:20000]).to(cuda_device)
+  g = torch.randn(pts.shape[0], 16, device=cuda_device,
+                  generator=torch.Generator(device=cuda_device).manual_seed(1))
+  got = hk.hash_encode_table_grad(pts, g, size)
+  again = hk.hash_encode_table_grad(pts, g, size)
+  perm = torch.randperm(pts.shape[0], device=cuda_device,
+                        generator=torch.Generator(
+                            device=cuda_device).manual_seed(2))
+  permuted = hk.hash_encode_table_grad(pts[perm].contiguous(),
+                                       g[perm].contiguous(), size)
+  assert torch.equal(got, again)
+  assert torch.equal(got, permuted)

@@ -415,7 +415,9 @@ def test_cuda_hash_k2_k3_match_plain(steps, n):
   """K2/K3-hash vs their plain versions: loss 1e-5 relative; each weight
   gradient tensor and dfeat 1e-4 relative with a zero cotangent on the
   rays near a leaky-relu kink (`kink_free_rays`); the chained table
-  gradient (K3 -> K5b) against autograd through the plain path, 1e-4."""
+  gradient (K3 -> K5b) against autograd through the plain path, 1e-4;
+  two launches of K3-hash, of K2-hash and of the chained step give the
+  same bits."""
   sd, ws, rays, ts, feats, gen, kw = _cuda_case(n, steps, "black", 2)
   keep = testing.kink_free_rays(ws, rays, ts, steps, feats=feats)
   out = k1.plain_hash_render_reference(ws, rays, feats, **kw)[:, :3]
@@ -429,6 +431,9 @@ def test_cuda_hash_k2_k3_match_plain(steps, n):
   ug, ur = k1.unpack_grads(dws), k1.unpack_grads(dws_r)
   assert max(float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur) <= 1e-4
   assert float((dfeat - dfeat_r).norm() / dfeat_r.norm()) <= 1e-4
+  again = k1.plain_hash_train_step(ws, rays, feats, target, **kw)
+  assert torch.equal(loss, again[0]) and torch.equal(dws, again[1])
+  assert torch.equal(dfeat, again[2])
   g = torch.randn(n, 4, device="cuda", generator=gen) * keep[:, None]
   dws, dfeat = k1.plain_hash_render_grad(ws, rays, feats, g, **kw)
   dws_r, dfeat_r = k1.plain_hash_render_grad_reference(ws, rays, feats, g,
@@ -436,9 +441,13 @@ def test_cuda_hash_k2_k3_match_plain(steps, n):
   ug, ur = k1.unpack_grads(dws), k1.unpack_grads(dws_r)
   assert max(float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur) <= 1e-4
   assert float((dfeat - dfeat_r).norm() / dfeat_r.norm()) <= 1e-4
+  again = k1.plain_hash_render_grad(ws, rays, feats, g, **kw)
+  assert torch.equal(dws, again[0]) and torch.equal(dfeat, again[1])
   table = sd[k1.HASH_TABLE_KEY]
   _, _, dtable = k1.fused_plain_hash_train_step(ws, table, rays, target,
                                                 **kw)
+  assert torch.equal(dtable, k1.fused_plain_hash_train_step(
+      ws, table, rays, target, **kw)[2])
   leaf = table.clone().requires_grad_(True)
   pts = k1.hash_pts(rays, ts)
   out = k1.plain_hash_render_reference(

@@ -527,7 +527,7 @@ def test_cuda_k2_k3_match_plain(mode, steps, n):
   """K3 and K2 vs their plain versions: loss 1e-5 relative; each gradient
   tensor 1e-4 relative with a zero cotangent on the rays near a
   leaky-relu kink; PlainCPRender's gradient equals K2's bit for bit, and
-  two launches agree bit for bit."""
+  two launches of K3 and of K2 agree bit for bit."""
   ws, rays, ts, gen, kw = _cuda_case(mode, n, steps, "white", 2)
   keep = testing.kink_free_rays(ws, rays, ts, steps, enc_kind=mode)
   out = k1.plain_cp_render_reference(ws, rays, **kw)[:, :3]
@@ -539,6 +539,8 @@ def test_cuda_k2_k3_match_plain(mode, steps, n):
   assert abs(float(loss) - float(loss_r)) <= 1e-5 * float(loss_r)
   ug, ur = k1.unpack_grads(dws), k1.unpack_grads(dws_r)
   assert max(float((ug[k] - ur[k]).norm() / ur[k].norm()) for k in ur) <= 1e-4
+  again = k1.plain_cp_train_step(ws, rays, target, **kw)
+  assert torch.equal(loss, again[0]) and torch.equal(dws, again[1])
   g = torch.randn(n, 4, device="cuda", generator=gen) * keep[:, None]
   dws = k1.plain_cp_render_grad(ws, rays, g, **kw)
   dws_r = k1.plain_cp_render_grad_reference(ws, rays, g, **kw)
