@@ -8,7 +8,8 @@ Phases, each printing its lines before the next starts:
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
      (one nvcc per source, all started together) and prints ptxas'
      registers and spills, and the tensor-core (HMMA) instructions in the
-     SASS of each render_bwd library (K2/K3's split-TF32 products);
+     SASS of each render_bwd, render_dyn_bwd and render_volsdf_bwd library
+     (K2/K3's, K9b's and K8b's split-TF32 products; none in the reduction);
   3. kernels vs plain torch on the card, 4096 seeded rays at full width,
      64 steps, over sky and rgb-activation kinds and seeded/amplified
      weights: K1 (render_fwd) on the uniform grid and on a jittered ts;
@@ -44,7 +45,8 @@ Phases, each printing its lines before the next starts:
      with the warp active: K9f (render_dyn_fwd) with and without its dp²
      column at 4096 x 64 and 77 x 16, on the grid and a jittered ts; K9b
      (render_dyn_bwd) in modes G and L, each with and without the dp²
-     term, as for K8b over the rays `testing.dyn_kink_free_rays` clears;
+     term, as for K8b over the rays `testing.dyn_kink_free_rays` clears,
+     each kink-free check also held per tensor to a float64 witness;
      DynRender's gradient against mode G's and two K9b launches bit for
      bit. Then per-ray ts and the weights output (K6) in CoarseFineNeRF's
      modes (cp, posenc, cone, cylinder): K1 on the merged per-ray ts of a
@@ -276,6 +278,9 @@ DNERF_MODES = (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0),
 # count but whose spread does (at 4096 rays it ran 1e-4 to 1.1e-2 across
 # the modes). `_dyn_floor` prints the float64 witness at 4096.
 N_DYN_CHECK = 16384
+# the backward sources whose MLP products run on the tensor cores
+# (csrc/mma_tf32.cuh): phase 2 counts their HMMA instructions
+TC_SOURCES = ("render_bwd", "render_dyn_bwd", "render_volsdf_bwd")
 
 
 def _sync_time(fn):
@@ -370,32 +375,34 @@ def _build(build, k1, k9):
     entries = [f"{n}: {r}" for n, r in _ptxas_entries(b.log)]
     print(f"[build] {name}.cu{tag} -> {b.path.name} in {b.seconds:.1f} s | "
           f"{' | '.join(entries)}", flush=True)
-    if name == "render_bwd":
-      _tensor_core_count(build, b.path, tag)
+    if name in TC_SOURCES:
+      _tensor_core_count(build, b.path, name, tag)
 
 
-def _tensor_core_count(build, path, tag):
-  """Phase 2: the tensor-core instructions (HMMA) in a render_bwd
-  library's SASS (cuobjdump beside nvcc), per kernel; raises if the
-  backward kernel has none."""
+def _tensor_core_count(build, path, name, tag):
+  """Phase 2: the tensor-core instructions (HMMA) in a backward library's
+  SASS (cuobjdump beside nvcc), per kernel; raises if its backward kernel
+  (`<name>_kernel`) has none or the partials' reduction has any."""
   import re
   tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
   sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                         text=True, check=True).stdout
-  counts, name = {}, None
+  counts, kernel = {}, None
   for ln in sass.splitlines():
     m = re.search(r"Function : (\w+)", ln)
     if m:
-      name = _kernel_name(m.group(1))
-      counts[name] = 0
-    elif name and re.search(r"\bHMMA\.", ln):
-      counts[name] += 1
+      kernel = _kernel_name(m.group(1))
+      counts[kernel] = 0
+    elif kernel and re.search(r"\bHMMA\.", ln):
+      counts[kernel] += 1
   ops = sorted({m for m in re.findall(r"\bHMMA\.[\w.]+", sass)})
   per_kernel = ", ".join(f"{k} {v}" for k, v in counts.items())
-  print(f"[build] render_bwd.cu{tag} SASS tensor-core instructions: "
+  print(f"[build] {name}.cu{tag} SASS tensor-core instructions: "
         f"{per_kernel} ({', '.join(ops)})", flush=True)
-  if not any(v for k, v in counts.items() if k.startswith("render_bwd_kernel")):
-    raise RuntimeError(f"render_bwd.cu{tag}: no HMMA in the backward kernel")
+  if not any(v for k, v in counts.items() if k.startswith(f"{name}_kernel")):
+    raise RuntimeError(f"{name}.cu{tag}: no HMMA in the backward kernel")
+  if any(v for k, v in counts.items() if k.startswith("reduce_partials")):
+    raise RuntimeError(f"{name}.cu{tag}: HMMA in the partials' reduction")
 
 
 def _rel_error(k1, grad, ref):
@@ -1260,7 +1267,7 @@ def _bound_ms(flop: float, nbytes: float):
   the bytes over the HBM rate and the float32 operations over the float32
   peak; then the same with the operations over the bf16 tensor-core
   peak, and with three times the operations over the TF32 tensor-core
-  peak (the split-TF32 products K2/K3 run)."""
+  peak (the split-TF32 products K2/K3, K8b and K9b run)."""
   t_ops, t_bytes = flop / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
   t_bf16 = max(flop / PEAK_BF16 * 1e3, t_bytes)
   t_tf32 = 3 * flop / PEAK_TF32 * 1e3
@@ -1909,46 +1916,14 @@ def _volsdf_weights(models, driver, k8, dev, steps=STEPS):
   return sd, k8.pack_weights(sd, dev), k8.pack_weights(amp, dev)
 
 
-class _Float32Features(torch.autograd.Function):
-  """The SDF init feature in float64 holding the kernels' float32 values,
-  with the float32 sin/cos in its jacobian (dy/dx = 2π·B): a float64
-  evaluation of exactly the float32 model's features."""
-
-  @staticmethod
-  def forward(ctx, pts, init32, fb):
-    ctx.save_for_backward(init32, fb)
-    return init32.double()
-
-  @staticmethod
-  def backward(ctx, g):
-    init32, fb = ctx.saved_tensors
-    sin, cos = init32[:, 3:35].double(), init32[:, 35:].double()
-    gy = g[:, 3:35] * cos - g[:, 35:] * sin
-    return g[:, :3] + gy @ (fb.double() * (2 * math.pi)).t(), None, None
-
-
 def _float64_witness(k8, ws, rays, ts, target, kw):
   """K8b-L with the eikonal in float64 on the kernels' float32 init
-  features (`_Float32Features`): the packed gradient, for telling how far
-  each float32 implementation lies from the same function in float64."""
-  from nerf_atlas_tpu_torch.ops import integrate
-  from nerf_atlas_tpu_torch.ops.kernels import render as k1
-  w = ws.double().requires_grad_(True)
-  r, t = rays.double(), ts.double()
-  fb = ws[k8.B_OFFSET:k8.MLP_OFFSET].view(3, -1)
-  init32 = k8.sdf_init_feature(k1.hash_pts(rays, ts), fb)
-  with torch.enable_grad():
-    pts = k1.hash_pts(r, t).requires_grad_(True)
-    init = _Float32Features.apply(pts, init32, fb)
-    sigma, rgb, sdf = k8.volsdf_chain(w, r, t, kw["sigmoid_kind"], True,
-                                      pts=pts, init=init)
-    eik = k8.eikonal_residual(sdf, pts, r.shape[0], True)
-    out = k1.composite(sigma, rgb, r[:, 3:6], integrate.dists_from_ts(t),
-                       kw["sky_kind"], relu=True)
-    loss = (torch.mean((out[:, :3] - target.double()) ** 2)
-            + VOLSDF_EIKONAL * eik.mean())
-    (g,) = torch.autograd.grad(loss, w)
-  return g
+  features (`testing.volsdf_float64_grad`): the packed gradient, for
+  telling how far each float32 implementation lies from the same function
+  in float64."""
+  from nerf_atlas_tpu_torch import testing
+  return testing.volsdf_float64_grad(ws, rays, ts, target, kw["sigmoid_kind"],
+                                     kw["sky_kind"], VOLSDF_EIKONAL)
 
 
 def _worst(k8, raw, got, ref):
@@ -2203,9 +2178,10 @@ def _volsdf_bound(k8, n: int, mode: str):
   (K8f + the transpose chain), "b" (K8b without the eikonal), "b-eik"
   (K8b with it: + the chain, its adjoint's forward-like products and its
   weight updates, 3 chains); 2 FLOP per multiply-add; bytes: rays, ts,
-  dists and the weights in (the backward and the eikonal also the
-  transposed copy), [n, 4 or 5] out (backward: the target or g in, the
+  dists and the weights in (K8f's eikonal also the transposed copy, K8b
+  its TC pack), [n, 4 or 5] out (backward: the target or g in, the
   gradient out)."""
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
   fwd, bwd, chain = _volsdf_macs(k8)
   pts = n * STEPS
   fixed = 2 * STEPS
@@ -2216,7 +2192,9 @@ def _volsdf_bound(k8, n: int, mode: str):
     return _bound_ms(2 * (fwd + chain) * pts,
                      4 * (n * 11 + fixed + 2 * wc))
   extra = 3 * chain if mode == "b-eik" else 0
-  return _bound_ms(2 * (bwd + extra) * pts, 4 * (n * 11 + fixed + 3 * wc))
+  tc = k1.tc_layout_index(k8.TC_MLPS, wc)[0].numel()
+  return _bound_ms(2 * (bwd + extra) * pts,
+                   4 * (n * 11 + fixed + 2 * wc + tc))
 
 
 def _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops, dev,
@@ -2304,8 +2282,9 @@ def _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops, dev,
     res[tag] = (min(ms["kernel"]), min(ms["plain"]), bound)
     print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step {tag} call "
           f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms (bound "
-          f"{bound[0]:.2f} ms, bf16 {bound[2]:.2f}), plain torch "
-          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+          f"{bound[0]:.2f} ms, split TF32 {bound[3]:.2f}, bf16 "
+          f"{bound[2]:.2f}), plain torch {ms['plain'][0]:.2f} / "
+          f"{ms['plain'][1]:.2f} ms", flush=True)
   for name, w in _wrappers().items():         # timing, not the main path
     w.launches = launches[name]
 
@@ -2373,8 +2352,12 @@ def _check_dyn_bwd(what, k9, testing, ws, rays, times, gen, kw):
   walk whose value can fall near 0 while its rounding does not, so its
   relative error has a heavy tail (posenc, spline S = 4, the same
   weights, an H100: 2.67e-4 in one draw, 1.2e-5 in another); a cotangent
-  of one sign keeps it away from 0. Returns the max |Δ| of
-  the kink-free gradients."""
+  of one sign keeps it away from 0. The kink-free check also holds the
+  kernel to the same gradient in float64 (`testing.dyn_float64_grad`),
+  tensor by tensor: its distance within twice the plain version's, or
+  within the gate (`testing.float64_witness_ratio` with the floor
+  GRAD_RTOL / 2), and prints the worst ratio: such sums' float32 floor
+  sits near the gate. Returns the max |Δ| of the kink-free gradients."""
   n = rays.shape[0]
   enc, spline = kw["enc_kind"], kw["spline_points"]
   keep = testing.dyn_kink_free_rays(ws, rays, times, kw["ts"], kw["steps"],
@@ -2422,6 +2405,22 @@ def _check_dyn_bwd(what, k9, testing, ws, rays, times, gen, kw):
                   f"{errs['rigidity.layer_in.weight']:.2e}")
       if name == "kink-free":
         max_abs = max(max_abs, float((got - ref).abs().max()))
+        w64 = testing.dyn_float64_grad(
+            ws, r, t, kw["ts"], a, loss_mode=mode == "L", dp_weight=weight,
+            spline_points=spline, enc_kind=enc,
+            sigmoid_kind=kw.get("sigmoid_kind", "thin"),
+            sky_kind=kw.get("sky_kind", "black"))
+        ratio, k, ek, ep = testing.float64_witness_ratio(
+            lambda x: k9.unpack_grads(x, enc, spline), got, ref, w64,
+            GRAD_RTOL / 2)
+        if not ratio <= testing.WITNESS_RATIO:
+          raise RuntimeError(
+              f"{what} K9b-{mode} dp {dp}: {k} lies {ek:.3e} from the "
+              f"float64 gradient, its plain version {ep:.3e} (ratio "
+              f"{ratio:.2f} with the floor {GRAD_RTOL / 2}; limit "
+              f"{testing.WITNESS_RATIO})")
+        line.append(f"float64 witness: worst ratio {ratio:.2f} ({k}: "
+                    f"kernel {ek:.2e}, plain {ep:.2e})")
     print(f"[check] K9b-{mode} dp {'on ' if dp else 'off'} {what}: "
           f"{' | '.join(line)} | kink-free rays {int(keep.sum())}/{n}",
           flush=True)
@@ -2599,13 +2598,16 @@ def _dyn_macs(k9, enc: str, spline: int):
 def _dyn_bound(k9, enc: str, spline: int, n: int, backward: bool):
   """Bound of one K9f (backward: K9b) call on n rays x 64 steps: 2 FLOP per
   multiply-add (`_dyn_macs`); bytes: rays, times, ts, dists and the
-  weights in, [n, 4 or 5] out (backward: the target or g in, the
-  transposed weights too, the gradient out)."""
+  weights in, [n, 4 or 5] out (backward: the target or g in, the TC pack
+  too, the gradient out)."""
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
   fwd, bwd = _dyn_macs(k9, enc, spline)
-  wc = k9.layout(enc, spline).weight_count
+  lay = k9.layout(enc, spline)
+  wc = lay.weight_count
   pts = n * STEPS
   if backward:
-    return _bound_ms(2 * bwd * pts, 4 * (n * 12 + 2 * STEPS + 3 * wc))
+    tc = k1.tc_layout_index(lay.tc_mlps, wc)[0].numel()
+    return _bound_ms(2 * bwd * pts, 4 * (n * 12 + 2 * STEPS + 2 * wc + tc))
   return _bound_ms(2 * fwd * pts, 4 * (n * 12 + 2 * STEPS + wc))
 
 
@@ -2680,9 +2682,9 @@ def _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev):
       res[(tag, name_k)] = (min(ms["kernel"]), min(ms["plain"]), bound)
       print(f"[time] {card}: D-NeRF {tag}: one {BATCH}-ray x {STEPS}-step "
             f"{name_k} call {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
-            f"(bound {bound[0]:.2f} ms by {bound[1]}, bf16 {bound[2]:.2f}), "
-            f"plain torch {ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms",
-            flush=True)
+            f"(bound {bound[0]:.2f} ms by {bound[1]}, split TF32 "
+            f"{bound[3]:.2f}, bf16 {bound[2]:.2f}), plain torch "
+            f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
   for name, w in _wrappers().items():         # timing, not the main path
     w.launches = launches[name]
 
@@ -3218,12 +3220,13 @@ def main(argv=None):
   for name, *_, bound, _ in rows:
     tf32 = (f", {bound[3]:.4f} ms by {bound[4]} in split TF32 (3 x the "
             "operations at the TF32 tensor-core peak: the products it runs)"
-            if name.startswith("render_bwd") else "")
+            if name.startswith(TC_SOURCES) else "")
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores){tf32}, {bound[2]:.4f} ms at the bf16 "
           "tensor-core peak", flush=True)
-  # K2/K3 run their products in split TF32: their bound is that one
-  rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith("render_bwd")
+  # K2/K3, K8b and K9b run their products in split TF32: their bound is
+  # that one
+  rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith(TC_SOURCES)
            else r[7][:2], r[8]) for r in rows]
   print(json.dumps({"kernels": [{
       "name": name, "route": "cuda",

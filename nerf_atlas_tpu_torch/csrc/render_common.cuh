@@ -5,19 +5,19 @@
 //
 // Activations of a 64-point tile live feature-major in shared memory
 // ([row][PS], 64 points per row); weights are read per layer through
-// L1/L2. The building blocks:
+// L1/L2. The building blocks (the float32 FMA products of K1, K7f/K7b,
+// K8f and K9f; the backward kernels K2/K3, K8b and K9b take their MLP
+// products from mma_tf32.cuh):
 //   - the activations and the rgb activation with its derivative;
 //   - the sample point and the per-ray constants;
 //   - forward Dense layers (`dense_fwd`, optionally stashing the
 //     pre-activations) and whole SkipConnMLPs (`mlp_fwd`);
 //   - the hand VJP of a layer (input gradient `dense_bwd`, weight
-//     gradients `dw_cols` / `dw_small`) and of a whole SkipConnMLP
-//     (`mlp_bwd`), each thread owning its entries of the block's partial
-//     gradient row;
+//     gradients `dw_cols` / `dw_small`, K7b's), each thread owning its
+//     entries of the block's partial gradient row;
 //   - the gradient of one output column of a SkipConnMLP with respect to
-//     its input, by the transpose chain (`mlp_input_grad`), and the
-//     weight gradient of a loss on that input gradient
-//     (`mlp_input_grad_adjoint`): VolSDF's eikonal;
+//     its input, by the transpose chain (`mlp_input_grad`): K8f's eikonal
+//     column;
 //   - the positional encoding and MipNeRF's integrated positional
 //     encoding of a tile (`posenc_rows`, `ipe_moments`, `ipe_rows`);
 //   - the block-order sum of the partial rows (`reduce_partials_kernel`).
@@ -161,10 +161,9 @@ __device__ __forceinline__ void accumulate(const float* x,
 // Forward layer: dst[o][p] = act(z), z = b[o] + sum_k a[k][p] w[k][o] +
 // sum_k f[k][p] w[KA + k][o] for the tile's 64 points and o < NOUT; with
 // `zst` the pre-activation z also goes to the stash rows zst[o][p]. `w` is
-// [KA + KF][NOUT] row-major with the bias after it (BIAS false: z takes
-// no bias). dst may alias a: every read finishes before the barrier that
-// precedes the writes.
-template <int KA, int KF, int NOUT, int ACT, bool BIAS = true>
+// [KA + KF][NOUT] row-major with the bias after it. dst may alias a: every
+// read finishes before the barrier that precedes the writes.
+template <int KA, int KF, int NOUT, int ACT>
 __device__ __forceinline__ void dense_fwd(const float* a, const float* f,
                                           const float* __restrict__ w,
                                           float* dst, float* zst) {
@@ -176,7 +175,7 @@ __device__ __forceinline__ void dense_fwd(const float* a, const float* f,
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     const int o = lane + 32 * j;
-    const float bj = (BIAS && o < NOUT) ? __ldg(b + o) : 0.0f;
+    const float bj = o < NOUT ? __ldg(b + o) : 0.0f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) acc[j][i] = bj;
   }
@@ -235,6 +234,21 @@ __device__ __forceinline__ void mlp_fwd(const float* F, const float* FA,
   dense_fwd<H, 0, NOUT, ACT_NONE>(X, nullptr, w + mlp_offset(FI, H, NL, NL + 1),
                                   X, nullptr);
 }
+
+// The product of a whole SkipConnMLP in the forward helpers that a forward
+// and a backward kernel share (render_dyn.cuh, render_volsdf.cuh): this
+// one, the float32 FMAs of `mlp_fwd` (the forward kernels, the default),
+// or mma_tf32.cuh's `tc::TcMlp` (the backward kernels' recompute). TC is
+// the MLP's offset in the backward's TC pack and THREE whether its forward
+// runs in three parts; FmaMlp reads neither.
+struct FmaMlp {
+  template <int FI, int H, int NL, int NOUT, int ACT, long TC, bool THREE>
+  __device__ __forceinline__ void fwd(const float* F, const float* FA,
+                                      const float* __restrict__ w, float* X,
+                                      float* zst) const {
+    mlp_fwd<FI, H, NL, NOUT, ACT>(F, FA, w, X, zst);
+  }
+};
 
 // dst[r][p] = act(src[r][p]) for rows r < rows of the tile
 template <int ACT>
@@ -417,10 +431,10 @@ __device__ __forceinline__ void dw_cols(const float* X, int K,
   }
 }
 
-// g[p] = G[n][p], n = this thread's column (rows STRIDE floats apart)
-template <int N, int STRIDE = PS>
+// g[p] = G[n][p], n = this thread's column
+template <int N>
 __device__ __forceinline__ void load_col(const float* G, float (&g)[TILE]) {
-  const float* row = G + (threadIdx.x % N) * STRIDE;
+  const float* row = G + (threadIdx.x % N) * PS;
 #pragma unroll
   for (int p = 0; p < TILE; p += 4) {
     const float4 v = *reinterpret_cast<const float4*>(row + p);
@@ -527,45 +541,6 @@ __device__ __forceinline__ void input_bwd(const float* G, const float* F,
   }
 }
 
-// Hidden layers I..0 of `mlp_bwd`, last first.
-template <int FI, int H, int NL, int ACT, bool WANT_DF, int I>
-__device__ __forceinline__ void mlp_hidden_bwd(float* X, float* G,
-                                               const float* F,
-                                               const float* FA, float* DF,
-                                               const float* __restrict__ wt,
-                                               float* __restrict__ pw,
-                                               const float* __restrict__ zst) {
-  if constexpr (I >= 0) {
-    constexpr long OFF = mlp_offset(FI, H, NL, I + 1);
-    hidden_bwd<H, FI, skip_at(I, NL), ACT, WANT_DF>(
-        X, G, F, FA, DF, wt + OFF, pw + OFF, zst + (long)I * H * TILE);
-    mlp_hidden_bwd<FI, H, NL, ACT, WANT_DF, I - 1>(X, G, F, FA, DF, wt, pw,
-                                                   zst);
-  }
-}
-
-// The VJP of `mlp_fwd` on one tile. On entry G rows 0..NOUT-1 hold the
-// output gradient, X = act(the last hidden pre-activation), F / FA the
-// init feature and its activation, DF (when WANT_DF) their gradient so
-// far, zst the stashed pre-activations; wt and pw point at the MLP's
-// layer_in in the transposed weights and the block's partial row. Weight
-// and bias gradients add into pw; with WANT_DF the init feature's
-// gradient adds into DF (a parameter-free encoder leaves it out).
-template <int FI, int H, int NL, int NOUT, int ACT, bool WANT_DF>
-__device__ __forceinline__ void mlp_bwd(float* X, float* G, const float* F,
-                                        const float* FA, float* DF,
-                                        const float* __restrict__ wt,
-                                        float* __restrict__ pw,
-                                        const float* __restrict__ zst) {
-  constexpr long OUT = mlp_offset(FI, H, NL, NL + 1);
-  dw_small<H, NOUT>(X, G, pw + OUT);
-  dense_bwd<NOUT, H, H, ACT, MODE_Z>(G, wt + OUT, G,
-                                     zst + (long)NL * H * TILE, nullptr);
-  mlp_hidden_bwd<FI, H, NL, ACT, WANT_DF, NL - 1>(X, G, F, FA, DF, wt, pw,
-                                                  zst);
-  input_bwd<H, FI, WANT_DF>(G, F, DF, wt, pw);
-}
-
 // ---- the input gradient of one output column (VolSDF's ∇ₓsdf) ----
 //
 // For the output column c of a SkipConnMLP and one point, with h_i the
@@ -575,16 +550,17 @@ __device__ __forceinline__ void mlp_bwd(float* X, float* G, const float* F,
 // layer i (W_i,f its init-feature rows at a skip layer); then
 // d out_c / d init = Σ_skip act'(init) ⊙ (W_i,f u_{i+1}) + W_in u_0.
 
-// G rows n < H <- w_col[n] · act'(z[n][p]): the chain's seed u_NL, w_col
-// = column c of layer_out (row c of its transposed copy), z = the last
-// hidden pre-activation's stash rows.
-template <int H, int ACT>
+// G rows n < H <- w_col[LD·n] · act'(z[n][p]): the chain's seed u_NL,
+// w_col = column c of layer_out (row c of its transposed copy, LD = 1, or
+// of W_out itself, LD = its width), z = the last hidden pre-activation's
+// stash rows.
+template <int H, int ACT, int LD = 1>
 __device__ __forceinline__ void seed_column(float* G,
                                             const float* __restrict__ w_col,
                                             const float* __restrict__ z) {
   for (int i = threadIdx.x; i < H * TILE; i += THREADS) {
     const int n = i / TILE, p = i % TILE;
-    G[n * PS + p] = __ldg(w_col + n) * act_grad<ACT>(z[n * TILE + p]);
+    G[n * PS + p] = __ldg(w_col + LD * n) * act_grad<ACT>(z[n * TILE + p]);
   }
 }
 
@@ -602,17 +578,16 @@ __device__ __forceinline__ void store_rows(const float* G, int rows,
 template <int FI, int H, int NL, int ACT, int I>
 __device__ __forceinline__ void mlp_input_grad_hidden(
     float* G, const float* F, float* DF, const float* __restrict__ wt,
-    const float* __restrict__ zst, float* __restrict__ ust) {
+    const float* __restrict__ zst) {
   if constexpr (I >= 0) {
     constexpr bool SKIP = skip_at(I, NL);
     constexpr int KT = H + (SKIP ? FI : 0);
     constexpr long OFF = mlp_offset(FI, H, NL, I + 1);
-    if (ust != nullptr) store_rows(G, H, ust + (long)(I + 1) * H * TILE);
     if (SKIP)
       dense_bwd<H, FI, KT, ACT, MODE_FADD>(G, wt + OFF + H, DF, nullptr, F);
     dense_bwd<H, H, KT, ACT, MODE_Z>(G, wt + OFF, G, zst + (long)I * H * TILE,
                                      nullptr);
-    mlp_input_grad_hidden<FI, H, NL, ACT, I - 1>(G, F, DF, wt, zst, ust);
+    mlp_input_grad_hidden<FI, H, NL, ACT, I - 1>(G, F, DF, wt, zst);
   }
 }
 
@@ -620,86 +595,14 @@ __device__ __forceinline__ void mlp_input_grad_hidden(
 // (`seed_column`), F the init feature (FI rows) and DF zeros; zst is the
 // forward's pre-activation stash (`mlp_fwd`'s rows), wt the MLP's
 // transposed weights at its layer_in. On return DF holds d out_c / d
-// init; with `ust` (global, (NL + 1)·H rows of TILE floats) u_i goes to
-// rows i·H for the adjoint. G is overwritten.
+// init. G is overwritten.
 template <int FI, int H, int NL, int ACT>
 __device__ __forceinline__ void mlp_input_grad(float* G, const float* F,
                                                float* DF,
                                                const float* __restrict__ wt,
-                                               const float* __restrict__ zst,
-                                               float* __restrict__ ust) {
-  mlp_input_grad_hidden<FI, H, NL, ACT, NL - 1>(G, F, DF, wt, zst, ust);
-  if (ust != nullptr) store_rows(G, H, ust);
+                                               const float* __restrict__ zst) {
+  mlp_input_grad_hidden<FI, H, NL, ACT, NL - 1>(G, F, DF, wt, zst);
   dense_bwd<H, FI, FI, ACT_NONE, MODE_ADD>(G, wt, DF, nullptr, nullptr);
-}
-
-// Hidden layers I..NL-1 of `mlp_input_grad_adjoint`, first first.
-template <int FI, int H, int NL, int NOUT, int ACT, int I>
-__device__ __forceinline__ void mlp_input_grad_adjoint_hidden(
-    float* X, float* G, const float* CF, const float* __restrict__ w,
-    float* __restrict__ pw, const float* __restrict__ zst,
-    const float* __restrict__ ust) {
-  if constexpr (I < NL) {
-    constexpr bool SKIP = skip_at(I, NL);
-    constexpr long OFF = mlp_offset(FI, H, NL, I + 1);
-    // ĉ_i = cu_i ⊙ a'_i -> X
-    for (int i = threadIdx.x; i < H * TILE; i += THREADS) {
-      const int n = i / TILE, p = i % TILE;
-      X[n * PS + p] = G[n * PS + p] *
-                      act_grad<ACT>(zst[((long)I * H + n) * TILE + p]);
-    }
-    __syncthreads();
-    {
-      float g[TILE];
-      load_col<H, TILE>(ust + (long)(I + 1) * H * TILE, g);
-      dw_cols<H>(X, H, g, pw + OFF);
-      if (SKIP) dw_cols<H>(CF, FI, g, pw + OFF + (long)H * H);
-    }
-    // cu_{i+1} = W_i,h ĉ_i (+ W_i,f ĉ_f) -> G
-    dense_fwd<H, SKIP ? FI : 0, H, ACT_NONE, false>(X, CF, w + OFF, G,
-                                                    nullptr);
-    mlp_input_grad_adjoint_hidden<FI, H, NL, NOUT, ACT, I + 1>(X, G, CF, w, pw,
-                                                               zst, ust);
-  }
-}
-
-// The weight gradient of a loss L on `mlp_input_grad`'s result, given
-// C = ∂L/∂(d out_c / d init) (FI rows, shared). With leaky-relu a'_i is
-// piecewise constant, so the input gradient is linear in each W (a.e.)
-// and each W appears once in the chain: one sweep up the chain carries
-// cu_i = ∂L/∂u_i and adds the rank-64 updates dW_in += C u_0ᵀ, dW_i,h +=
-// ĉ_i u_{i+1}ᵀ, dW_i,f += ĉ_f u_{i+1}ᵀ (ĉ_i = cu_i ⊙ a'_i, ĉ_f = C ⊙
-// act'(init)) and, for layer_out, its column c only: dW_out[n][c] += Σ_p
-// cu_NL ⊙ a'_NL. The biases take none. F holds the init feature, CF
-// receives ĉ_f, X and G are overwritten; w is the MLP's forward-layout
-// weights at layer_in, pw the block's partial there, zst and ust the
-// stashes of the forward and of `mlp_input_grad`.
-template <int FI, int H, int NL, int NOUT, int ACT>
-__device__ __forceinline__ void mlp_input_grad_adjoint(
-    float* X, float* G, const float* F, const float* C, float* CF,
-    const float* __restrict__ w, float* __restrict__ pw,
-    const float* __restrict__ zst, const float* __restrict__ ust, int c) {
-  for (int i = threadIdx.x; i < FI * TILE; i += THREADS) {
-    const int k = i / TILE, p = i % TILE;
-    CF[k * PS + p] = C[k * PS + p] * act_grad<ACT>(F[k * PS + p]);
-  }
-  {
-    float g[TILE];
-    load_col<H, TILE>(ust, g);
-    dw_cols<H>(C, FI, g, pw);
-  }
-  __syncthreads();
-  dense_fwd<FI, 0, H, ACT_NONE, false>(C, nullptr, w, G, nullptr);
-  mlp_input_grad_adjoint_hidden<FI, H, NL, NOUT, ACT, 0>(X, G, CF, w, pw, zst,
-                                                         ust);
-  constexpr long OUT = mlp_offset(FI, H, NL, NL + 1);
-  for (int n = threadIdx.x; n < H; n += THREADS) {
-    const float* z = zst + ((long)NL * H + n) * TILE;
-    float s = 0.0f;
-    for (int p = 0; p < TILE; ++p) s += G[n * PS + p] * act_grad<ACT>(z[p]);
-    pw[OUT + (long)n * NOUT + c] += s;
-  }
-  __syncthreads();
 }
 
 // out[i] = sum over blocks b (in order) of partial[b][i], i < wp (a

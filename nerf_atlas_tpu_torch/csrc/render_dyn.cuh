@@ -2,10 +2,11 @@
 // the D-NeRF / Spline-NeRF architecture and its packed weight layout, the
 // warp's Fourier rows, de Casteljau and the Bernstein weights, and the
 // forward of one 64-point tile (the warp, the rigidity gate and the
-// canonical PlainNeRF chain), which both kernels run so that the backward
-// recomputes exactly the forward's values. The per-layer building blocks
-// are render_common.cuh's, the canonical model's layout, CP encode and
-// encoder backward render_plain.cuh's.
+// canonical PlainNeRF chain), which both kernels run (K9f with float32
+// FMA products, K9b's recompute on the tensor cores: the `Mlp` template
+// parameter). The per-layer building blocks are render_common.cuh's and
+// mma_tf32.cuh's, the canonical model's layout, CP encode and encoder
+// backward render_plain.cuh's.
 //
 // The chain of one sample point (nerf_atlas_tpu/ops/pallas/render_dyn.py
 // `_warp_fwd`, `_dyn_kernel`; models/dyn.py DynamicNeRF):
@@ -26,6 +27,7 @@
 //      [x' ‖ elev, azim ‖ feats]
 #pragma once
 
+#include "mma_tf32.cuh"
 #include "render_plain.cuh"
 
 #ifndef RENDER_DYN_ENC
@@ -69,6 +71,25 @@ constexpr long W_MLP = FB + W_IN * W_FREQS;
 constexpr long G_MLP = W_MLP + mlp_size(W_FI, W_HIDDEN, W_LAYERS, W_OUT);
 constexpr long CANON = G_MLP + mlp_size(3, G_HIDDEN, G_LAYERS, 1);
 constexpr long TOTAL = CANON + C::TOTAL;
+
+// ---- K9b's TC pack (render_dyn.py Layout.tc_mlps, mma_tf32.cuh): the
+// warp MLP's, the rigidity MLP's, the canonical density and View MLPs'.
+// The three MLPs with leaky-relu kinks keep their forward blocks raw and
+// run their forward products in three parts (LEAKY_THREE): the backward's
+// act′ pattern comes from the recompute, and the rays the kink rule clears
+// (testing.dyn_kink_free_rays, margin 10 float32 round-offs) assume
+// float32-grade pre-activations.
+constexpr bool LEAKY_THREE = true;
+constexpr long TC_W = 0;
+constexpr long TC_G = TC_W + tc::tc_mlp_floats(W_FI, W_HIDDEN, W_LAYERS, W_OUT,
+                                               LEAKY_THREE);
+constexpr long TC_D = TC_G + tc::tc_mlp_floats(3, G_HIDDEN, G_LAYERS, 1,
+                                               LEAKY_THREE);
+constexpr long TC_R = TC_D + tc::tc_mlp_floats(C::FEAT_IN, C::D_HIDDEN,
+                                               C::D_LAYERS, C::D_OUT_W,
+                                               LEAKY_THREE);
+constexpr long TC_TOTAL =
+    TC_R + tc::tc_mlp_floats(R_IN, R_HIDDEN, R_LAYERS, R_OUT_W);
 
 // ---- per point, beside the MLP tiles: rows of A (shared, [A_ROWS][PS])
 constexpr int A_P = 0;                       // p, 3 rows
@@ -156,14 +177,15 @@ __device__ __forceinline__ void bernstein_weights(float t, int n,
 // 0..2 hold the warped points x' = p + dp, A the rows above, and each real
 // point's mean over the axes of dp² is at res[RS·q + RM]. With `st` (the
 // tile's stash) the warp's and the rigidity's pre-activations, the warp's
-// init feature and the A rows go there too.
-template <int RS, int RM>
+// init feature and the A rows go there too. `mlp` runs the two MLPs
+// (render_common.cuh `FmaMlp`, or `tc::TcMlp` with `st`).
+template <int RS, int RM, class Mlp = FmaMlp>
 __device__ void warp_forward(float* H, float* F, float* FA, float* A,
                              const float* ray_s, const float* ray_t,
                              const float* __restrict__ ts, const float* fb,
                              const float* __restrict__ w, int spline_points,
                              int q0, int n_pts, int steps, float* res,
-                             float* st) {
+                             float* st, Mlp mlp = Mlp()) {
   const int tid = threadIdx.x;
   if (tid < TILE) {
     const int q = min(q0 + tid, n_pts - 1);
@@ -189,7 +211,8 @@ __device__ void warp_forward(float* H, float* F, float* FA, float* A,
     if (st != nullptr) st[(ST_FW + row) * TILE + p] = v;
   }
   __syncthreads();
-  mlp_fwd<W_FI, W_HIDDEN, W_LAYERS, W_OUT, ACT_LEAKY>(
+  mlp.template fwd<W_FI, W_HIDDEN, W_LAYERS, W_OUT, ACT_LEAKY, TC_W,
+                   LEAKY_THREE>(
       F, FA, w + W_MLP, H, st != nullptr ? st + ST_W * TILE : nullptr);
   if (tid < TILE) {
     float spl[3];
@@ -199,7 +222,7 @@ __device__ void warp_forward(float* H, float* F, float* FA, float* A,
   }
   __syncthreads();
   // the rigidity MLP reads p and leaky(p): F and FA rows 0..2
-  mlp_fwd<3, G_HIDDEN, G_LAYERS, 1, ACT_LEAKY>(
+  mlp.template fwd<3, G_HIDDEN, G_LAYERS, 1, ACT_LEAKY, TC_G, LEAKY_THREE>(
       F, FA, w + G_MLP, H, st != nullptr ? st + ST_G * TILE : nullptr);
   if (tid < TILE) {
     const float gate = sigmoid(H[tid]);
@@ -228,13 +251,15 @@ __device__ void warp_forward(float* H, float* F, float* FA, float* A,
 // `warp_forward` leaves them): each real point's raw density goes to
 // res[RS·q], its raw rgb to res[RS·q + 1..3]. With `st` the density and
 // View MLPs' pre-activations and both init features go to the tile's
-// stash. F rows 0..2 keep x' (the View reads them).
-template <int RS>
+// stash. F rows 0..2 keep x' (the View reads them). `mlp` as in
+// `warp_forward`.
+template <int RS, class Mlp = FmaMlp>
 __device__ void canonical_forward(float* H, float* F, float* FA,
                                   const float* ray_s,
                                   const float* __restrict__ w,
                                   const float* fq, int q0, int n_pts,
-                                  int steps, float* res, float* st) {
+                                  int steps, float* res, float* st,
+                                  Mlp mlp = Mlp()) {
   const int tid = threadIdx.x;
   const float* __restrict__ wc = w + CANON;
   if constexpr (ENC == ENC_CP) {
@@ -250,7 +275,8 @@ __device__ void canonical_forward(float* H, float* F, float* FA,
     if (st != nullptr) st[(ST_FD + row) * TILE + p] = v;
   }
   __syncthreads();
-  mlp_fwd<C::FEAT_IN, C::D_HIDDEN, C::D_LAYERS, C::D_OUT_W, ACT_LEAKY>(
+  mlp.template fwd<C::FEAT_IN, C::D_HIDDEN, C::D_LAYERS, C::D_OUT_W,
+                   ACT_LEAKY, TC_D, LEAKY_THREE>(
       F, FA, wc + C::D_IN, H, st != nullptr ? st + ST_D * TILE : nullptr);
   // raw density; the View's init feature [x' ‖ elev, azim ‖ feats]
   if (tid < TILE) {
@@ -272,7 +298,7 @@ __device__ void canonical_forward(float* H, float* F, float* FA,
     if (st != nullptr) st[(ST_FR + row) * TILE + p] = v;
   }
   __syncthreads();
-  mlp_fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30>(
+  mlp.template fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, TC_R, false>(
       F, FA, wc + C::R_IN_, H, st != nullptr ? st + ST_R * TILE : nullptr);
   if (tid < TILE && q0 + tid < n_pts) {
 #pragma unroll

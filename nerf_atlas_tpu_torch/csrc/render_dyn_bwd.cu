@@ -19,10 +19,11 @@
 //
 // Per block of rays (max(1, 64/T) rays, as in K9f), in two passes:
 //   pass 1 re-runs K9f's forward tile by tile (render_dyn.cuh
-//     `warp_forward`, `canonical_forward`, the same code) and stashes
-//     every MLP pre-activation of the four MLPs, the three init features
-//     and the per-point p, t, Δx and gate (4,244 rows of 64 floats, 1.09
-//     MB per tile for cp) in a per-block scratch in global memory;
+//     `warp_forward`, `canonical_forward`: the same code, its MLP products
+//     on the tensor cores) and stashes every MLP pre-activation of the four
+//     MLPs, the three init features and the per-point p, t, Δx and gate
+//     (4,244 rows of 64 floats, 1.09 MB per tile for cp) in a per-block
+//     scratch in global memory;
 //   then one thread per ray composites front to back (α, transmittance,
 //     outputs, the cotangent, the loss) and walks back to front with the
 //     suffix sum S_t = Σ_{s>t} A_s w_s (render_bwd.cu's code) to d density
@@ -37,7 +38,7 @@
 //     dp·spl times σ′ = gate·(1 − gate); for the spline d spl scatters to
 //     control point j by its Bernstein weight B_{j,S−1}(t) (the adjoint of
 //     de Casteljau's linear map; P_0 has no slot); then the warp MLP's and
-//     the rigidity MLP's weight gradients (`mlp_bwd`; their input
+//     the rigidity MLP's weight gradients (`tc::mlp_bwd`; their input
 //     cotangents are not formed: the sample points are leaves and B is
 //     fixed).
 //
@@ -45,21 +46,36 @@
 // per layer the input-gradient and the weight-gradient products, less the
 // input gradients no output needs: the warp's and the rigidity's onto
 // their init features, the View's onto elev/azim), plus the stash (written
-// once, read once) and the per-block weight-gradient partials.
+// once, read once) and the per-block weight-gradient partials. On the
+// tensor cores each multiply-add is three TF32 products (six in the
+// leaky MLPs' forward ones), against the TF32 peak.
 //
-// Design (render_bwd.cu's, simple and exact, not yet fast): float32 FMAs
-// on the CUDA cores, one 256-thread block per SM (~213 KB of shared memory
-// for cp: two 256-row activation/gradient tiles, three 68-row init-feature
-// tiles and the CP line gradients). The grid is at most one block per SM;
-// each block loops over ray blocks. The gradient is deterministic: every
-// block accumulates into its own partial row of TOTAL + 1 floats (each
-// entry owned by one thread, tiles in a fixed order; the CP line gradients
-// first in shared memory; the loss summed by one thread in double) and a
-// second kernel sums the rows in block order. No float atomics anywhere:
-// two launches are bit-identical.
+// Design (render_bwd.cu's): every MLP product (the recompute, the input
+// and the weight gradients) runs on the tensor cores in split TF32
+// (mma_tf32.cuh, ~3·2^-22 relative per term; the wrapper pre-splits the
+// weights into the TC pack, render_dyn.py `Layout.tc_mlps`); the warp's,
+// the rigidity's and the density MLP's forward products, whose
+// pre-activations decide the leaky-relu slopes, in three parts
+// (render_dyn.cuh `LEAKY_THREE`, ≲ 2^-32 per term). Products are staged by
+// cp.async through rows the product does not read: in pass 1 the G rows
+// above the per-point rows A (the warp's 256-wide products take 16,384 of
+// G's 16,864 free floats), in pass 2 the X rows once each layer's weight
+// gradient has read them. The warp's Fourier rows, the encoders, the CP
+// line gradients, the position gradients, the gate, the Bernstein adjoint
+// and the compositing stay float32 on the CUDA cores, rounded as before.
+// One 256-thread block per SM (~213 KB of shared memory for cp: two
+// 256-row activation/gradient tiles, three 68-row init-feature tiles and
+// the CP line gradients). The grid is at most one block per SM; each
+// block loops over ray blocks. The gradient is deterministic: every block
+// accumulates into its own partial row of TOTAL + 1 floats (each entry
+// owned by one thread, tiles in a fixed order; the CP line gradients first
+// in shared memory; the loss summed by one thread in double) and a second
+// kernel sums the rows in block order. No float atomics anywhere: two
+// launches are bit-identical.
 //
 // Plain C interface for ctypes (built with nvcc into a shared library).
 
+#include "mma_tf32.cuh"
 #include "render_dyn.cuh"
 
 using namespace dyn;
@@ -77,6 +93,9 @@ constexpr int FIXED = (2 * W_HIDDEN + 3 * F_ROWS) * PS + C::LINES
                       + 4 * W_FREQS + MAX_FREQS + RAY_FLOATS;
 constexpr int MAX_STEPS = (SMEM_FLOATS - FIXED) / RS < STEP_CAP
                               ? (SMEM_FLOATS - FIXED) / RS : STEP_CAP;
+// pass 1 stages the products' weights in the G rows above A; pass 2 in X
+static_assert(A_ROWS * PS + tc::stage_floats(W_HIDDEN) <= W_HIDDEN * PS,
+              "weight staging");
 
 size_t smem_bytes(int rays_per_block, int steps) {
   return sizeof(float) * ((size_t)FIXED + RS * (size_t)rays_per_block * steps
@@ -89,7 +108,7 @@ render_dyn_bwd_kernel(const float* __restrict__ rays,
                       const float* __restrict__ ts,
                       const float* __restrict__ dists,
                       const float* __restrict__ w,
-                      const float* __restrict__ wt,
+                      const float* __restrict__ tcw,
                       const float* __restrict__ gin,
                       const float* __restrict__ freqs,
                       float* __restrict__ partial,
@@ -143,12 +162,13 @@ render_dyn_bwd_kernel(const float* __restrict__ rays,
 
     // ---- pass 1: forward, stashing the chain; res per point: density
     // raw, rgb raw, ·, ·, ·, ·, dp² (RS·q + 8) ----
+    const tc::TcMlp mlp{tcw, G + A_ROWS * PS};
     for (int q0 = 0, tile = 0; q0 < n_pts; q0 += TILE, ++tile) {
       float* st = st_block + tile * ST_TILE;
       warp_forward<RS, 8>(X, F, FA, G, ray_s, ray_t, ts, fb, w,
-                          spline_points, q0, n_pts, steps, res, st);
+                          spline_points, q0, n_pts, steps, res, st, mlp);
       canonical_forward<RS>(X, F, FA, ray_s, w, fq, q0, n_pts, steps, res,
-                            st);
+                            st, mlp);
     }
 
     // ---- compositing, its cotangent and VJP: one thread per ray; res per
@@ -255,9 +275,8 @@ render_dyn_bwd_kernel(const float* __restrict__ rays,
       }
       load_act<ACT_SIN30>(zr + R_LAYERS * R_HIDDEN * TILE, R_HIDDEN, X);
       __syncthreads();
-      mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + CANON + C::R_IN_, part + CANON + C::R_IN_,
-          zr);
+      tc::mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, true>(
+          X, G, F, FA, DF, tcw + TC_R, part + CANON + C::R_IN_, zr);
 
       // density MLP: G <- [d density ‖ d feats (DF rows 5..36)]; DF keeps
       // the View's d x' on rows 0..2
@@ -279,9 +298,9 @@ render_dyn_bwd_kernel(const float* __restrict__ rays,
       load_act<ACT_LEAKY>(zd + C::D_LAYERS * C::D_HIDDEN * TILE, C::D_HIDDEN,
                           X);
       __syncthreads();
-      mlp_bwd<C::FEAT_IN, C::D_HIDDEN, C::D_LAYERS, C::D_OUT_W, ACT_LEAKY,
-              true>(X, G, F, FA, DF, wt + CANON + C::D_IN,
-                    part + CANON + C::D_IN, zd);
+      tc::mlp_bwd<C::FEAT_IN, C::D_HIDDEN, C::D_LAYERS, C::D_OUT_W,
+                  ACT_LEAKY, true, LEAKY_THREE>(X, G, F, FA, DF, tcw + TC_D,
+                                                part + CANON + C::D_IN, zd);
 
       // the encoder: line gradients and d enc/d x' (cp), or the bands'
       // derivative (posenc), into DF rows 0..2
@@ -336,15 +355,15 @@ render_dyn_bwd_kernel(const float* __restrict__ rays,
       }
       load_act<ACT_LEAKY>(zw + W_LAYERS * W_HIDDEN * TILE, W_HIDDEN, X);
       __syncthreads();
-      mlp_bwd<W_FI, W_HIDDEN, W_LAYERS, W_OUT, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + W_MLP, part + W_MLP, zw);
+      tc::mlp_bwd<W_FI, W_HIDDEN, W_LAYERS, W_OUT, ACT_LEAKY, false,
+                  LEAKY_THREE>(X, G, F, FA, DF, tcw + TC_W, part + W_MLP, zw);
 
       // the rigidity MLP on p (F rows 0..2, FA = leaky(p))
       if (tid < TILE) G[tid] = DF[3 * PS + tid];
       load_act<ACT_LEAKY>(zg + G_LAYERS * G_HIDDEN * TILE, G_HIDDEN, X);
       __syncthreads();
-      mlp_bwd<3, G_HIDDEN, G_LAYERS, 1, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + G_MLP, part + G_MLP, zg);
+      tc::mlp_bwd<3, G_HIDDEN, G_LAYERS, 1, ACT_LEAKY, false, LEAKY_THREE>(
+          X, G, F, FA, DF, tcw + TC_G, part + G_MLP, zg);
     }
   }
 
@@ -359,6 +378,9 @@ extern "C" {
 
 // Floats in the packed weight buffer the kernel expects.
 long long render_dyn_bwd_weight_count() { return TOTAL; }
+
+// Floats of the TC pack (render_dyn.py `Layout.tc_mlps`) it expects.
+long long render_dyn_bwd_tc_floats() { return TC_TOTAL; }
 
 // Floats of stash per 64-point tile (the wrapper sizes the scratch).
 long long render_dyn_bwd_stash_floats_per_tile() { return ST_TILE; }
@@ -381,13 +403,15 @@ const char* render_dyn_bwd_error_string(int code) {
 // Enqueues one backward on `stream`; returns the cudaError_t of the
 // launches. gin: g [N, 4] or, with want_dp, [N, 5] (loss_mode 0), or
 // target [N, 3] (loss_mode 1). freqs: the posenc bands for the posenc
-// canonical, else unused. out: [TOTAL + 1] (gradient ‖ loss). partial:
+// canonical, else unused. weights: the packed vector (B, the biases and
+// the CP lines are read from it); tcw: its TC pack (`tc_floats` floats,
+// 16-byte aligned). out: [TOTAL + 1] (gradient ‖ loss). partial:
 // blocks × (TOTAL + 1) floats; stash: blocks × tiles ×
 // stash_floats_per_tile floats, tiles = ceil(rays_per_block · steps / 64),
 // rays_per_block = max(1, 64 / steps).
 int render_dyn_bwd_launch(const float* rays, const float* times,
                           const float* ts, const float* dists,
-                          const float* weights, const float* weights_t,
+                          const float* weights, const float* tcw,
                           const float* gin, const float* freqs, float* out,
                           float* partial, float* stash, int n_rays,
                           int steps, int blocks, int spline_points,
@@ -399,7 +423,8 @@ int render_dyn_bwd_launch(const float* rays, const float* times,
       || blocks <= 0
       || (SPLINE ? (spline_points < 2 || spline_points > MAX_SPLINE)
                  : spline_points != 0)
-      || (C::N_FREQS > 0 && freqs == nullptr))
+      || (C::N_FREQS > 0 && freqs == nullptr)
+      || reinterpret_cast<uintptr_t>(tcw) % 16)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
@@ -414,7 +439,7 @@ int render_dyn_bwd_launch(const float* rays, const float* times,
   err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)blocks * WP, s);
   if (err != cudaSuccess) return err;
   render_dyn_bwd_kernel<<<blocks, THREADS, smem, s>>>(
-      rays, times, ts, dists, weights, weights_t, gin, freqs, partial, stash,
+      rays, times, ts, dists, weights, tcw, gin, freqs, partial, stash,
       n_rays, steps, rays_per_block, n_rb, tiles, spline_points,
       sigmoid_kind, sky_white, want_dp, loss_mode, loss_scale, dp_coeff);
   err = cudaGetLastError();

@@ -2,8 +2,9 @@
 // (render_volsdf_bwd.cu): the VolSDF architecture and its packed weight
 // layout, the forward of one 64-point tile, which both kernels run so
 // that the backward recomputes exactly the forward's values, and the
-// eikonal's per-point steps. The per-layer building blocks, the transpose
-// chain of ∇ₓsdf and its adjoint are render_common.cuh's.
+// eikonal's per-point steps. The per-layer building blocks and K8f's
+// transpose chain of ∇ₓsdf are render_common.cuh's; K8b's recompute, chain
+// and adjoint are mma_tf32.cuh's.
 //
 // The chain of one sample point (nerf_atlas_tpu/ops/pallas/
 // render_volsdf.py `_vs_chain_fwd`, models/volsdf.py VolSDF):
@@ -24,6 +25,7 @@
 // e = (‖g‖ − 1)².
 #pragma once
 
+#include "mma_tf32.cuh"
 #include "render_common.cuh"
 
 namespace vs {
@@ -57,6 +59,16 @@ constexpr long R_MLP = S_MLP + mlp_size(S_IN, S_HIDDEN, S_LAYERS, S_OUT);
 constexpr long TOTAL = R_MLP + mlp_size(R_IN, R_HIDDEN, R_LAYERS, R_OUT);
 constexpr long S_OUT_W = S_MLP + mlp_offset(S_IN, S_HIDDEN, S_LAYERS,
                                             S_LAYERS + 1);      // layer_out
+
+// ---- K8b's TC pack (render_volsdf.py TC_MLPS, mma_tf32.cuh): the SDF
+// MLP's, its forward blocks raw (S_THREE: its recompute and the eikonal
+// adjoint's forward-like products run in three parts), then the View MLP's
+constexpr bool S_THREE = true;
+constexpr long TC_S = 0;
+constexpr long TC_R =
+    TC_S + tc::tc_mlp_floats(S_IN, S_HIDDEN, S_LAYERS, S_OUT, S_THREE);
+constexpr long TC_TOTAL =
+    TC_R + tc::tc_mlp_floats(R_IN, R_HIDDEN, R_LAYERS, R_OUT);
 
 // ---- a tile's stash, in rows of TILE floats: the SDF MLP's
 // pre-activations first (K8f's eikonal stashes only those), then the View
@@ -121,14 +133,16 @@ __device__ __forceinline__ float laplace_density(float sdf, float s,
 // packed weights with B copied to fb. Each real point's σ goes to res[RS·q],
 // its raw rgb to res[RS·q + 1..3] and its sdf to res[RS·q + 4]. With `st`
 // (the tile's stash) the SDF MLP's pre-activations go there too, and with
-// `full` the View MLP's and both init features.
-template <int RS>
+// `full` the View MLP's and both init features. `mlp` runs the two MLPs
+// (render_common.cuh `FmaMlp`, or `tc::TcMlp` with `st` and `full`).
+template <int RS, class Mlp = FmaMlp>
 __device__ void tile_forward(float* H, float* F, float* FA,
                              const float* ray_s,
                              const float* __restrict__ ts, const float* fb,
                              const float* __restrict__ w, float s,
                              bool sphere, int q0, int n_pts, int steps,
-                             float* res, float* st, bool full) {
+                             float* res, float* st, bool full,
+                             Mlp mlp = Mlp()) {
   const int tid = threadIdx.x;
   sdf_init_rows(F, ray_s, ts, fb, q0, n_pts, steps);
   for (int i = tid; i < S_IN * TILE; i += THREADS) {
@@ -138,7 +152,7 @@ __device__ void tile_forward(float* H, float* F, float* FA,
     if (full) st[(ST_FS + row) * TILE + p] = v;
   }
   __syncthreads();
-  mlp_fwd<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY>(
+  mlp.template fwd<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY, TC_S, S_THREE>(
       F, FA, w + S_MLP, H, st != nullptr ? st + ST_S * TILE : nullptr);
 
   // ---- sdf and σ; the View's init feature [p ‖ elev, azim ‖ latent]
@@ -168,7 +182,7 @@ __device__ void tile_forward(float* H, float* F, float* FA,
     if (full) st[(ST_FR + row) * TILE + p] = v;
   }
   __syncthreads();
-  mlp_fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT, ACT_SIN30>(
+  mlp.template fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT, ACT_SIN30, TC_R, false>(
       F, FA, w + R_MLP, H, full ? st + ST_R * TILE : nullptr);
   if (tid < TILE && q0 + tid < n_pts) {
 #pragma unroll
@@ -178,22 +192,21 @@ __device__ void tile_forward(float* H, float* F, float* FA,
 }
 
 // d out_0 / d init of the tile into DF rows 0..66 (zeroed here): the
-// transpose chain of the SDF MLP, seeded with column 0 of its layer_out.
-// F holds the SDF init feature, zst the tile's SDF pre-activations, wt
-// the transposed weights; with `ust` the chain's u_i are stashed for the
-// adjoint. G is overwritten.
+// transpose chain of the SDF MLP in float32 FMAs (K8f's eikonal column),
+// seeded with column 0 of its layer_out. F holds the SDF init feature,
+// zst the tile's SDF pre-activations, wt the transposed weights. G is
+// overwritten.
 __device__ __forceinline__ void sdf_input_grad(float* G, const float* F,
                                                float* DF,
                                                const float* __restrict__ wt,
-                                               const float* __restrict__ zst,
-                                               float* __restrict__ ust) {
+                                               const float* __restrict__ zst) {
   for (int i = threadIdx.x; i < S_IN * TILE; i += THREADS)
     DF[(i / TILE) * PS + i % TILE] = 0.0f;
   seed_column<S_HIDDEN, ACT_LEAKY>(G, wt + S_OUT_W,
                                    zst + (long)S_LAYERS * S_HIDDEN * TILE);
   __syncthreads();
   mlp_input_grad<S_IN, S_HIDDEN, S_LAYERS, ACT_LEAKY>(G, F, DF, wt + S_MLP,
-                                                      zst, ust);
+                                                      zst);
 }
 
 // Point p's g = ∇ₓsdf from DF (d out_0 / d init) and F (p ‖ sin ‖ cos);

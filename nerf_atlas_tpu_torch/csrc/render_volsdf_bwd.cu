@@ -18,9 +18,10 @@
 //
 // Per block of rays (max(1, 64/T) rays, as in K8f), in two passes:
 //   pass 1 re-runs K8f's forward tile by tile (render_volsdf.cuh
-//     `tile_forward`, the same code) and stashes every MLP pre-activation
-//     and both init features (2,664 rows of 64 floats, 682 KB per tile) in
-//     a per-block scratch in global memory;
+//     `tile_forward`: the same code, its MLP products on the tensor cores)
+//     and stashes every MLP pre-activation and both init features (2,664
+//     rows of 64 floats, 682 KB per tile) in a per-block scratch in global
+//     memory;
 //   then one thread per ray composites front to back (α, transmittance,
 //     outputs, the cotangent, the loss) and walks back to front with the
 //     suffix sum S_t = Σ_{s>t} A_s w_s (render_bwd.cu's code) to dσ, which
@@ -31,33 +32,47 @@
 //     on the latent columns 5..36 joins dsdf as the SDF MLP's output
 //     cotangent → SDF MLP (leaky-relu 0.01). The SDF MLP's input
 //     cotangent is not formed (B is fixed, the points are inputs). With
-//     want_eikonal, per tile: the transpose chain ∇ₓsdf (render_common.cuh
-//     `mlp_input_grad`, its u_i into a per-block u-stash of 458 KB in
+//     want_eikonal, per tile: the transpose chain ∇ₓsdf (mma_tf32.cuh
+//     `tc::mlp_input_grad`, its u_i into a per-block u-stash of 458 KB in
 //     global memory), each point's e = (‖g‖ − 1)² and ∂e/∂g times the
 //     ray's eikonal cotangent / T, that cotangent back through the
 //     Fourier jacobian, then the adjoint sweep up the chain
-//     (`mlp_input_grad_adjoint`: rank-64 weight updates, no bias
-//     gradient, layer_out's column 0 only).
+//     (`tc::mlp_input_grad_adjoint`: forward-like products, rank-64 weight
+//     updates, no bias gradient, layer_out's column 0 only).
 //
 // What bounds it: compute, 3.3 MFLOP per sample point without the
 // eikonal (the forward, then per layer the input-gradient and the
 // weight-gradient products) and 6.0 MFLOP with it (the transpose chain,
 // its adjoint's forward-like products and its weight updates), plus the
 // stashes (written once, read once) and the per-block weight-gradient
-// partials.
+// partials. On the tensor cores each multiply-add is three TF32 products
+// (six in the SDF MLP's forward ones), against the TF32 peak.
 //
-// Design (render_ae_bwd.cu's, simple and exact, not yet fast): float32
-// FMAs on the CUDA cores, one 256-thread block per SM (~198 KB of shared
-// memory: two 256-row activation/gradient tiles and three 68-row init
-// feature tiles). The grid is at most one block per SM; each block loops
-// over ray blocks. The gradient is deterministic: every block accumulates
-// into its own partial row of TOTAL + 1 floats (each entry owned by one
-// thread, tiles in a fixed order; ∂L/∂s and the loss summed by one thread
-// in double) and a second kernel sums the rows in block order. No float
-// atomics anywhere: two launches are bit-identical.
+// Design (render_bwd.cu's): every MLP product (the recompute, the input and
+// the weight gradients, the eikonal's transpose chain, its adjoint's
+// forward-like products and rank-64 updates) runs on the tensor cores in
+// split TF32 (mma_tf32.cuh, ~3·2^-22 relative per term; the wrapper
+// pre-splits the weights into the TC pack, render_volsdf.py `TC_MLPS`),
+// staged by cp.async through rows the product does not read (G in pass 1
+// and in the adjoint, X in the VJPs and the chain). The SDF MLP's forward
+// products, the recompute's and the adjoint's, run in three parts
+// (hi/mid/lo, six TF32 products, ≲ 2^-32 per term): the eikonal's act′
+// pattern comes from the recompute's pre-activations, and with two parts
+// their rounding moved the eikonal's weight gradient past its float32
+// floor on the CPU emulation (tests/test_torch_tf32_split.py). The Fourier
+// rows, the Laplace partials, the eikonal's per-point steps and the
+// compositing stay float32 on the CUDA cores. One 256-thread block per SM
+// (~198 KB of shared memory: two 256-row activation/gradient tiles and
+// three 68-row init feature tiles). The grid is at most one block per SM;
+// each block loops over ray blocks. The gradient is deterministic: every
+// block accumulates into its own partial row of TOTAL + 1 floats (each
+// entry owned by one thread, tiles in a fixed order; ∂L/∂s and the loss
+// summed by one thread in double) and a second kernel sums the rows in
+// block order. No float atomics anywhere: two launches are bit-identical.
 //
 // Plain C interface for ctypes (built with nvcc into a shared library).
 
+#include "mma_tf32.cuh"
 #include "render_volsdf.cuh"
 
 using namespace vs;
@@ -67,6 +82,7 @@ namespace {
 constexpr int MAX_STEPS = 512;               // shared memory for res
 constexpr int RS = 9;                        // per point, see pass 1
 constexpr long WP = TOTAL + 1;               // partial row: grads ‖ loss
+static_assert(tc::stage_floats(S_HIDDEN) <= S_HIDDEN * PS, "weight staging");
 
 size_t smem_bytes(int rays_per_block, int steps) {
   return sizeof(float) * ((size_t)(2 * S_HIDDEN + 3 * F_ROWS) * PS
@@ -79,7 +95,7 @@ render_volsdf_bwd_kernel(const float* __restrict__ rays,
                          const float* __restrict__ ts,
                          const float* __restrict__ dists,
                          const float* __restrict__ w,
-                         const float* __restrict__ wt,
+                         const float* __restrict__ tcw,
                          const float* __restrict__ gin,
                          float* __restrict__ partial,
                          float* __restrict__ stash,
@@ -132,7 +148,8 @@ render_volsdf_bwd_kernel(const float* __restrict__ rays,
     // sdf, then α and the transmittance ----
     for (int q0 = 0, tile = 0; q0 < n_pts; q0 += TILE, ++tile)
       tile_forward<RS>(X, F, FA, ray_s, ts, fb, w, s, sphere != 0, q0, n_pts,
-                       steps, res, st_block + tile * ST_TILE, true);
+                       steps, res, st_block + tile * ST_TILE, true,
+                       tc::TcMlp{tcw, G});
 
     // ---- compositing, its cotangent and VJP, the Laplace partials: one
     // thread per ray; res per point becomes dsdf, ·, ·, ·, ·, d rgb raw ----
@@ -240,8 +257,8 @@ render_volsdf_bwd_kernel(const float* __restrict__ rays,
       }
       load_act<ACT_SIN30>(zr + R_LAYERS * RZ, R_HIDDEN, X);
       __syncthreads();
-      mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + R_MLP, part + R_MLP, zr);
+      tc::mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT, ACT_SIN30, true>(
+          X, G, F, FA, DF, tcw + TC_R, part + R_MLP, zr);
 
       // SDF MLP: G <- [d sdf ‖ d latent (DF rows 5..36)]; F <- its init
       // feature, FA <- leaky(F)
@@ -259,12 +276,19 @@ render_volsdf_bwd_kernel(const float* __restrict__ rays,
       }
       load_act<ACT_LEAKY>(zs + S_LAYERS * SZ, S_HIDDEN, X);
       __syncthreads();
-      mlp_bwd<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + S_MLP, part + S_MLP, zs);
+      tc::mlp_bwd<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY, false, S_THREE>(
+          X, G, F, FA, DF, tcw + TC_S, part + S_MLP, zs);
 
       if (want_eikonal) {
-        // g = ∇ₓsdf by the transpose chain (u_i to the u-stash)
-        sdf_input_grad(G, F, DF, wt, zs, ust);
+        // g = ∇ₓsdf by the transpose chain, seeded with column 0 of the SDF
+        // MLP's layer_out (u_i to the u-stash)
+        for (int i = tid; i < S_IN * TILE; i += THREADS)
+          DF[(i / TILE) * PS + i % TILE] = 0.0f;
+        seed_column<S_HIDDEN, ACT_LEAKY, S_OUT>(G, w + S_OUT_W,
+                                                zs + S_LAYERS * SZ);
+        __syncthreads();
+        tc::mlp_input_grad<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY,
+                           S_THREE>(X, G, F, DF, tcw + TC_S, zs, ust);
         if (tid < TILE) {
           const int q = q0 + tid;
           const int r = min(q, n_pts - 1) / steps;
@@ -283,8 +307,9 @@ render_volsdf_bwd_kernel(const float* __restrict__ rays,
         if (tid == 0) {
           for (int p = 0; p < TILE; ++p) loss_acc += eikp[p];
         }
-        mlp_input_grad_adjoint<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY>(
-            X, G, F, DF, FA, w + S_MLP, part + S_MLP, zs, ust, 0);
+        tc::mlp_input_grad_adjoint<S_IN, S_HIDDEN, S_LAYERS, S_OUT, ACT_LEAKY,
+                                   S_THREE>(X, G, F, DF, FA, tcw + TC_S,
+                                            part + S_MLP, zs, ust, 0);
       }
     }
   }
@@ -303,6 +328,9 @@ extern "C" {
 // Floats in the packed weight buffer the kernel expects.
 long long render_volsdf_bwd_weight_count() { return TOTAL; }
 
+// Floats of the TC pack (render_volsdf.py `TC_MLPS`) it expects.
+long long render_volsdf_bwd_tc_floats() { return TC_TOTAL; }
+
 // Floats of stash per 64-point tile, and of u-stash per block (the
 // wrapper sizes the scratch).
 long long render_volsdf_bwd_stash_floats_per_tile() { return ST_TILE; }
@@ -317,13 +345,16 @@ const char* render_volsdf_bwd_error_string(int code) {
 
 // Enqueues one backward on `stream`; returns the cudaError_t of the
 // launches. gin: g [N, 4] or, with want_eikonal, [N, 5] (loss_mode 0), or
-// target [N, 3] (loss_mode 1). out: [TOTAL + 1] (gradient ‖ loss).
+// target [N, 3] (loss_mode 1). weights: the packed vector (s, B, the
+// biases and layer_out's column 0 are read from it); tcw: its TC pack
+// (`tc_floats` floats, 16-byte aligned). out: [TOTAL + 1] (gradient ‖
+// loss).
 // partial: blocks × (TOTAL + 1) floats; stash: blocks × (tiles ×
 // stash_floats_per_tile + ustash_floats_per_block) floats, tiles =
 // ceil(rays_per_block · steps / 64), rays_per_block = max(1, 64 / steps).
 int render_volsdf_bwd_launch(const float* rays, const float* ts,
                              const float* dists, const float* weights,
-                             const float* weights_t, const float* gin,
+                             const float* tcw, const float* gin,
                              float* out, float* partial, float* stash,
                              int n_rays, int steps, int blocks,
                              int sigmoid_kind, int sky_white, int sphere,
@@ -331,7 +362,7 @@ int render_volsdf_bwd_launch(const float* rays, const float* ts,
                              float loss_scale, float eik_cot, void* stream) {
   if (n_rays <= 0) return cudaSuccess;
   if (steps < 2 || steps > MAX_STEPS || sigmoid_kind < 0 || sigmoid_kind > 7
-      || blocks <= 0)
+      || blocks <= 0 || reinterpret_cast<uintptr_t>(tcw) % 16)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
@@ -346,7 +377,7 @@ int render_volsdf_bwd_launch(const float* rays, const float* ts,
   err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)blocks * WP, s);
   if (err != cudaSuccess) return err;
   render_volsdf_bwd_kernel<<<blocks, THREADS, smem, s>>>(
-      rays, ts, dists, weights, weights_t, gin, partial, stash, n_rays, steps,
+      rays, ts, dists, weights, tcw, gin, partial, stash, n_rays, steps,
       rays_per_block, n_rb, tiles, sigmoid_kind, sky_white, sphere,
       want_eikonal, loss_mode, loss_scale, eik_cot);
   err = cudaGetLastError();

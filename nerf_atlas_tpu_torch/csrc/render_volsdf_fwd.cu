@@ -89,7 +89,7 @@ render_volsdf_fwd_kernel(const float* __restrict__ rays,
                        steps, res, zst, false);
       if (want_eikonal) {
         sdf_init_rows(F, ray_s, ts, fb, q0, n_pts, steps);
-        sdf_input_grad(H, F, FA, wt, zst, nullptr);
+        sdf_input_grad(H, F, FA, wt, zst);
         if (tid < TILE && q0 + tid < n_pts) {
           float de[3];
           res[RS * (q0 + tid) + 4] = eikonal_point(F, FA, fb, sphere != 0,

@@ -715,10 +715,12 @@ def _load_bwd_library(enc_kind: str) -> ctypes.CDLL:
   lib.render_bwd_error_string.restype = ctypes.c_char_p
   enc = ENC_KINDS.index(enc_kind)
   bands = freqs(enc_kind)
+  tc = tc_layout_index(tc_mlps(enc_kind),
+                       LAYOUTS[enc_kind].weight_count)[0].numel()
   if (lib.render_bwd_built_enc() != enc
       or lib.render_bwd_weight_count(enc) != LAYOUTS[enc_kind].weight_count
       or lib.render_bwd_max_steps(enc) != BWD_MAX_STEPS[enc_kind]
-      or lib.render_bwd_tc_floats(enc) != tc_pack_index(enc_kind)[0].numel()
+      or lib.render_bwd_tc_floats(enc) != tc
       or lib.render_bwd_freq_count(enc) != (0 if bands is None
                                             else bands.shape[0])):
     raise RuntimeError(
@@ -728,7 +730,7 @@ def _load_bwd_library(enc_kind: str) -> ctypes.CDLL:
         f"{lib.render_bwd_freq_count(enc)} bands in a TC pack of "
         f"{lib.render_bwd_tc_floats(enc)} floats, the wrapper mode {enc}, "
         f"{LAYOUTS[enc_kind].weight_count}, {BWD_MAX_STEPS[enc_kind]}, "
-        f"{bands} and {tc_pack_index(enc_kind)[0].numel()}")
+        f"{bands} and {tc}")
   return lib
 
 
@@ -754,13 +756,20 @@ def _pad16(n: int) -> int:
   return -(-n // 16) * 16
 
 
-def _tc_block(a: torch.Tensor, pad: int) -> torch.Tensor:
-  """A K-major index block a [k][m] (A[m][k] = a[k][m]) -> its TC-pack
-  order [Kp/16, 2 (hi, lo slot), 2 (k-step), Mp/16 (m-tile), 32 (lane),
-  4]: lane (g, t) of m-tile mt and k-step kk holds A[16mt + g][8kk + t],
-  A[16mt + g + 8][8kk + t], A[16mt + g][8kk + t + 4], A[16mt + g +
-  8][8kk + t + 4] (mma.m16n8k8's A fragment), padded with `pad` (the
-  index of a zero)."""
+# a TC pack entry's part of its float32 weight (`tc_layout_index`)
+TC_HI, TC_LO, TC_RAW = 0, 1, 2
+
+
+def _tc_block(a: torch.Tensor, pad: int, raw: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """A K-major index block a [k][m] (A[m][k] = a[k][m]) -> (its TC-pack
+  order [Kp/16, parts, 2 (k-step), Mp/16 (m-tile), 32 (lane), 4], each
+  entry's part): lane (g, t) of m-tile mt and k-step kk holds A[16mt +
+  g][8kk + t], A[16mt + g + 8][8kk + t], A[16mt + g][8kk + t + 4], A[16mt
+  + g + 8][8kk + t + 4] (mma.m16n8k8's A fragment), padded with `pad` (the
+  index of a zero); each 16-deep slice holds its hi part, then its lo part
+  (parts = 2), or with `raw` the float32 weights themselves (parts = 1),
+  which the kernel splits in registers."""
   k, m = a.shape
   kp, mp = _pad16(k), _pad16(m)
   full = torch.full((kp, mp), pad, dtype=torch.long)
@@ -773,25 +782,47 @@ def _tc_block(a: torch.Tensor, pad: int) -> torch.Tensor:
   rows = _TC_SLICE * s + 8 * kk + lane % 4 + 4 * (j // 2)
   cols = 16 * mt + lane // 4 + 8 * (j % 2)
   out = full[rows, cols].unsqueeze(1)
-  return torch.cat([out, out], dim=1)
+  if raw:
+    return out, torch.full_like(out, TC_RAW)
+  return (torch.cat([out, out], dim=1),
+          torch.cat([torch.full_like(out, TC_HI), torch.full_like(out, TC_LO)],
+                    dim=1))
 
 
-def tc_pack_index(enc_kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
-  """(index, is_lo) of csrc/mma_tf32.cuh's TC pack for `enc_kind`: each
-  entry picks a float of the packed weight vector (its length: a zero
-  pad) and whether it holds that float's hi or lo TF32 part. Per MLP
-  (density, then View) and Dense layer W [in, out] (in = kh hidden rows ‖
-  kf init rows), in order: the forward product's block, W itself, K-major
-  [in (kh rows padded to 16, then kf rows padded to 16)][out]; the hidden
-  rows' input-gradient block, W[:kh]ᵀ as [out][kh]; the init rows',
-  W[kh:]ᵀ as [out][kf] (each present where kh, kf > 0); each block in
-  16-deep slices, a slice's hi part then its lo part, each in mma
-  fragment order (`_tc_block`)."""
+# the MLPs of a TC pack: per MLP its offset in the packed vector, its Dense
+# layers as `_mlp_layout` gives them, and whether its forward products run
+# in three parts (their blocks then hold the raw weights)
+TCMlps = Tuple[Tuple[int, Tuple[Tuple[str, int, int], ...], bool], ...]
+
+
+def tc_mlps(enc_kind: str) -> TCMlps:
+  """The MLPs of K2/K3's TC pack for `enc_kind`: the density MLP (tiny:
+  the one MLP), then the View MLP, each in two parts."""
   layout = LAYOUTS[enc_kind]
-  pad = layout.weight_count
+  mlps = [(layout.line_count, layout.density_layers, False)]
+  if layout.refl_layers:
+    mlps.append((layout.line_count + sum(i * o + o for _, i, o in
+                                         layout.density_layers),
+                 layout.refl_layers, False))
+  return tuple(mlps)
+
+
+def tc_layout_index(mlps: TCMlps, weight_count: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(index, part) of csrc/mma_tf32.cuh's TC pack of the MLPs `mlps` of a
+  packed weight vector of `weight_count` floats: each entry picks a float
+  of the vector (`weight_count`: a zero pad) and which part of it it
+  holds (TC_HI or TC_LO, its TF32 parts, or TC_RAW, the float itself).
+  Per MLP, in order, and per Dense layer W [in, out] (in = kh hidden rows
+  ‖ kf init rows): the forward product's block, W itself, K-major [in (kh
+  rows padded to 16, then kf rows padded to 16)][out], raw in an MLP whose
+  forward runs in three parts; the hidden rows' input-gradient block,
+  W[:kh]ᵀ as [out][kh]; the init rows', W[kh:]ᵀ as [out][kf] (each present
+  where kh, kf > 0); each block in 16-deep slices, in mma fragment order
+  (`_tc_block`)."""
+  pad = weight_count
   blocks = []
-  pos = layout.line_count
-  for layers in (layout.density_layers, layout.refl_layers):
+  for pos, layers, fwd3 in mlps:
     for j, (_, n_in, n_out) in enumerate(layers):
       kh = 0 if j == 0 else layers[0][2]
       w = pos + torch.arange(n_in * n_out).view(n_in, n_out)
@@ -799,31 +830,36 @@ def tc_pack_index(enc_kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
                        dtype=torch.long)
       fwd[:kh] = w[:kh]
       fwd[_pad16(kh):_pad16(kh) + n_in - kh] = w[kh:]
-      blocks.append(_tc_block(fwd, pad))
+      blocks.append(_tc_block(fwd, pad, fwd3))
       for part in (w[:kh], w[kh:]):
         if part.shape[0]:
           blocks.append(_tc_block(part.t(), pad))
       pos += n_in * n_out + n_out
-  index = torch.cat([b.reshape(-1) for b in blocks])
-  is_lo = torch.cat([torch.zeros_like(b, dtype=torch.bool).index_fill_(
-      1, torch.tensor([1]), True).reshape(-1) for b in blocks])
-  return index, is_lo
+  return (torch.cat([b.reshape(-1) for b, _ in blocks]),
+          torch.cat([p.reshape(-1) for _, p in blocks]))
 
 
-_TC_INDEX: Dict[Tuple[torch.device, str], Tuple[torch.Tensor,
-                                                torch.Tensor]] = {}
+_TC_INDEX: Dict[Tuple[torch.device, TCMlps, int],
+                Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def tc_pack_mlps(ws: torch.Tensor, mlps: TCMlps) -> torch.Tensor:
+  """The packed weights `ws` pre-split into csrc/mma_tf32.cuh's TC pack of
+  the MLPs `mlps` (`tc_layout_index`): the tensor-core operands of a
+  backward kernel's dense products, once per call."""
+  key = (ws.device, mlps, ws.shape[0])
+  if key not in _TC_INDEX:
+    _TC_INDEX[key] = tuple(t.to(ws.device) for t in
+                           tc_layout_index(mlps, ws.shape[0]))
+  index, part = _TC_INDEX[key]
+  raw = F.pad(ws, (0, 1))[index]
+  hi, lo = tf32_split(raw)
+  return torch.where(part == TC_HI, hi, torch.where(part == TC_LO, lo, raw))
 
 
 def tc_pack(ws: torch.Tensor, enc_kind: str) -> torch.Tensor:
-  """The packed weights `ws` of `enc_kind` pre-split into csrc/
-  mma_tf32.cuh's TC pack (`tc_pack_index`): the tensor-core operands of
-  K2/K3's dense products, once per call."""
-  key = (ws.device, enc_kind)
-  if key not in _TC_INDEX:
-    _TC_INDEX[key] = tuple(t.to(ws.device) for t in tc_pack_index(enc_kind))
-  index, is_lo = _TC_INDEX[key]
-  hi, lo = tf32_split(F.pad(ws, (0, 1))[index])
-  return torch.where(is_lo, lo, hi)
+  """K2/K3's TC pack of `ws` for `enc_kind` (`tc_pack_mlps`)."""
+  return tc_pack_mlps(ws, tc_mlps(enc_kind))
 
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,

@@ -115,18 +115,17 @@ class Layout:
   def weight_count(self) -> int:
     return self.canon_offset + k1.LAYOUTS[self.enc_kind].weight_count
 
-  def dense(self):
-    """(offset, in, out) of every Dense block in the packed vector."""
-    out, pos = [], self.warp_offset
-    for _, i, o in self.warp_layers + self.rig_layers:
-      out.append((pos, i, o))
-      pos += i * o + o
-    canon = k1.LAYOUTS[self.enc_kind]
-    pos = self.canon_offset + canon.line_count
-    for _, i, o in canon.density_layers + canon.refl_layers:
-      out.append((pos, i, o))
-      pos += i * o + o
-    return out
+  @property
+  def tc_mlps(self) -> k1.TCMlps:
+    """K9b's TC pack (render.tc_layout_index): the warp MLP's, the
+    rigidity MLP's, then the canonical's density and View MLPs'; the
+    three with leaky-relu kinks run their forward products in three parts
+    (csrc/render_dyn.cuh `LEAKY_THREE`)."""
+    (d_pos, d_layers, _), (r_pos, r_layers, _) = k1.tc_mlps(self.enc_kind)
+    return ((self.warp_offset, self.warp_layers, True),
+            (self.rig_offset, self.rig_layers, True),
+            (self.canon_offset + d_pos, d_layers, True),
+            (self.canon_offset + r_pos, r_layers, False))
 
 
 def _make_layout(enc_kind: str, warp: str) -> Layout:
@@ -443,26 +442,15 @@ def _load_fwd_library(enc_kind: str, warp: str) -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _load_bwd_library(enc_kind: str, warp: str) -> ctypes.CDLL:
-  return _bind("render_dyn_bwd", enc_kind, 0 if warp == "dx" else MAX_SPLINE,
-               11, 8, 2, ("stash_floats_per_tile",))
-
-
-_TRANSPOSE_INDEX: Dict[Tuple[torch.device, str, str], torch.Tensor] = {}
-
-
-def _transposed(ws: torch.Tensor, lay: Layout) -> torch.Tensor:
-  """The packed vector with every Dense W [in, out] stored as [out, in]
-  at the same offset (the backward reads W row by output unit for the
-  input-gradient products)."""
-  key = (ws.device, lay.enc_kind, lay.warp)
-  index = _TRANSPOSE_INDEX.get(key)
-  if index is None:
-    index = torch.arange(lay.weight_count)
-    for pos, i, o in lay.dense():
-      index[pos:pos + i * o] = pos + torch.arange(i * o).view(i, o).t(
-      ).reshape(-1)
-    index = _TRANSPOSE_INDEX.setdefault(key, index.to(ws.device))
-  return ws[index]
+  lib = _bind("render_dyn_bwd", enc_kind, 0 if warp == "dx" else MAX_SPLINE,
+              11, 8, 2, ("stash_floats_per_tile", "tc_floats"))
+  lay = LAYOUTS[(enc_kind, warp)]
+  want = k1.tc_layout_index(lay.tc_mlps, lay.weight_count)[0].numel()
+  if lib.render_dyn_bwd_tc_floats() != want:
+    raise RuntimeError(f"render_dyn_bwd.cu built for {enc_kind}/{warp} takes "
+                       f"a TC pack of {lib.render_dyn_bwd_tc_floats()} "
+                       f"floats, the wrapper {want}")
+  return lib
 
 
 def _forward_launch(ws: torch.Tensor, rays: torch.Tensor,
@@ -533,11 +521,11 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,
   stash = torch.empty(
       blocks * tiles * lib.render_dyn_bwd_stash_floats_per_tile(),
       dtype=torch.float32, device=rays.device)
-  wt = _transposed(ws, lay)
+  tcw = k1.tc_pack_mlps(ws, lay.tc_mlps)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_dyn_bwd_launch(
       rays.data_ptr(), times.data_ptr(), ts.data_ptr(), dists.data_ptr(),
-      ws.data_ptr(), wt.data_ptr(), gin.data_ptr(), k1._ptr(fq),
+      ws.data_ptr(), tcw.data_ptr(), gin.data_ptr(), k1._ptr(fq),
       out.data_ptr(), partial.data_ptr(), stash.data_ptr(), n, steps, blocks,
       spline_points, k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind),
       int(sky_kind == "white"), int(want_dp), int(loss_mode),

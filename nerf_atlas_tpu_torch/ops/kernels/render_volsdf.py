@@ -64,6 +64,12 @@ N_SDF_LAYERS = S_LAYERS + 2
 B_OFFSET = 1                                     # after s
 MLP_OFFSET = B_OFFSET + 3 * N_FREQS              # 97
 WEIGHT_COUNT = MLP_OFFSET + sum(i * o + o for _, i, o in LAYERS)  # 552,325
+# K8b's TC pack (render.tc_layout_index): the SDF MLP's, whose forward
+# products (the recompute and the eikonal adjoint's) run in three parts,
+# then the View's
+TC_MLPS = ((MLP_OFFSET, LAYERS[:N_SDF_LAYERS], True),
+           (MLP_OFFSET + sum(i * o + o for _, i, o in LAYERS[:N_SDF_LAYERS]),
+            LAYERS[N_SDF_LAYERS:], False))
 
 Params = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
@@ -317,8 +323,15 @@ def _load_fwd_library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _load_bwd_library() -> ctypes.CDLL:
-  return _bind("render_volsdf_bwd", 9, 8, 2,
-               ("stash_floats_per_tile", "ustash_floats_per_block"))
+  lib = _bind("render_volsdf_bwd", 9, 8, 2,
+              ("stash_floats_per_tile", "ustash_floats_per_block",
+               "tc_floats"))
+  want = k1.tc_layout_index(TC_MLPS, WEIGHT_COUNT)[0].numel()
+  if lib.render_volsdf_bwd_tc_floats() != want:
+    raise RuntimeError(f"render_volsdf_bwd.cu takes a TC pack of "
+                       f"{lib.render_volsdf_bwd_tc_floats()} floats, the "
+                       f"wrapper {want}")
+  return lib
 
 
 def _sm_count(device) -> int:
@@ -372,8 +385,8 @@ _TRANSPOSE_INDEX: Dict[torch.device, torch.Tensor] = {}
 
 def _transposed(ws: torch.Tensor) -> torch.Tensor:
   """The packed vector with every Dense W [in, out] stored as [out, in]
-  at the same offset (the kernels read W row by output unit for the
-  input-gradient products)."""
+  at the same offset (K8f's eikonal column reads W row by output unit for
+  the transpose chain)."""
   index = _TRANSPOSE_INDEX.get(ws.device)
   if index is None:
     index = torch.arange(WEIGHT_COUNT)
@@ -419,11 +432,11 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor, gin: torch.Tensor,
       blocks * (tiles * lib.render_volsdf_bwd_stash_floats_per_tile()
                 + lib.render_volsdf_bwd_ustash_floats_per_block()),
       dtype=torch.float32, device=rays.device)
-  wt = _transposed(ws)
+  tcw = k1.tc_pack_mlps(ws, TC_MLPS)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_volsdf_bwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-      wt.data_ptr(), gin.data_ptr(), out.data_ptr(), partial.data_ptr(),
+      tcw.data_ptr(), gin.data_ptr(), out.data_ptr(), partial.data_ptr(),
       stash.data_ptr(), n, steps, blocks,
       k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
       int(sphere_init), int(want_eikonal), int(loss_mode),

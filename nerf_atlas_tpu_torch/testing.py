@@ -3,46 +3,234 @@
 path."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from .ops import integrate
 from .ops.kernels import render as k1
 from .ops.kernels import render_ae as k7
 from .ops.kernels import render_dyn as k9
 from .ops.kernels import render_volsdf as k8
 
 
-def _split_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """a @ b as K2/K3's tensor cores form it (csrc/mma_tf32.cuh): each
-  operand split into TF32 hi and lo parts, the three products lo_a·hi_b,
-  hi_a·lo_b and hi_a·hi_b summed in float32; lo_a·lo_b is dropped."""
-  a_hi, a_lo = k1.tf32_split(a)
-  b_hi, b_lo = k1.tf32_split(b)
-  return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+def _split3(x: torch.Tensor):
+  """(hi, mid, lo): x's three TF32 parts (csrc/mma_tf32.cuh `split3`);
+  |x − (hi + mid + lo)| ≤ 2^-33·|x|."""
+  hi = k1.tf32_round(x)
+  r = x - hi
+  mid = k1.tf32_round(r)
+  return hi, mid, k1.tf32_round(r - mid)
+
+
+def _split_product(a: torch.Tensor, b: torch.Tensor,
+                   parts: int = 2) -> torch.Tensor:
+  """a @ b as the tensor-core kernels form it (csrc/mma_tf32.cuh): each
+  operand split into TF32 parts and the products summed in float32, the
+  small first. Two parts (hi, lo): lo_a·hi_b, hi_a·lo_b, hi_a·hi_b
+  (lo_a·lo_b dropped). Three parts (hi, mid, lo; `mma_slice3`): lo·hi,
+  hi·lo, mid·mid, mid·hi, hi·mid, hi·hi."""
+  if parts == 2:
+    a_hi, a_lo = k1.tf32_split(a)
+    b_hi, b_lo = k1.tf32_split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+  a_hi, a_mid, a_lo = _split3(a)
+  b_hi, b_mid, b_lo = _split3(b)
+  return ((((a_lo @ b_hi + a_hi @ b_lo) + a_mid @ b_mid) + a_mid @ b_hi)
+          + a_hi @ b_mid) + a_hi @ b_hi
 
 
 class SplitTF32Matmul(torch.autograd.Function):
   """a @ b whose forward and both backward products (g @ bᵀ, aᵀ @ g) go
-  through the split-TF32 emulation: the three dense products K2/K3 runs
-  per layer (the recompute, the input and the weight gradient)."""
+  through the split-TF32 emulation: the three dense products the
+  tensor-core kernels run per layer (the recompute, the input and the
+  weight gradient). The forward takes `parts` (2 or 3) parts, the input
+  gradient `dx_parts`, the weight gradient two. The backward's products
+  are this Function again, so a gradient of a gradient (VolSDF's
+  eikonal: the transpose chain, its adjoint's forward-like products and
+  rank-64 weight updates) splits every product at every order: the input
+  gradient g @ bᵀ differentiates to the forward-like gg @ b, which reads
+  the forward's weight blocks in the kernel and so takes `parts`."""
 
   @staticmethod
-  def forward(ctx, a, b):
+  def forward(ctx, a, b, parts=2, dx_parts=2):
     ctx.save_for_backward(a, b)
-    return _split_product(a, b)
+    ctx.parts = (parts, dx_parts)
+    return _split_product(a, b, parts)
 
   @staticmethod
   def backward(ctx, g):
     a, b = ctx.saved_tensors
-    return _split_product(g, b.t()), _split_product(a.t(), g)
+    parts, dx_parts = ctx.parts
+    return (SplitTF32Matmul.apply(g, b.t(), dx_parts, parts),
+            SplitTF32Matmul.apply(a.t(), g, 2, 2), None, None)
 
 
 def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """`SplitTF32Matmul.apply`: put in place of `render._matmul` to run a
-  plain version's MLP products as K2/K3's tensor cores do."""
+  """`SplitTF32Matmul.apply` in two parts: put in place of
+  `render._matmul` to run a plain version's MLP products as K2/K3's
+  tensor cores form them."""
   return SplitTF32Matmul.apply(a, b)
+
+
+def split_tf32_matmul_fwd3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """`SplitTF32Matmul.apply` with the forward product (and, at second
+  order, the forward-like one) in three parts: an MLP whose forward
+  blocks a backward kernel keeps raw (csrc/mma_tf32.cuh `THREE`)."""
+  return SplitTF32Matmul.apply(a, b, 3, 2)
+
+
+def split_tf32_mlp(mlp, mlps: k1.TCMlps):
+  """A stand-in for `render._mlp` (`mlp`, the original) whose products are
+  a backward kernel's: each MLP of the kernel's TC pack `mlps` (the
+  wrapper's list of (offset, Dense layers, three-part flag), which the
+  kernel's tc_floats check at load holds to its constexprs) through
+  `split_tf32_matmul_fwd3` where its flag is set, else
+  `split_tf32_matmul`. An MLP is known by its Dense layers' shapes; one
+  that is not in `mlps` raises."""
+  three = {}
+  for _, layers, flag in mlps:
+    shapes = tuple((i, o) for _, i, o in layers)
+    if three.setdefault(shapes, flag) != flag:
+      raise ValueError(f"two MLPs of Dense shapes {shapes} differ in parts")
+
+  def run(init_feat, layers, act, n_layers):
+    shapes = tuple(tuple(w.shape) for w, _ in layers)
+    if shapes not in three:
+      raise KeyError(f"an MLP of Dense shapes {shapes} is not in the TC "
+                     f"pack")
+    saved = k1._matmul
+    k1._matmul = (split_tf32_matmul_fwd3 if three[shapes]
+                  else split_tf32_matmul)
+    try:
+      return mlp(init_feat, layers, act, n_layers)
+    finally:
+      k1._matmul = saved
+  return run
+
+
+def k8b_split_tf32_mlp(mlp):
+  """`split_tf32_mlp` as K8b runs it (`render_volsdf.TC_MLPS`)."""
+  return split_tf32_mlp(mlp, k8.TC_MLPS)
+
+
+def k9b_split_tf32_mlp(mlp, lay: k9.Layout):
+  """`split_tf32_mlp` as K9b runs it on the layout `lay`
+  (`render_dyn.Layout.tc_mlps`)."""
+  return split_tf32_mlp(mlp, lay.tc_mlps)
+
+
+class _Float32Features(torch.autograd.Function):
+  """The SDF init feature in float64 holding the kernels' float32 values,
+  with the float32 sin/cos in its jacobian (dy/dx = 2π·B): a float64
+  evaluation of exactly the float32 model's features."""
+
+  @staticmethod
+  def forward(ctx, pts, init32, fb):
+    ctx.save_for_backward(init32, fb)
+    return init32.double()
+
+  @staticmethod
+  def backward(ctx, g):
+    init32, fb = ctx.saved_tensors
+    sin, cos = init32[:, 3:35].double(), init32[:, 35:].double()
+    gy = g[:, 3:35] * cos - g[:, 35:] * sin
+    return g[:, :3] + gy @ (fb.double() * (2 * math.pi)).t(), None, None
+
+
+def volsdf_float64_grad(ws: torch.Tensor, rays: torch.Tensor,
+                        ts: torch.Tensor, target: torch.Tensor,
+                        sigmoid_kind: str, sky_kind: str,
+                        eikonal_weight: float) -> torch.Tensor:
+  """The packed gradient of K8b-L's loss (the sphere-init VolSDF, the
+  eikonal at `eikonal_weight`) in float64 on the kernels' float32 init
+  features (`_Float32Features`): a witness for how far each float32
+  implementation lies from the same function in float64."""
+  w = ws.double().requires_grad_(True)
+  r, t = rays.double(), ts.double()
+  fb = ws[k8.B_OFFSET:k8.MLP_OFFSET].view(3, -1)
+  init32 = k8.sdf_init_feature(k1.hash_pts(rays, ts), fb)
+  with torch.enable_grad():
+    pts = k1.hash_pts(r, t).requires_grad_(True)
+    init = _Float32Features.apply(pts, init32, fb)
+    sigma, rgb, sdf = k8.volsdf_chain(w, r, t, sigmoid_kind, True, pts=pts,
+                                      init=init)
+    eik = k8.eikonal_residual(sdf, pts, r.shape[0], True)
+    out = k1.composite(sigma, rgb, r[:, 3:6], integrate.dists_from_ts(t),
+                       sky_kind, relu=True)
+    loss = (torch.mean((out[:, :3] - target.double()) ** 2)
+            + eikonal_weight * eik.mean())
+    (g,) = torch.autograd.grad(loss, w)
+  return g
+
+
+def dyn_float64_grad(ws: torch.Tensor, rays: torch.Tensor,
+                     times: torch.Tensor, ts: torch.Tensor,
+                     arg: torch.Tensor, *, loss_mode: bool,
+                     dp_weight: float = 0.0, spline_points: int = 0,
+                     enc_kind: str = "cp", sigmoid_kind: str = "thin",
+                     sky_kind: str = "black") -> torch.Tensor:
+  """The packed gradient of K9b in float64 on the kernels' float32 warp
+  init features (as `dyn_kink_free_rays` evaluates the chain): mode G
+  (loss_mode False) d(Σ arg·out)/d(weights) for the cotangent `arg` [N, 4]
+  or, with the dp² column, [N, 5]; mode L the gradient of mean((out_rgb −
+  arg)²) + dp_weight·mean(dp²). A witness for how far each float32
+  implementation lies from the same function in float64."""
+  lay = k9.layout(enc_kind, spline_points)
+  steps = ts.shape[0]
+  pts = k1.hash_pts(rays, ts)
+  x_in = pts if lay.warp == "spline" else torch.cat(
+      [pts, times[:, None].expand(-1, steps).reshape(-1, 1)], dim=-1)
+  init32 = k9.warp_init_feature(x_in, ws[:lay.warp_offset].view(lay.w_in, -1))
+  w = ws.double().requires_grad_(True)
+  r, t64 = rays.double(), ts.double()
+  with torch.enable_grad():
+    density, rgb, dp, _ = k9.dyn_chain(w, r, times.double(), t64, lay,
+                                       spline_points, sigmoid_kind,
+                                       warp_init=init32.double())
+    out = k1.composite(density, rgb, r[:, 3:6], integrate.dists_from_ts(t64),
+                       sky_kind)
+    dp_col = k9.dp_column(dp, rays.shape[0])
+    if loss_mode:
+      loss = torch.mean((out[:, :3] - arg.double()) ** 2)
+      if dp_weight:
+        loss = loss + dp_weight * torch.mean(dp_col)
+    else:
+      if arg.shape[1] == 5:
+        out = torch.cat([out, dp_col[:, None]], dim=-1)
+      loss = (out * arg.double()).sum()
+    (g,) = torch.autograd.grad(loss, w)
+  return g
+
+
+WITNESS_RATIO = 2.0
+
+
+def float64_witness_ratio(unpack, got: torch.Tensor, ref: torch.Tensor,
+                          w64: torch.Tensor, floor: float):
+  """Tensor by tensor, how much further a kernel's packed gradient `got`
+  lies from the float64 gradient `w64` than the plain float32 version's
+  `ref` does (`unpack` splits a packed gradient into its named tensors;
+  each distance ‖Δ‖/‖w64‖): (the largest got-distance / max(ref-distance,
+  `floor`), its tensor, both distances). The floor keeps a tensor the
+  plain version lands on by chance (a one-element bias, a sum that
+  cancels) from reading as a loss: two float32 implementations each
+  within `floor` of the exact gradient may lie 2·`floor` apart, so with
+  `floor` half the gate a ratio under `WITNESS_RATIO` (2) means the
+  kernel is within the gate of the exact gradient or as close as float32
+  reaches there, twice over."""
+  ug, ur, u64 = (unpack(x.float()) for x in (got, ref, w64))
+  best = None
+  for k in u64:
+    norm = u64[k].double().norm()
+    ek = float((ug[k].double() - u64[k].double()).norm() / norm)
+    ep = float((ur[k].double() - u64[k].double()).norm() / norm)
+    ratio = ek / max(ep, floor)
+    if best is None or ratio > best[0]:
+      best = (ratio, k, ek, ep)
+  return best
 
 
 def kink_free_rays(params: k1.Params, rays: torch.Tensor, ts: torch.Tensor,
@@ -160,8 +348,8 @@ def volsdf_kink_free_rays(params: k8.Params, rays: torch.Tensor,
 def dyn_kink_free_rays(params: k9.Params, rays: torch.Tensor,
                        times: torch.Tensor, ts: torch.Tensor, steps: int,
                        enc_kind: str = "cp", spline_points: int = 0,
-                       margin: float = 10.0, exact_features: bool = False
-                       ) -> torch.Tensor:
+                       margin: float = 10.0, exact_features: bool = False,
+                       chunk: Optional[int] = None) -> torch.Tensor:
   """`kink_free_rays` for a DynamicNeRF (`params`: its state_dict or
   packed weights of `enc_kind`, `spline_points`): the same rule over the
   leaky-relu inputs of the warp's and the rigidity's hidden layers and of
@@ -183,56 +371,82 @@ def dyn_kink_free_rays(params: k9.Params, rays: torch.Tensor,
   The warp's init feature [x ‖ sin ‖ cos] enters both evaluations as its
   float32 values, unless `exact_features` (the rule against the JAX
   package, whose Fourier phases, up to ~1000 radians, round differently),
-  which takes its float64 values in the float64 evaluation."""
+  which takes its float64 values in the float64 evaluation. `chunk`: rays
+  per evaluation (default all), in two passes (the columns' round-off
+  over every point, then the rule), so that a CPU run at thousands of
+  rays holds a chunk's activations, not all of them."""
   lay = k9.layout(enc_kind, spline_points)
   ws = k9.pack_weights(params, rays.device, enc_kind, spline_points)
-  pts = k1.hash_pts(rays, ts)
-  x_in = pts if lay.warp == "spline" else torch.cat(
-      [pts, times[:, None].expand(-1, steps).reshape(-1, 1)], dim=-1)
-  init32 = k9.warp_init_feature(x_in, ws[:lay.warp_offset].view(lay.w_in, -1))
-  evals = {}
-  for dtype in (torch.float32, torch.float64):
-    zs = []
-
-    def act(v):
-      zs.append(v.double())
-      return F.leaky_relu(v, 0.01)
-
-    init = init32.to(dtype)
-    if exact_features and dtype == torch.float64:
-      init = None
-    with torch.no_grad():
-      *_, warped = k9.dyn_chain(
-          ws.to(dtype), rays.to(dtype), times.to(dtype), ts.to(dtype), lay,
-          spline_points, "thin", act=act, warp_init=init)
-    evals[dtype] = (zs, warped.double())
-  (z32, x32), (z64, x64) = evals[torch.float32], evals[torch.float64]
-  # the leaky-relu inputs in call order: the warp's init feature and its 6
-  # pre-activations, the rigidity's init (p) and 4, the density MLP's init
-  # feature and 6; no input cotangent of the warp's or the rigidity's is
-  # formed, so their init features are left out
   n_w, n_g = k9.W_LAYERS + 2, k9.G_LAYERS + 2
-  keep = list(range(1, n_w)) + list(range(n_w + 1, n_w + n_g)) + list(
-      range(n_w + n_g + 1, len(z32)))
-  fragile = torch.zeros(z32[0].shape[0], dtype=torch.bool, device=rays.device)
-  for i in keep:
-    rms = (z32[i] - z64[i]).pow(2).mean(dim=0).sqrt()
-    fragile |= (z32[i].abs() < margin * rms).any(dim=-1)
-  f32, f64 = z32[n_w + n_g], z64[n_w + n_g]              # [x' ‖ enc]
-  diff = (f32 - f64).abs()
-  fragile |= ((f32.abs() < margin * diff)
-              | (f32.abs() < 0.1 * margin * diff.pow(2).mean(dim=0).sqrt())
-              ).any(dim=-1)
-  if enc_kind == "cp":
-    u32, u64 = (x32 + 1.0) * 0.5, (x64 + 1.0) * 0.5
-    tol = margin * (u32 - u64).pow(2).mean(dim=0).sqrt()          # [3]
-    near = (u32.abs() < tol) | ((u32 - 1.0).abs() < tol)
-    inside = (u32 > 0.0) & (u32 < 1.0)          # outside, no gradient
-    for res in k1.CP_RESOLUTIONS:
-      v = u32 * (res - 1)
-      near |= inside & ((v - torch.round(v)).abs() < tol * (res - 1))
-    fragile |= near.any(dim=-1)
-  return ~fragile.view(rays.shape[0], steps).any(dim=-1)
+  chunk = chunk or rays.shape[0]
+
+  def evals(sl):
+    r, tm = rays[sl], times[sl]
+    pts = k1.hash_pts(r, ts)
+    x_in = pts if lay.warp == "spline" else torch.cat(
+        [pts, tm[:, None].expand(-1, steps).reshape(-1, 1)], dim=-1)
+    init32 = k9.warp_init_feature(x_in,
+                                  ws[:lay.warp_offset].view(lay.w_in, -1))
+    out = []
+    for dtype in (torch.float32, torch.float64):
+      zs = []
+
+      def act(v):
+        zs.append(v.double())
+        return F.leaky_relu(v, 0.01)
+
+      init = init32.to(dtype)
+      if exact_features and dtype == torch.float64:
+        init = None
+      with torch.no_grad():
+        *_, warped = k9.dyn_chain(
+            ws.to(dtype), r.to(dtype), tm.to(dtype), ts.to(dtype), lay,
+            spline_points, "thin", act=act, warp_init=init)
+      out += [zs, warped.double()]
+    # the leaky-relu inputs in call order: the warp's init feature and its
+    # 6 pre-activations, the rigidity's init (p) and 4, the density MLP's
+    # init feature and 6; no input cotangent of the warp's or the
+    # rigidity's is formed, so their init features are left out
+    z32, x32, z64, x64 = out
+    keep = list(range(1, n_w)) + list(range(n_w + 1, n_w + n_g)) + list(
+        range(n_w + n_g + 1, len(z32)))
+    zs = [(z32[i], z64[i]) for i in keep]
+    return zs, (z32[n_w + n_g], z64[n_w + n_g]), (x32 + 1.0) * 0.5, (
+        x64 + 1.0) * 0.5
+
+  spans = [slice(s, s + chunk) for s in range(0, rays.shape[0], chunk)]
+  # pass 1: each column's float32-vs-float64 round-off, RMS over the points
+  sums, count, done = None, 0, None
+  for sl in spans:
+    e = evals(sl)
+    zs, (f32, f64), u32, u64 = e
+    sq = [(a - b).pow(2).sum(dim=0) for a, b in zs] + [
+        (f32 - f64).pow(2).sum(dim=0), (u32 - u64).pow(2).sum(dim=0)]
+    sums = sq if sums is None else [x + y for x, y in zip(sums, sq)]
+    count += f32.shape[0]
+    if len(spans) == 1:
+      done = e
+  rms = [(x / count).sqrt() for x in sums]
+  # pass 2: the rule
+  free = []
+  for sl in spans:
+    zs, (f32, f64), u32, _ = done or evals(sl)
+    fragile = torch.zeros(f32.shape[0], dtype=torch.bool, device=rays.device)
+    for (a, _), col in zip(zs, rms):
+      fragile |= (a.abs() < margin * col).any(dim=-1)
+    diff = (f32 - f64).abs()                            # [x' ‖ enc]
+    fragile |= ((f32.abs() < margin * diff)
+                | (f32.abs() < 0.1 * margin * rms[-2])).any(dim=-1)
+    if enc_kind == "cp":
+      tol = margin * rms[-1]                                     # [3]
+      near = (u32.abs() < tol) | ((u32 - 1.0).abs() < tol)
+      inside = (u32 > 0.0) & (u32 < 1.0)          # outside, no gradient
+      for res in k1.CP_RESOLUTIONS:
+        v = u32 * (res - 1)
+        near |= inside & ((v - torch.round(v)).abs() < tol * (res - 1))
+      fragile |= near.any(dim=-1)
+    free.append(~fragile.view(-1, steps).any(dim=-1))
+  return torch.cat(free)
 
 
 def _kink_free(pre_activations, rays, steps: int, margin: float):

@@ -353,10 +353,15 @@ def test_pack_and_unpack(oracle):
   assert not w_out[:, real:].any() and not b_out[real:].any()
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   assert canon.shape == (k1.LAYOUTS[enc].weight_count,)
-  wt = k9._transposed(ws, lay)
-  pos, i, o = lay.dense()[1]                         # warp layer_0
-  np.testing.assert_array_equal(wt[pos:pos + i * o].view(o, i).numpy(),
-                                sd["warp.layer_0.weight"].numpy())
+  # K9b's TC pack indexes every Dense W of the four MLPs (their biases
+  # are read from the packed vector), and nothing else but the zero pad
+  index, _ = k1.tc_layout_index(lay.tc_mlps, lay.weight_count)
+  dense = set()
+  for pos, layers, _ in lay.tc_mlps:
+    for _, i, o in layers:
+      dense.update(range(pos, pos + i * o))
+      pos += i * o + o
+  assert set(index.tolist()) == dense | {lay.weight_count}
   bad = dict(sd)
   del bad["rigidity.layer_in.bias"]
   with pytest.raises(KeyError):
@@ -503,7 +508,16 @@ def test_cuda_k9b_matches_plain(enc, spline, mode, dp):
   cotangent reaches every ray it is given. g is uniform in [0, 1): under
   a zero-mean g the rigidity's one-element output bias gradient is a sum
   that can fall near 0 while its rounding does not (chip_smoke's
-  `_check_dyn_bwd` says more)."""
+  `_check_dyn_bwd` says more). A tensor over the gate passes only where
+  float32 itself is not that precise: the plain version's own distance to
+  the float64 gradient (`testing.dyn_float64_grad`) over half the gate,
+  and the kernel's within twice it (`testing.float64_witness_ratio`).
+  Such tensors are sums that cancel (the warp's three-element output bias
+  under the posenc canonical, whose top bands turn a warped point's
+  last-bit rounding into a ~1e-4 phase), and no product precision moves
+  them: with every MLP product in float64, rounded once, the plain
+  version lands as far from the float64 gradient
+  (`test_k9b_posenc_floor_is_float32`)."""
   ws, rays, times, ts, gen, keep = _cuda_case(enc, spline, 4096, 64, 2)
   rays, times = rays[keep].contiguous(), times[keep].contiguous()
   n = rays.shape[0]
@@ -527,6 +541,19 @@ def test_cuda_k9b_matches_plain(enc, spline, mode, dp):
     assert torch.equal(again[1], got) and torch.equal(again[0], loss)
   torch.cuda.synchronize()
   ug, ur = k9.unpack_grads(got, enc, spline), k9.unpack_grads(ref, enc, spline)
+  over = {}
   for key in ur:
     err = float((ug[key] - ur[key]).norm() / ur[key].norm())
-    assert err <= 1e-4, (key, err)
+    if not err <= 1e-4:
+      over[key] = err
+  if over:
+    arg = g if mode == "G" else target
+    w64 = testing.dyn_float64_grad(ws, rays, times, ts, arg,
+                                   loss_mode=mode == "L",
+                                   dp_weight=0.0 if mode == "G" else weight,
+                                   spline_points=spline, enc_kind=enc)
+    for key, err in over.items():
+      ratio, _, ek, ep = testing.float64_witness_ratio(
+          lambda x: {key: k9.unpack_grads(x, enc, spline)[key]}, got, ref,
+          w64, 5e-5)
+      assert ep > 5e-5 and ratio <= testing.WITNESS_RATIO, (key, err, ek, ep)

@@ -15,7 +15,29 @@ of leaky-relu kinks (`testing.kink_free_rays` with chip_smoke.py's
 margin 10; the other rays get a zero cotangent), at full width, 256 rays
 × 64 steps, for cp and posenc, seeded and amplified weights. Also: the
 TF32 rounding is round-to-nearest with ties away from zero, and the
-split's error bound.
+split's error bound, in two parts and in three.
+
+K9b and K8b (csrc/render_dyn_bwd.cu, render_volsdf_bwd.cu) run the same
+products; the emulation is differentiable twice (its backward products
+are the emulation again), so VolSDF's eikonal, a gradient of a gradient,
+runs through it too. The plain K9b (cp Δx, cp spline S = 4 with the dp²
+term, posenc Δx) and K8b are held to the same gates at 256 rays × 64 on
+the rays the kink rules clear, given alone (the dp² and the eikonal
+terms reach every ray they are given). K8b's SDF MLP runs its forward
+products in three parts (`testing.k8b_split_tf32_mlp`), as the kernel
+does: with the eikonal over all 4096 rays of chip_smoke.py's check (its
+L2 term on the kink-free rays), the recompute's rounding decides the
+act′ of points within round-off of the kink on the other rays: with two
+parts the gradient reads 1.07e-4 from the float32 plain version, with
+three 1.03e-4, with float64 products rounded once 9.62e-5, the float32
+floor (`test_k8b_eikonal_floor_is_the_recompute`, `slow`); there the
+split is held to a float64 witness as the float32 plain version is.
+K9b's one-element output biases under the posenc canonical at 4096 rays
+sit at float32's own floor whatever the products' precision
+(`test_k9b_posenc_floor_is_float32`, `slow`). The emulation takes each
+MLP's parts from the kernel's TC pack list (`testing.split_tf32_mlp`).
+The layout of the TC pack is checked for K2/K3's, VolSDF's and the four
+D-NeRF layouts.
 """
 import numpy as np
 import pytest
@@ -25,6 +47,9 @@ torch.set_num_threads(2)
 
 from nerf_atlas_tpu_torch import testing  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import render as k1  # noqa: E402
+from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9  # noqa: E402
+from nerf_atlas_tpu_torch.ops.kernels import (  # noqa: E402
+    render_volsdf as k8)
 
 STEPS = 64
 N = 256
@@ -63,6 +88,45 @@ def test_split_error_bound():
   # the products' error plus float32 summation over 256 terms
   assert bool(((got - exact).abs() <= (3 * 2.0 ** -22 + 256 * 2.0 ** -24)
                * scale).all())
+  # three parts: x − (hi + mid + lo) ≤ 2^-33·|x|, the dropped products ≤
+  # ~3·2^-33 of |ab|, so the float32 sums dominate
+  parts = testing._split3(x)
+  for part in parts:
+    assert torch.equal(k1.tf32_round(part), part)
+  err = (x.double() - sum(p.double() for p in parts)).abs()
+  assert bool((err <= 2.0 ** -33 * x.double().abs()).all())
+  got3 = testing.split_tf32_matmul_fwd3(a, b).double()
+  assert bool(((got3 - exact).abs() <= (4 * 2.0 ** -33 + 256 * 2.0 ** -24)
+               * scale).all())
+
+
+def test_split_second_order_within_bound():
+  """The gradient of a gradient through the emulation (an MLP's input
+  gradient squared, differentiated by the weights, as VolSDF's eikonal
+  is) sits within the split's error of float64: each of the four
+  products on its path (the forward, the input gradient, and that
+  one's two adjoints) carries ≤ ~3·2^-22 relative, so ‖Δ‖/‖ref‖ ≤
+  16·2^-22; the first derivative is the same bits as without the graph."""
+  gen = torch.Generator().manual_seed(4)
+  a = torch.randn(64, 48, generator=gen)
+  w1 = (torch.randn(48, 96, generator=gen) / 7).requires_grad_(True)
+  w2 = (torch.randn(96, 8, generator=gen) / 10).requires_grad_(True)
+  for product in (testing.split_tf32_matmul, testing.split_tf32_matmul_fwd3):
+    x = a.clone().requires_grad_(True)
+    y = product(torch.nn.functional.leaky_relu(product(x, w1), 0.01), w2)
+    (gx,) = torch.autograd.grad(y[:, 0].sum(), x, create_graph=True)
+    (gx_once,) = torch.autograd.grad(
+        product(torch.nn.functional.leaky_relu(product(x, w1), 0.01),
+                w2)[:, 0].sum(), x)
+    assert torch.equal(gx.detach(), gx_once)
+    g1, g2 = torch.autograd.grad((gx ** 2).sum(), (w1, w2))
+    x64, v1, v2 = (t.detach().double().requires_grad_(True)
+                   for t in (a, w1, w2))
+    y64 = torch.nn.functional.leaky_relu(x64 @ v1, 0.01) @ v2
+    (gx64,) = torch.autograd.grad(y64[:, 0].sum(), x64, create_graph=True)
+    r1, r2 = torch.autograd.grad((gx64 ** 2).sum(), (v1, v2))
+    for got, ref in ((g1, r1), (g2, r2)):
+      assert float((got.double() - ref).norm() / ref.norm()) <= 16 * 2.0 ** -22
 
 
 def _rays(n, seed):
@@ -127,52 +191,69 @@ def _skip_at(i, nl):
   return i % 3 == 0 and i != nl - 1
 
 
-@pytest.mark.parametrize("enc_kind", list(k1.ENC_KINDS))
-def test_tc_pack_layout(enc_kind):
-  """`render.tc_pack`, read at the offsets csrc/mma_tf32.cuh computes
-  (`tc_offset`: per Dense layer the forward block [kh ‖ kf rows][out],
-  then [out][kh] and [out][kf]; 16-deep slices, hi then lo, in mma
-  fragment order),
-  gives back each layer's W in its forward block and Wᵀ in its
-  input-gradient blocks, as hi + lo within 2^-22, with zeros in the
-  padding."""
-  layout = k1.LAYOUTS[enc_kind]
-  gen = torch.Generator().manual_seed(3)
-  ws = torch.randn(layout.weight_count, generator=gen)
-  pack = k1.tc_pack(ws, enc_kind)
-  w_all = k1._unpack(ws)
+def _tc_layouts():
+  """(name, its MLPs (render.TCMlps), packed weight count): K2/K3's six,
+  VolSDF's and the four D-NeRF layouts."""
+  out = [(e, k1.tc_mlps(e), k1.LAYOUTS[e].weight_count)
+         for e in k1.ENC_KINDS]
+  out.append(("volsdf", k8.TC_MLPS, k8.WEIGHT_COUNT))
+  for (enc, warp), lay in k9.LAYOUTS.items():
+    out.append((f"dyn-{enc}-{warp}", lay.tc_mlps, lay.weight_count))
+  return out
 
-  def block(off, k, m):
-    """hi + lo of the block at `off` as [pad16(k)][pad16(m)] (fragment
-    order: per 16-deep slice, hi then lo, each [k-step][m-tile][lane][4]
-    holding A[16mt + g + 8(j % 2)][8kk + t + 4(j // 2)], g = lane // 4, t
-    = lane % 4), and the block's end."""
+
+@pytest.mark.parametrize("name,mlps,count", _tc_layouts(),
+                         ids=[t[0] for t in _tc_layouts()])
+def test_tc_pack_layout(name, mlps, count):
+  """`render.tc_pack_mlps`, read at the offsets csrc/mma_tf32.cuh computes
+  (`tc_offset`: per MLP and Dense layer the forward block [kh ‖ kf
+  rows][out], then [out][kh] and [out][kf]; 16-deep slices, hi then lo,
+  in mma fragment order; an MLP whose forward runs in three parts has
+  its forward blocks raw, one part per slice), gives back each layer's W
+  in its forward block and Wᵀ in its input-gradient blocks, as hi + lo
+  within 2^-22 (raw: exactly), with zeros in the padding. K2/K3's pack is
+  `render.tc_pack`, the bytes render_bwd.cu reads since it was written."""
+  gen = torch.Generator().manual_seed(3)
+  ws = torch.randn(count, generator=gen)
+  pack = k1.tc_pack_mlps(ws, mlps)
+  if name in k1.ENC_KINDS:
+    assert torch.equal(pack, k1.tc_pack(ws, name))
+
+  def block(off, k, m, parts=2):
+    """The block at `off` as [pad16(k)][pad16(m)] (fragment order: per
+    16-deep slice its parts, each [k-step][m-tile][lane][4] holding
+    A[16mt + g + 8(j % 2)][8kk + t + 4(j // 2)], g = lane // 4, t = lane
+    % 4), summed over its parts, and the block's end."""
     kp, mp = _pad16(k), _pad16(m)
-    b = pack[off:off + 2 * kp * mp].view(kp // 16, 2, 2, mp // 16, 32, 4)
-    b = (b[:, 0] + b[:, 1]).double()
+    b = pack[off:off + parts * kp * mp].view(kp // 16, parts, 2, mp // 16,
+                                             32, 4)
+    b = b.double().sum(dim=1)
     s, kk, mt, lane, j = torch.meshgrid(
         *[torch.arange(n) for n in b.shape], indexing="ij")
     out = torch.zeros(kp, mp, dtype=torch.float64)
     out[16 * s + 8 * kk + lane % 4 + 4 * (j // 2),
         16 * mt + lane // 4 + 8 * (j % 2)] = b
-    return out, off + 2 * kp * mp
+    return out, off + parts * kp * mp
 
-  def close(got, want):
-    assert bool(((got - want).abs() <= 2.0 ** -22 * want.abs()).all())
+  def close(got, want, exact=False):
+    if exact:
+      assert torch.equal(got, want)
+    else:
+      assert bool(((got - want).abs() <= 2.0 ** -22 * want.abs()).all())
 
   off = 0
-  for layers in (w_all[1], w_all[2]):
+  for pos, layers, three in mlps:
     nl = len(layers) - 2
-    for j, (w, _) in enumerate(layers):
-      n_in, n_out = w.shape
-      kh = 0 if j == 0 else layers[0][0].shape[1]
+    for j, (_, n_in, n_out) in enumerate(layers):
+      w = ws[pos:pos + n_in * n_out].view(n_in, n_out).double()
+      pos += n_in * n_out + n_out
+      kh = 0 if j == 0 else layers[0][2]
       kf = n_in - kh
       assert kf == (n_in if j == 0 else
                     (kf if 1 <= j <= nl and _skip_at(j - 1, nl) else 0))
-      w = w.double()
-      fwd, off = block(off, _pad16(kh) + kf, n_out)
-      close(fwd[:kh, :n_out], w[:kh])
-      close(fwd[_pad16(kh):_pad16(kh) + kf, :n_out], w[kh:])
+      fwd, off = block(off, _pad16(kh) + kf, n_out, 1 if three else 2)
+      close(fwd[:kh, :n_out], w[:kh], three)
+      close(fwd[_pad16(kh):_pad16(kh) + kf, :n_out], w[kh:], three)
       assert float(fwd[kh:_pad16(kh)].abs().sum()) == 0.0
       assert float(fwd[_pad16(kh) + kf:].abs().sum()) == 0.0
       assert float(fwd[:, n_out:].abs().sum()) == 0.0
@@ -183,3 +264,353 @@ def test_tc_pack_layout(enc_kind):
           assert float(bwd.abs().sum() - bwd[:n_out, :part.shape[0]].abs()
                        .sum()) == 0.0
   assert off == pack.numel()
+
+
+# ---- K9b and K8b ----
+
+def _dyn_case(enc, spline, n, seed=2, chunk=None):
+  """A DynamicNeRF at full width with the warp active (its zero layer_out
+  replaced by seeded 0.03·N(0, 1) weights and 0.01·N(0, 1) biases) and
+  the View's output layer amplified by 40, as chip_smoke.py checks K9b;
+  rays from (0, 0, 3.5) about −z with times in [0, 1), jittered ts; the
+  rays `testing.dyn_kink_free_rays` clears, alone."""
+  from nerf_atlas_tpu_torch import models
+  from nerf_atlas_tpu_torch.ops import rays as rays_ops
+  from nerf_atlas_tpu_torch.train import driver
+  sd = dict(driver.init_model(models.DynamicNeRF(
+      canonical_kwargs={"enc_kind": enc}, spline_points=spline,
+      steps=STEPS), seed=0).state_dict())
+  rng = np.random.default_rng(seed)
+  for key, scale in (("warp.layer_out.weight", 0.03),
+                     ("warp.layer_out.bias", 0.01)):
+    sd[key] = torch.from_numpy((scale * rng.normal(size=sd[key].shape)
+                                ).astype(np.float32))
+  sd["canonical.refl.mlp.layer_out.weight"] = (
+      sd["canonical.refl.mlp.layer_out.weight"] * 40.0)
+  ws = k9.pack_weights(sd, enc_kind=enc, spline_points=spline)
+  gen = torch.Generator().manual_seed(seed)
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen)
+  r_d = rng.normal(size=(n, 3)) * 0.2 + np.array([0.0, 0.0, -1.0])
+  rays = torch.from_numpy(np.concatenate(
+      [np.tile([[0.0, 0.0, 3.5]], (n, 1)), r_d], -1).astype(np.float32))
+  times = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+  keep = testing.dyn_kink_free_rays(ws, rays, times, ts, STEPS, enc, spline,
+                                    KINK_MARGIN, chunk=chunk)
+  assert int(keep.sum()) >= n // 8
+  return ws, rays[keep].contiguous(), times[keep].contiguous(), ts, gen
+
+
+def _rel_errs(unpack, got, ref):
+  ug, ur = unpack(got), unpack(ref)
+  return {k: float((ug[k].double() - ur[k].double()).norm()
+                   / ur[k].double().norm()) for k in ur}
+
+
+@pytest.mark.parametrize("enc,spline,dp_weight",
+                         [("cp", 0, 0.0), ("cp", 4, 1e-3), ("posenc", 0, 0.0)],
+                         ids=["cp-dx", "cp-spline4-dp", "posenc-dx"])
+def test_plain_k9b_split_tf32_within_k9b_gates(monkeypatch, enc, spline,
+                                               dp_weight):
+  """The plain K9b-L (autograd through the plain K9f) with its four MLPs'
+  products in split TF32 as K9b runs them (`testing.k9b_split_tf32_mlp`:
+  the warp's, the rigidity's and the density MLP's forward in three
+  parts), against itself in float32: loss 1e-5 relative, each gradient
+  tensor 1e-4, the warp's and the rigidity's gradients non-zero. The
+  warp's Fourier rows and the posenc bands stay float32
+  (`fourier_phases`, `POSENCS`: not `render._matmul`)."""
+  ws, rays, times, ts, gen = _dyn_case(enc, spline, N)
+  target = torch.rand(rays.shape[0], 3, generator=gen)
+  kw = dict(steps=STEPS, ts=ts, spline_points=spline, enc_kind=enc,
+            dp_weight=dp_weight)
+  loss_f32, grad_f32 = k9.dyn_train_step_reference(ws, rays, times, target,
+                                                   **kw)
+  monkeypatch.setattr(k1, "_mlp", testing.k9b_split_tf32_mlp(
+      k1._mlp, k9.layout(enc, spline)))
+  loss_tc, grad_tc = k9.dyn_train_step_reference(ws, rays, times, target,
+                                                 **kw)
+  assert not torch.equal(grad_tc, grad_f32)        # the emulation ran
+  assert abs(float(loss_tc - loss_f32)) <= LOSS_RTOL * float(loss_f32)
+  errs = _rel_errs(lambda g: k9.unpack_grads(g, enc, spline), grad_tc,
+                   grad_f32)
+  assert max(errs.values()) <= GRAD_RTOL, max(errs.items(),
+                                              key=lambda kv: kv[1])
+  assert all(float(v.norm()) > 0 for k, v in k9.unpack_grads(
+      grad_tc, enc, spline).items() if k.startswith(("warp.", "rigidity.")))
+
+
+@pytest.mark.parametrize("name", ["volsdf", "dyn-cp-dx", "dyn-cp-spline4",
+                                  "dyn-posenc-dx", "dyn-posenc-spline4"])
+def test_split_mlp_takes_its_parts_from_the_tc_pack(name):
+  """`testing.split_tf32_mlp` runs each MLP of a backward kernel's TC pack
+  list (the one the wrapper packs, K8b's `TC_MLPS`, K9b's
+  `Layout.tc_mlps`) in the parts its flag says, known by its Dense
+  shapes, and refuses an MLP the list does not hold."""
+  if name == "volsdf":
+    mlps = k8.TC_MLPS
+  else:
+    _, enc, warp = name.split("-")
+    mlps = k9.layout(enc, 0 if warp == "dx" else 4).tc_mlps
+  seen = []
+
+  def mlp(init_feat, layers, act, n_layers):
+    seen.append(k1._matmul)
+
+  run = testing.split_tf32_mlp(mlp, mlps)
+  for _, layers, three in mlps:
+    run(None, [(torch.empty(i, o), torch.empty(o)) for _, i, o in layers],
+        None, None)
+    assert seen[-1] is (testing.split_tf32_matmul_fwd3 if three
+                        else testing.split_tf32_matmul)
+  assert k1._matmul is not seen[-1]                  # restored
+  with pytest.raises(KeyError):
+    run(None, [(torch.empty(3, 2), torch.empty(2))], None, None)
+
+
+@pytest.mark.slow
+def test_k9b_posenc_floor_is_float32(monkeypatch):
+  """K9b posenc Δx at the cuda test's 4096 rays × 64 (mode G: g uniform
+  in [0, 1); mode L: a uniform target), on the kink-free rays: the plain
+  float32 version, the same with K9b's products
+  (`testing.k9b_split_tf32_mlp`), with one product group at a time in
+  two parts and the others float32 (the recompute `fwd`, the input
+  gradients `fwd/dx`, the weight gradients `fwd/dw`), and with every MLP
+  product in float64 rounded once, each against the float64 gradient
+  (`testing.dyn_float64_grad`). Prints each one's worst tensor distance,
+  its distance from the float32 plain version and its worst per-tensor
+  ratio to the plain version's distance, with and without the floor
+  (`-s`). Holds that the output biases' float32 floor is not the
+  products: K9b's products within `testing.float64_witness_ratio`'s limit
+  (floor half the gate); the float64 products at least half as far from
+  the float64 gradient as the plain version (its worst tensors); the input
+  and weight gradient groups alone within 1e-5 of the plain version.
+  ~3 minutes on 2 CPU threads."""
+  ws, rays, times, ts, gen = _dyn_case("posenc", 0, 4096, chunk=256)
+  n = rays.shape[0]
+  kw = dict(steps=STEPS, ts=ts, spline_points=0, enc_kind="posenc")
+  unpack = lambda g: k9.unpack_grads(g.float(), "posenc", 0)  # noqa: E731
+  lay = k9.layout("posenc", 0)
+  for mode in ("G", "L"):
+    arg = torch.rand(n, 4 if mode == "G" else 3, generator=gen)
+
+    def grad(matmul=None, mlp=None):
+      with monkeypatch.context() as m:
+        if matmul is not None:
+          m.setattr(k1, "_matmul", matmul)
+        if mlp is not None:
+          m.setattr(k1, "_mlp", mlp)
+        if mode == "G":
+          return k9.dyn_render_grad_reference(ws, rays, times, arg, **kw)
+        return k9.dyn_train_step_reference(ws, rays, times, arg, **kw)[1]
+
+    ref = grad()
+    w64 = testing.dyn_float64_grad(ws, rays, times, ts, arg,
+                                   loss_mode=mode == "L", enc_kind="posenc")
+    d_ref = max(_rel_errs(unpack, ref, w64).values())
+    runs = {"K9b's products": grad(mlp=testing.k9b_split_tf32_mlp(
+        k1._mlp, lay))}
+    for group in ("fwd", "fwd/dx", "fwd/dw"):
+      runs[f"{group} alone"] = grad(
+          lambda a, b, parts={group: 2}: _GroupProduct.apply(a, b, "fwd",
+                                                            parts))
+    runs["float64 products"] = grad(
+        lambda a, b: _GroupProduct.apply(
+            a, b, "fwd", {"fwd": 0, "fwd/dx": 0, "fwd/dw": 0}))
+    dist = {}
+    for name, got in runs.items():
+      to_ref = max(_rel_errs(unpack, got, ref).values())
+      dist[name] = (max(_rel_errs(unpack, got, w64).values()), to_ref)
+      ratio, key, ek, ep = testing.float64_witness_ratio(unpack, got, ref,
+                                                         w64, GRAD_RTOL / 2)
+      raw, rkey, _, _ = testing.float64_witness_ratio(unpack, got, ref, w64,
+                                                      0.0)
+      print(f"K9b-{mode} posenc dx, 4096 rays ({n} kink-free): {name}: "
+            f"to float64 {dist[name][0]:.3e} (plain {d_ref:.3e}), to the "
+            f"plain version {to_ref:.3e}; worst ratio {ratio:.2f} ({key}: "
+            f"{ek:.2e} vs {ep:.2e}), unfloored {raw:.2f} ({rkey})")
+      if name == "K9b's products":
+        assert ratio <= testing.WITNESS_RATIO, (mode, key, ek, ep)
+    assert dist["float64 products"][0] >= 0.5 * d_ref, (mode, dist)
+    assert max(dist["fwd/dx alone"][1], dist["fwd/dw alone"][1]) <= 1e-5, (
+        mode, dist)
+
+
+def _volsdf_case(n, amplified, seed=2):
+  """A VolSDF at full width (seed 0; amplified: the View's output layer
+  by 40), chip_smoke.py's check rays, jittered ts, and the rays
+  `testing.volsdf_kink_free_rays` clears."""
+  from nerf_atlas_tpu_torch import models
+  from nerf_atlas_tpu_torch.ops import rays as rays_ops
+  from nerf_atlas_tpu_torch.train import driver
+  sd = dict(driver.init_model(models.VolSDF(steps=STEPS), seed=0)
+            .state_dict())
+  if amplified:
+    sd["refl.mlp.layer_out.weight"] = sd["refl.mlp.layer_out.weight"] * 40.0
+  ws = k8.pack_weights(sd)
+  gen = torch.Generator().manual_seed(seed)
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen)
+  rays = _rays(n, seed)
+  keep = testing.volsdf_kink_free_rays(ws, rays, ts, STEPS, KINK_MARGIN)
+  assert int(keep.sum()) >= n // 2
+  return sd, ws, rays, ts, gen, keep
+
+
+def _k8b(monkeypatch, mode, ws, rays, ts, cot, weight, split):
+  """(loss or None, gradient) of the plain K8b in `mode` (G: cotangent
+  `cot` [N, 5] or [N, 4]; L: target `cot`, eikonal weight `weight`),
+  its MLP products as K8b's tensor cores form them when `split`."""
+  kw = dict(steps=STEPS, ts=ts, sigmoid_kind="upshifted")
+  with monkeypatch.context() as m:
+    if split:
+      m.setattr(k1, "_mlp", testing.k8b_split_tf32_mlp(k1._mlp))
+    if mode == "G":
+      return None, k8.volsdf_render_grad_reference(
+          ws, rays, cot, want_eikonal=cot.shape[1] == 5, **kw)
+    return k8.volsdf_train_step_reference(ws, rays, cot,
+                                          eikonal_weight=weight, **kw)
+
+
+@pytest.mark.parametrize("mode,eikonal", [("L", False), ("L", True),
+                                          ("G", True)])
+@pytest.mark.parametrize("amplified", [False, True])
+def test_plain_k8b_split_tf32_within_k8b_gates(monkeypatch, mode, eikonal,
+                                               amplified):
+  """The plain K8b (autograd through the plain K8f; with the eikonal, its
+  second-order gradient through the emulation) with K8b's tensor-core
+  products against itself in float32, on the kink-free rays alone: loss
+  1e-5 relative, each gradient tensor (the learned scale's among them)
+  1e-4. With the eikonal, the split's distance to the float64 witness
+  (`testing.volsdf_float64_grad`) is also held to twice the float32 plain
+  version's (measured 0.9–1.2×)."""
+  sd, ws, rays, ts, gen, keep = _volsdf_case(N, amplified)
+  rays = rays[keep].contiguous()
+  n = rays.shape[0]
+  if mode == "G":
+    cot = torch.randn(n, 5 if eikonal else 4, generator=gen)
+  else:
+    cot = torch.rand(n, 3, generator=gen)
+  weight = 0.01 if eikonal else 0.0
+  loss_f32, grad_f32 = _k8b(monkeypatch, mode, ws, rays, ts, cot, weight,
+                            False)
+  loss_tc, grad_tc = _k8b(monkeypatch, mode, ws, rays, ts, cot, weight, True)
+  assert not torch.equal(grad_tc, grad_f32)        # the emulation ran
+  if mode == "L":
+    assert abs(float(loss_tc - loss_f32)) <= LOSS_RTOL * float(loss_f32)
+  raw = sd[k8.SCALE_KEY]
+  errs = _rel_errs(lambda g: k8.unpack_grads(g, raw), grad_tc, grad_f32)
+  assert max(errs.values()) <= GRAD_RTOL, max(errs.items(),
+                                              key=lambda kv: kv[1])
+  if mode == "L" and eikonal:
+    w64 = testing.volsdf_float64_grad(ws, rays, ts, cot, "upshifted",
+                                      "black", weight)
+    d_tc = max(_rel_errs(lambda g: k8.unpack_grads(g.float(), raw),
+                         grad_tc, w64).values())
+    d_f32 = max(_rel_errs(lambda g: k8.unpack_grads(g.float(), raw),
+                          grad_f32, w64).values())
+    assert d_tc <= 2.0 * d_f32, (d_tc, d_f32)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("amplified", [False, True])
+def test_plain_k8b_split_tf32_eikonal_at_4096_rays(monkeypatch, amplified):
+  """chip_smoke.py's K8b-L eikonal check on the CPU: 4096 rays × 64, the
+  L2 term on the kink-free rays (the others' target is their own
+  render), the eikonal over all rays, so the act′ of points within
+  round-off of the kink on the other rays enters. There two float32
+  implementations differ by ~1e-4 (`test_k8b_eikonal_floor_is_the_recompute`),
+  so the split is held to the float64 witness
+  (`testing.volsdf_float64_grad`) as the float32 plain version is: its
+  worst tensor's distance to the witness within 1.1 times the float32
+  plain version's, and the loss to 1e-5 relative; `-s` prints the
+  distances. ~5 minutes on 2 CPU threads."""
+  n = 4096
+  sd, ws, rays, ts, gen, keep = _volsdf_case(n, amplified)
+  out = k8.volsdf_render_reference(ws, rays, steps=STEPS, ts=ts,
+                                   sigmoid_kind="upshifted")[:, :3]
+  target = torch.where(keep[:, None], torch.rand(n, 3, generator=gen),
+                       out).contiguous()
+  loss_f32, grad_f32 = _k8b(monkeypatch, "L", ws, rays, ts, target, 0.01,
+                            False)
+  loss_tc, grad_tc = _k8b(monkeypatch, "L", ws, rays, ts, target, 0.01, True)
+  assert abs(float(loss_tc - loss_f32)) <= LOSS_RTOL * float(loss_f32)
+  w64 = testing.volsdf_float64_grad(ws, rays, ts, target, "upshifted",
+                                    "black", 0.01)
+
+  def worst(grad):
+    return max(_rel_errs(lambda g: k8.unpack_grads(g.float(),
+                                                   sd[k8.SCALE_KEY]),
+                         grad, w64).values())
+  split_f32 = max(_rel_errs(lambda g: k8.unpack_grads(g, sd[k8.SCALE_KEY]),
+                            grad_tc, grad_f32).values())
+  print(f"K8b-L eikonal, 4096 rays, amplified {amplified}: split vs float32 "
+        f"{split_f32:.3e}; vs the float64 witness: split "
+        f"{worst(grad_tc):.3e}, float32 {worst(grad_f32):.3e}")
+  assert worst(grad_tc) <= 1.1 * worst(grad_f32), (worst(grad_tc),
+                                                   worst(grad_f32))
+
+
+class _GroupProduct(torch.autograd.Function):
+  """a @ b tagged with its product group, at the precision `parts` gives
+  that group (1: float32, 2 or 3: split TF32, 0: float64 rounded once);
+  its backward's products are tagged `role`/dx (input gradient) and
+  `role`/dw (weight gradient)."""
+
+  @staticmethod
+  def forward(ctx, a, b, role, parts):
+    ctx.save_for_backward(a, b)
+    ctx.role, ctx.parts = role, parts
+    p = parts.get(role, 1)
+    if p == 1:
+      return a @ b
+    if p == 0:
+      return (a.double() @ b.double()).float()
+    return testing._split_product(a, b, p)
+
+  @staticmethod
+  def backward(ctx, g):
+    a, b = ctx.saved_tensors
+    return (_GroupProduct.apply(g, b.t(), ctx.role + "/dx", ctx.parts),
+            _GroupProduct.apply(a.t(), g, ctx.role + "/dw", ctx.parts),
+            None, None)
+
+
+@pytest.mark.slow
+def test_k8b_eikonal_floor_is_the_recompute(monkeypatch):
+  """K8b-L with the eikonal in chip_smoke.py's form (4096 rays, the L2 on
+  the kink-free rays, the eikonal over all), one product group at a time
+  in split TF32 (two parts) and the others float32, against the float32
+  plain version: the recompute (`fwd`), the first-order input and weight
+  gradients (`fwd/dx`, `fwd/dw`; the transpose chain is among the input
+  gradients), the eikonal adjoint's forward-like products (`fwd/dx/dx`)
+  and its rank-64 updates (`fwd/dx/dw`); then the recompute in three
+  parts and as float64 products rounded once. Prints the worst tensor's
+  ‖Δ‖/‖ref‖ of each (`-s`); holds that the recompute carries the
+  difference: every other group alone stays under 1e-5, and the
+  recompute in two parts, and as float64 products, moves the gradient at
+  least ten times as far as any other group. ~6 minutes on 2 CPU
+  threads."""
+  sd, ws, rays, ts, gen, keep = _volsdf_case(4096, True)
+  out = k8.volsdf_render_reference(ws, rays, steps=STEPS, ts=ts,
+                                   sigmoid_kind="upshifted")[:, :3]
+  target = torch.where(keep[:, None], torch.rand(4096, 3, generator=gen),
+                       out).contiguous()
+  kw = dict(steps=STEPS, ts=ts, sigmoid_kind="upshifted", eikonal_weight=0.01)
+  _, ref = k8.volsdf_train_step_reference(ws, rays, target, **kw)
+  raw = sd[k8.SCALE_KEY]
+  groups = ["fwd", "fwd/dx", "fwd/dw", "fwd/dx/dx", "fwd/dx/dw"]
+  worst = {}
+  for name, parts in ([(g, {g: 2}) for g in groups]
+                      + [("fwd, three parts", {"fwd": 3}),
+                         ("fwd, float64 products", {"fwd": 0})]):
+    monkeypatch.setattr(k1, "_matmul",
+                        lambda a, b, parts=parts: _GroupProduct.apply(
+                            a, b, "fwd", parts))
+    _, got = k8.volsdf_train_step_reference(ws, rays, target, **kw)
+    errs = _rel_errs(lambda g: k8.unpack_grads(g, raw), got, ref)
+    key = max(errs, key=errs.get)
+    worst[name] = errs[key]
+    print(f"K8b-L eikonal, 4096 rays: {name} vs float32: {errs[key]:.3e} "
+          f"({key})")
+  others = max(worst[g] for g in groups[1:])
+  assert others <= 1e-5, worst
+  assert min(worst["fwd"], worst["fwd, float64 products"]) >= 10 * others, (
+      worst)

@@ -367,8 +367,16 @@ def test_volsdf_sources_share_the_headers():
   header = (build.CSRC / "render_volsdf.cuh").read_text()
   assert '#include "render_common.cuh"' in header
   common = (build.CSRC / "render_common.cuh").read_text()
-  for helper in ("mlp_input_grad", "mlp_input_grad_adjoint", "seed_column"):
+  for helper in ("mlp_input_grad", "seed_column"):   # K8f's eikonal column
     assert f" {helper}(" in common, helper
+  assert " mlp_input_grad_adjoint(" not in common
+  # K8b's chain and adjoint: the tensor-core counterparts, which both
+  # backward sources (K8b, K9b) include
+  tc = (build.CSRC / "mma_tf32.cuh").read_text()
+  for helper in ("mlp_input_grad", "mlp_input_grad_adjoint", "mlp_bwd"):
+    assert f" {helper}(" in tc, helper
+  for name in ("render_volsdf_bwd", "render_dyn_bwd"):
+    assert '#include "mma_tf32.cuh"' in (build.CSRC / f"{name}.cu").read_text()
   fwd = build.source_digest(build.CSRC / "render_volsdf_fwd.cu")
   bwd = build.source_digest(build.CSRC / "render_volsdf_bwd.cu")
   assert len(fwd) == len(bwd) == 16 and fwd != bwd
