@@ -7,12 +7,15 @@ Phases, each printing its lines before the next starts:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
      (one nvcc per source, all started together) and prints ptxas'
-     registers and spills, and the tensor-core (HMMA) instructions in the
-     SASS of each render_bwd, render_dyn_bwd and render_volsdf_bwd library
-     (K2/K3's, K9b's and K8b's split-TF32 products; none in the reduction);
+     registers and spills, and the tensor-core instructions in the SASS:
+     HGMMA (wgmma) in each of render_fwd's six kernels (K1's split-TF32
+     products), HMMA in each render_bwd, render_ae_bwd, render_dyn_bwd and
+     render_volsdf_bwd library (K2/K3's, K7b's, K9b's and K8b's; none in
+     the reduction);
   3. kernels vs plain torch on the card, 4096 seeded rays at full width,
      64 steps, over sky and rgb-activation kinds and seeded/amplified
-     weights: K1 (render_fwd) on the uniform grid and on a jittered ts;
+     weights: K1 (render_fwd) on the uniform grid and on a jittered ts,
+     each line also held to the float64 products (`_k1_witness`);
      K2 (render_bwd, cotangent mode) and K3 (render_bwd, loss mode) on a
      jittered ts, against autograd through the plain K1, over all rays
      and over the rays clear of leaky-relu kinks; a ragged batch;
@@ -30,10 +33,11 @@ Phases, each printing its lines before the next starts:
      on the grid and on a jittered ts; K7b (render_ae_bwd) in cotangent
      and loss mode at 4096 x 64 and 77 x 16 as for K2/K3, over all rays
      and the kink-free ones; AERender's gradient against mode G's; two
-     K7b launches bit for bit. Then the K4 modes of K1/K2/K3 (posenc,
-     tiny, cone, cylinder) at 4096 x 64 as for cp, a ragged batch, and
-     PlainCPRender's gradient against K2's and two launches of K2 and of
-     K3 bit for bit in each mode. Then VolSDF: K8f (render_volsdf_fwd)
+     K7b launches bit for bit; each K7b kink-free line also held per
+     tensor to a float64 witness, as K9b's. Then the K4 modes of K1/K2/K3
+     (posenc, tiny, cone, cylinder) at 4096 x 64 as for cp, a ragged
+     batch, and PlainCPRender's gradient against K2's and two launches of
+     K2 and of K3 bit for bit in each mode. Then VolSDF: K8f (render_volsdf_fwd)
      with and without its eikonal column at (64 steps, 1001 rays) and
      (16 steps, 77 rays), as for K7f (the column over the kink-free rays
      of `testing.volsdf_kink_free_rays`); K8b (render_volsdf_bwd) in
@@ -118,6 +122,9 @@ Phases, each printing its lines before the next starts:
      version, K1 on per-ray ts at 65536 x 128 in each of its four modes
      and K2-cone on per-ray ts at 4096 x 128 with their plain versions,
      and the coarse_fine_mip train steps (K1 + K2 twice, plain);
+  6b. with `--sass-against DIR` only: the libraries of SASS_SAME built
+     again from DIR's csrc/ (a checkout of an earlier commit), their SASS
+     held kernel by kernel to this tree's, equal or not;
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
@@ -278,9 +285,17 @@ DNERF_MODES = (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0),
 # count but whose spread does (at 4096 rays it ran 1e-4 to 1.1e-2 across
 # the modes). `_dyn_floor` prints the float64 witness at 4096.
 N_DYN_CHECK = 16384
-# the backward sources whose MLP products run on the tensor cores
-# (csrc/mma_tf32.cuh): phase 2 counts their HMMA instructions
-TC_SOURCES = ("render_bwd", "render_dyn_bwd", "render_volsdf_bwd")
+# the sources whose MLP products run on the tensor cores in split TF32,
+# and the SASS instruction phase 2 counts in each of their kernels: HMMA
+# (mma.sync, csrc/mma_tf32.cuh) or HGMMA (wgmma, csrc/wgmma_tf32.cuh)
+TC_SOURCES = {"render_bwd": "HMMA", "render_ae_bwd": "HMMA",
+              "render_dyn_bwd": "HMMA", "render_volsdf_bwd": "HMMA",
+              "render_fwd": "HGMMA"}
+# the libraries whose code this slice leaves as it was: `--sass-against`
+# compares their SASS with an earlier commit's
+SASS_SAME = ("hash_encode", "render_ae_fwd", "render_volsdf_fwd",
+             "render_volsdf_bwd", "render_bwd", "render_dyn_fwd",
+             "render_dyn_bwd")
 
 
 def _sync_time(fn):
@@ -376,33 +391,87 @@ def _build(build, k1, k9):
     print(f"[build] {name}.cu{tag} -> {b.path.name} in {b.seconds:.1f} s | "
           f"{' | '.join(entries)}", flush=True)
     if name in TC_SOURCES:
-      _tensor_core_count(build, b.path, name, tag)
+      _tensor_core_count(build, b.path, name, tag, TC_SOURCES[name])
+  return jobs, built
 
 
-def _tensor_core_count(build, path, name, tag):
-  """Phase 2: the tensor-core instructions (HMMA) in a backward library's
-  SASS (cuobjdump beside nvcc), per kernel; raises if its backward kernel
-  (`<name>_kernel`) has none or the partials' reduction has any."""
+def _sass(build, path):
+  """{kernel (`_kernel_name`): its SASS lines} of a library (cuobjdump
+  beside nvcc), each line stripped of its address comment and any name in
+  an anonymous namespace (whose mangling hashes the source's path)."""
   import re
   tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-  sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+  text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                         text=True, check=True).stdout
-  counts, kernel = {}, None
-  for ln in sass.splitlines():
+  out, kernel = {}, None
+  for ln in text.splitlines():
     m = re.search(r"Function : (\w+)", ln)
     if m:
       kernel = _kernel_name(m.group(1))
-      counts[kernel] = 0
-    elif kernel and re.search(r"\bHMMA\.", ln):
-      counts[kernel] += 1
-  ops = sorted({m for m in re.findall(r"\bHMMA\.[\w.]+", sass)})
+      out[kernel] = []
+    elif kernel:
+      ln = re.sub(r"^\s*/\*[0-9a-f]+\*/", "", ln)
+      out[kernel].append(re.sub(r"(_GLOBAL__N__|_INTERNAL_)\w+", r"\1#",
+                                ln).strip())
+  return out
+
+
+def _tensor_core_count(build, path, name, tag, op):
+  """Phase 2: the tensor-core instructions (`op`: HMMA or HGMMA) in a
+  library's SASS, per kernel; raises if one of its `<name>_kernel`s has
+  none or the partials' reduction has any."""
+  import re
+  sass = _sass(build, path)
+  counts = {k: sum(1 for ln in v if re.search(rf"\b{op}\.", ln))
+            for k, v in sass.items()}
+  ops = sorted({m for v in sass.values() for ln in v
+                for m in re.findall(rf"\b{op}\.[\w.]+", ln)})
   per_kernel = ", ".join(f"{k} {v}" for k, v in counts.items())
   print(f"[build] {name}.cu{tag} SASS tensor-core instructions: "
         f"{per_kernel} ({', '.join(ops)})", flush=True)
-  if not any(v for k, v in counts.items() if k.startswith(f"{name}_kernel")):
-    raise RuntimeError(f"{name}.cu{tag}: no HMMA in the backward kernel")
+  mains = [k for k in counts if k.startswith(f"{name}_kernel")]
+  if not mains or not all(counts[k] for k in mains):
+    raise RuntimeError(f"{name}.cu{tag}: no {op} in a kernel of {mains}")
   if any(v for k, v in counts.items() if k.startswith("reduce_partials")):
-    raise RuntimeError(f"{name}.cu{tag}: HMMA in the partials' reduction")
+    raise RuntimeError(f"{name}.cu{tag}: {op} in the partials' reduction")
+
+
+def _sass_against(build, jobs, built, ref_root):
+  """Phase 2 with `--sass-against`: each library of SASS_SAME built again
+  from `ref_root`'s nerf_atlas_tpu_torch/csrc/ with the same flags
+  (one nvcc per source and defines, started together), its SASS held
+  kernel by kernel to this tree's; prints equal or the lines that
+  differ. The kernels' mangled names carry a hash of their source path
+  that differs between two checkouts: kernels are matched by
+  `_kernel_name`."""
+  csrc = os.path.join(os.path.abspath(ref_root), "nerf_atlas_tpu_torch",
+                      "csrc")
+  out_dir = tempfile.mkdtemp(prefix="sass_ref_", dir=build.BUILD_DIR)
+  pairs = [(j, b) for j, b in zip(jobs, built) if j[0] in SASS_SAME]
+
+  def ref_build(job):
+    name, defines = job
+    lib = os.path.join(out_dir, f"lib{name}-{'-'.join(defines) or 'x'}.so")
+    subprocess.run([build.nvcc(), *build.NVCC_FLAGS,
+                    *(f"-D{d}" for d in defines), "-o", lib,
+                    os.path.join(csrc, f"{name}.cu")],
+                   capture_output=True, text=True, check=True)
+    return lib
+
+  t0 = time.perf_counter()
+  with concurrent.futures.ThreadPoolExecutor(len(pairs)) as pool:
+    refs = list(pool.map(lambda p: ref_build(p[0]), pairs))
+  print(f"[sass] {len(refs)} libraries built from {csrc} in "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+  for ((name, defines), b), ref in zip(pairs, refs):
+    ours, theirs = _sass(build, b.path), _sass(build, ref)
+    for kernel in sorted(set(ours) | set(theirs)):
+      a, c = ours.get(kernel, []), theirs.get(kernel, [])
+      diff = sum(x != y for x, y in zip(a, c)) + abs(len(a) - len(c))
+      tag = f" {' '.join(defines)}" if defines else ""
+      print(f"[sass] {name}.cu{tag} {kernel}: "
+            f"{'equal' if diff == 0 else f'{diff} lines differ'} "
+            f"({len(a)} / {len(c)} lines)", flush=True)
 
 
 def _rel_error(k1, grad, ref):
@@ -475,8 +544,26 @@ def _check_bwd(what, k1, ws, rays, gen, kw, feats=None):
   return max_abs
 
 
-def _check_kernels(k1, rays_ops, model, dev):
-  """Phase 3. Returns (K1 max |Δ|, render_bwd max |Δ| on gradients)."""
+def _k1_witness(testing, got, ref, ws, rays, kw):
+  """K1 held to the float64 products (`testing.k1_float64_render`) beside
+  its plain version: (the kernel's max |Δ| from it, the plain version's,
+  their ratio with the floor TOL / 2); raises past
+  `testing.WITNESS_RATIO`. Where the siren's gain meets amplified weights
+  the plain float32 version itself lies near the gate from the float64
+  function, so the line shows which of the two the distance is."""
+  w64 = testing.k1_float64_render(ws, rays, **kw)
+  ek = float((got.double() - w64).abs().max())
+  ep = float((ref.double() - w64).abs().max())
+  ratio = ek / max(ep, TOL / 2)
+  if not ratio <= testing.WITNESS_RATIO:
+    raise RuntimeError(f"K1 lies {ek:.3e} from its float64 products, its "
+                       f"plain version {ep:.3e} (ratio {ratio:.2f})")
+  return f"float64 products: kernel {ek:.3e}, plain {ep:.3e}"
+
+
+def _check_kernels(k1, testing, rays_ops, model, dev):
+  """Phase 3. Returns (K1 max |Δ|, render_bwd max |Δ| on gradients); each
+  K1 line also prints `_k1_witness`."""
   ws = k1.pack_weights(model.state_dict(), dev)
   amplified = dict(model.state_dict())
   amplified["refl.mlp.layer_out.weight"] = (
@@ -504,9 +591,10 @@ def _check_kernels(k1, rays_ops, model, dev):
         raise RuntimeError(f"K1 output not finite ({wname}, {sky}, {kind})")
       e_rgb = float((out[:, :3] - ref[:, :3]).abs().max())
       e_acc = float((out[:, 3] - ref[:, 3]).abs().max())
+      witness = _k1_witness(testing, out, ref, w, rays, dict(kw, ts=t))
       print(f"[check] K1 {wname:9s} sky {sky:5s} {kind:6s} {name:11s}: "
             f"max|rgb| {e_rgb:.3e} max|acc| {e_acc:.3e} (tol {TOL:.0e}; ref "
-            f"rgb std {float(ref[:, :3].std()):.3f})", flush=True)
+            f"rgb std {float(ref[:, :3].std()):.3f}) | {witness}", flush=True)
       if not (e_rgb <= TOL and e_acc <= TOL):
         raise RuntimeError(f"K1 disagrees with its reference: {e_rgb}, "
                            f"{e_acc}")
@@ -728,7 +816,11 @@ def _ae_weights(models, driver, k7, dev, steps=STEPS):
 def _check_ae_bwd(what, k7, testing, ws, rays, gen, kw):
   """K7b in modes G (random g) and L (random target) against autograd
   through the plain K7f, over all rays and over the kink-free rays (see
-  GRAD_RTOL). Returns the max |Δ| of the kink-free gradients."""
+  GRAD_RTOL). The kink-free check also holds the kernel to the same
+  gradient in float64 (`testing.ae_float64_grad`), tensor by tensor, as
+  K9b's (`testing.float64_witness_ratio` with the floor GRAD_RTOL / 2),
+  and prints the worst ratio. Returns the max |Δ| of the kink-free
+  gradients."""
   n = rays.shape[0]
   keep = testing.ae_kink_free_rays(ws, rays, kw["ts"], kw["steps"],
                                    KINK_MARGIN)
@@ -765,6 +857,20 @@ def _check_ae_bwd(what, k7, testing, ws, rays, gen, kw):
       line.append(f"{name}: max_t ‖Δ‖/‖ref‖ {errs[key]:.2e} ({key})")
       if name == "kink-free":
         max_abs = max(max_abs, float((got - ref).abs().max()))
+        w64 = testing.ae_float64_grad(
+            ws, rays, kw["ts"], a, loss_mode=mode == "L",
+            sigmoid_kind=kw.get("sigmoid_kind", "thin"),
+            sky_kind=kw.get("sky_kind", "black"))
+        ratio, k, ek, ep = testing.float64_witness_ratio(
+            k7.unpack_grads_ae, got, ref, w64, GRAD_RTOL / 2)
+        if not ratio <= testing.WITNESS_RATIO:
+          raise RuntimeError(
+              f"{what} K7b-{mode}: {k} lies {ek:.3e} from the float64 "
+              f"gradient, its plain version {ep:.3e} (ratio {ratio:.2f} "
+              f"with the floor {GRAD_RTOL / 2}; limit "
+              f"{testing.WITNESS_RATIO})")
+        line.append(f"float64 witness: worst ratio {ratio:.2f} ({k}: "
+                    f"kernel {ek:.2e}, plain {ep:.2e})")
     print(f"[check] K7b-{mode} {what}: {' | '.join(line)} | kink-free rays "
           f"{int(keep.sum())}/{n}", flush=True)
   return max_abs
@@ -849,7 +955,7 @@ def _k4_amplified(sd, mode):
   return amp
 
 
-def _check_k4(k1, rays_ops, models, driver, dev):
+def _check_k4(k1, testing, rays_ops, models, driver, dev):
   """Phase 3, the K4 modes: K1, K2 and K3 in each of posenc, tiny, cone
   and cylinder against their plain versions (K2/K3 over all rays and the
   kink-free ones), a ragged batch, PlainCPRender against K2, and two
@@ -877,9 +983,10 @@ def _check_k4(k1, rays_ops, models, driver, dev):
         ref = k1.plain_cp_render_reference(ws, rays, ts=t, **kw)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
+        witness = _k1_witness(testing, got, ref, ws, rays, dict(kw, ts=t))
         print(f"[check] K1-{mode} {wname:9s} sky {sky:5s} {kind:6s} "
               f"{name:11s}: max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
-              f"{float(ref[:, :3].std()):.3f})", flush=True)
+              f"{float(ref[:, :3].std()):.3f}) | {witness}", flush=True)
         if not (e <= TOL and bool(torch.isfinite(got).all())):
           raise RuntimeError(f"K1-{mode} disagrees with its reference: {e}")
         max_k1 = max(max_k1, e)
@@ -1424,8 +1531,8 @@ def _time_hash(card, models, driver, loaders, sampler, k1, hk, rays_ops, dev,
                _mlp_bound(k1, "hash", CHUNK, STEPS, False))
   print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step K1-hash call "
         f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms (bound "
-        f"{res['k1'][2][0]:.2f} ms), plain torch {ms['plain'][0]:.2f} / "
-        f"{ms['plain'][1]:.2f} ms", flush=True)
+        f"{res['k1'][2][0]:.2f} ms, split TF32 {res['k1'][2][3]:.2f}), plain "
+        f"torch {ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
 
   gen = torch.Generator(device=dev).manual_seed(8)
   r4 = call_rays[:BATCH].contiguous()
@@ -1565,8 +1672,8 @@ def _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
       ws, r4, target, ts=ts, steps=STEPS), 3)
   res["k7b"] = (k7b_ms, plain_ms, _ae_bound(k7, BATCH, True))
   print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K7b call (loss "
-        f"mode) {k7b_ms:.2f} ms (bound {res['k7b'][2][0]:.2f} ms), plain "
-        f"torch {plain_ms:.2f} ms", flush=True)
+        f"mode) {k7b_ms:.2f} ms (bound {res['k7b'][2][0]:.2f} ms, split TF32 "
+        f"{res['k7b'][2][3]:.2f}), plain torch {plain_ms:.2f} ms", flush=True)
 
   ds = sampler.RayDataset.from_bundle(
       loaders.load("", data_kind="synthetic", size=48, num_views=30,
@@ -1643,8 +1750,9 @@ def _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
     tflops = 2 * macs * CHUNK * STEPS / (min(ms["kernel"]) / 1e3) / 1e12
     print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step K1-{mode} call "
           f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms ({tflops:.2f} "
-          f"TFLOP/s; bound {b1[0]:.2f} ms, bf16 {b1[2]:.2f}), plain torch "
-          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+          f"TFLOP/s; bound {b1[0]:.2f} ms, split TF32 {b1[3]:.2f}, bf16 "
+          f"{b1[2]:.2f}), plain torch {ms['plain'][0]:.2f} / "
+          f"{ms['plain'][1]:.2f} ms", flush=True)
     print(f"[time] {card}: one {BATCH}-ray x {STEPS}-step K3-{mode} call "
           f"{k3['kernel'][0]:.2f} / {k3['kernel'][1]:.2f} ms (bound "
           f"{b3[0]:.2f} ms, split TF32 {b3[3]:.2f}, bf16 {b3[2]:.2f}), plain "
@@ -1863,8 +1971,9 @@ def _time_coarse_fine(card, models, driver, loaders, sampler, k1, sampling,
     b1 = _mlp_bound(k1, mode, CHUNK, total, False, per_ray=True)
     print(f"[time] {card}: one {CHUNK}-ray x {total}-step K1-{mode} call on "
           f"per-ray ts {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
-          f"(bound {b1[0]:.2f} ms, bf16 {b1[2]:.2f}), plain torch "
-          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+          f"(bound {b1[0]:.2f} ms, split TF32 {b1[3]:.2f}, bf16 "
+          f"{b1[2]:.2f}), plain torch {ms['plain'][0]:.2f} / "
+          f"{ms['plain'][1]:.2f} ms", flush=True)
     res["fwd"][mode] = (min(ms["kernel"]), min(ms["plain"]), b1)
 
   r4 = call_rays[:BATCH].contiguous()
@@ -2937,6 +3046,10 @@ def main(argv=None):
   parser.add_argument("--recipes", nargs="+", default=None,
                       choices=[r[0] for r in QUALITY_RECIPES],
                       help="phase 7's recipes (default: all)")
+  parser.add_argument("--sass-against", metavar="DIR", default=None,
+                      help="phase 2 also builds the libraries this slice "
+                           "leaves unchanged from DIR (a checkout of an "
+                           "earlier commit) and compares their SASS")
   parser.add_argument("--quality-steps", type=int, default=QUALITY_STEPS,
                       help="phase 7's budget in place of the sweep's 1500 "
                            "steps (tiny trains twice it), e.g. 300 for the "
@@ -2970,19 +3083,19 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
-  _build(build, k1, k9)
+  jobs, built = _build(build, k1, k9)
 
   # ---- 3. kernels vs reference on the card ----
   dev = torch.device("cuda")
   model = driver.init_model(models.PlainNeRF(steps=STEPS, device=dev),
                             seed=0)
   ws = k1.pack_weights(model.state_dict(), dev)
-  max_err, max_bwd = _check_kernels(k1, rays_ops, model, dev)
+  max_err, max_bwd = _check_kernels(k1, testing, rays_ops, model, dev)
   max_k5f, max_k5b = _check_hash_encoder(hk, k1, dev)
   max_err_h, max_bwd_h = _check_hash_render(k1, hk, rays_ops, models, driver,
                                             dev)
   max_k7f, max_k7b = _check_ae(k7, testing, rays_ops, models, driver, dev)
-  max_k4 = _check_k4(k1, rays_ops, models, driver, dev)
+  max_k4 = _check_k4(k1, testing, rays_ops, models, driver, dev)
   max_k8f, max_k8b = _check_volsdf(k8, testing, rays_ops, models, driver,
                                    dev)
   max_k9f, max_k9b = _check_dyn(k9, testing, rays_ops, models, driver, dev)
@@ -3106,10 +3219,12 @@ def main(argv=None):
     raise RuntimeError(f"800x800 frame: kernel vs reference {frame_err}")
   max_err = max(max_err, frame_err)
   gflop = 2 * 459520 * CHUNK * STEPS / 1e9
+  b1 = _mlp_bound(k1, "cp", CHUNK, STEPS, False)
   print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step call: K1 "
         f"{kernel_ms:.2f} / {kernel_ms2:.2f} ms "
-        f"({gflop / kernel_ms:.2f} TFLOP/s), plain torch {plain_ms:.2f} / "
-        f"{plain_ms2:.2f} ms", flush=True)
+        f"({gflop / kernel_ms:.2f} TFLOP/s; bound {b1[0]:.2f} ms, split TF32 "
+        f"{b1[3]:.2f}), plain torch {plain_ms:.2f} / {plain_ms2:.2f} ms",
+        flush=True)
   print(f"[time] {card}: one {SIZE}x{SIZE}x{STEPS} frame: render_view (K1) "
         f"{k_s:.3f} s = {SIZE * SIZE / k_s:,.0f} rays/s, plain torch "
         f"{ref_s:.3f} s = {SIZE * SIZE / ref_s:,.0f} rays/s | frame max "
@@ -3129,6 +3244,9 @@ def main(argv=None):
                            sampling, dev, ds)
   print(f"[time] phases 1-6 (the run without --quality and --profile): "
         f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+  if args.sass_against:
+    _sass_against(build, jobs, built, args.sass_against)
 
   if args.quality:
     _quality(card, port_runner, k1, loaders, dev, args.seeds, args.recipes,
@@ -3220,13 +3338,13 @@ def main(argv=None):
   for name, *_, bound, _ in rows:
     tf32 = (f", {bound[3]:.4f} ms by {bound[4]} in split TF32 (3 x the "
             "operations at the TF32 tensor-core peak: the products it runs)"
-            if name.startswith(TC_SOURCES) else "")
+            if name.startswith(tuple(TC_SOURCES)) else "")
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores){tf32}, {bound[2]:.4f} ms at the bf16 "
           "tensor-core peak", flush=True)
-  # K2/K3, K8b and K9b run their products in split TF32: their bound is
-  # that one
-  rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith(TC_SOURCES)
+  # K1, K2/K3, K7b, K8b and K9b run their products in split TF32: their
+  # bound is that one
+  rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith(tuple(TC_SOURCES))
            else r[7][:2], r[8]) for r in rows]
   print(json.dumps({"kernels": [{
       "name": name, "route": "cuda",

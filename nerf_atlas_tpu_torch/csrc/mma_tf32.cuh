@@ -1,12 +1,14 @@
-// The dense products of the backward kernels K2/K3 (render_bwd.cu), K8b
-// (render_volsdf_bwd.cu) and K9b (render_dyn_bwd.cu) on Hopper's tensor
-// cores, in split TF32: a whole SkipConnMLP's forward (`mlp_fwd`, the
-// backward's recompute) and VJP (`mlp_bwd`), and the eikonal's transpose
-// chain and its adjoint (`mlp_input_grad`, `mlp_input_grad_adjoint`).
-// The forward kernels (K1, K7f, K8f, K9f) and K7b keep render_common.cuh's
-// float32 FMA products; render_dyn.cuh and render_volsdf.cuh include this
-// header for the TC pack's offsets and `TcMlp`, which only the backward
-// kernels instantiate.
+// The dense products of the backward kernels K2/K3 (render_bwd.cu), K7b
+// (render_ae_bwd.cu), K8b (render_volsdf_bwd.cu) and K9b
+// (render_dyn_bwd.cu) on Hopper's tensor cores, in split TF32: a whole
+// SkipConnMLP's forward (`mlp_fwd`, the backward's recompute) and VJP
+// (`mlp_bwd`), and the eikonal's transpose chain and its adjoint
+// (`mlp_input_grad`, `mlp_input_grad_adjoint`). K1 runs its products by
+// wgmma (wgmma_tf32.cuh, which takes the split and cp.async from here);
+// K7f, K8f and K9f keep render_common.cuh's float32 FMA products;
+// render_ae.cuh, render_dyn.cuh and render_volsdf.cuh include this header
+// for the TC pack's offsets and `TcMlp`, which only the backward kernels
+// instantiate.
 //
 // Split TF32. A float32 a is split into hi = tf32(a) and lo = tf32(a − hi)
 // (tf32: round to nearest, ties away from zero, to 10 stored mantissa bits,
@@ -20,12 +22,16 @@
 // carry 2^-24: the dot products are not float32-exact, and
 // `testing.split_tf32_matmul` emulates them on the CPU to hold the plain
 // K3 so computed against the float32 one (tests/test_torch_tf32_split.py).
-// mma.sync, not wgmma: a 64-point tile is one wgmma's M, but the products
-// here have the tile's points on N (forward and input gradient) or on K
-// (weight gradient) beside operands in the feature-major [row][PS] tiles
-// the encoders and the compositing share with K1; mma.sync takes any of
-// them from registers, and its m16n8k8 shape pads the narrow layers (33,
-// 4 or 3 outputs, 19..96 init rows) to 16 or 8, not to 64.
+// mma.sync here, wgmma in K1: the backward's products have the tile's
+// points on N (forward and input gradient) or on K (weight gradient),
+// with the weights (forward, input gradient) or the activations (weight
+// gradient) as A, so both operands come from the feature-major [row][PS]
+// tiles or the fragment-ordered TC pack; mma.sync takes either from
+// registers, and its m16n8k8 shape pads the narrow layers (33, 4 or 3
+// outputs, 19..96 init rows) to 16 or 8. A forward alone can put the
+// points on M and the outputs on N instead, which is K1's wgmma form
+// (A from registers, N padded to 8, wgmma_tf32.cuh); moving these
+// products to it is ROADMAP's next step for the backward.
 //
 // The three products of a Dense layer (W [in][out], a 64-point tile):
 //   forward    Z[o][p]  = Σ_k W[k][o]·X[k][p] (+ b[o])    A = Wᵀ (staged)

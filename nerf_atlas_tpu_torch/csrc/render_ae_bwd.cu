@@ -14,35 +14,49 @@
 //
 // Per block of rays (max(1, 64/T) rays, as in K7f), in two passes:
 //   pass 1 re-runs K7f's forward tile by tile (render_ae.cuh
-//     `tile_forward`, the same code) and stashes every MLP pre-activation,
-//     the encoder's init feature, the raw encoding and the View's init
-//     feature (3,096 rows of 64 floats, 793 KB per tile) in a per-block
-//     scratch in global memory;
+//     `tile_forward`: the same code, its MLP products on the tensor cores)
+//     and stashes every MLP pre-activation, the encoder's init feature,
+//     the raw encoding and the View's init feature (3,096 rows of 64
+//     floats, 793 KB per tile) in a per-block scratch in global memory;
 //   then one thread per ray composites front to back (α, transmittance,
 //     outputs, the cotangent, the loss) and walks back to front with the
 //     suffix sum S_t = Σ_{s>t} A_s w_s (render_bwd.cu's code);
-//   pass 2 walks the tiles again and chains the hand VJPs: rgb activation
-//     → View MLP (sin(30h), derivative 30·cos(30h) with accurate cosf) →
-//     density_tfm (leaky-relu 0.01), whose input gradient adds onto the
-//     View's latent columns 5..36 → the normalize VJP
-//     dx = g/m − x·(x·g)·[n > 1e-6]/(m²·n), n = ‖x‖, m = max(n, 1e-6)
-//     (a plain branch for the clamp) → the encoder. The encoder's input
-//     cotangent is not formed (posenc has no parameters).
+//   pass 2 walks the tiles again and chains the VJPs (mma_tf32.cuh
+//     `mlp_bwd`): rgb activation → View MLP (sin(30h), derivative
+//     30·cos(30h) with accurate cosf) → density_tfm (leaky-relu 0.01),
+//     whose input gradient adds onto the View's latent columns 5..36 → the
+//     normalize VJP dx = g/m − x·(x·g)·[n > 1e-6]/(m²·n), n = ‖x‖, m =
+//     max(n, 1e-6) (a plain branch for the clamp) → the encoder. The
+//     encoder's input cotangent is not formed (posenc has no parameters).
 //
 // What bounds it: compute, about three times K7f's (the forward, then per
 // layer the input-gradient and the weight-gradient products), 3.37 MFLOP
 // per sample point, plus the stash (written once, read once) and the
-// per-block weight-gradient partials.
+// per-block weight-gradient partials. On the tensor cores each
+// multiply-add is three TF32 products (six in the encoder's and
+// density_tfm's forward ones), against the TF32 peak.
 //
-// Design (render_bwd.cu's, simple and exact, not yet fast): float32 FMAs
-// on the CUDA cores, one 256-thread block per SM (~200 KB of shared
-// memory: two 256-row activation/gradient tiles and three 72-row init
-// feature tiles). The grid is at most one block per SM; each block loops
-// over ray blocks. The weight gradient is deterministic: every block
-// accumulates into its own partial row of TOTAL + 1 floats (each entry
-// owned by one thread, tiles in a fixed order) and a second kernel sums
-// the rows in block order. No float atomics anywhere: two launches are
-// bit-identical.
+// Design (render_bwd.cu's and K8b's): every MLP product (the recompute,
+// the input and the weight gradients) runs on the tensor cores in split
+// TF32 (mma_tf32.cuh, ~3·2^-22 relative per term; the wrapper pre-splits
+// the weights into the TC pack, render_ae.py `TC_MLPS`), staged by
+// cp.async through rows the product does not read (G in pass 1, X in the
+// VJPs). The encoder's and density_tfm's forward products run in three
+// parts (hi/mid/lo, six TF32 products, ≲ 2^-32 per term): the backward's
+// act′ pattern over 13 leaky-relu layers comes from the recompute's
+// pre-activations, as in K9b, where a two-part recompute once moved a
+// chip check past its gate; the CPU emulation, which cannot show the
+// tensor cores' truncating sums, reads the same distance with two or
+// three parts (tests/test_torch_tf32_split.py). The normalize VJP and
+// `latent_norm`'s fixed order, the compositing and its suffix sum stay
+// float32 on the CUDA cores. One
+// 256-thread block per SM (~200 KB of shared memory: two 256-row
+// activation/gradient tiles and three 72-row init feature tiles). The
+// grid is at most one block per SM; each block loops over ray blocks. The
+// weight gradient is deterministic: every block accumulates into its own
+// partial row of TOTAL + 1 floats (each entry owned by one thread, tiles
+// in a fixed order) and a second kernel sums the rows in block order. No
+// float atomics anywhere: two launches are bit-identical.
 //
 // Plain C interface for ctypes (built with nvcc into a shared library).
 
@@ -54,6 +68,7 @@ namespace {
 
 constexpr int MAX_STEPS = 512;               // shared memory for res
 constexpr long WP = TOTAL + 1;               // partial row: grads ‖ loss
+static_assert(tc::stage_floats(E_HIDDEN) <= E_HIDDEN * PS, "weight staging");
 
 size_t smem_bytes(int rays_per_block, int steps) {
   return sizeof(float) * ((size_t)(2 * E_HIDDEN + 3 * F_ROWS) * PS
@@ -67,7 +82,7 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
                      const float* __restrict__ dists,
                      const float* __restrict__ freqs,
                      const float* __restrict__ w,
-                     const float* __restrict__ wt,
+                     const float* __restrict__ tcw,
                      const float* __restrict__ gin,
                      float* __restrict__ partial,
                      float* __restrict__ stash,
@@ -113,7 +128,7 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
     // ---- pass 1: forward, stashing the chain ----
     for (int q0 = 0, tile = 0; q0 < n_pts; q0 += TILE, ++tile)
       tile_forward<8>(X, F, FA, ray_s, ts, fq, w, q0, n_pts, steps, res,
-                      st_block + tile * ST_TILE);
+                      st_block + tile * ST_TILE, tc::TcMlp{tcw, G});
 
     // ---- compositing, its cotangent and VJP: one thread per ray ----
     for (int r = tid; r < rays_per_block; r += THREADS) {
@@ -185,14 +200,12 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
       for (int r = 0; r < rays_per_block; ++r) loss_acc += ray_l[r];
     }
 
-    // ---- pass 2: hand VJP of the three MLPs and the normalize ----
+    // ---- pass 2: the VJP of the three MLPs and the normalize ----
     for (int q0 = 0, tile = 0; q0 < n_pts; q0 += TILE, ++tile) {
       const float* st = st_block + tile * ST_TILE;
       const float* zr = st + ST_R * TILE;
       const float* zd = st + ST_D * TILE;
       const float* ze = st + ST_E * TILE;
-      constexpr int RZ = R_HIDDEN * TILE, DZ = D_HIDDEN * TILE;
-      constexpr int EZ = E_HIDDEN * TILE;
 
       // View MLP: G <- d rgb_raw (zero on the tile's padding points)
       for (int i = tid; i < F_ROWS * TILE; i += THREADS) {
@@ -208,22 +221,10 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
         for (int c = 0; c < 3; ++c)
           G[c * PS + tid] = q < n_pts ? res[8 * q + 5 + c] : 0.0f;
       }
-      load_act<ACT_SIN30>(zr + 5 * RZ, R_HIDDEN, X);
+      load_act<ACT_SIN30>(zr + R_LAYERS * R_HIDDEN * TILE, R_HIDDEN, X);
       __syncthreads();
-      dw_small<R_HIDDEN, R_OUT_W>(X, G, part + R_OUT);
-      dense_bwd<R_OUT_W, R_HIDDEN, R_HIDDEN, ACT_SIN30, MODE_Z>(
-          G, wt + R_OUT, G, zr + 5 * RZ, nullptr);
-      hidden_bwd<R_HIDDEN, R_IN, false, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + R_L4, part + R_L4, zr + 4 * RZ);
-      hidden_bwd<R_HIDDEN, R_IN, true, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + R_L3, part + R_L3, zr + 3 * RZ);
-      hidden_bwd<R_HIDDEN, R_IN, false, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + R_L2, part + R_L2, zr + 2 * RZ);
-      hidden_bwd<R_HIDDEN, R_IN, false, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + R_L1, part + R_L1, zr + 1 * RZ);
-      hidden_bwd<R_HIDDEN, R_IN, true, ACT_SIN30, true>(
-          X, G, F, FA, DF, wt + R_L0, part + R_L0, zr);
-      input_bwd<R_HIDDEN, R_IN, true>(G, F, DF, wt + R_IN_, part + R_IN_);
+      tc::mlp_bwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, true,
+                  R_THREE>(X, G, F, FA, DF, tcw + TC_R, part + R_IN_, zr);
 
       // density_tfm: G <- [d density ‖ d feats (DF rows 37..68)]; its init
       // feature is the latent, F rows 5..36, whose gradient DF rows 5..36
@@ -239,23 +240,12 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
         G[row * PS + p] = v;
       }
       act_rows<ACT_LEAKY>(F + R_ENC * PS, FA + R_ENC * PS, ENC);
-      load_act<ACT_LEAKY>(zd + 4 * DZ, D_HIDDEN, X);
+      load_act<ACT_LEAKY>(zd + D_LAYERS * D_HIDDEN * TILE, D_HIDDEN, X);
       __syncthreads();
-      dw_small<D_HIDDEN, D_OUT_W>(X, G, part + D_OUT);
-      dense_bwd<D_OUT_W, D_HIDDEN, D_HIDDEN, ACT_LEAKY, MODE_Z>(
-          G, wt + D_OUT, G, zd + 4 * DZ, nullptr);
-      float* Fd = F + R_ENC * PS;
-      float* FAd = FA + R_ENC * PS;
       float* DFd = DF + R_ENC * PS;
-      hidden_bwd<D_HIDDEN, ENC, false, ACT_LEAKY, true>(
-          X, G, Fd, FAd, DFd, wt + D_L3, part + D_L3, zd + 3 * DZ);
-      hidden_bwd<D_HIDDEN, ENC, false, ACT_LEAKY, true>(
-          X, G, Fd, FAd, DFd, wt + D_L2, part + D_L2, zd + 2 * DZ);
-      hidden_bwd<D_HIDDEN, ENC, false, ACT_LEAKY, true>(
-          X, G, Fd, FAd, DFd, wt + D_L1, part + D_L1, zd + 1 * DZ);
-      hidden_bwd<D_HIDDEN, ENC, true, ACT_LEAKY, true>(
-          X, G, Fd, FAd, DFd, wt + D_L0, part + D_L0, zd);
-      input_bwd<D_HIDDEN, ENC, true>(G, Fd, DFd, wt + D_IN_, part + D_IN_);
+      tc::mlp_bwd<ENC, D_HIDDEN, D_LAYERS, D_OUT_W, ACT_LEAKY, true, D_THREE>(
+          X, G, F + R_ENC * PS, FA + R_ENC * PS, DFd, tcw + TC_D,
+          part + D_IN_, zd);
 
       // normalize VJP: G rows 0..31 <- d raw encoding, one thread per point
       if (tid < TILE) {
@@ -276,22 +266,10 @@ render_ae_bwd_kernel(const float* __restrict__ rays,
         F[row * PS + p] = v;
         FA[row * PS + p] = activate<ACT_LEAKY>(v);
       }
-      load_act<ACT_LEAKY>(ze + 5 * EZ, E_HIDDEN, X);
+      load_act<ACT_LEAKY>(ze + E_LAYERS * E_HIDDEN * TILE, E_HIDDEN, X);
       __syncthreads();
-      dw_small<E_HIDDEN, ENC>(X, G, part + E_OUT);
-      dense_bwd<ENC, E_HIDDEN, E_HIDDEN, ACT_LEAKY, MODE_Z>(
-          G, wt + E_OUT, G, ze + 5 * EZ, nullptr);
-      hidden_bwd<E_HIDDEN, E_IN, false, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + E_L4, part + E_L4, ze + 4 * EZ);
-      hidden_bwd<E_HIDDEN, E_IN, true, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + E_L3, part + E_L3, ze + 3 * EZ);
-      hidden_bwd<E_HIDDEN, E_IN, false, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + E_L2, part + E_L2, ze + 2 * EZ);
-      hidden_bwd<E_HIDDEN, E_IN, false, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + E_L1, part + E_L1, ze + 1 * EZ);
-      hidden_bwd<E_HIDDEN, E_IN, true, ACT_LEAKY, false>(
-          X, G, F, FA, DF, wt + E_L0, part + E_L0, ze);
-      input_bwd<E_HIDDEN, E_IN, false>(G, F, DF, wt + E_IN_, part + E_IN_);
+      tc::mlp_bwd<E_IN, E_HIDDEN, E_LAYERS, ENC, ACT_LEAKY, false, E_THREE>(
+          X, G, F, FA, DF, tcw + TC_E, part + E_IN_, ze);
     }
   }
 
@@ -306,6 +284,9 @@ extern "C" {
 // Floats in the packed weight buffer the kernel expects.
 long long render_ae_bwd_weight_count() { return TOTAL; }
 
+// Floats of the TC pack (render_ae.py `TC_MLPS`) it expects.
+long long render_ae_bwd_tc_floats() { return TC_TOTAL; }
+
 // Floats of stash per 64-point tile (the wrapper sizes the scratch).
 long long render_ae_bwd_stash_floats_per_tile() { return ST_TILE; }
 
@@ -317,20 +298,22 @@ const char* render_ae_bwd_error_string(int code) {
 
 // Enqueues one backward on `stream`; returns the cudaError_t of the
 // launches. gin: g [N, 4] (loss_mode 0) or target [N, 3] (loss_mode 1).
-// freqs [8]: the posenc bands. out: [TOTAL + 1] (gradient ‖ loss).
+// freqs [8]: the posenc bands. weights: the packed vector (the biases
+// are read from it); tcw: its TC pack (`tc_floats` floats, 16-byte
+// aligned). out: [TOTAL + 1] (gradient ‖ loss).
 // partial: blocks × (TOTAL + 1) floats; stash: blocks × tiles ×
 // stash_floats_per_tile floats, tiles = ceil(rays_per_block · steps / 64),
 // rays_per_block = max(1, 64 / steps).
 int render_ae_bwd_launch(const float* rays, const float* ts,
                          const float* dists, const float* freqs,
-                         const float* weights, const float* weights_t,
+                         const float* weights, const float* tcw,
                          const float* gin, float* out, float* partial,
                          float* stash, int n_rays, int steps, int blocks,
                          int sigmoid_kind, int sky_white, int loss_mode,
                          float loss_scale, void* stream) {
   if (n_rays <= 0) return cudaSuccess;
   if (steps < 2 || steps > MAX_STEPS || sigmoid_kind < 0 || sigmoid_kind > 7
-      || blocks <= 0)
+      || blocks <= 0 || reinterpret_cast<uintptr_t>(tcw) % 16)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rays_per_block = steps >= TILE ? 1 : TILE / steps;
@@ -345,7 +328,7 @@ int render_ae_bwd_launch(const float* rays, const float* ts,
   err = cudaMemsetAsync(partial, 0, sizeof(float) * (size_t)blocks * WP, s);
   if (err != cudaSuccess) return err;
   render_ae_bwd_kernel<<<blocks, THREADS, smem, s>>>(
-      rays, ts, dists, freqs, weights, weights_t, gin, partial, stash, n_rays,
+      rays, ts, dists, freqs, weights, tcw, gin, partial, stash, n_rays,
       steps, rays_per_block, n_rb, tiles, sigmoid_kind, sky_white, loss_mode,
       loss_scale);
   err = cudaGetLastError();

@@ -5,18 +5,16 @@
 //
 // Activations of a 64-point tile live feature-major in shared memory
 // ([row][PS], 64 points per row); weights are read per layer through
-// L1/L2. The building blocks (the float32 FMA products of K1, K7f/K7b,
-// K8f and K9f; the backward kernels K2/K3, K8b and K9b take their MLP
-// products from mma_tf32.cuh):
+// L1/L2. The building blocks (the float32 FMA products of K7f, K8f and
+// K9f; the backward kernels K2/K3, K7b, K8b and K9b take their MLP
+// products from mma_tf32.cuh, K1 from wgmma_tf32.cuh):
 //   - the activations and the rgb activation with its derivative;
 //   - the sample point and the per-ray constants;
 //   - forward Dense layers (`dense_fwd`, optionally stashing the
 //     pre-activations) and whole SkipConnMLPs (`mlp_fwd`);
-//   - the hand VJP of a layer (input gradient `dense_bwd`, weight
-//     gradients `dw_cols` / `dw_small`, K7b's), each thread owning its
-//     entries of the block's partial gradient row;
-//   - the gradient of one output column of a SkipConnMLP with respect to
-//     its input, by the transpose chain (`mlp_input_grad`): K8f's eikonal
+//   - the input gradient of a layer (`dense_bwd`) and, through it, the
+//     gradient of one output column of a SkipConnMLP with respect to its
+//     input by the transpose chain (`mlp_input_grad`): K8f's eikonal
 //     column;
 //   - the positional encoding and MipNeRF's integrated positional
 //     encoding of a tile (`posenc_rows`, `ipe_moments`, `ipe_rows`);
@@ -405,82 +403,6 @@ __device__ __forceinline__ void dense_bwd(const float* G,
   __syncthreads();
 }
 
-// Weight gradient, wide layers (N = 256 or 128): this thread owns column
-// n of rows k = ks, ks + NS, ... < K and holds the layer's output
-// gradient g[p] = G[n][p] in registers; pw[k * N + n] += sum_p X[k][p] g[p]
-// (pw = the block's partial at the layer's first row of this segment).
-template <int N>
-__device__ __forceinline__ void dw_cols(const float* X, int K,
-                                        const float (&g)[TILE],
-                                        float* __restrict__ pw) {
-  constexpr int NS = THREADS / N;
-  const int n = threadIdx.x % N;
-  const int ks = threadIdx.x / N;
-  for (int k = ks; k < K; k += NS) {
-    const float* x = X + k * PS;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll
-    for (int p = 0; p < TILE; p += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(x + p);
-      a0 = fmaf(v.x, g[p], a0);
-      a1 = fmaf(v.y, g[p + 1], a1);
-      a2 = fmaf(v.z, g[p + 2], a2);
-      a3 = fmaf(v.w, g[p + 3], a3);
-    }
-    pw[(long)k * N + n] += (a0 + a1) + (a2 + a3);
-  }
-}
-
-// g[p] = G[n][p], n = this thread's column
-template <int N>
-__device__ __forceinline__ void load_col(const float* G, float (&g)[TILE]) {
-  const float* row = G + (threadIdx.x % N) * PS;
-#pragma unroll
-  for (int p = 0; p < TILE; p += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(row + p);
-    g[p] = v.x; g[p + 1] = v.y; g[p + 2] = v.z; g[p + 3] = v.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void db_col(const float (&g)[TILE],
-                                       float* __restrict__ pb) {
-  if (threadIdx.x / N == 0) {
-    float s = 0.0f;
-#pragma unroll
-    for (int p = 0; p < TILE; ++p) s += g[p];
-    pb[threadIdx.x % N] += s;
-  }
-}
-
-// Weight + bias gradient of a narrow output layer [K][N] (N = 32, 33, 4
-// or 3): entries e = k * N + n spread over the threads, both operands
-// from shared memory.
-template <int K, int N>
-__device__ __forceinline__ void dw_small(const float* X, const float* G,
-                                         float* __restrict__ pw) {
-  for (int e = threadIdx.x; e < K * N; e += THREADS) {
-    const float* x = X + (e / N) * PS;
-    const float* g = G + (e % N) * PS;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-#pragma unroll 4
-    for (int p = 0; p < TILE; p += 4) {
-      const float4 xv = *reinterpret_cast<const float4*>(x + p);
-      const float4 gv = *reinterpret_cast<const float4*>(g + p);
-      a0 = fmaf(xv.x, gv.x, a0);
-      a1 = fmaf(xv.y, gv.y, a1);
-      a2 = fmaf(xv.z, gv.z, a2);
-      a3 = fmaf(xv.w, gv.w, a3);
-    }
-    pw[e] += (a0 + a1) + (a2 + a3);
-  }
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    float s = 0.0f;
-    for (int p = 0; p < TILE; ++p) s += G[n * PS + p];
-    pw[(long)K * N + n] += s;
-  }
-}
-
 // X[r][p] = act(z[r][p]) for rows r < rows, z = stash rows
 template <int ACT>
 __device__ __forceinline__ void load_act(const float* __restrict__ z,
@@ -491,53 +413,6 @@ __device__ __forceinline__ void load_act(const float* __restrict__ z,
     v.x = activate<ACT>(v.x); v.y = activate<ACT>(v.y);
     v.z = activate<ACT>(v.z); v.w = activate<ACT>(v.w);
     *reinterpret_cast<float4*>(X + r * PS + c) = v;
-  }
-}
-
-// Backward of hidden layer i of a SkipConnMLP (H wide, init feature FI
-// rows in F / act(F) in FA), with its output gradient in G: weight and
-// bias gradients into the partial, the skip rows' input gradient into DF
-// (when WANT_DF), and G <- the gradient of the previous layer's
-// pre-activation z_prev.
-template <int H, int FI, bool SKIP, int ACT, bool WANT_DF>
-__device__ __forceinline__ void hidden_bwd(float* X, float* G,
-                                           const float* F, const float* FA,
-                                           float* DF,
-                                           const float* __restrict__ wt,
-                                           float* __restrict__ pw,
-                                           const float* __restrict__ z_prev) {
-  constexpr int KT = H + (SKIP ? FI : 0);
-  load_act<ACT>(z_prev, H, X);
-  __syncthreads();
-  {
-    float g[TILE];
-    load_col<H>(G, g);
-    dw_cols<H>(X, H, g, pw);
-    if (SKIP) dw_cols<H>(FA, FI, g, pw + (long)H * H);
-    db_col<H>(g, pw + (long)KT * H);
-  }
-  if (SKIP && WANT_DF)
-    dense_bwd<H, FI, KT, ACT, MODE_FADD>(G, wt + H, DF, nullptr, F);
-  dense_bwd<H, H, KT, ACT, MODE_Z>(G, wt, G, z_prev, nullptr);
-}
-
-// Backward of layer_in (input = the raw init feature F, FI rows); its
-// input gradient goes to DF when WANT_DF.
-template <int H, int FI, bool WANT_DF>
-__device__ __forceinline__ void input_bwd(const float* G, const float* F,
-                                          float* DF,
-                                          const float* __restrict__ wt,
-                                          float* __restrict__ pw) {
-  {
-    float g[TILE];
-    load_col<H>(G, g);
-    dw_cols<H>(F, FI, g, pw);
-    db_col<H>(g, pw + (long)FI * H);
-  }
-  if constexpr (WANT_DF) {
-    dense_bwd<H, FI, FI, ACT_NONE, MODE_ADD>(G, wt, DF, nullptr, nullptr);
-  } else {
-    __syncthreads();
   }
 }
 

@@ -497,23 +497,28 @@ def _load_library() -> ctypes.CDLL:
   from . import build
   lib = build.load("render_fwd")
   lib.render_fwd_launch.argtypes = (
-      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
   lib.render_fwd_launch.restype = ctypes.c_int
-  lib.render_fwd_weight_count.argtypes = [ctypes.c_int]
-  lib.render_fwd_weight_count.restype = ctypes.c_longlong
+  for fn in (lib.render_fwd_weight_count, lib.render_fwd_pack_floats):
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
   lib.render_fwd_freq_count.argtypes = [ctypes.c_int]
   lib.render_fwd_freq_count.restype = ctypes.c_int
   lib.render_fwd_error_string.argtypes = [ctypes.c_int]
   lib.render_fwd_error_string.restype = ctypes.c_char_p
   for enc, kind in enumerate(ENC_KINDS):
     bands = freqs(kind)
+    pack = wgmma_layout_index(tc_mlps(kind),
+                              LAYOUTS[kind].weight_count)[0].numel()
     if (lib.render_fwd_weight_count(enc) != LAYOUTS[kind].weight_count
+        or lib.render_fwd_pack_floats(enc) != pack
         or lib.render_fwd_freq_count(enc) != (0 if bands is None
                                               else bands.shape[0])):
       raise RuntimeError(
           f"render_fwd.cu packs {lib.render_fwd_weight_count(enc)} {kind} "
-          f"weights and {lib.render_fwd_freq_count(enc)} bands, the wrapper "
-          f"{LAYOUTS[kind].weight_count} and {bands}")
+          f"weights in a wgmma pack of {lib.render_fwd_pack_floats(enc)} "
+          f"floats and takes {lib.render_fwd_freq_count(enc)} bands, the "
+          f"wrapper {LAYOUTS[kind].weight_count}, {pack} and {bands}")
   return lib
 
 
@@ -537,10 +542,12 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor,
   if n > 0:
     fq = freqs(enc_kind, rays.device)
     lib = _load_library()
+    wp = wgmma_pack(ws, enc_kind)
     stream = torch.cuda.current_stream(rays.device).cuda_stream
     err = lib.render_fwd_launch(
         rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-        _ptr(feats), _ptr(fq), out.data_ptr(), _ptr(wout), n, steps,
+        wp.data_ptr(), _ptr(feats), _ptr(fq), out.data_ptr(), _ptr(wout),
+        n, steps,
         steps if ts.ndim == 2 else 0, FUSED_SIGMOID_KINDS.index(sigmoid_kind),
         int(sky_kind == "white"), ENC_KINDS.index(enc_kind), stream)
     _raise_on(err, lib, "render_fwd", "render_fwd")
@@ -860,6 +867,85 @@ def tc_pack_mlps(ws: torch.Tensor, mlps: TCMlps) -> torch.Tensor:
 def tc_pack(ws: torch.Tensor, enc_kind: str) -> torch.Tensor:
   """K2/K3's TC pack of `ws` for `enc_kind` (`tc_pack_mlps`)."""
   return tc_pack_mlps(ws, tc_mlps(enc_kind))
+
+
+# ---- K1's wgmma pack (csrc/wgmma_tf32.cuh) ----
+
+_WG_SLICE = 16                                   # csrc/wgmma_tf32.cuh SK
+_WG_SUB = 64                                     # its NS_MAX
+
+
+def _pad8(n: int) -> int:
+  return -(-n // 8) * 8
+
+
+def _wgmma_block(a: torch.Tensor, pad: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """An index block a [K][n_out] (K a multiple of 16; B[k][n] = a[k][n]) ->
+  (its wgmma-pack order [sub, slice, part (hi, lo), k-chunk (4), n-group
+  (NS/8), 8 (n), 4 (k)], each entry's part): per sub-product of NS
+  outputs (64, or the width padded to 8 below that: csrc/wgmma_tf32.cuh
+  `sub_n`) and 16-deep slice, a unit of hi then lo, each a
+  grid of core matrices, row r and column c of core (kc, ng) holding
+  B[16·slice + 4kc + c][NS·sub + 8ng + r]: Bᵀ K-major, wgmma's canonical
+  layout without swizzle; columns past n_out hold `pad` (a zero)."""
+  k, n = a.shape
+  np_ = _pad8(n)
+  ns = min(np_, _WG_SUB)
+  full = torch.full((k, np_), pad, dtype=torch.long)
+  full[:, :n] = a
+  sub = torch.arange(np_ // ns).view(-1, 1, 1, 1, 1, 1)
+  s = torch.arange(k // _WG_SLICE).view(1, -1, 1, 1, 1, 1)
+  kc = torch.arange(4).view(1, 1, -1, 1, 1, 1)
+  ng = torch.arange(ns // 8).view(1, 1, 1, -1, 1, 1)
+  r = torch.arange(8).view(1, 1, 1, 1, -1, 1)
+  c = torch.arange(4).view(1, 1, 1, 1, 1, -1)
+  out = full[_WG_SLICE * s + 4 * kc + c, ns * sub + 8 * ng + r].unsqueeze(2)
+  return (torch.cat([out, out], dim=2),
+          torch.cat([torch.full_like(out, TC_HI), torch.full_like(out, TC_LO)],
+                    dim=2))
+
+
+def wgmma_layout_index(mlps: TCMlps, weight_count: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(index, part) of csrc/wgmma_tf32.cuh's wgmma pack of the MLPs `mlps`
+  (K1's: `tc_mlps`, whose part flags it does not read: every product in
+  two parts) of a packed weight vector of `weight_count` floats
+  (`weight_count`: a zero pad; part TC_HI or TC_LO). Per MLP, in order,
+  and per Dense layer
+  W [in, out] (in = kh hidden rows ‖ kf init rows): B = W as [kh rows
+  padded to 16, then kf rows padded to 16][out] in `_wgmma_block`'s
+  order."""
+  pad = weight_count
+  blocks = []
+  for pos, layers, _ in mlps:
+    for j, (_, n_in, n_out) in enumerate(layers):
+      kh = 0 if j == 0 else layers[0][2]
+      w = pos + torch.arange(n_in * n_out).view(n_in, n_out)
+      b = torch.full((_pad16(kh) + _pad16(n_in - kh), n_out), pad,
+                     dtype=torch.long)
+      b[:kh] = w[:kh]
+      b[_pad16(kh):_pad16(kh) + n_in - kh] = w[kh:]
+      blocks.append(_wgmma_block(b, pad))
+      pos += n_in * n_out + n_out
+  return (torch.cat([b.reshape(-1) for b, _ in blocks]),
+          torch.cat([p.reshape(-1) for _, p in blocks]))
+
+
+_WG_INDEX: Dict[Tuple[torch.device, str], Tuple[torch.Tensor,
+                                                torch.Tensor]] = {}
+
+
+def wgmma_pack(ws: torch.Tensor, enc_kind: str) -> torch.Tensor:
+  """The packed weights `ws` of `enc_kind` pre-split into K1's wgmma pack
+  (`wgmma_layout_index`), once per call."""
+  key = (ws.device, enc_kind)
+  if key not in _WG_INDEX:
+    _WG_INDEX[key] = tuple(t.to(ws.device) for t in wgmma_layout_index(
+        tc_mlps(enc_kind), ws.shape[0]))
+  index, part = _WG_INDEX[key]
+  hi, lo = tf32_split(F.pad(ws, (0, 1))[index])
+  return torch.where(part == TC_HI, hi, lo)
 
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,

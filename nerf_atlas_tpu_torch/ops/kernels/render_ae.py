@@ -51,7 +51,27 @@ LAYERS = tuple(
                      1 + k1.INTERMEDIATE)
     + k1._mlp_layout("refl.mlp", R_IN, k1.R_HIDDEN, k1.R_LAYERS, 3))
 N_ENC_LAYERS = E_LAYERS + 2
+N_DT_LAYERS = D_LAYERS + 2
 WEIGHT_COUNT = sum(i * o + o for _, i, o in LAYERS)         # 564,804
+
+
+def _mlp_offsets():
+  pos, out = 0, []
+  for group in (LAYERS[:N_ENC_LAYERS],
+                LAYERS[N_ENC_LAYERS:N_ENC_LAYERS + N_DT_LAYERS],
+                LAYERS[N_ENC_LAYERS + N_DT_LAYERS:]):
+    out.append((pos, group))
+    pos += sum(i * o + o for _, i, o in group)
+  return out
+
+
+# K7b's TC pack (render.tc_layout_index; csrc/render_ae.cuh E_THREE,
+# D_THREE, R_THREE mirror the flags): the encoder's, density_tfm's and the
+# View's. The two leaky MLPs run their forward products (the recompute,
+# whose pre-activations decide the backward's act′) in three parts, the
+# siren View in two.
+TC_MLPS = tuple((pos, group, three) for (pos, group), three in
+                zip(_mlp_offsets(), (True, True, False)))
 
 Params = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
@@ -247,19 +267,22 @@ def _load_bwd_library() -> ctypes.CDLL:
       + [ctypes.c_float, ctypes.c_void_p])
   lib.render_ae_bwd_launch.restype = ctypes.c_int
   for fn in ("render_ae_bwd_weight_count",
-             "render_ae_bwd_stash_floats_per_tile"):
+             "render_ae_bwd_stash_floats_per_tile", "render_ae_bwd_tc_floats"):
     getattr(lib, fn).argtypes = []
     getattr(lib, fn).restype = ctypes.c_longlong
   lib.render_ae_bwd_max_steps.argtypes = []
   lib.render_ae_bwd_max_steps.restype = ctypes.c_int
   lib.render_ae_bwd_error_string.argtypes = [ctypes.c_int]
   lib.render_ae_bwd_error_string.restype = ctypes.c_char_p
+  tc = k1.tc_layout_index(TC_MLPS, WEIGHT_COUNT)[0].numel()
   if (lib.render_ae_bwd_weight_count() != WEIGHT_COUNT
-      or lib.render_ae_bwd_max_steps() != BWD_MAX_STEPS):
+      or lib.render_ae_bwd_max_steps() != BWD_MAX_STEPS
+      or lib.render_ae_bwd_tc_floats() != tc):
     raise RuntimeError(
         f"render_ae_bwd.cu packs {lib.render_ae_bwd_weight_count()} weights "
-        f"and takes {lib.render_ae_bwd_max_steps()} steps, the wrapper "
-        f"{WEIGHT_COUNT} and {BWD_MAX_STEPS}")
+        f"and takes {lib.render_ae_bwd_max_steps()} steps and a TC pack of "
+        f"{lib.render_ae_bwd_tc_floats()} floats, the wrapper "
+        f"{WEIGHT_COUNT}, {BWD_MAX_STEPS} and {tc}")
   return lib
 
 
@@ -288,25 +311,6 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor, *, steps: int,
       stream)
   k1._raise_on(err, lib, "render_ae_fwd", "render_ae_fwd")
   return out
-
-
-_TRANSPOSE_INDEX: Dict[torch.device, torch.Tensor] = {}
-
-
-def _transposed(ws: torch.Tensor) -> torch.Tensor:
-  """The packed vector with every Dense W [in, out] stored as [out, in]
-  at the same offset (render_ae_bwd.cu reads W row by output unit for
-  the input-gradient products)."""
-  index = _TRANSPOSE_INDEX.get(ws.device)
-  if index is None:
-    index = torch.arange(WEIGHT_COUNT)
-    pos = 0
-    for _, i, o in LAYERS:
-      index[pos:pos + i * o] = pos + torch.arange(i * o).view(i, o).t(
-      ).reshape(-1)
-      pos += i * o + o
-    index = _TRANSPOSE_INDEX.setdefault(ws.device, index.to(ws.device))
-  return ws[index]
 
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor, gin: torch.Tensor,
@@ -342,12 +346,12 @@ def _backward_launch(ws: torch.Tensor, rays: torch.Tensor, gin: torch.Tensor,
   stash = torch.empty(
       blocks * tiles * lib.render_ae_bwd_stash_floats_per_tile(),
       dtype=torch.float32, device=rays.device)
-  wt = _transposed(ws)
+  tcw = k1.tc_pack_mlps(ws, TC_MLPS)
   fq = freqs(rays.device)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_ae_bwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), fq.data_ptr(),
-      ws.data_ptr(), wt.data_ptr(), gin.data_ptr(), out.data_ptr(),
+      ws.data_ptr(), tcw.data_ptr(), gin.data_ptr(), out.data_ptr(),
       partial.data_ptr(), stash.data_ptr(), n, steps, blocks,
       k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
       int(loss_mode), 1.0 / (3 * n) if loss_mode else 0.0, stream)

@@ -116,6 +116,11 @@ def k8b_split_tf32_mlp(mlp):
   return split_tf32_mlp(mlp, k8.TC_MLPS)
 
 
+def k7b_split_tf32_mlp(mlp):
+  """`split_tf32_mlp` as K7b runs it (`render_ae.TC_MLPS`)."""
+  return split_tf32_mlp(mlp, k7.TC_MLPS)
+
+
 def k9b_split_tf32_mlp(mlp, lay: k9.Layout):
   """`split_tf32_mlp` as K9b runs it on the layout `lay`
   (`render_dyn.Layout.tc_mlps`)."""
@@ -200,6 +205,43 @@ def dyn_float64_grad(ws: torch.Tensor, rays: torch.Tensor,
     else:
       if arg.shape[1] == 5:
         out = torch.cat([out, dp_col[:, None]], dim=-1)
+      loss = (out * arg.double()).sum()
+    (g,) = torch.autograd.grad(loss, w)
+  return g
+
+
+def k1_float64_render(ws: torch.Tensor, rays: torch.Tensor,
+                      enc_kind: str = "cp", **kw) -> torch.Tensor:
+  """The plain K1 of `enc_kind` (`render.plain_cp_render_reference`'s
+  keywords) with every MLP product in float64 and the rest after them in
+  float64, on the same float32 init features: a witness for how far K1
+  and its plain float32 version each lie from their function where the
+  siren's gain amplifies round-off (rays [N, 4] out, float64)."""
+  saved = k1._matmul
+  k1._matmul = lambda a, b: a.double() @ b.double()
+  try:
+    return k1.plain_cp_render_reference(ws, rays, enc_kind=enc_kind, **kw)
+  finally:
+    k1._matmul = saved
+
+
+def ae_float64_grad(ws: torch.Tensor, rays: torch.Tensor, ts: torch.Tensor,
+                    arg: torch.Tensor, *, loss_mode: bool,
+                    sigmoid_kind: str = "thin",
+                    sky_kind: str = "black") -> torch.Tensor:
+  """The packed gradient of K7b in float64: mode G (loss_mode False)
+  d(Σ arg·out)/d(weights) for the cotangent `arg` [N, 4], mode L the
+  gradient of mean((out_rgb − arg)²). A witness for how far each float32
+  implementation lies from the same function in float64."""
+  w = ws.double().requires_grad_(True)
+  r, t64 = rays.double(), ts.double()
+  with torch.enable_grad():
+    density, rgb = k7.ae_chain(w, r, t64, sigmoid_kind)
+    out = k1.composite(density, rgb, r[:, 3:6], integrate.dists_from_ts(t64),
+                       sky_kind)
+    if loss_mode:
+      loss = torch.mean((out[:, :3] - arg.double()) ** 2)
+    else:
       loss = (out * arg.double()).sum()
     (g,) = torch.autograd.grad(loss, w)
   return g

@@ -36,8 +36,18 @@ K9b's one-element output biases under the posenc canonical at 4096 rays
 sit at float32's own floor whatever the products' precision
 (`test_k9b_posenc_floor_is_float32`, `slow`). The emulation takes each
 MLP's parts from the kernel's TC pack list (`testing.split_tf32_mlp`).
-The layout of the TC pack is checked for K2/K3's, VolSDF's and the four
-D-NeRF layouts.
+The layout of the TC pack is checked for K2/K3's, NeRFAE's, VolSDF's and
+the four D-NeRF layouts.
+
+K1 (csrc/render_fwd.cu) runs its forward products by wgmma in the same
+split: the plain K1 so computed holds K1's 1e-4 abs gate in all six
+modes, on shared and per-ray ts and on its weights output, and K1's
+wgmma pack gives back each layer's Wᵀ as its hi and lo parts. K7b
+(csrc/render_ae_bwd.cu) runs its products as K8b does, the encoder's and
+density_tfm's forward in three parts (`testing.k7b_split_tf32_mlp`):
+the plain K7b so computed holds K7b's gates on the kink-free rays; at
+4096 rays every part assignment does (`test_k7b_parts_by_group`,
+`slow`).
 """
 import numpy as np
 import pytest
@@ -47,6 +57,7 @@ torch.set_num_threads(2)
 
 from nerf_atlas_tpu_torch import testing  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import render as k1  # noqa: E402
+from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import (  # noqa: E402
     render_volsdf as k8)
@@ -193,9 +204,10 @@ def _skip_at(i, nl):
 
 def _tc_layouts():
   """(name, its MLPs (render.TCMlps), packed weight count): K2/K3's six,
-  VolSDF's and the four D-NeRF layouts."""
+  NeRFAE's (K7b), VolSDF's and the four D-NeRF layouts."""
   out = [(e, k1.tc_mlps(e), k1.LAYOUTS[e].weight_count)
          for e in k1.ENC_KINDS]
+  out.append(("ae", k7.TC_MLPS, k7.WEIGHT_COUNT))
   out.append(("volsdf", k8.TC_MLPS, k8.WEIGHT_COUNT))
   for (enc, warp), lay in k9.LAYOUTS.items():
     out.append((f"dyn-{enc}-{warp}", lay.tc_mlps, lay.weight_count))
@@ -264,6 +276,236 @@ def test_tc_pack_layout(name, mlps, count):
           assert float(bwd.abs().sum() - bwd[:n_out, :part.shape[0]].abs()
                        .sum()) == 0.0
   assert off == pack.numel()
+
+
+# ---- K1 (csrc/render_fwd.cu on wgmma) and its wgmma pack ----
+
+K1_TOL = 1e-4
+K1_MODES = ("cp", "hash", "posenc", "tiny", "cone", "cylinder")
+
+
+def _k1_weights(mode):
+  """Seeded full-width weights of a K1 mode with chip_smoke.py's
+  amplification: rgb's output layer ×40 and density's ×8 (tiny: the rows
+  of its one layer_out), so that rgb spans (0, 1) and density varies."""
+  from nerf_atlas_tpu_torch import models
+  from nerf_atlas_tpu_torch.train import driver
+  if mode == "tiny":
+    model = models.TinyNeRF(steps=STEPS)
+  elif mode in k1.MIP_KINDS:
+    model = models.PlainNeRF(steps=STEPS, mip=mode)
+  else:
+    model = models.PlainNeRF(steps=STEPS, enc_kind=mode)
+  sd = dict(driver.init_model(model, seed=0).state_dict())
+  if mode == "tiny":
+    w = sd["mlp.layer_out.weight"]
+    sd["mlp.layer_out.weight"] = torch.cat([w[:1] * 8.0, w[1:] * 40.0])
+  else:
+    sd["refl.mlp.layer_out.weight"] = sd["refl.mlp.layer_out.weight"] * 40.0
+    sd["density_mlp.layer_out.weight"] = (
+        sd["density_mlp.layer_out.weight"] * 8.0)
+  return k1.pack_weights(sd, enc_kind=mode)
+
+
+@pytest.mark.parametrize("per_ray", [False, True], ids=["shared-ts",
+                                                         "per-ray-ts"])
+@pytest.mark.parametrize("mode", K1_MODES)
+def test_plain_k1_split_tf32_within_k1_gate(monkeypatch, mode, per_ray):
+  """The plain K1 with every MLP product in split TF32 (`render._matmul`
+  through `testing.split_tf32_matmul`: the products K1's wgmma forms,
+  lo·hi + hi·lo + hi·hi of activations and weights) against itself in
+  float32, in each of the six modes, on a jittered shared ts [T] or each
+  ray's own sorted ts [N, T]: rgb and acc within K1's gate (1e-4 abs),
+  and the compositing weights (the weights output CoarseFineNeRF samples
+  from) too, at full width, 256 rays × 64 steps, white sky."""
+  ws = _k1_weights(mode)
+  rays = _rays(N, 3)
+  gen = torch.Generator().manual_seed(4)
+  if per_ray:
+    ts = torch.sort(torch.rand(N, STEPS, generator=gen) * 4 + 2).values
+  else:
+    ts = torch.sort(torch.rand(STEPS, generator=gen) * 4 + 2).values
+  kw = dict(steps=STEPS, ts=ts, sky_kind="white", sigmoid_kind="normal",
+            want_weights=True)
+  if mode == "hash":
+    feats = torch.rand(N * STEPS, 16, generator=gen) * 2 - 1
+    run = lambda: k1._plain_render(  # noqa: E731
+        ws, rays, feats, "hash", t_near=2.0, t_far=6.0, **kw)
+  else:
+    run = lambda: k1.plain_cp_render_reference(  # noqa: E731
+        ws, rays, enc_kind=mode, **kw)
+  out_f32, w_f32 = run()
+  monkeypatch.setattr(k1, "_matmul", testing.split_tf32_matmul)
+  out_tc, w_tc = run()
+  assert not torch.equal(out_tc, out_f32)          # the emulation ran
+  assert float(out_f32[:, :3].std()) > 0.05        # rgb varies
+  e_out = float((out_tc - out_f32).abs().max())
+  e_w = float((w_tc - w_f32).abs().max())
+  print(f"K1-{mode} {'per-ray' if per_ray else 'shared'} ts: out {e_out:.3e}, "
+        f"weights {e_w:.3e}")
+  assert e_out <= K1_TOL and e_w <= K1_TOL
+
+
+def test_k1_float64_witness_is_the_plain_render():
+  """`testing.k1_float64_render` (chip_smoke.py holds each K1 line to it)
+  is the plain K1 with float64 products: float64 out, within K1's gate of
+  the float32 plain version, not equal to it, and `render._matmul` put
+  back."""
+  ws = _k1_weights("cone")
+  rays = _rays(32, 7)
+  kw = dict(steps=16, sky_kind="white", sigmoid_kind="tanh",
+            enc_kind="cone")
+  ref = k1.plain_cp_render_reference(ws, rays, **kw)
+  w64 = testing.k1_float64_render(ws, rays, **kw)
+  assert w64.dtype == torch.float64 and k1._matmul is torch.matmul
+  assert 0.0 < float((w64 - ref.double()).abs().max()) <= K1_TOL
+
+
+def _pad8(n):
+  return -(-n // 8) * 8
+
+
+@pytest.mark.parametrize("mode", K1_MODES)
+def test_wgmma_pack_layout(mode):
+  """`render.wgmma_pack`, read at the offsets csrc/wgmma_tf32.cuh computes
+  (`layer_offset`: per MLP and Dense layer [pad16(kh) + pad16(kf)][pad8(
+  out)] hi and lo; per sub-product of `sub_n(out)` outputs and 16-deep
+  slice a unit of hi then lo, each [k-chunk][n-group][8 n][4 k]: the core
+  matrices of wgmma's K-major layout without swizzle), gives back each
+  layer's Wᵀ [out][in] as its TF32 hi and lo parts (hi = tf32(w), lo =
+  tf32(w − hi)), with zeros in the padding."""
+  count = k1.LAYOUTS[mode].weight_count
+  gen = torch.Generator().manual_seed(5)
+  ws = torch.randn(count, generator=gen)
+  pack = k1.wgmma_pack(ws, mode)
+
+  def block(off, k, n):
+    """The hi and lo parts of the block at `off` as Bᵀ [pad8(n)][k], and
+    the block's end."""
+    np_, ns = _pad8(n), min(_pad8(n), 64)
+    b = pack[off:off + 2 * k * np_].view(np_ // ns, k // 16, 2, 4, ns // 8,
+                                          8, 4)
+    sub, s, part, kc, ng, r, c = torch.meshgrid(
+        *[torch.arange(x) for x in b.shape], indexing="ij")
+    out = torch.zeros(2, np_, k)
+    out[part, ns * sub + 8 * ng + r, 16 * s + 4 * kc + c] = b
+    return out[0], out[1], off + 2 * k * np_
+
+  off = 0
+  for pos, layers, _ in k1.tc_mlps(mode):
+    nl = len(layers) - 2
+    for j, (_, n_in, n_out) in enumerate(layers):
+      w = ws[pos:pos + n_in * n_out].view(n_in, n_out)
+      pos += n_in * n_out + n_out
+      kh = 0 if j == 0 else layers[0][2]
+      kf = n_in - kh
+      assert kf == (n_in if j == 0 else
+                    (kf if 1 <= j <= nl and _skip_at(j - 1, nl) else 0))
+      hi, lo, off = block(off, _pad16(kh) + _pad16(kf), n_out)
+      want_hi, want_lo = k1.tf32_split(w.t().contiguous())
+      for got, want in ((hi, want_hi), (lo, want_lo)):
+        assert torch.equal(got[:n_out, :kh], want[:, :kh])
+        assert torch.equal(got[:n_out, _pad16(kh):_pad16(kh) + kf],
+                           want[:, kh:])
+        assert float(got[:, kh:_pad16(kh)].abs().sum()) == 0.0
+        assert float(got[:, _pad16(kh) + kf:].abs().sum()) == 0.0
+        assert float(got[n_out:].abs().sum()) == 0.0
+  assert off == pack.numel()
+
+
+# ---- K7b (csrc/render_ae_bwd.cu) ----
+
+def _ae_case(n, seed=0):
+  """A NeRFAE at full width, its View's output layer ×40 and
+  density_tfm's ×8 (chip_smoke.py's amplified check weights), rays
+  through the CP box, a jittered ts, and the rays
+  `testing.ae_kink_free_rays` clears (chip_smoke.py's margin)."""
+  from nerf_atlas_tpu_torch import models
+  from nerf_atlas_tpu_torch.train import driver
+  sd = dict(driver.init_model(models.NeRFAE(steps=STEPS), seed=0)
+            .state_dict())
+  sd["refl.mlp.layer_out.weight"] = sd["refl.mlp.layer_out.weight"] * 40.0
+  sd["density_tfm.layer_out.weight"] = (
+      sd["density_tfm.layer_out.weight"] * 8.0)
+  ws = k7.pack_weights_ae(sd)
+  rays = _rays(n, seed)
+  gen = torch.Generator().manual_seed(6)
+  ts = torch.sort(torch.rand(STEPS, generator=gen) * 4 + 2).values
+  keep = testing.ae_kink_free_rays(ws, rays, ts, STEPS, KINK_MARGIN)
+  assert int(keep.sum()) >= n // 16
+  return ws, rays, ts, keep, gen
+
+
+@pytest.mark.parametrize("mode", ["G", "L"])
+@pytest.mark.parametrize("sky,kind", [("white", "thin"), ("black", "normal")])
+def test_plain_k7b_split_tf32_within_k7b_gates(monkeypatch, mode, sky, kind):
+  """The plain K7b (autograd through the plain K7f) with its three MLPs'
+  products in split TF32 as K7b runs them (`testing.k7b_split_tf32_mlp`:
+  the encoder's and density_tfm's forward in three parts, the View's in
+  two, from `render_ae.TC_MLPS`), against itself in float32, on the
+  kink-free rays (the others get a zero cotangent, as chip_smoke.py
+  checks K7b): mode G (random g) and mode L (random target; loss 1e-5
+  relative), each gradient tensor 1e-4 (‖Δ‖/‖ref‖)."""
+  ws, rays, ts, keep, gen = _ae_case(N)
+  kw = dict(steps=STEPS, ts=ts, sky_kind=sky, sigmoid_kind=kind)
+  if mode == "G":
+    arg = torch.randn(N, 4, generator=gen) * keep[:, None]
+    run = lambda: (None, k7.ae_render_grad_reference(  # noqa: E731
+        ws, rays, arg, **kw))
+  else:
+    out = k7.ae_render_reference(ws, rays, **kw)[:, :3]
+    arg = torch.where(keep[:, None], torch.rand(N, 3, generator=gen), out)
+    run = lambda: k7.ae_train_step_reference(ws, rays, arg,  # noqa: E731
+                                             **kw)
+  loss_f32, grad_f32 = run()
+  monkeypatch.setattr(k1, "_mlp", testing.k7b_split_tf32_mlp(k1._mlp))
+  loss_tc, grad_tc = run()
+  assert not torch.equal(grad_tc, grad_f32)        # the emulation ran
+  if mode == "L":
+    assert abs(float(loss_tc - loss_f32)) <= LOSS_RTOL * float(loss_f32)
+  errs = _rel_errs(k7.unpack_grads_ae, grad_tc, grad_f32)
+  print(f"K7b-{mode} sky {sky} {kind}: worst tensor "
+        f"{max(errs.values()):.3e} ({int(keep.sum())} kink-free rays)")
+  assert max(errs.values()) <= GRAD_RTOL, max(errs.items(),
+                                              key=lambda kv: kv[1])
+
+
+@pytest.mark.slow
+def test_k7b_parts_by_group(monkeypatch):
+  """Which of K7b's MLPs need their forward products in three parts, at
+  chip_smoke.py's 4096 rays × 64: the plain K7b in both modes with each
+  assignment of two or three parts to (encoder, density_tfm, View) against
+  the float32 plain version on the kink-free rays; every assignment holds
+  the gates (`-s` prints the distances), so the emulation does not decide
+  between them: `render_ae.TC_MLPS` keeps three on the leaky MLPs, whose
+  recompute sets the backward's slopes, as K9b's do."""
+  n = 4096
+  ws, rays, ts, keep, gen = _ae_case(n)
+  kw = dict(steps=STEPS, ts=ts, sky_kind="white", sigmoid_kind="thin")
+  g = torch.randn(n, 4, generator=gen) * keep[:, None]
+  out = k7.ae_render_reference(ws, rays, **kw)[:, :3]
+  target = torch.where(keep[:, None], torch.rand(n, 3, generator=gen), out)
+
+  def run():
+    return (k7.ae_train_step_reference(ws, rays, target, **kw)[1],
+            k7.ae_render_grad_reference(ws, rays, g, **kw))
+
+  ref = run()
+  orig = k1._mlp
+  for flags in ((False, False, False), (True, False, False),
+                (False, True, False), (True, True, False),
+                (True, True, True)):
+    mlps = tuple((pos, grp, f) for (pos, grp, _), f in zip(k7.TC_MLPS,
+                                                           flags))
+    monkeypatch.setattr(k1, "_mlp", testing.split_tf32_mlp(orig, mlps))
+    got = run()
+    monkeypatch.setattr(k1, "_mlp", orig)
+    worst = [max(_rel_errs(k7.unpack_grads_ae, a, b).values())
+             for a, b in zip(got, ref)]
+    print(f"three parts (encoder, density_tfm, View) {flags}: L "
+          f"{worst[0]:.3e}, G {worst[1]:.3e} ({int(keep.sum())} kink-free "
+          f"rays)")
+    assert max(worst) <= GRAD_RTOL
 
 
 # ---- K9b and K8b ----
@@ -338,14 +580,17 @@ def test_plain_k9b_split_tf32_within_k9b_gates(monkeypatch, enc, spline,
       grad_tc, enc, spline).items() if k.startswith(("warp.", "rigidity.")))
 
 
-@pytest.mark.parametrize("name", ["volsdf", "dyn-cp-dx", "dyn-cp-spline4",
-                                  "dyn-posenc-dx", "dyn-posenc-spline4"])
+@pytest.mark.parametrize("name", ["ae", "volsdf", "dyn-cp-dx",
+                                  "dyn-cp-spline4", "dyn-posenc-dx",
+                                  "dyn-posenc-spline4"])
 def test_split_mlp_takes_its_parts_from_the_tc_pack(name):
   """`testing.split_tf32_mlp` runs each MLP of a backward kernel's TC pack
-  list (the one the wrapper packs, K8b's `TC_MLPS`, K9b's
+  list (the one the wrapper packs, K7b's and K8b's `TC_MLPS`, K9b's
   `Layout.tc_mlps`) in the parts its flag says, known by its Dense
   shapes, and refuses an MLP the list does not hold."""
-  if name == "volsdf":
+  if name == "ae":
+    mlps = k7.TC_MLPS
+  elif name == "volsdf":
     mlps = k8.TC_MLPS
   else:
     _, enc, warp = name.split("-")
