@@ -8,14 +8,15 @@ Phases, each printing its lines before the next starts:
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
      (one nvcc per source, all started together) and prints ptxas'
      registers and spills, and the tensor-core instructions in the SASS:
-     HGMMA (wgmma) in each of render_fwd's six kernels (K1's split-TF32
-     products), HMMA in each render_bwd, render_ae_bwd, render_dyn_bwd and
-     render_volsdf_bwd library (K2/K3's, K7b's, K9b's and K8b's; none in
-     the reduction);
+     HGMMA (wgmma) in each of render_fwd's six kernels, in render_ae_fwd
+     and in each of the four render_dyn_fwd libraries (K1's, K7f's and
+     K9f's split-TF32 products), HMMA in each render_bwd, render_ae_bwd,
+     render_dyn_bwd and render_volsdf_bwd library (K2/K3's, K7b's, K9b's
+     and K8b's; none in the reduction);
   3. kernels vs plain torch on the card, 4096 seeded rays at full width,
      64 steps, over sky and rgb-activation kinds and seeded/amplified
      weights: K1 (render_fwd) on the uniform grid and on a jittered ts,
-     each line also held to the float64 products (`_k1_witness`);
+     each line also held to the float64 products (`_witness`);
      K2 (render_bwd, cotangent mode) and K3 (render_bwd, loss mode) on a
      jittered ts, against autograd through the plain K1, over all rays
      and over the rays clear of leaky-relu kinks; a ragged batch;
@@ -30,7 +31,9 @@ Phases, each printing its lines before the next starts:
      autograd through the plain path; a ragged batch; PlainHashRender's
      gradient against K2-hash's. Then NeRFAE: K7f (render_ae_fwd) at
      (64 steps, 1001 rays) and (16 steps, 77 rays), black and white sky,
-     on the grid and on a jittered ts; K7b (render_ae_bwd) in cotangent
+     on the grid and on a jittered ts, each line held to the float64
+     products as K1's, and two K7f launches bit for bit; K7b
+     (render_ae_bwd) in cotangent
      and loss mode at 4096 x 64 and 77 x 16 as for K2/K3, over all rays
      and the kink-free ones; AERender's gradient against mode G's; two
      K7b launches bit for bit; each K7b kink-free line also held per
@@ -47,7 +50,9 @@ Phases, each printing its lines before the next starts:
      of each mode bit for bit. Then D-NeRF, in four modes (cp and posenc
      canonical, Δx and the spline at S = 4), seeded and amplified weights
      with the warp active: K9f (render_dyn_fwd) with and without its dp²
-     column at 4096 x 64 and 77 x 16, on the grid and a jittered ts; K9b
+     column at 16384 x 64 and 77 x 16, on the grid and a jittered ts, each
+     line held to the float64 products as K1's, and two K9f launches of
+     each mode bit for bit; K9b
      (render_dyn_bwd) in modes G and L, each with and without the dp²
      term, as for K8b over the rays `testing.dyn_kink_free_rays` clears,
      each kink-free check also held per tensor to a float64 witness;
@@ -290,12 +295,12 @@ N_DYN_CHECK = 16384
 # (mma.sync, csrc/mma_tf32.cuh) or HGMMA (wgmma, csrc/wgmma_tf32.cuh)
 TC_SOURCES = {"render_bwd": "HMMA", "render_ae_bwd": "HMMA",
               "render_dyn_bwd": "HMMA", "render_volsdf_bwd": "HMMA",
-              "render_fwd": "HGMMA"}
+              "render_fwd": "HGMMA", "render_ae_fwd": "HGMMA",
+              "render_dyn_fwd": "HGMMA"}
 # the libraries whose code this slice leaves as it was: `--sass-against`
 # compares their SASS with an earlier commit's
-SASS_SAME = ("hash_encode", "render_ae_fwd", "render_volsdf_fwd",
-             "render_volsdf_bwd", "render_bwd", "render_dyn_fwd",
-             "render_dyn_bwd")
+SASS_SAME = ("hash_encode", "render_fwd", "render_bwd", "render_ae_bwd",
+             "render_volsdf_fwd", "render_volsdf_bwd", "render_dyn_bwd")
 
 
 def _sync_time(fn):
@@ -383,8 +388,11 @@ def _build(build, k1, k9):
   jobs += [(name, k9.defines(enc, spline))
            for name in ("render_dyn_bwd", "render_dyn_fwd")
            for enc, spline in k9.variants()]
+  t0 = time.perf_counter()
   with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
     built = list(pool.map(lambda job: build.build(*job), jobs))
+  print(f"[build] phase 2: {len(jobs)} libraries in "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
   for (name, defines), b in zip(jobs, built):
     tag = f" {' '.join(defines)}" if defines else ""
     entries = [f"{n}: {r}" for n, r in _ptxas_entries(b.log)]
@@ -544,26 +552,27 @@ def _check_bwd(what, k1, ws, rays, gen, kw, feats=None):
   return max_abs
 
 
-def _k1_witness(testing, got, ref, ws, rays, kw):
-  """K1 held to the float64 products (`testing.k1_float64_render`) beside
-  its plain version: (the kernel's max |Δ| from it, the plain version's,
-  their ratio with the floor TOL / 2); raises past
-  `testing.WITNESS_RATIO`. Where the siren's gain meets amplified weights
-  the plain float32 version itself lies near the gate from the float64
-  function, so the line shows which of the two the distance is."""
-  w64 = testing.k1_float64_render(ws, rays, **kw)
+def _witness(testing, what, got, ref, w64):
+  """A forward kernel (K1, K7f, K9f) held to its float64 products (w64:
+  `testing.k1_float64_render`, `ae_float64_render`, `dyn_float64_render`)
+  beside its plain version: the kernel's max |Δ| from them and the plain
+  version's, for the line; raises where their ratio, with the floor TOL
+  / 2, passes `testing.WITNESS_RATIO`. Where the siren's gain meets
+  amplified weights the plain float32 version itself lies near the gate
+  from the float64 function, so the line shows which of the two the
+  distance is."""
   ek = float((got.double() - w64).abs().max())
   ep = float((ref.double() - w64).abs().max())
   ratio = ek / max(ep, TOL / 2)
   if not ratio <= testing.WITNESS_RATIO:
-    raise RuntimeError(f"K1 lies {ek:.3e} from its float64 products, its "
-                       f"plain version {ep:.3e} (ratio {ratio:.2f})")
+    raise RuntimeError(f"{what} lies {ek:.3e} from its float64 products, "
+                       f"its plain version {ep:.3e} (ratio {ratio:.2f})")
   return f"float64 products: kernel {ek:.3e}, plain {ep:.3e}"
 
 
 def _check_kernels(k1, testing, rays_ops, model, dev):
   """Phase 3. Returns (K1 max |Δ|, render_bwd max |Δ| on gradients); each
-  K1 line also prints `_k1_witness`."""
+  K1 line also prints `_witness`."""
   ws = k1.pack_weights(model.state_dict(), dev)
   amplified = dict(model.state_dict())
   amplified["refl.mlp.layer_out.weight"] = (
@@ -591,7 +600,8 @@ def _check_kernels(k1, testing, rays_ops, model, dev):
         raise RuntimeError(f"K1 output not finite ({wname}, {sky}, {kind})")
       e_rgb = float((out[:, :3] - ref[:, :3]).abs().max())
       e_acc = float((out[:, 3] - ref[:, 3]).abs().max())
-      witness = _k1_witness(testing, out, ref, w, rays, dict(kw, ts=t))
+      witness = _witness(testing, "K1", out, ref, testing.k1_float64_render(
+          w, rays, ts=t, **kw))
       print(f"[check] K1 {wname:9s} sky {sky:5s} {kind:6s} {name:11s}: "
             f"max|rgb| {e_rgb:.3e} max|acc| {e_acc:.3e} (tol {TOL:.0e}; ref "
             f"rgb std {float(ref[:, :3].std()):.3f}) | {witness}", flush=True)
@@ -877,9 +887,9 @@ def _check_ae_bwd(what, k7, testing, ws, rays, gen, kw):
 
 
 def _check_ae(k7, testing, rays_ops, models, driver, dev):
-  """Phase 3, NeRFAE: K7f and K7b against their plain versions, AERender
-  against mode G, and K7b's determinism. Returns (K7f max |Δ|, K7b max
-  |Δ|)."""
+  """Phase 3, NeRFAE: K7f (each line with its float64 witness) and K7b
+  against their plain versions, AERender against mode G, and K7f's and
+  K7b's determinism. Returns (K7f max |Δ|, K7b max |Δ|)."""
   seeded, amplified = _ae_weights(models, driver, k7, dev)
   gen = torch.Generator(device=dev).manual_seed(6)
   max_f, max_b = 0.0, 0.0
@@ -897,12 +907,20 @@ def _check_ae(k7, testing, rays_ops, models, driver, dev):
         ref = k7.ae_render_reference(ws, rays, **kw)
         torch.cuda.synchronize()
         e = float((out - ref).abs().max())
+        witness = _witness(testing, "K7f", out, ref,
+                           testing.ae_float64_render(ws, rays, **kw))
         print(f"[check] K7f {n} rays x {steps} {wname:9s} sky {sky:5s} "
               f"{kind:6s} {tname:11s}: max|Δ| {e:.3e} (tol {TOL:.0e}; ref "
-              f"rgb std {float(ref[:, :3].std()):.3f})", flush=True)
+              f"rgb std {float(ref[:, :3].std()):.3f}) | {witness}",
+              flush=True)
         if not (e <= TOL and bool(torch.isfinite(out).all())):
           raise RuntimeError(f"K7f disagrees with its reference: {e}")
         max_f = max(max_f, e)
+    # two launches bit for bit (the last line's inputs)
+    if not torch.equal(out, k7.fused_ae_render(ws, rays, **kw)):
+      raise RuntimeError(f"two K7f launches differ ({n} rays x {steps})")
+    print(f"[check] K7f {n} rays x {steps}: two launches bitwise equal",
+          flush=True)
   rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
   for sky, kind in (("white", "thin"), ("black", "normal")):
     ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
@@ -983,7 +1001,8 @@ def _check_k4(k1, testing, rays_ops, models, driver, dev):
         ref = k1.plain_cp_render_reference(ws, rays, ts=t, **kw)
         torch.cuda.synchronize()
         e = float((got - ref).abs().max())
-        witness = _k1_witness(testing, got, ref, ws, rays, dict(kw, ts=t))
+        witness = _witness(testing, f"K1-{mode}", got, ref,
+                           testing.k1_float64_render(ws, rays, ts=t, **kw))
         print(f"[check] K1-{mode} {wname:9s} sky {sky:5s} {kind:6s} "
               f"{name:11s}: max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
               f"{float(ref[:, :3].std()):.3f}) | {witness}", flush=True)
@@ -1639,7 +1658,8 @@ def _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
   print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step K7f call "
         f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
         f"({tflop / (min(ms['kernel']) / 1e3):.2f} TFLOP/s; bound "
-        f"{res['k7f'][2][0]:.2f} ms), plain torch {ms['plain'][0]:.2f} / "
+        f"{res['k7f'][2][0]:.2f} ms, split TF32 {res['k7f'][2][3]:.2f}), "
+        f"plain torch {ms['plain'][0]:.2f} / "
         f"{ms['plain'][1]:.2f} ms ({tflop / (min(ms['plain']) / 1e3):.2f} "
         "TFLOP/s)", flush=True)
 
@@ -2538,11 +2558,13 @@ def _check_dyn_bwd(what, k9, testing, ws, rays, times, gen, kw):
 
 def _check_dyn(k9, testing, rays_ops, models, driver, dev):
   """Phase 3, D-NeRF: in each mode (cp and posenc canonical, Δx and the
-  spline at S = 4), K9f with and without its dp² column and K9b in both
-  modes, each with and without the dp² term, against their plain
-  versions at 4096 x 64 and 77 x 16, seeded and amplified weights with
-  the warp active; DynRender's gradient against mode G's and two K9b
-  launches of each mode bit for bit; the all-ray floor (`_dyn_floor`).
+  spline at S = 4), K9f with and without its dp² column (each line with
+  its float64 witness) and K9b in both modes, each with and without the
+  dp² term, against their plain versions at 16384 x 64 and 77 x 16,
+  seeded and amplified weights with the warp active; two K9f launches of
+  each mode bit for bit; DynRender's gradient against mode G's and two
+  K9b launches of each mode bit for bit; the all-ray floor
+  (`_dyn_floor`).
   Returns (K9f max |Δ|, K9b max |Δ|)."""
   gen = torch.Generator(device=dev).manual_seed(14)
   max_f, max_b = 0.0, 0.0
@@ -2566,17 +2588,27 @@ def _check_dyn(k9, testing, rays_ops, models, driver, dev):
                                           **kw)
             torch.cuda.synchronize()
             e = float((out - ref).abs().max())
+            witness = _witness(testing, f"K9f {tag}", out, ref,
+                               testing.dyn_float64_render(
+                                   ws, rays, times, ts=t, want_dp=dp, **kw))
             line = (f"[check] K9f {tag} {tname:11s} dp {'on ' if dp else 'off'}"
                     f": max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
                     f"{float(ref[:, :3].std()):.3f}"
                     + (f", dp column max {float(ref[:, 4].max()):.2e}"
-                       if dp else "") + ")")
+                       if dp else "") + f") | {witness}")
             print(line, flush=True)
             if not (e <= TOL and bool(torch.isfinite(out).all())):
               raise RuntimeError(f"K9f disagrees with its reference: {line}")
             if dp and not float(ref[:, 4].max()) > 1e-8:
               raise RuntimeError(f"the warp is not active: {line}")
             max_f = max(max_f, e)
+        if steps == STEPS and wname == "amplified":
+          # two launches bit for bit (the last line's inputs: dp on)
+          again = k9.fused_dyn_render(ws, rays, times, ts=ts, want_dp=True,
+                                      **kw)
+          if not torch.equal(out, again):
+            raise RuntimeError(f"two K9f launches differ: {tag}")
+          print(f"[check] K9f {tag}: two launches bitwise equal", flush=True)
         if steps == STEPS or wname == "amplified":
           max_b = max(max_b, _check_dyn_bwd(tag, k9, testing, ws, rays,
                                             times, gen, dict(kw, ts=ts)))
@@ -2760,9 +2792,9 @@ def _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev):
       print(f"[time] {card}: D-NeRF {tag}: one {CHUNK}-ray x {STEPS}-step "
             f"{key[1]} call {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
             f"({tflop / (min(ms['kernel']) / 1e3):.2f} TFLOP/s; bound "
-            f"{bound[0]:.2f} ms by {bound[1]}, bf16 {bound[2]:.2f}), plain "
-            f"torch {ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms",
-            flush=True)
+            f"{bound[0]:.2f} ms by {bound[1]}, split TF32 {bound[3]:.2f}, "
+            f"bf16 {bound[2]:.2f}), plain torch {ms['plain'][0]:.2f} / "
+            f"{ms['plain'][1]:.2f} ms", flush=True)
     r4 = call_rays[:BATCH].contiguous()
     t4 = torch.rand(BATCH, device=dev, generator=gen)
     ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
@@ -3342,8 +3374,8 @@ def main(argv=None):
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores){tf32}, {bound[2]:.4f} ms at the bf16 "
           "tensor-core peak", flush=True)
-  # K1, K2/K3, K7b, K8b and K9b run their products in split TF32: their
-  # bound is that one
+  # K1, K2/K3, K7f, K7b, K8b, K9f and K9b run their products in split
+  # TF32: their bound is that one
   rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith(tuple(TC_SOURCES))
            else r[7][:2], r[8]) for r in rows]
   print(json.dumps({"kernels": [{

@@ -4,11 +4,11 @@
 // SkipConnMLP's forward (`mlp_fwd`, the backward's recompute) and VJP
 // (`mlp_bwd`), and the eikonal's transpose chain and its adjoint
 // (`mlp_input_grad`, `mlp_input_grad_adjoint`). K1 runs its products by
-// wgmma (wgmma_tf32.cuh, which takes the split and cp.async from here);
-// K7f, K8f and K9f keep render_common.cuh's float32 FMA products;
-// render_ae.cuh, render_dyn.cuh and render_volsdf.cuh include this header
-// for the TC pack's offsets and `TcMlp`, which only the backward kernels
-// instantiate.
+// wgmma (wgmma_tf32.cuh, which takes the split and cp.async from here),
+// and so do K7f and K9f; K8f keeps render_common.cuh's float32 FMA
+// products; render_ae.cuh, render_dyn.cuh and render_volsdf.cuh include
+// this header for the TC pack's offsets and `TcMlp`, which only the
+// backward kernels instantiate.
 //
 // Split TF32. A float32 a is split into hi = tf32(a) and lo = tf32(a − hi)
 // (tf32: round to nearest, ties away from zero, to 10 stored mantissa bits,

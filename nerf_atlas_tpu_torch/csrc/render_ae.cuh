@@ -1,9 +1,9 @@
 // Device code shared by K7f (render_ae_fwd.cu) and K7b (render_ae_bwd.cu):
-// the NeRFAE architecture, its packed weight layout and K7b's TC pack, and
-// the forward of one 64-point tile, which both kernels run. K7f runs its
-// products as render_common.cuh's float32 FMA layers; K7b's recompute
-// runs the same code with its products on the tensor cores (mma_tf32.cuh
-// `TcMlp`, split TF32), stashing what its backward reads.
+// the NeRFAE architecture, its packed weight layout, K7b's TC pack and the
+// latent's norm, which both kernels take in the same order; and K7b's
+// recompute of one 64-point tile, its products on the tensor cores
+// (mma_tf32.cuh `TcMlp`, split TF32), stashing what its backward reads.
+// K7f runs the same chain by wgmma (render_ae_fwd.cu, wgmma_tf32.cuh).
 //
 // The chain of one sample point (nerf_atlas_tpu/ops/pallas/render_ae.py
 // `_ae_chain_fwd`, models/nerf.py NeRFAE):
@@ -113,11 +113,6 @@ __device__ __forceinline__ float latent_norm(const float* x, int stride) {
   return sqrtf(s);
 }
 
-template <class Mlp>
-struct is_fma { static constexpr bool value = false; };
-template <>
-struct is_fma<FmaMlp> { static constexpr bool value = true; };
-
 // The forward of one tile: the block's sample points q0 .. q0 + 63 (of
 // n_pts; padding points repeat the last one). H [E_HIDDEN][PS], Fb and FA
 // [F_ROWS][PS] are shared-memory buffers; ray_s [rays][8] holds the
@@ -126,16 +121,14 @@ struct is_fma<FmaMlp> { static constexpr bool value = true; };
 // `st` (the backward's stash of this tile), every MLP pre-activation, the
 // encoder's init feature, the raw encoding and the View's init feature go
 // there too. On return Fb rows 0..68 hold the View's init feature. `mlp`
-// runs the three MLPs: render_common.cuh's FMA layers (K7f, the default)
-// or `tc::TcMlp` (K7b's recompute, with `st`).
-template <int RS, class Mlp = FmaMlp>
+// runs the three MLPs (`tc::TcMlp`, with `st`).
+template <int RS, class Mlp>
 __device__ void tile_forward(float* H, float* Fb, float* FA,
                              const float* ray_s,
                              const float* __restrict__ ts, const float* fq,
                              const float* __restrict__ w, int q0, int n_pts,
                              int steps, float* res, float* st,
-                             Mlp mlp = Mlp()) {
-  constexpr bool FMA = is_fma<Mlp>::value;
+                             Mlp mlp) {
   const int tid = threadIdx.x;
   // ---- sample points -> rows 0..2 ----
   if (tid < TILE) {
@@ -162,30 +155,13 @@ __device__ void tile_forward(float* H, float* Fb, float* FA,
   // ---- encoder (skips at layers 0 and 3); the raw encoding lands in Fb
   // rows 5..36, where the View's init feature takes the latent ----
   float* ze = st != nullptr ? st + ST_E * TILE : nullptr;
-  constexpr int EZ = E_HIDDEN * TILE;
-  if constexpr (!FMA) {
-    mlp.template fwd<E_IN, E_HIDDEN, E_LAYERS, ENC, ACT_LEAKY, TC_E, E_THREE>(
-        Fb, FA, w + E_IN_, H, ze);
-    for (int i = tid; i < ENC * TILE; i += THREADS) {
-      const int row = i / TILE, p = i % TILE;
-      Fb[(R_ENC + row) * PS + p] = H[row * PS + p];
-    }
-    __syncthreads();
-  } else {
-    dense_fwd<E_IN, 0, E_HIDDEN, ACT_LEAKY>(Fb, nullptr, w + E_IN_, H, ze);
-    dense_fwd<E_HIDDEN, E_IN, E_HIDDEN, ACT_LEAKY>(H, FA, w + E_L0, H,
-                                                   ze ? ze + 1 * EZ : nullptr);
-    dense_fwd<E_HIDDEN, 0, E_HIDDEN, ACT_LEAKY>(H, nullptr, w + E_L1, H,
-                                                ze ? ze + 2 * EZ : nullptr);
-    dense_fwd<E_HIDDEN, 0, E_HIDDEN, ACT_LEAKY>(H, nullptr, w + E_L2, H,
-                                                ze ? ze + 3 * EZ : nullptr);
-    dense_fwd<E_HIDDEN, E_IN, E_HIDDEN, ACT_LEAKY>(H, FA, w + E_L3, H,
-                                                   ze ? ze + 4 * EZ : nullptr);
-    dense_fwd<E_HIDDEN, 0, E_HIDDEN, ACT_LEAKY>(H, nullptr, w + E_L4, H,
-                                                ze ? ze + 5 * EZ : nullptr);
-    dense_fwd<E_HIDDEN, 0, ENC, ACT_NONE>(H, nullptr, w + E_OUT,
-                                          Fb + R_ENC * PS, nullptr);
+  mlp.template fwd<E_IN, E_HIDDEN, E_LAYERS, ENC, ACT_LEAKY, TC_E, E_THREE>(
+      Fb, FA, w + E_IN_, H, ze);
+  for (int i = tid; i < ENC * TILE; i += THREADS) {
+    const int row = i / TILE, p = i % TILE;
+    Fb[(R_ENC + row) * PS + p] = H[row * PS + p];
   }
+  __syncthreads();
 
   // ---- normalize: one thread per point ----
   if (tid < TILE) {
@@ -203,25 +179,9 @@ __device__ void tile_forward(float* H, float* Fb, float* FA,
 
   // ---- density_tfm (skip at layer 0) ----
   float* zd = st != nullptr ? st + ST_D * TILE : nullptr;
-  constexpr int DZ = D_HIDDEN * TILE;
-  if constexpr (!FMA) {
-    mlp.template fwd<ENC, D_HIDDEN, D_LAYERS, D_OUT_W, ACT_LEAKY, TC_D,
-                     D_THREE>(Fb + R_ENC * PS, FA + R_ENC * PS, w + D_IN_, H,
-                              zd);
-  } else {
-    dense_fwd<ENC, 0, D_HIDDEN, ACT_LEAKY>(Fb + R_ENC * PS, nullptr, w + D_IN_,
-                                           H, zd);
-    dense_fwd<D_HIDDEN, ENC, D_HIDDEN, ACT_LEAKY>(
-        H, FA + R_ENC * PS, w + D_L0, H, zd ? zd + 1 * DZ : nullptr);
-    dense_fwd<D_HIDDEN, 0, D_HIDDEN, ACT_LEAKY>(H, nullptr, w + D_L1, H,
-                                                zd ? zd + 2 * DZ : nullptr);
-    dense_fwd<D_HIDDEN, 0, D_HIDDEN, ACT_LEAKY>(H, nullptr, w + D_L2, H,
-                                                zd ? zd + 3 * DZ : nullptr);
-    dense_fwd<D_HIDDEN, 0, D_HIDDEN, ACT_LEAKY>(H, nullptr, w + D_L3, H,
-                                                zd ? zd + 4 * DZ : nullptr);
-    dense_fwd<D_HIDDEN, 0, D_OUT_W, ACT_NONE>(H, nullptr, w + D_OUT, H,
-                                              nullptr);
-  }
+  mlp.template fwd<ENC, D_HIDDEN, D_LAYERS, D_OUT_W, ACT_LEAKY, TC_D,
+                   D_THREE>(Fb + R_ENC * PS, FA + R_ENC * PS, w + D_IN_, H,
+                            zd);
 
   // ---- raw density; View init feature [p ‖ elev, azim ‖ latent ‖ feats]
   if (tid < TILE) {
@@ -246,25 +206,8 @@ __device__ void tile_forward(float* H, float* Fb, float* FA,
 
   // ---- siren View MLP (skips at layers 0 and 3) ----
   float* zr = st != nullptr ? st + ST_R * TILE : nullptr;
-  constexpr int RZ = R_HIDDEN * TILE;
-  if constexpr (!FMA) {
-    mlp.template fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, TC_R,
-                     R_THREE>(Fb, FA, w + R_IN_, H, zr);
-  } else {
-    dense_fwd<R_IN, 0, R_HIDDEN, ACT_SIN30>(Fb, nullptr, w + R_IN_, H, zr);
-    dense_fwd<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(H, FA, w + R_L0, H,
-                                                   zr ? zr + 1 * RZ : nullptr);
-    dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(H, nullptr, w + R_L1, H,
-                                                zr ? zr + 2 * RZ : nullptr);
-    dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(H, nullptr, w + R_L2, H,
-                                                zr ? zr + 3 * RZ : nullptr);
-    dense_fwd<R_HIDDEN, R_IN, R_HIDDEN, ACT_SIN30>(H, FA, w + R_L3, H,
-                                                   zr ? zr + 4 * RZ : nullptr);
-    dense_fwd<R_HIDDEN, 0, R_HIDDEN, ACT_SIN30>(H, nullptr, w + R_L4, H,
-                                                zr ? zr + 5 * RZ : nullptr);
-    dense_fwd<R_HIDDEN, 0, R_OUT_W, ACT_NONE>(H, nullptr, w + R_OUT, H,
-                                              nullptr);
-  }
+  mlp.template fwd<R_IN, R_HIDDEN, R_LAYERS, R_OUT_W, ACT_SIN30, TC_R,
+                   R_THREE>(Fb, FA, w + R_IN_, H, zr);
   if (tid < TILE && q0 + tid < n_pts) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) res[RS * (q0 + tid) + 1 + c] = H[c * PS + tid];

@@ -13,8 +13,8 @@
 // rays and ts get none.
 //
 // Per block of rays (max(1, 64/T) rays, as in K7f), in two passes:
-//   pass 1 re-runs K7f's forward tile by tile (render_ae.cuh
-//     `tile_forward`: the same code, its MLP products on the tensor cores)
+//   pass 1 re-runs K7f's chain tile by tile (render_ae.cuh
+//     `tile_forward`, its MLP products on the tensor cores)
 //     and stashes every MLP pre-activation, the encoder's init feature,
 //     the raw encoding and the View's init feature (3,096 rows of 64
 //     floats, 793 KB per tile) in a per-block scratch in global memory;

@@ -5,9 +5,11 @@
 //
 // Activations of a 64-point tile live feature-major in shared memory
 // ([row][PS], 64 points per row); weights are read per layer through
-// L1/L2. The building blocks (the float32 FMA products of K7f, K8f and
-// K9f; the backward kernels K2/K3, K7b, K8b and K9b take their MLP
-// products from mma_tf32.cuh, K1 from wgmma_tf32.cuh):
+// L1/L2. The building blocks (the float32 FMA forward layers `dense_fwd`,
+// `mlp_fwd` and `FmaMlp` have one caller left, K8f, and go when it moves
+// to wgmma_tf32.cuh; the backward kernels K2/K3, K7b, K8b and K9b take
+// their MLP products from mma_tf32.cuh, K1, K7f and K9f from
+// wgmma_tf32.cuh):
 //   - the activations and the rgb activation with its derivative;
 //   - the sample point and the per-ray constants;
 //   - forward Dense layers (`dense_fwd`, optionally stashing the
@@ -233,10 +235,9 @@ __device__ __forceinline__ void mlp_fwd(const float* F, const float* FA,
                                   X, nullptr);
 }
 
-// The product of a whole SkipConnMLP in the forward helpers that a forward
-// and a backward kernel share (render_dyn.cuh, render_volsdf.cuh): this
-// one, the float32 FMAs of `mlp_fwd` (the forward kernels, the default),
-// or mma_tf32.cuh's `tc::TcMlp` (the backward kernels' recompute). TC is
+// The product of a whole SkipConnMLP in the forward helper that K8f and
+// K8b share (render_volsdf.cuh): this one, the float32 FMAs of `mlp_fwd`
+// (K8f, the default), or mma_tf32.cuh's `tc::TcMlp` (K8b's recompute). TC is
 // the MLP's offset in the backward's TC pack and THREE whether its forward
 // runs in three parts; FmaMlp reads neither.
 struct FmaMlp {

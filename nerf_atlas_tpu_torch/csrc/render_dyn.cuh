@@ -1,12 +1,12 @@
 // Device code shared by K9f (render_dyn_fwd.cu) and K9b (render_dyn_bwd.cu):
 // the D-NeRF / Spline-NeRF architecture and its packed weight layout, the
-// warp's Fourier rows, de Casteljau and the Bernstein weights, and the
-// forward of one 64-point tile (the warp, the rigidity gate and the
-// canonical PlainNeRF chain), which both kernels run (K9f with float32
-// FMA products, K9b's recompute on the tensor cores: the `Mlp` template
-// parameter). The per-layer building blocks are render_common.cuh's and
-// mma_tf32.cuh's, the canonical model's layout, CP encode and encoder
-// backward render_plain.cuh's.
+// warp's Fourier rows and de Casteljau, which both kernels run; the
+// Bernstein weights, and K9b's recompute of one 64-point tile (the warp,
+// the rigidity gate and the canonical PlainNeRF chain, its products on the
+// tensor cores: mma_tf32.cuh `TcMlp`). K9f runs the same chain by wgmma
+// (render_dyn_fwd.cu, wgmma_tf32.cuh). The per-layer building blocks are
+// render_common.cuh's and mma_tf32.cuh's, the canonical model's layout, CP
+// encode and encoder backward render_plain.cuh's.
 //
 // The chain of one sample point (nerf_atlas_tpu/ops/pallas/render_dyn.py
 // `_warp_fwd`, `_dyn_kernel`; models/dyn.py DynamicNeRF):
@@ -178,14 +178,14 @@ __device__ __forceinline__ void bernstein_weights(float t, int n,
 // point's mean over the axes of dp² is at res[RS·q + RM]. With `st` (the
 // tile's stash) the warp's and the rigidity's pre-activations, the warp's
 // init feature and the A rows go there too. `mlp` runs the two MLPs
-// (render_common.cuh `FmaMlp`, or `tc::TcMlp` with `st`).
-template <int RS, int RM, class Mlp = FmaMlp>
+// (`tc::TcMlp`, with `st`).
+template <int RS, int RM, class Mlp>
 __device__ void warp_forward(float* H, float* F, float* FA, float* A,
                              const float* ray_s, const float* ray_t,
                              const float* __restrict__ ts, const float* fb,
                              const float* __restrict__ w, int spline_points,
                              int q0, int n_pts, int steps, float* res,
-                             float* st, Mlp mlp = Mlp()) {
+                             float* st, Mlp mlp) {
   const int tid = threadIdx.x;
   if (tid < TILE) {
     const int q = min(q0 + tid, n_pts - 1);
@@ -253,13 +253,13 @@ __device__ void warp_forward(float* H, float* F, float* FA, float* A,
 // View MLPs' pre-activations and both init features go to the tile's
 // stash. F rows 0..2 keep x' (the View reads them). `mlp` as in
 // `warp_forward`.
-template <int RS, class Mlp = FmaMlp>
+template <int RS, class Mlp>
 __device__ void canonical_forward(float* H, float* F, float* FA,
                                   const float* ray_s,
                                   const float* __restrict__ w,
                                   const float* fq, int q0, int n_pts,
                                   int steps, float* res, float* st,
-                                  Mlp mlp = Mlp()) {
+                                  Mlp mlp) {
   const int tid = threadIdx.x;
   const float* __restrict__ wc = w + CANON;
   if constexpr (ENC == ENC_CP) {

@@ -18,9 +18,9 @@
 // rays, times and ts get none.
 //
 // Per block of rays (max(1, 64/T) rays, as in K9f), in two passes:
-//   pass 1 re-runs K9f's forward tile by tile (render_dyn.cuh
-//     `warp_forward`, `canonical_forward`: the same code, its MLP products
-//     on the tensor cores) and stashes every MLP pre-activation of the four
+//   pass 1 re-runs K9f's chain tile by tile (render_dyn.cuh
+//     `warp_forward`, `canonical_forward`, its MLP products on the
+//     tensor cores) and stashes every MLP pre-activation of the four
 //     MLPs, the three init features and the per-point p, t, Δx and gate
 //     (4,244 rows of 64 floats, 1.09 MB per tile for cp) in a per-block
 //     scratch in global memory;

@@ -45,7 +45,7 @@
 // per point.
 //
 // Design: every MLP product on the tensor cores by TF32 `wgmma`
-// (wgmma_tf32.cuh: split TF32, a fresh accumulator per 16-deep slice). A
+// (wgmma_tf32.cuh: split TF32, a fresh accumulator per 8-deep k-step). A
 // block of 256 threads (two warpgroups) owns max(1, 128/T) rays and walks
 // their points 128 at a time: two 64-point tiles, one per warpgroup (the
 // tile is one wgmma's M), each with its activations in dynamic shared

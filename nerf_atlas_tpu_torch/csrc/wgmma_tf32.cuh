@@ -1,5 +1,6 @@
-// The dense products of K1 (render_fwd.cu) on Hopper's tensor cores: a
-// whole SkipConnMLP's forward by `wgmma.mma_async` in split TF32.
+// The dense products of the forward kernels K1 (render_fwd.cu), K7f
+// (render_ae_fwd.cu) and K9f (render_dyn_fwd.cu) on Hopper's tensor
+// cores: a whole SkipConnMLP's forward by `wgmma.mma_async` in split TF32.
 //
 // Split TF32, as mma_tf32.cuh forms it for the backward kernels: each
 // float32 operand a is split into hi = tf32(a) and lo = tf32(a − hi), and
@@ -11,13 +12,14 @@
 // lay further from the float64 products on K1's checks).
 // ~3·2^-22 relative per term where a float32 FMA carries 2^-24:
 // `testing.split_tf32_matmul` emulates it on the CPU
-// (tests/test_torch_tf32_split.py holds the plain K1 so computed to K1's
-// gate).
+// (tests/test_torch_tf32_split.py holds the plain K1, K7f and K9f so
+// computed to their gate).
 //
 // Why wgmma and this form. A block holds two 64-point tiles, one per
 // warpgroup: the tile's points are one wgmma's M (64), the layer's outputs
 // its N (a 64-wide sub-product of a 256- or 128-wide layer, or the whole
-// padded width of a narrow one: 33 → 40, 4 and 3 → 8; no padding to 64),
+// padded width of a narrow one: 33 → 40, 32 and 30 → 32, 4, 3 and 1 → 8;
+// no padding to 64),
 // the input features its K, 8 per instruction. A, the activations, comes
 // from registers: each thread loads its fragment from the tile's
 // feature-major [row][PS] rows (render_common.cuh's layout, which the
@@ -181,6 +183,25 @@ struct Mma<40> {
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Mma<32> {
+  __device__ __forceinline__ static void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
 };

@@ -909,13 +909,12 @@ def _wgmma_block(a: torch.Tensor, pad: int
 def wgmma_layout_index(mlps: TCMlps, weight_count: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
   """(index, part) of csrc/wgmma_tf32.cuh's wgmma pack of the MLPs `mlps`
-  (K1's: `tc_mlps`, whose part flags it does not read: every product in
-  two parts) of a packed weight vector of `weight_count` floats
-  (`weight_count`: a zero pad; part TC_HI or TC_LO). Per MLP, in order,
-  and per Dense layer
-  W [in, out] (in = kh hidden rows ‖ kf init rows): B = W as [kh rows
-  padded to 16, then kf rows padded to 16][out] in `_wgmma_block`'s
-  order."""
+  (K1's `tc_mlps`; K7f and K9f take their backward's TC pack lists; the
+  part flags are not read: every product in two parts) of a packed weight
+  vector of `weight_count` floats (`weight_count`: a zero pad; part TC_HI
+  or TC_LO). Per MLP, in order, and per Dense layer W [in, out] (in = kh
+  hidden rows ‖ kf init rows): B = W as [kh rows padded to 16, then kf
+  rows padded to 16][out] in `_wgmma_block`'s order."""
   pad = weight_count
   blocks = []
   for pos, layers, _ in mlps:
@@ -932,20 +931,26 @@ def wgmma_layout_index(mlps: TCMlps, weight_count: int
           torch.cat([p.reshape(-1) for _, p in blocks]))
 
 
-_WG_INDEX: Dict[Tuple[torch.device, str], Tuple[torch.Tensor,
-                                                torch.Tensor]] = {}
+_WG_INDEX: Dict[Tuple[torch.device, TCMlps, int],
+                Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def wgmma_pack(ws: torch.Tensor, enc_kind: str) -> torch.Tensor:
-  """The packed weights `ws` of `enc_kind` pre-split into K1's wgmma pack
-  (`wgmma_layout_index`), once per call."""
-  key = (ws.device, enc_kind)
+def wgmma_pack_mlps(ws: torch.Tensor, mlps: TCMlps) -> torch.Tensor:
+  """The packed weights `ws` pre-split into csrc/wgmma_tf32.cuh's wgmma
+  pack of the MLPs `mlps` (`wgmma_layout_index`): the weight operands of
+  a forward kernel's wgmma products (K1, K7f, K9f), once per call."""
+  key = (ws.device, mlps, ws.shape[0])
   if key not in _WG_INDEX:
     _WG_INDEX[key] = tuple(t.to(ws.device) for t in wgmma_layout_index(
-        tc_mlps(enc_kind), ws.shape[0]))
+        mlps, ws.shape[0]))
   index, part = _WG_INDEX[key]
   hi, lo = tf32_split(F.pad(ws, (0, 1))[index])
   return torch.where(part == TC_HI, hi, lo)
+
+
+def wgmma_pack(ws: torch.Tensor, enc_kind: str) -> torch.Tensor:
+  """K1's wgmma pack of `ws` for `enc_kind` (`wgmma_pack_mlps`)."""
+  return wgmma_pack_mlps(ws, tc_mlps(enc_kind))
 
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor,

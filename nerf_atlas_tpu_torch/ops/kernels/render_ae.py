@@ -66,10 +66,11 @@ def _mlp_offsets():
 
 
 # K7b's TC pack (render.tc_layout_index; csrc/render_ae.cuh E_THREE,
-# D_THREE, R_THREE mirror the flags): the encoder's, density_tfm's and the
-# View's. The two leaky MLPs run their forward products (the recompute,
-# whose pre-activations decide the backward's act′) in three parts, the
-# siren View in two.
+# D_THREE, R_THREE mirror the flags) and K7f's wgmma pack
+# (render.wgmma_layout_index, which reads no flag: every product in two
+# parts): the encoder's, density_tfm's and the View's. In K7b the two leaky
+# MLPs run their forward products (the recompute, whose pre-activations
+# decide the backward's act′) in three parts, the siren View in two.
 TC_MLPS = tuple((pos, group, three) for (pos, group), three in
                 zip(_mlp_offsets(), (True, True, False)))
 
@@ -240,20 +241,24 @@ def _load_fwd_library() -> ctypes.CDLL:
   from . import build
   lib = build.load("render_ae_fwd")
   lib.render_ae_fwd_launch.argtypes = (
-      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
   lib.render_ae_fwd_launch.restype = ctypes.c_int
-  lib.render_ae_fwd_weight_count.argtypes = []
-  lib.render_ae_fwd_weight_count.restype = ctypes.c_longlong
+  for fn in ("render_ae_fwd_weight_count", "render_ae_fwd_pack_floats"):
+    getattr(lib, fn).argtypes = []
+    getattr(lib, fn).restype = ctypes.c_longlong
   lib.render_ae_fwd_max_steps.argtypes = []
   lib.render_ae_fwd_max_steps.restype = ctypes.c_int
   lib.render_ae_fwd_error_string.argtypes = [ctypes.c_int]
   lib.render_ae_fwd_error_string.restype = ctypes.c_char_p
+  pack = k1.wgmma_layout_index(TC_MLPS, WEIGHT_COUNT)[0].numel()
   if (lib.render_ae_fwd_weight_count() != WEIGHT_COUNT
-      or lib.render_ae_fwd_max_steps() != MAX_STEPS):
+      or lib.render_ae_fwd_max_steps() != MAX_STEPS
+      or lib.render_ae_fwd_pack_floats() != pack):
     raise RuntimeError(
         f"render_ae_fwd.cu packs {lib.render_ae_fwd_weight_count()} weights "
-        f"and takes {lib.render_ae_fwd_max_steps()} steps, the wrapper "
-        f"{WEIGHT_COUNT} and {MAX_STEPS}")
+        f"in a wgmma pack of {lib.render_ae_fwd_pack_floats()} floats and "
+        f"takes {lib.render_ae_fwd_max_steps()} steps, the wrapper "
+        f"{WEIGHT_COUNT}, {pack} and {MAX_STEPS}")
   return lib
 
 
@@ -303,10 +308,11 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor, *, steps: int,
   ts, dists = k1.sample_grid(steps, t_near, t_far, rays.device, ts)
   fq = freqs(rays.device)
   lib = _load_fwd_library()
+  wp = k1.wgmma_pack_mlps(ws, TC_MLPS)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_ae_fwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), fq.data_ptr(),
-      ws.data_ptr(), out.data_ptr(), rays.shape[0], steps,
+      ws.data_ptr(), wp.data_ptr(), out.data_ptr(), rays.shape[0], steps,
       k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
       stream)
   k1._raise_on(err, lib, "render_ae_fwd", "render_ae_fwd")

@@ -117,10 +117,11 @@ class Layout:
 
   @property
   def tc_mlps(self) -> k1.TCMlps:
-    """K9b's TC pack (render.tc_layout_index): the warp MLP's, the
-    rigidity MLP's, then the canonical's density and View MLPs'; the
-    three with leaky-relu kinks run their forward products in three parts
-    (csrc/render_dyn.cuh `LEAKY_THREE`)."""
+    """K9b's TC pack (render.tc_layout_index) and K9f's wgmma pack
+    (render.wgmma_layout_index): the warp MLP's, the rigidity MLP's, then
+    the canonical's density and View MLPs'; in K9b the three with
+    leaky-relu kinks run their forward products in three parts
+    (csrc/render_dyn.cuh `LEAKY_THREE`), K9f runs every product in two."""
     (d_pos, d_layers, _), (r_pos, r_layers, _) = k1.tc_mlps(self.enc_kind)
     return ((self.warp_offset, self.warp_layers, True),
             (self.rig_offset, self.rig_layers, True),
@@ -436,8 +437,15 @@ def _bind(name: str, enc_kind: str, spline_points: int, n_ptr: int,
 
 @functools.lru_cache(maxsize=None)
 def _load_fwd_library(enc_kind: str, warp: str) -> ctypes.CDLL:
-  return _bind("render_dyn_fwd", enc_kind, 0 if warp == "dx" else MAX_SPLINE,
-               7, 6, 0, ())
+  lib = _bind("render_dyn_fwd", enc_kind, 0 if warp == "dx" else MAX_SPLINE,
+              8, 6, 0, ("pack_floats",))
+  lay = LAYOUTS[(enc_kind, warp)]
+  want = k1.wgmma_layout_index(lay.tc_mlps, lay.weight_count)[0].numel()
+  if lib.render_dyn_fwd_pack_floats() != want:
+    raise RuntimeError(f"render_dyn_fwd.cu built for {enc_kind}/{warp} takes "
+                       f"a wgmma pack of {lib.render_dyn_fwd_pack_floats()} "
+                       f"floats, the wrapper {want}")
+  return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -473,12 +481,13 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor,
   ts, dists = k1.sample_grid(steps, t_near, t_far, rays.device, ts)
   fq = k1.freqs(enc_kind, rays.device)
   lib = _load_fwd_library(enc_kind, lay.warp)
+  wp = k1.wgmma_pack_mlps(ws, lay.tc_mlps)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_dyn_fwd_launch(
       rays.data_ptr(), times.data_ptr(), ts.data_ptr(), dists.data_ptr(),
-      ws.data_ptr(), k1._ptr(fq), out.data_ptr(), n, steps, spline_points,
-      k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
-      int(want_dp), stream)
+      ws.data_ptr(), wp.data_ptr(), k1._ptr(fq), out.data_ptr(), n, steps,
+      spline_points, k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind),
+      int(sky_kind == "white"), int(want_dp), stream)
   k1._raise_on(err, lib, "render_dyn_fwd", "render_dyn_fwd")
   return out
 

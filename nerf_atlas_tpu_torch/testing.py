@@ -210,6 +210,18 @@ def dyn_float64_grad(ws: torch.Tensor, rays: torch.Tensor,
   return g
 
 
+def _float64_products(render, *args, **kw) -> torch.Tensor:
+  """`render` (a plain forward kernel version) with every MLP product
+  (`render._matmul`) in float64 and the rest after them in float64, on
+  the same float32 inputs to the first products."""
+  saved = k1._matmul
+  k1._matmul = lambda a, b: a.double() @ b.double()
+  try:
+    return render(*args, **kw)
+  finally:
+    k1._matmul = saved
+
+
 def k1_float64_render(ws: torch.Tensor, rays: torch.Tensor,
                       enc_kind: str = "cp", **kw) -> torch.Tensor:
   """The plain K1 of `enc_kind` (`render.plain_cp_render_reference`'s
@@ -217,12 +229,28 @@ def k1_float64_render(ws: torch.Tensor, rays: torch.Tensor,
   float64, on the same float32 init features: a witness for how far K1
   and its plain float32 version each lie from their function where the
   siren's gain amplifies round-off (rays [N, 4] out, float64)."""
-  saved = k1._matmul
-  k1._matmul = lambda a, b: a.double() @ b.double()
-  try:
-    return k1.plain_cp_render_reference(ws, rays, enc_kind=enc_kind, **kw)
-  finally:
-    k1._matmul = saved
+  return _float64_products(k1.plain_cp_render_reference, ws, rays,
+                           enc_kind=enc_kind, **kw)
+
+
+def dyn_float64_render(ws: torch.Tensor, rays: torch.Tensor,
+                       times: torch.Tensor, **kw) -> torch.Tensor:
+  """The plain K9f (`render_dyn.dyn_render_reference`'s keywords) with
+  every MLP product in float64 and the rest after them in float64 (the
+  gate, x' = p + dp, the canonical's encoding of x'), on the same float32
+  warp init feature: K9f's witness, as `k1_float64_render` is K1's ([N,
+  4] or, with want_dp, [N, 5] out, float64)."""
+  return _float64_products(k9.dyn_render_reference, ws, rays, times, **kw)
+
+
+def ae_float64_render(ws: torch.Tensor, rays: torch.Tensor,
+                      **kw) -> torch.Tensor:
+  """The plain K7f (`render_ae.ae_render_reference`'s keywords) with every
+  MLP product in float64 and the rest after them in float64 (the
+  normalize, the View's init feature), on the same float32 posenc
+  features: K7f's witness, as `k1_float64_render` is K1's ([N, 4] out,
+  float64)."""
+  return _float64_products(k7.ae_render_reference, ws, rays, **kw)
 
 
 def ae_float64_grad(ws: torch.Tensor, rays: torch.Tensor, ts: torch.Tensor,

@@ -42,7 +42,11 @@ the four D-NeRF layouts.
 K1 (csrc/render_fwd.cu) runs its forward products by wgmma in the same
 split: the plain K1 so computed holds K1's 1e-4 abs gate in all six
 modes, on shared and per-ray ts and on its weights output, and K1's
-wgmma pack gives back each layer's Wᵀ as its hi and lo parts. K7b
+wgmma pack gives back each layer's Wᵀ as its hi and lo parts. So do K9f
+(csrc/render_dyn_fwd.cu; four modes, with and without the dp² column)
+and K7f (csrc/render_ae_fwd.cu), each with its wgmma pack; the float64
+witnesses chip_smoke.py holds the three to are their plain versions
+with float64 products. K7b
 (csrc/render_ae_bwd.cu) runs its products as K8b does, the encoder's and
 density_tfm's forward in three parts (`testing.k7b_split_tf32_mlp`):
 the plain K7b so computed holds K7b's gates on the kink-free rays; at
@@ -346,18 +350,36 @@ def test_plain_k1_split_tf32_within_k1_gate(monkeypatch, mode, per_ray):
   assert e_out <= K1_TOL and e_w <= K1_TOL
 
 
-def test_k1_float64_witness_is_the_plain_render():
-  """`testing.k1_float64_render` (chip_smoke.py holds each K1 line to it)
-  is the plain K1 with float64 products: float64 out, within K1's gate of
-  the float32 plain version, not equal to it, and `render._matmul` put
-  back."""
-  ws = _k1_weights("cone")
-  rays = _rays(32, 7)
-  kw = dict(steps=16, sky_kind="white", sigmoid_kind="tanh",
-            enc_kind="cone")
-  ref = k1.plain_cp_render_reference(ws, rays, **kw)
-  w64 = testing.k1_float64_render(ws, rays, **kw)
+def _witness_case(kernel):
+  """(the plain float32 render, its float64 witness) of one forward
+  kernel at 32 rays × 16 steps, white sky, tanh: K1-cone, K9f (cp, spline
+  S = 4, with the dp² column) or K7f, each on its amplified weights."""
+  kw = dict(steps=16, sky_kind="white", sigmoid_kind="tanh")
+  if kernel == "k1":
+    ws, rays = _k1_weights("cone"), _rays(32, 7)
+    kw["enc_kind"] = "cone"
+    return (k1.plain_cp_render_reference(ws, rays, **kw),
+            testing.k1_float64_render(ws, rays, **kw))
+  if kernel == "k9f":
+    ws, rays, times, _, _ = _dyn_inputs("cp", 4, 32)
+    kw.update(enc_kind="cp", spline_points=4, want_dp=True)
+    return (k9.dyn_render_reference(ws, rays, times, **kw),
+            testing.dyn_float64_render(ws, rays, times, **kw))
+  ws, rays = _ae_weights(), _rays(32, 7)
+  return (k7.ae_render_reference(ws, rays, **kw),
+          testing.ae_float64_render(ws, rays, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k9f", "k7f"])
+def test_k1_float64_witness_is_the_plain_render(kernel):
+  """`testing.k1_float64_render`, `dyn_float64_render` and
+  `ae_float64_render` (chip_smoke.py holds each K1, K9f and K7f line to
+  them) are the plain K1, K9f and K7f with float64 products: float64 out,
+  within the kernels' gate of the float32 plain version, not equal to it,
+  and `render._matmul` put back."""
+  ref, w64 = _witness_case(kernel)
   assert w64.dtype == torch.float64 and k1._matmul is torch.matmul
+  assert w64.shape == ref.shape
   assert 0.0 < float((w64 - ref.double()).abs().max()) <= K1_TOL
 
 
@@ -365,19 +387,34 @@ def _pad8(n):
   return -(-n // 8) * 8
 
 
-@pytest.mark.parametrize("mode", K1_MODES)
-def test_wgmma_pack_layout(mode):
-  """`render.wgmma_pack`, read at the offsets csrc/wgmma_tf32.cuh computes
-  (`layer_offset`: per MLP and Dense layer [pad16(kh) + pad16(kf)][pad8(
-  out)] hi and lo; per sub-product of `sub_n(out)` outputs and 16-deep
-  slice a unit of hi then lo, each [k-chunk][n-group][8 n][4 k]: the core
-  matrices of wgmma's K-major layout without swizzle), gives back each
-  layer's Wᵀ [out][in] as its TF32 hi and lo parts (hi = tf32(w), lo =
-  tf32(w − hi)), with zeros in the padding."""
-  count = k1.LAYOUTS[mode].weight_count
+def _wgmma_layouts():
+  """(name, its MLPs (render.TCMlps), packed weight count): K1's six
+  modes, NeRFAE's (K7f) and the four D-NeRF layouts (K9f)."""
+  out = [(e, k1.tc_mlps(e), k1.LAYOUTS[e].weight_count) for e in K1_MODES]
+  out.append(("ae", k7.TC_MLPS, k7.WEIGHT_COUNT))
+  for (enc, warp), lay in k9.LAYOUTS.items():
+    out.append((f"dyn-{enc}-{warp}", lay.tc_mlps, lay.weight_count))
+  return out
+
+
+@pytest.mark.parametrize("name,mlps,count", _wgmma_layouts(),
+                         ids=[t[0] for t in _wgmma_layouts()])
+def test_wgmma_pack_layout(name, mlps, count):
+  """`render.wgmma_pack_mlps`, read at the offsets csrc/wgmma_tf32.cuh
+  computes (`layer_offset`: per MLP and Dense layer [pad16(kh) +
+  pad16(kf)][pad8(out)] hi and lo; per sub-product of `sub_n(out)` outputs
+  and 16-deep slice a unit of hi then lo, each [k-chunk][n-group][8 n][4
+  k]: the core matrices of wgmma's K-major layout without swizzle), gives
+  back each layer's Wᵀ [out][in] as its TF32 hi and lo parts (hi =
+  tf32(w), lo = tf32(w − hi)), with zeros in the padding; in K1's modes
+  it is `render.wgmma_pack`, the pack render_fwd.cu reads. The MLP lists
+  are the ones K1, K7f (`render_ae.TC_MLPS`) and K9f
+  (`render_dyn.Layout.tc_mlps`) pack: their part flags are not read."""
   gen = torch.Generator().manual_seed(5)
   ws = torch.randn(count, generator=gen)
-  pack = k1.wgmma_pack(ws, mode)
+  pack = k1.wgmma_pack_mlps(ws, mlps)
+  if name in K1_MODES:
+    assert torch.equal(pack, k1.wgmma_pack(ws, name))
 
   def block(off, k, n):
     """The hi and lo parts of the block at `off` as Bᵀ [pad8(n)][k], and
@@ -392,7 +429,7 @@ def test_wgmma_pack_layout(mode):
     return out[0], out[1], off + 2 * k * np_
 
   off = 0
-  for pos, layers, _ in k1.tc_mlps(mode):
+  for pos, layers, _ in mlps:
     nl = len(layers) - 2
     for j, (_, n_in, n_out) in enumerate(layers):
       w = ws[pos:pos + n_in * n_out].view(n_in, n_out)
@@ -413,13 +450,67 @@ def test_wgmma_pack_layout(mode):
   assert off == pack.numel()
 
 
+# ---- K9f and K7f (csrc/render_dyn_fwd.cu, render_ae_fwd.cu on wgmma) ----
+
+K9F_MODES = (("cp", 0), ("cp", 4), ("posenc", 0), ("posenc", 4))
+
+
+@pytest.mark.parametrize("dp", [False, True], ids=["dp-off", "dp-on"])
+@pytest.mark.parametrize("enc,spline", K9F_MODES,
+                         ids=[f"{e}-{'dx' if s == 0 else f'spline{s}'}"
+                              for e, s in K9F_MODES])
+def test_plain_k9f_split_tf32_within_k9f_gate(monkeypatch, enc, spline, dp):
+  """The plain K9f with every MLP product in split TF32 (`render._matmul`
+  through `testing.split_tf32_matmul`: the two parts K9f's wgmma forms,
+  lo·hi + hi·lo + hi·hi, in all four MLPs) against itself in float32, in
+  the four modes (cp or posenc canonical, Δx or the spline at S = 4),
+  with and without the dp² column: within K9f's gate (1e-4 abs), on
+  `_dyn_inputs`' weights (the warp active, the View's output ×40), 256
+  rays × 64 jittered steps, white sky."""
+  ws, rays, times, ts, _ = _dyn_inputs(enc, spline, N)
+  kw = dict(steps=STEPS, ts=ts, sky_kind="white", sigmoid_kind="thin",
+            spline_points=spline, enc_kind=enc, want_dp=dp)
+  ref = k9.dyn_render_reference(ws, rays, times, **kw)
+  monkeypatch.setattr(k1, "_matmul", testing.split_tf32_matmul)
+  got = k9.dyn_render_reference(ws, rays, times, **kw)
+  assert not torch.equal(got, ref)                 # the emulation ran
+  assert float(ref[:, :3].std()) > 0.05            # rgb varies
+  if dp:
+    assert float(ref[:, 4].max()) > 1e-8           # the warp is active
+  e = float((got - ref).abs().max())
+  print(f"K9f-{enc} {'dx' if spline == 0 else f'spline S={spline}'} dp "
+        f"{'on' if dp else 'off'}: max|Δ| {e:.3e}")
+  assert e <= K1_TOL
+
+
+@pytest.mark.parametrize("kind", ["thin", "normal", "tanh"])
+@pytest.mark.parametrize("sky", ["black", "white"])
+def test_plain_k7f_split_tf32_within_k7f_gate(monkeypatch, sky, kind):
+  """The plain K7f with every MLP product in split TF32 (`render._matmul`
+  through `testing.split_tf32_matmul`: the two parts K7f's wgmma forms in
+  the encoder, density_tfm and the View) against itself in float32, over
+  both skies and three rgb activations: within K7f's gate (1e-4 abs), on
+  `_ae_weights` (the View's output ×40, density_tfm's ×8), 256 rays × 64
+  jittered steps."""
+  ws, rays = _ae_weights(), _rays(N, 0)
+  gen = torch.Generator().manual_seed(6)
+  ts = torch.sort(torch.rand(STEPS, generator=gen) * 4 + 2).values
+  kw = dict(steps=STEPS, ts=ts, sky_kind=sky, sigmoid_kind=kind)
+  ref = k7.ae_render_reference(ws, rays, **kw)
+  monkeypatch.setattr(k1, "_matmul", testing.split_tf32_matmul)
+  got = k7.ae_render_reference(ws, rays, **kw)
+  assert not torch.equal(got, ref)                 # the emulation ran
+  assert float(ref[:, :3].std()) > 0.05            # rgb varies
+  e = float((got - ref).abs().max())
+  print(f"K7f sky {sky} {kind}: max|Δ| {e:.3e}")
+  assert e <= K1_TOL
+
+
 # ---- K7b (csrc/render_ae_bwd.cu) ----
 
-def _ae_case(n, seed=0):
+def _ae_weights():
   """A NeRFAE at full width, its View's output layer ×40 and
-  density_tfm's ×8 (chip_smoke.py's amplified check weights), rays
-  through the CP box, a jittered ts, and the rays
-  `testing.ae_kink_free_rays` clears (chip_smoke.py's margin)."""
+  density_tfm's ×8 (chip_smoke.py's amplified check weights), packed."""
   from nerf_atlas_tpu_torch import models
   from nerf_atlas_tpu_torch.train import driver
   sd = dict(driver.init_model(models.NeRFAE(steps=STEPS), seed=0)
@@ -427,7 +518,13 @@ def _ae_case(n, seed=0):
   sd["refl.mlp.layer_out.weight"] = sd["refl.mlp.layer_out.weight"] * 40.0
   sd["density_tfm.layer_out.weight"] = (
       sd["density_tfm.layer_out.weight"] * 8.0)
-  ws = k7.pack_weights_ae(sd)
+  return k7.pack_weights_ae(sd)
+
+
+def _ae_case(n, seed=0):
+  """`_ae_weights`, rays through the CP box, a jittered ts, and the rays
+  `testing.ae_kink_free_rays` clears (chip_smoke.py's margin)."""
+  ws = _ae_weights()
   rays = _rays(n, seed)
   gen = torch.Generator().manual_seed(6)
   ts = torch.sort(torch.rand(STEPS, generator=gen) * 4 + 2).values
@@ -510,12 +607,12 @@ def test_k7b_parts_by_group(monkeypatch):
 
 # ---- K9b and K8b ----
 
-def _dyn_case(enc, spline, n, seed=2, chunk=None):
+def _dyn_inputs(enc, spline, n, seed=2):
   """A DynamicNeRF at full width with the warp active (its zero layer_out
   replaced by seeded 0.03·N(0, 1) weights and 0.01·N(0, 1) biases) and
-  the View's output layer amplified by 40, as chip_smoke.py checks K9b;
-  rays from (0, 0, 3.5) about −z with times in [0, 1), jittered ts; the
-  rays `testing.dyn_kink_free_rays` clears, alone."""
+  the View's output layer amplified by 40, as chip_smoke.py checks K9f and
+  K9b, packed; rays from (0, 0, 3.5) about −z with times in [0, 1),
+  jittered ts, and the generator that drew them."""
   from nerf_atlas_tpu_torch import models
   from nerf_atlas_tpu_torch.ops import rays as rays_ops
   from nerf_atlas_tpu_torch.train import driver
@@ -536,6 +633,13 @@ def _dyn_case(enc, spline, n, seed=2, chunk=None):
   rays = torch.from_numpy(np.concatenate(
       [np.tile([[0.0, 0.0, 3.5]], (n, 1)), r_d], -1).astype(np.float32))
   times = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+  return ws, rays, times, ts, gen
+
+
+def _dyn_case(enc, spline, n, seed=2, chunk=None):
+  """`_dyn_inputs` on the rays `testing.dyn_kink_free_rays` clears,
+  alone."""
+  ws, rays, times, ts, gen = _dyn_inputs(enc, spline, n, seed)
   keep = testing.dyn_kink_free_rays(ws, rays, times, ts, STEPS, enc, spline,
                                     KINK_MARGIN, chunk=chunk)
   assert int(keep.sum()) >= n // 8
