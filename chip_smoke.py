@@ -2,15 +2,18 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]
-[--recipes R ...] [--quality-steps N]] [--profile]`.
+[--recipes R ...] [--quality-steps N]] [--profile] [--sass-against DIR]`,
+or `python3 chip_smoke.py --volsdf-repeat ROOT [ROOT ...]` (below).
 Phases, each printing its lines before the next starts:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
      (one nvcc per source, all started together) and prints ptxas'
      registers and spills, and the tensor-core instructions in the SASS:
-     HGMMA (wgmma) in each of render_fwd's six kernels, in render_ae_fwd
-     and in each of the four render_dyn_fwd libraries (K1's, K7f's and
-     K9f's split-TF32 products), HMMA in each render_bwd, render_ae_bwd,
+     HGMMA (wgmma) in each of render_fwd's six kernels, in render_ae_fwd,
+     in both render_volsdf_fwd libraries (without and with the eikonal
+     column) and in each of the four render_dyn_fwd libraries (K1's,
+     K7f's, K8f's and K9f's split-TF32 products), HMMA in each render_bwd,
+     render_ae_bwd,
      render_dyn_bwd and render_volsdf_bwd library (K2/K3's, K7b's, K9b's
      and K8b's; none in the reduction);
   3. kernels vs plain torch on the card, 4096 seeded rays at full width,
@@ -43,7 +46,10 @@ Phases, each printing its lines before the next starts:
      K2 and of K3 bit for bit in each mode. Then VolSDF: K8f (render_volsdf_fwd)
      with and without its eikonal column at (64 steps, 1001 rays) and
      (16 steps, 77 rays), as for K7f (the column over the kink-free rays
-     of `testing.volsdf_kink_free_rays`); K8b (render_volsdf_bwd) in
+     of `testing.volsdf_kink_free_rays`, and its float64 witness there),
+     two K8f launches of each build bit for bit, and the eikonal build's
+     sign stash, read back from one block, against the signs of the plain
+     forward's leaky-relu inputs; K8b (render_volsdf_bwd) in
      modes G and L, each with and without the eikonal, at 4096 x 64 and
      77 x 16 as for K7b, with a float64 witness of the eikonal's loss
      mode; VolSDFRender's gradient against mode G's and two K8b launches
@@ -148,6 +154,15 @@ call, the plain version's ms, the bound from this run's bytes and
 operations at the published H100 peaks, and a single PyTorch call's ms
 where one computes the function), the card's name and power limit, and
 the device JSON. Any failure raises (non-zero exit, no result lines).
+
+With `--volsdf-repeat ROOT [ROOT ...]` it runs phase 1 and then only
+phase 5g's recipe (volsdf_eikonal, TRAIN_STEPS steps: K8b once per step,
+K8f in eval) from each checkout ROOT of the repo, each in a process of
+its own that imports ROOT's chip_smoke.py and port and builds ROOT's
+kernels into ROOT/build/kernels first, and compares the runs with the
+first: the loss of every step and the trained parameters bit for bit,
+and the eval PSNRs. Exits 1 where two loss curves or two trained models
+differ.
 """
 from __future__ import annotations
 
@@ -296,11 +311,12 @@ N_DYN_CHECK = 16384
 TC_SOURCES = {"render_bwd": "HMMA", "render_ae_bwd": "HMMA",
               "render_dyn_bwd": "HMMA", "render_volsdf_bwd": "HMMA",
               "render_fwd": "HGMMA", "render_ae_fwd": "HGMMA",
-              "render_dyn_fwd": "HGMMA"}
+              "render_volsdf_fwd": "HGMMA", "render_dyn_fwd": "HGMMA"}
 # the libraries whose code this slice leaves as it was: `--sass-against`
 # compares their SASS with an earlier commit's
-SASS_SAME = ("hash_encode", "render_fwd", "render_bwd", "render_ae_bwd",
-             "render_volsdf_fwd", "render_volsdf_bwd", "render_dyn_bwd")
+SASS_SAME = ("hash_encode", "render_fwd", "render_bwd", "render_ae_fwd",
+             "render_ae_bwd", "render_volsdf_bwd", "render_dyn_fwd",
+             "render_dyn_bwd")
 
 
 def _sync_time(fn):
@@ -376,14 +392,17 @@ def _ptxas_entries(log: str):
   return out
 
 
-def _build(build, k1, k9):
+def _build(build, k1, k8, k9):
   """Phase 2: one nvcc per kernel source, started together; render_bwd.cu
-  once per mode (`render.bwd_defines`), render_dyn_fwd.cu and
-  render_dyn_bwd.cu once per (canonical encoder, warp kind)
+  once per mode (`render.bwd_defines`), render_volsdf_fwd.cu without and
+  with the eikonal column (`render_volsdf.fwd_defines`), render_dyn_fwd.cu
+  and render_dyn_bwd.cu once per (canonical encoder, warp kind)
   (`render_dyn.defines`)."""
   jobs = [(name, ()) for name in ("render_fwd", "hash_encode",
                                   "render_ae_fwd", "render_ae_bwd",
-                                  "render_volsdf_fwd", "render_volsdf_bwd")]
+                                  "render_volsdf_bwd")]
+  jobs += [("render_volsdf_fwd", k8.fwd_defines(eik))
+           for eik in (False, True)]
   jobs += [("render_bwd", k1.bwd_defines(kind)) for kind in k1.ENC_KINDS]
   jobs += [(name, k9.defines(enc, spline))
            for name in ("render_dyn_bwd", "render_dyn_fwd")
@@ -553,8 +572,9 @@ def _check_bwd(what, k1, ws, rays, gen, kw, feats=None):
 
 
 def _witness(testing, what, got, ref, w64):
-  """A forward kernel (K1, K7f, K9f) held to its float64 products (w64:
-  `testing.k1_float64_render`, `ae_float64_render`, `dyn_float64_render`)
+  """A forward kernel (K1, K7f, K8f, K9f) held to its float64 products
+  (w64: `testing.k1_float64_render`, `ae_float64_render`,
+  `volsdf_float64_render`, `dyn_float64_render`)
   beside its plain version: the kernel's max |Δ| from them and the plain
   version's, for the line; raises where their ratio, with the floor TOL
   / 2, passes `testing.WITNESS_RATIO`. Where the siren's gain meets
@@ -1079,10 +1099,11 @@ def _module_forwards(models, fn):
   return out, calls[0]
 
 
-def _render_main_k4(port_runner, models, tag, *extra, kernel="K1"):
+def _render_main_k4(port_runner, models, tag, *extra, kernel="K1",
+                    every=False):
   """Phases 4d-4g: the runner's 800x800 render of a K4 family (VolSDF)
   must launch K1 in its mode (K8f) and nothing else, and run no module
-  forward. Returns the launches."""
+  forward. Returns the launches (`every`: those of every kernel)."""
   (results, secs, counts), forwards = _module_forwards(
       models, lambda: _render_main(port_runner, *extra))
   others = {k: v for k, v in counts.items() if k != kernel and v}
@@ -1096,7 +1117,7 @@ def _render_main_k4(port_runner, models, tag, *extra, kernel="K1"):
         f"{counts[kernel]}, other kernels 0, module forwards {forwards} | "
         f"PSNR train {results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
-  return counts[kernel]
+  return counts if every else counts[kernel]
 
 
 def _black_psnr(pixels) -> float:
@@ -1118,7 +1139,9 @@ def _wrappers():
           "K3-hash": k1.plain_hash_train_step, "K5f": hk.hash_encode,
           "K5b": hk.hash_encode_table_grad, "K7f": k7.fused_ae_render,
           "K7b-G": k7.fused_ae_render_grad, "K7b": k7.fused_ae_train_step,
-          "K8f": k8.fused_volsdf_render, "K8b-G": k8.fused_volsdf_render_grad,
+          "K8f": k8.fused_volsdf_render,
+          "K8f-eik": k8.fused_volsdf_render.eikonal,
+          "K8b-G": k8.fused_volsdf_render_grad,
           "K8b": k8.fused_volsdf_train_step, "K9f": k9.fused_dyn_render,
           "K9b-G": k9.fused_dyn_render_grad, "K9b": k9.fused_dyn_train_step}
 
@@ -2161,10 +2184,36 @@ def _check_volsdf_bwd(what, k8, testing, sd, ws, rays, gen, kw,
   return max_abs
 
 
+def _check_volsdf_stash(k8, testing, rays_ops, ws, gen, dev):
+  """Phase 3: the signs K8f's eikonal build keeps of the SDF MLP's
+  leaky-relu inputs (one block: 2 rays x 64 points, read back from its
+  scratch) equal the plain forward's wherever that sign is sure
+  (`testing.volsdf_sign_stash`: |z| at least KINK_MARGIN times its
+  column's float32-vs-float64 round-off)."""
+  rays = torch.from_numpy(_check_rays(2, 5)).to(dev)
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen,
+                           device=dev)
+  got = testing.k8f_sign_stash(ws, rays, ts, sigmoid_kind="upshifted")
+  signs, _, sure = testing.volsdf_sign_stash(ws, rays, ts, KINK_MARGIN)
+  differ = testing.stash_bits(got) != testing.stash_bits(signs)
+  bad, unsure = int((differ & sure).sum()), int((differ & ~sure).sum())
+  stash, _ = k8.eikonal_scratch(dev)
+  line = (f"[check] K8f eikonal sign stash, 2 rays x {STEPS} (one block, "
+          f"two tiles of {k8.SIGN_BYTES} B; the scratch {stash.shape[0]} "
+          f"slots, {stash.numel() / 2**20:.2f} MiB): {int(sure.sum())} of "
+          f"{sure.numel()} signs sure, {bad} of them differ from the plain "
+          f"forward's (tol 0); {unsure} of the rest differ")
+  print(line, flush=True)
+  if bad or float(sure.float().mean()) < 0.9:
+    raise RuntimeError(f"K8f's sign stash disagrees: {line}")
+
+
 def _check_volsdf(k8, testing, rays_ops, models, driver, dev):
-  """Phase 3, VolSDF: K8f in both forms and K8b in both modes, each with
-  and without the eikonal, against their plain versions; VolSDFRender
-  against mode G; K8b's determinism. Returns (K8f max |Δ|, K8b max |Δ|)."""
+  """Phase 3, VolSDF: K8f in both builds and K8b in both modes, each with
+  and without the eikonal, against their plain versions, each K8f line
+  also held to the float64 products (`_witness`; the eikonal column on
+  its kink-free rays); VolSDFRender against mode G; K8f's and K8b's
+  determinism. Returns (K8f max |Δ|, K8b max |Δ|)."""
   sd, seeded, amplified = _volsdf_weights(models, driver, k8, dev)
   gen = torch.Generator(device=dev).manual_seed(12)
   max_f, max_b = 0.0, 0.0
@@ -2183,12 +2232,15 @@ def _check_volsdf(k8, testing, rays_ops, models, driver, dev):
                     want_eikonal=eik)
           out = k8.fused_volsdf_render(ws, rays, **kw)
           ref = k8.volsdf_render_reference(ws, rays, **kw)
+          w64 = testing.volsdf_float64_render(ws, rays, **kw)
           torch.cuda.synchronize()
           e = float((out[:, :4] - ref[:, :4]).abs().max())
-          line = (f"[check] K8f {n} rays x {steps} {wname:9s} sky {sky:5s} "
-                  f"{kind:9s} {tname:11s} eikonal {'on ' if eik else 'off'}"
-                  f": rgb/acc max|Δ| {e:.3e} (tol {TOL:.0e}; ref rgb std "
-                  f"{float(ref[:, :3].std()):.3f})")
+          what = (f"K8f {n} rays x {steps} {wname:9s} sky {sky:5s} "
+                  f"{kind:9s} {tname:11s} eikonal {'on ' if eik else 'off'}")
+          line = (f"[check] {what}: rgb/acc max|Δ| {e:.3e} (tol {TOL:.0e}; "
+                  f"ref rgb std {float(ref[:, :3].std()):.3f}) | "
+                  + _witness(testing, what, out[:, :4], ref[:, :4],
+                             w64[:, :4]))
           ok = e <= TOL and bool(torch.isfinite(out).all())
           if eik:
             # the column's act′ pattern: held to TOL on the kink-free rays,
@@ -2206,13 +2258,25 @@ def _check_volsdf(k8, testing, rays_ops, models, driver, dev):
                      f"{TOL:.0e}, values {float(ref[:, 4].min()):.2f}.."
                      f"{float(ref[:, 4].max()):.2f}), all rays max rel "
                      f"{rel:.2e} (tol {ALL_RAY_RTOL:.0e}), kink-free rays "
-                     f"{int(kf.sum())}/{n}")
+                     f"{int(kf.sum())}/{n}; kink-free "
+                     + _witness(testing, f"{what}, its eikonal column",
+                                out[kf, 4], ref[kf, 4], w64[kf, 4]))
             ok = ok and e_kf <= TOL and rel <= ALL_RAY_RTOL
             e = max(e, e_kf)
           print(line, flush=True)
           if not ok:
             raise RuntimeError(f"K8f disagrees with its reference: {line}")
           max_f = max(max_f, e)
+  rays = torch.from_numpy(_check_rays(1001, STEPS)).to(dev)
+  for eik in (False, True):
+    kw = dict(steps=STEPS, sigmoid_kind="thin", sky_kind="white",
+              want_eikonal=eik)
+    if not torch.equal(k8.fused_volsdf_render(amplified, rays, **kw),
+                       k8.fused_volsdf_render(amplified, rays, **kw)):
+      raise RuntimeError(f"two K8f launches differ (eikonal {eik})")
+  print("[check] two K8f launches bitwise equal, without and with the "
+        "eikonal column", flush=True)
+  _check_volsdf_stash(k8, testing, rays_ops, seeded, gen, dev)
   rays = torch.from_numpy(_check_rays(N_CHECK, 0)).to(dev)
   for (wname, ws), sky, kind in (
       (("seeded", seeded), "black", "upshifted"),
@@ -2253,6 +2317,88 @@ def _check_volsdf(k8, testing, rays_ops, models, driver, dev):
   print("[check] VolSDFRender backward == K8b-G (bitwise, eikonal on); two "
         "K8b-G and two K8b-L launches bitwise equal", flush=True)
   return max_f, max_b
+
+
+# One run of `--volsdf-repeat`, in a process of its own: argv[1] the
+# checkout, whose chip_smoke.py and port it imports. It builds the two
+# VolSDF libraries in parallel (one call of each wrapper), then trains with
+# a loss logged at every step and hashes the trained parameters.
+_VOLSDF_REPEAT_CHILD = r"""
+import concurrent.futures, dataclasses, hashlib, json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from nerf_atlas_tpu_torch import models, runner
+from nerf_atlas_tpu_torch.data import loaders
+from nerf_atlas_tpu_torch.ops.kernels import render as k1
+from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
+from nerf_atlas_tpu_torch.train import driver
+trained = {}
+_train = driver.train
+def train(model, ds, cfg, **kw):
+  out = _train(model, ds, dataclasses.replace(cfg, log_freq=1), **kw)
+  h = hashlib.sha256()
+  for k, v in sorted(model.state_dict().items()):
+    h.update(k.encode())
+    h.update(v.detach().cpu().contiguous().numpy().tobytes())
+  trained["params"] = h.hexdigest()
+  return out
+driver.train = train
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda")
+ws = k8.pack_weights(driver.init_model(models.VolSDF(steps=16, device=dev),
+                                       seed=0).state_dict(), dev)
+rays = torch.tensor([[0.0, 0.0, -4.0, 0.0, 0.0, 1.0]], device=dev)
+g = torch.zeros(1, 4, device=dev)
+with concurrent.futures.ThreadPoolExecutor(2) as pool:
+  list(pool.map(lambda f: f(), [
+      lambda: k8.fused_volsdf_render(ws, rays, steps=16),
+      lambda: k8.fused_volsdf_render_grad(ws, rays, g, steps=16)]))
+torch.cuda.synchronize()
+results, secs, counts, black = cs._train_run(
+    runner, k1, loaders, dev, cs.TRAIN_STEPS, argv=cs.VOLSDF_TRAIN_ARGV)
+print(json.dumps({
+    "root": sys.argv[1], "steps": cs.TRAIN_STEPS,
+    "path": results["engaged_path"], "seconds": secs,
+    "launches": {k: v for k, v in counts.items() if v},
+    "losses": [h["loss"] for h in results["history"]],
+    "params_sha256": trained["params"],
+    "psnr": {s: results[s]["psnr_mean"] for s in ("train", "test")}}))
+"""
+
+
+def _volsdf_repeat(roots) -> int:
+  """`--volsdf-repeat`: phase 5g's recipe from each checkout in `roots`,
+  one process each, compared with the first run. Returns the exit code:
+  1 where two loss curves or two trained models differ."""
+  runs = []
+  for root in roots:
+    proc = subprocess.run(
+        [sys.executable, "-c", _VOLSDF_REPEAT_CHILD, os.path.abspath(root)],
+        capture_output=True, text=True, cwd=root)
+    if proc.returncode != 0:
+      raise RuntimeError(f"{root}: rc {proc.returncode}\n"
+                         f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    runs.append(r)
+    print(f"[volsdf] {r['root']}: {r['steps']} steps, path {r['path']}, "
+          f"{r['seconds']:.2f} s, launches {r['launches']} | loss "
+          f"{r['losses'][0]!r} -> {r['losses'][-1]!r} | PSNR train "
+          f"{r['psnr']['train']!r} test {r['psnr']['test']!r}", flush=True)
+  same = True
+  a = runs[0]
+  for b in runs[1:]:
+    losses = a["losses"] == b["losses"]
+    params = a["params_sha256"] == b["params_sha256"]
+    same = same and losses and params
+    print(f"[volsdf] {b['root']} against {a['root']}: loss curves "
+          f"{'bit for bit equal' if losses else 'DIFFER'} over "
+          f"{len(a['losses'])} steps, trained parameters "
+          f"{'bit for bit equal' if params else 'DIFFER'} | test PSNR "
+          f"{b['psnr']['test'] - a['psnr']['test']:+.9f} dB, train "
+          f"{b['psnr']['train'] - a['psnr']['train']:+.9f} dB", flush=True)
+  return 0 if same else 1
 
 
 def _train_main_volsdf(port_runner, k1, loaders, dev):
@@ -2307,9 +2453,8 @@ def _volsdf_bound(k8, n: int, mode: str):
   (K8f + the transpose chain), "b" (K8b without the eikonal), "b-eik"
   (K8b with it: + the chain, its adjoint's forward-like products and its
   weight updates, 3 chains); 2 FLOP per multiply-add; bytes: rays, ts,
-  dists and the weights in (K8f's eikonal also the transposed copy, K8b
-  its TC pack), [n, 4 or 5] out (backward: the target or g in, the
-  gradient out)."""
+  dists and the weights in (K8b also its TC pack), [n, 4 or 5] out
+  (backward: the target or g in, the gradient out)."""
   from nerf_atlas_tpu_torch.ops.kernels import render as k1
   fwd, bwd, chain = _volsdf_macs(k8)
   pts = n * STEPS
@@ -2318,8 +2463,7 @@ def _volsdf_bound(k8, n: int, mode: str):
   if mode == "f":
     return _bound_ms(2 * fwd * pts, 4 * (n * 10 + fixed + wc))
   if mode == "f-eik":
-    return _bound_ms(2 * (fwd + chain) * pts,
-                     4 * (n * 11 + fixed + 2 * wc))
+    return _bound_ms(2 * (fwd + chain) * pts, 4 * (n * 11 + fixed + wc))
   extra = 3 * chain if mode == "b-eik" else 0
   tc = k1.tc_layout_index(k8.TC_MLPS, wc)[0].numel()
   return _bound_ms(2 * (bwd + extra) * pts,
@@ -2366,8 +2510,9 @@ def _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops, dev,
     print(f"[time] {card}: one {CHUNK}-ray x {STEPS}-step {tag} call "
           f"{ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
           f"({tflop / (min(ms['kernel']) / 1e3):.2f} TFLOP/s; bound "
-          f"{bound[0]:.2f} ms, bf16 {bound[2]:.2f}), plain torch "
-          f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+          f"{bound[0]:.2f} ms, split TF32 {bound[3]:.2f}, bf16 "
+          f"{bound[2]:.2f}), plain torch {ms['plain'][0]:.2f} / "
+          f"{ms['plain'][1]:.2f} ms", flush=True)
 
   def ref_frame():
     return torch.cat([k8.volsdf_render_reference(ws, rc, **kw)[:, :3]
@@ -3082,6 +3227,10 @@ def main(argv=None):
                       help="phase 2 also builds the libraries this slice "
                            "leaves unchanged from DIR (a checkout of an "
                            "earlier commit) and compares their SASS")
+  parser.add_argument("--volsdf-repeat", metavar="ROOT", nargs="+",
+                      default=None,
+                      help="run only phase 5g's recipe from each checkout "
+                           "ROOT and compare the runs (module docstring)")
   parser.add_argument("--quality-steps", type=int, default=QUALITY_STEPS,
                       help="phase 7's budget in place of the sweep's 1500 "
                            "steps (tiny trains twice it), e.g. 300 for the "
@@ -3100,6 +3249,8 @@ def main(argv=None):
         flush=True)
   torch.backends.cuda.matmul.allow_tf32 = False     # the reference's matmuls
   torch.backends.cudnn.allow_tf32 = False
+  if args.volsdf_repeat:
+    return _volsdf_repeat(args.volsdf_repeat)
 
   from nerf_atlas_tpu_torch import models, testing
   from nerf_atlas_tpu_torch import runner as port_runner
@@ -3115,7 +3266,7 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.train import driver
 
   # ---- 2. build ----
-  jobs, built = _build(build, k1, k9)
+  jobs, built = _build(build, k1, k8, k9)
 
   # ---- 3. kernels vs reference on the card ----
   dev = torch.device("cuda")
@@ -3179,7 +3330,7 @@ def main(argv=None):
   # ---- 4g. the same for VolSDF at the volsdf_eikonal recipe's model ----
   render_k8 = _render_main_k4(port_runner, models, "volsdf", "--model",
                               "volsdf", "--sigmoid-kind", "upshifted",
-                              kernel="K8f")
+                              kernel="K8f", every=True)
   # ---- 4h. dnerf-render-800: D-NeRF (Δx) at each view's time ----
   render_k9 = _render_main_k4(port_runner, models, "dnerf", "--data-kind",
                               "synthetic-dyn", "--dyn-model", "plain",
@@ -3342,7 +3493,11 @@ def main(argv=None):
          train_k4[mode], max_k4[mode][1], *k4_t[mode][1], None)]
   rows += [
       ("render_volsdf_fwd", "render_volsdf_fwd.cu", "render_volsdf.py:262",
-       render_k8, max(max_k8f, k8_t["frame_err"]), *k8_t["K8f"], None),
+       render_k8["K8f"] - render_k8["K8f-eik"],
+       max(max_k8f, k8_t["frame_err"]), *k8_t["K8f"], None),
+      ("render_volsdf_fwd_eikonal", "render_volsdf_fwd.cu",
+       "render_volsdf.py:262", render_k8["K8f-eik"] + train_k8["K8f-eik"],
+       max_k8f, *k8_t["K8f eikonal"], None),
       ("render_volsdf_bwd", "render_volsdf_bwd.cu", "render_volsdf.py:306",
        train_k8["K8b"], max_k8b, *k8_t["K8b-L eikonal"], None),
       ("render_dyn_fwd", "render_dyn_fwd.cu", "render_dyn.py:157",
@@ -3374,8 +3529,8 @@ def main(argv=None):
     print(f"[bound] {card}: {name} {bound[0]:.4f} ms by {bound[1]} (float32 "
           f"outside the tensor cores){tf32}, {bound[2]:.4f} ms at the bf16 "
           "tensor-core peak", flush=True)
-  # K1, K2/K3, K7f, K7b, K8b, K9f and K9b run their products in split
-  # TF32: their bound is that one
+  # K1, K2/K3, K7f, K7b, K8f, K8b, K9f and K9b run their products in
+  # split TF32: their bound is that one
   rows = [(*r[:7], (r[7][3], r[7][4]) if r[0].startswith(tuple(TC_SOURCES))
            else r[7][:2], r[8]) for r in rows]
   print(json.dumps({"kernels": [{

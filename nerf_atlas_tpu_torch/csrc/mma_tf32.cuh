@@ -5,8 +5,8 @@
 // (`mlp_bwd`), and the eikonal's transpose chain and its adjoint
 // (`mlp_input_grad`, `mlp_input_grad_adjoint`). K1 runs its products by
 // wgmma (wgmma_tf32.cuh, which takes the split and cp.async from here),
-// and so do K7f and K9f; K8f keeps render_common.cuh's float32 FMA
-// products; render_ae.cuh, render_dyn.cuh and render_volsdf.cuh include
+// and so do K7f, K8f and K9f; render_ae.cuh, render_dyn.cuh and
+// render_volsdf.cuh include
 // this header for the TC pack's offsets and `TcMlp`, which only the
 // backward kernels instantiate.
 //
@@ -626,8 +626,9 @@ __device__ __forceinline__ void mlp_bwd(float* X, float* G, const float* F,
   __syncthreads();
 }
 
-// The product of render_common.cuh's `FmaMlp` in a backward kernel's
-// recompute: `mlp_fwd` above, the MLP's TC pack at tcw + TC (THREE: in
+// The products of a whole MLP in a backward kernel's recompute (the tile
+// forwards of render_ae.cuh, render_dyn.cuh and render_volsdf.cuh take
+// it): `mlp_fwd` above, the MLP's TC pack at tcw + TC (THREE: in
 // three parts), its weights staged through `stage` (stage_floats of the
 // widest layer; it must not overlap F, FA or X). zst must be the tile's
 // stash rows (not null).
@@ -681,9 +682,9 @@ __device__ __forceinline__ void mlp_input_grad_hidden(
   }
 }
 
-// The transpose chain on one tile (render_common.cuh's `mlp_input_grad`
-// with the input-gradient products above, A = W staged from the TC pack's
-// input-gradient blocks). On entry G rows 0..H-1 hold u_NL (`seed_column`),
+// The transpose chain on one tile (render_common.cuh states it), with the
+// input-gradient products above, A = W staged from the TC pack's
+// input-gradient blocks. On entry G rows 0..H-1 hold u_NL (`seed_column`),
 // F the init feature (FI rows) and DF zeros; zst is the forward's
 // pre-activation stash, tcp the MLP's TC pack (THREE as `mlp_bwd`). On
 // return DF holds d out_c / d init and u_i is at rows i·H of `ust`

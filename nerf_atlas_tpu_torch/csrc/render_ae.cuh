@@ -48,9 +48,7 @@ static_assert(E_IN <= F_ROWS && R_IN <= F_ROWS, "init feature rows");
 
 // ---- packed weight layout (ops/kernels/render_ae.py:pack_weights_ae, in
 // `_flatten_params_ae` order: encode, density_tfm, refl.mlp): each Dense
-// layer as W [in][out] row-major followed by its bias [out]. The
-// backward's transposed copy has each W block as [out][in] at the same
-// offset.
+// layer as W [in][out] row-major followed by its bias [out].
 constexpr long E_IN_ = 0;
 constexpr long E_L0 = E_IN_ + dense_size(E_IN, E_HIDDEN);
 constexpr long E_L1 = E_L0 + dense_size(E_HIDDEN + E_IN, E_HIDDEN);

@@ -4,22 +4,18 @@
 // (render_dyn_fwd.cu) and K9b (render_dyn_bwd.cu).
 //
 // Activations of a 64-point tile live feature-major in shared memory
-// ([row][PS], 64 points per row); weights are read per layer through
-// L1/L2. The building blocks (the float32 FMA forward layers `dense_fwd`,
-// `mlp_fwd` and `FmaMlp` have one caller left, K8f, and go when it moves
-// to wgmma_tf32.cuh; the backward kernels K2/K3, K7b, K8b and K9b take
-// their MLP products from mma_tf32.cuh, K1, K7f and K9f from
-// wgmma_tf32.cuh):
+// ([row][PS], 64 points per row). No MLP product is here: no float32-FMA
+// MLP code remains in the port. The backward kernels K2/K3, K7b, K8b and
+// K9b take their MLP products from mma_tf32.cuh, the forward kernels K1,
+// K7f, K8f and K9f from wgmma_tf32.cuh. The building blocks:
+//   - the packed weight layout of a SkipConnMLP and its skip wiring;
 //   - the activations and the rgb activation with its derivative;
 //   - the sample point and the per-ray constants;
-//   - forward Dense layers (`dense_fwd`, optionally stashing the
-//     pre-activations) and whole SkipConnMLPs (`mlp_fwd`);
-//   - the input gradient of a layer (`dense_bwd`) and, through it, the
-//     gradient of one output column of a SkipConnMLP with respect to its
-//     input by the transpose chain (`mlp_input_grad`): K8f's eikonal
-//     column;
 //   - the positional encoding and MipNeRF's integrated positional
 //     encoding of a tile (`posenc_rows`, `ipe_moments`, `ipe_rows`);
+//   - the backward's stash helpers (`load_act`, `store_rows`, `act_rows`)
+//     and the seed of the transpose chain of one output column
+//     (`seed_column`; the chain is stated above it);
 //   - the block-order sum of the partial rows (`reduce_partials_kernel`).
 // Every float operation that the plain torch versions round separately
 // (the sample points, the posenc phases, the IPE moments) is an explicit
@@ -32,17 +28,13 @@
 namespace render {
 
 constexpr int TILE = 64;          // sample points per tile
-constexpr int THREADS = 256;      // 8 warps x 8 points = one tile
+constexpr int THREADS = 256;      // a block: 8 warps
 constexpr int PS = TILE + 4;      // row stride (floats) of shared tiles
 
-static_assert(THREADS == 32 * (TILE / 8), "dense: 8 points per warp");
-
 enum Act { ACT_NONE = 0, ACT_LEAKY = 1, ACT_SIN30 = 2 };
-enum Mode { MODE_Z = 0, MODE_FADD = 1, MODE_ADD = 2 };
 
 // ---- packed weight layouts: each Dense layer as W [in][out] row-major
-// followed by its bias [out]; the backward's transposed copy has each W
-// block as [out][in] at the same offset.
+// followed by its bias [out].
 __host__ __device__ constexpr long dense_size(int in, int out) {
   return (long)in * out + out;
 }
@@ -136,118 +128,6 @@ __device__ __forceinline__ void ray_setup(const float* __restrict__ ray,
   s[6] = acosf(z);
   s[7] = atan2f(y, x);
 }
-
-// acc[j][i] += sum_k x[k][p0 + i] * w[k * LDW + lane + 32 j]
-template <int K, int NOUT, int NJ, int LDW>
-__device__ __forceinline__ void accumulate(const float* x,
-                                           const float* __restrict__ w,
-                                           int lane, int p0,
-                                           float (&acc)[NJ][8]) {
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const float4 x0 = *reinterpret_cast<const float4*>(x + k * PS + p0);
-    const float4 x1 = *reinterpret_cast<const float4*>(x + k * PS + p0 + 4);
-    const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int o = lane + 32 * j;
-      const float wv = (o < NOUT) ? __ldg(w + (long)k * LDW + o) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[j][i] = fmaf(xs[i], wv, acc[j][i]);
-    }
-  }
-}
-
-// Forward layer: dst[o][p] = act(z), z = b[o] + sum_k a[k][p] w[k][o] +
-// sum_k f[k][p] w[KA + k][o] for the tile's 64 points and o < NOUT; with
-// `zst` the pre-activation z also goes to the stash rows zst[o][p]. `w` is
-// [KA + KF][NOUT] row-major with the bias after it. dst may alias a: every
-// read finishes before the barrier that precedes the writes.
-template <int KA, int KF, int NOUT, int ACT>
-__device__ __forceinline__ void dense_fwd(const float* a, const float* f,
-                                          const float* __restrict__ w,
-                                          float* dst, float* zst) {
-  constexpr int NJ = (NOUT + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  const int p0 = (threadIdx.x >> 5) * 8;
-  const float* __restrict__ b = w + (long)(KA + KF) * NOUT;
-  float acc[NJ][8];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = lane + 32 * j;
-    const float bj = o < NOUT ? __ldg(b + o) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = bj;
-  }
-  accumulate<KA, NOUT, NJ, NOUT>(a, w, lane, p0, acc);
-  if (KF > 0) accumulate<KF, NOUT, NJ, NOUT>(f, w + (long)KA * NOUT, lane,
-                                             p0, acc);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = lane + 32 * j;
-    if (o < NOUT) {
-      if (zst != nullptr) {
-        *reinterpret_cast<float4*>(zst + o * TILE + p0) =
-            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-        *reinterpret_cast<float4*>(zst + o * TILE + p0 + 4) =
-            make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
-      }
-      float4 v0, v1;
-      v0.x = activate<ACT>(acc[j][0]); v0.y = activate<ACT>(acc[j][1]);
-      v0.z = activate<ACT>(acc[j][2]); v0.w = activate<ACT>(acc[j][3]);
-      v1.x = activate<ACT>(acc[j][4]); v1.y = activate<ACT>(acc[j][5]);
-      v1.z = activate<ACT>(acc[j][6]); v1.w = activate<ACT>(acc[j][7]);
-      *reinterpret_cast<float4*>(dst + o * PS + p0) = v0;
-      *reinterpret_cast<float4*>(dst + o * PS + p0 + 4) = v1;
-    }
-  }
-  __syncthreads();
-}
-
-// Hidden layers I..NL-1 of a SkipConnMLP in place in X (H rows), the skip
-// layers reading act(init feature) from FA (FI rows); `w` points at the
-// MLP's layer_in. With `zst`, hidden layer i's pre-activation goes to
-// stash rows (i + 1)·H.
-template <int H, int FI, int NL, int ACT, int I = 0>
-__device__ __forceinline__ void mlp_hidden_fwd(float* X, const float* FA,
-                                               const float* __restrict__ w,
-                                               float* zst) {
-  if constexpr (I < NL) {
-    dense_fwd<H, skip_at(I, NL) ? FI : 0, H, ACT>(
-        X, FA, w + mlp_offset(FI, H, NL, I + 1), X,
-        zst != nullptr ? zst + (long)(I + 1) * H * TILE : nullptr);
-    mlp_hidden_fwd<H, FI, NL, ACT, I + 1>(X, FA, w, zst);
-  }
-}
-
-// A whole SkipConnMLP on the tile: init feature F (FI rows) and act(F) in
-// FA -> its raw output in X rows 0..NOUT-1 (X holds H rows). With `zst`,
-// the pre-activations of layer_in and the hidden layers go to the stash
-// rows 0 .. (NL + 1)·H.
-template <int FI, int H, int NL, int NOUT, int ACT>
-__device__ __forceinline__ void mlp_fwd(const float* F, const float* FA,
-                                        const float* __restrict__ w,
-                                        float* X, float* zst) {
-  dense_fwd<FI, 0, H, ACT>(F, nullptr, w, X, zst);
-  mlp_hidden_fwd<H, FI, NL, ACT>(X, FA, w, zst);
-  dense_fwd<H, 0, NOUT, ACT_NONE>(X, nullptr, w + mlp_offset(FI, H, NL, NL + 1),
-                                  X, nullptr);
-}
-
-// The product of a whole SkipConnMLP in the forward helper that K8f and
-// K8b share (render_volsdf.cuh): this one, the float32 FMAs of `mlp_fwd`
-// (K8f, the default), or mma_tf32.cuh's `tc::TcMlp` (K8b's recompute). TC is
-// the MLP's offset in the backward's TC pack and THREE whether its forward
-// runs in three parts; FmaMlp reads neither.
-struct FmaMlp {
-  template <int FI, int H, int NL, int NOUT, int ACT, long TC, bool THREE>
-  __device__ __forceinline__ void fwd(const float* F, const float* FA,
-                                      const float* __restrict__ w, float* X,
-                                      float* zst) const {
-    mlp_fwd<FI, H, NL, NOUT, ACT>(F, FA, w, X, zst);
-  }
-};
 
 // dst[r][p] = act(src[r][p]) for rows r < rows of the tile
 template <int ACT>
@@ -357,53 +237,6 @@ __device__ __forceinline__ void ipe_rows(float* F, const float* M) {
 
 // ---- the backward's building blocks ----
 
-// Input gradient of a layer: r[k][p] = sum_{n < NIN} G[n][p] wt[n][k] for
-// k < NOUT (wt row-major with row stride LDW, i.e. the layer's W
-// transposed). MODE_Z: dst[k][p] = r · act'(z[k][p]), z from the stash
-// rows zst (dst may alias G). MODE_FADD: dst[k][p] += r · act'(f[k][p]),
-// f = the shared init feature rows. MODE_ADD: dst[k][p] += r.
-template <int NIN, int NOUT, int LDW, int ACT, int MODE>
-__device__ __forceinline__ void dense_bwd(const float* G,
-                                          const float* __restrict__ wt,
-                                          float* dst,
-                                          const float* __restrict__ zst,
-                                          const float* f) {
-  constexpr int NJ = (NOUT + 31) / 32;
-  const int lane = threadIdx.x & 31;
-  const int p0 = (threadIdx.x >> 5) * 8;
-  float acc[NJ][8];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
-  }
-  accumulate<NIN, NOUT, NJ, LDW>(G, wt, lane, p0, acc);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int o = lane + 32 * j;
-    if (o < NOUT) {
-      float* d = dst + o * PS + p0;
-      if (MODE == MODE_Z) {
-        const float4 z0 = *reinterpret_cast<const float4*>(zst + o * TILE + p0);
-        const float4 z1 =
-            *reinterpret_cast<const float4*>(zst + o * TILE + p0 + 4);
-        const float zs[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] = acc[j][i] * act_grad<ACT>(zs[i]);
-      } else if (MODE == MODE_FADD) {
-        const float* fr = f + o * PS + p0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] += acc[j][i] * act_grad<ACT>(fr[i]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) d[i] += acc[j][i];
-      }
-    }
-  }
-  __syncthreads();
-}
-
 // X[r][p] = act(z[r][p]) for rows r < rows, z = stash rows
 template <int ACT>
 __device__ __forceinline__ void load_act(const float* __restrict__ z,
@@ -427,10 +260,9 @@ __device__ __forceinline__ void load_act(const float* __restrict__ z,
 // d out_c / d init = Σ_skip act'(init) ⊙ (W_i,f u_{i+1}) + W_in u_0.
 
 // G rows n < H <- w_col[LD·n] · act'(z[n][p]): the chain's seed u_NL,
-// w_col = column c of layer_out (row c of its transposed copy, LD = 1, or
-// of W_out itself, LD = its width), z = the last hidden pre-activation's
-// stash rows.
-template <int H, int ACT, int LD = 1>
+// w_col = column c of W_out (LD = its width), z = the last hidden
+// pre-activation's stash rows.
+template <int H, int ACT, int LD>
 __device__ __forceinline__ void seed_column(float* G,
                                             const float* __restrict__ w_col,
                                             const float* __restrict__ z) {
@@ -448,37 +280,6 @@ __device__ __forceinline__ void store_rows(const float* G, int rows,
     *reinterpret_cast<float4*>(dst + r * TILE + c) =
         *reinterpret_cast<const float4*>(G + r * PS + c);
   }
-}
-
-// Hidden layers I..0 of `mlp_input_grad`, last first.
-template <int FI, int H, int NL, int ACT, int I>
-__device__ __forceinline__ void mlp_input_grad_hidden(
-    float* G, const float* F, float* DF, const float* __restrict__ wt,
-    const float* __restrict__ zst) {
-  if constexpr (I >= 0) {
-    constexpr bool SKIP = skip_at(I, NL);
-    constexpr int KT = H + (SKIP ? FI : 0);
-    constexpr long OFF = mlp_offset(FI, H, NL, I + 1);
-    if (SKIP)
-      dense_bwd<H, FI, KT, ACT, MODE_FADD>(G, wt + OFF + H, DF, nullptr, F);
-    dense_bwd<H, H, KT, ACT, MODE_Z>(G, wt + OFF, G, zst + (long)I * H * TILE,
-                                     nullptr);
-    mlp_input_grad_hidden<FI, H, NL, ACT, I - 1>(G, F, DF, wt, zst);
-  }
-}
-
-// The transpose chain on one tile. On entry G rows 0..H-1 hold u_NL
-// (`seed_column`), F the init feature (FI rows) and DF zeros; zst is the
-// forward's pre-activation stash (`mlp_fwd`'s rows), wt the MLP's
-// transposed weights at its layer_in. On return DF holds d out_c / d
-// init. G is overwritten.
-template <int FI, int H, int NL, int ACT>
-__device__ __forceinline__ void mlp_input_grad(float* G, const float* F,
-                                               float* DF,
-                                               const float* __restrict__ wt,
-                                               const float* __restrict__ zst) {
-  mlp_input_grad_hidden<FI, H, NL, ACT, NL - 1>(G, F, DF, wt, zst);
-  dense_bwd<H, FI, FI, ACT_NONE, MODE_ADD>(G, wt, DF, nullptr, nullptr);
 }
 
 // out[i] = sum over blocks b (in order) of partial[b][i], i < wp (a

@@ -64,8 +64,6 @@ static_assert(W_OUT <= 32, "the warp's output: one column per lane");
 // ---- packed weight layout (ops/kernels/render_dyn.py:pack_weights): B
 // [W_IN][32], the warp MLP, the rigidity MLP (each Dense W [in][out]
 // row-major then its bias), then the canonical PlainNeRF as K1 packs it.
-// The backward's transposed copy has each W block as [out][in] at the
-// same offset.
 constexpr long FB = 0;
 constexpr long W_MLP = FB + W_IN * W_FREQS;
 constexpr long G_MLP = W_MLP + mlp_size(W_FI, W_HIDDEN, W_LAYERS, W_OUT);

@@ -41,8 +41,7 @@ __host__ __device__ constexpr long line_offset(int l) {
 // ---- packed weight layout (nerf_atlas_tpu_torch/ops/kernels/render.py:
 // pack_weights): CP lines (cp only), then each Dense layer of the density
 // MLP (tiny: its one MLP) and of the View MLP (not tiny) as W [in][out]
-// row-major followed by its bias [out]. The backward's transposed copy
-// `wt` has each W block as [out][in] at the same offset.
+// row-major followed by its bias [out].
 template <int ENC>
 struct Layout {
   static constexpr bool MIP = ENC == ENC_CONE || ENC == ENC_CYLINDER;

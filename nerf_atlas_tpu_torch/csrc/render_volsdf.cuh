@@ -1,10 +1,11 @@
 // Device code shared by K8f (render_volsdf_fwd.cu) and K8b
 // (render_volsdf_bwd.cu): the VolSDF architecture and its packed weight
-// layout, the forward of one 64-point tile, which both kernels run so
-// that the backward recomputes exactly the forward's values, and the
-// eikonal's per-point steps. The per-layer building blocks and K8f's
-// transpose chain of ∇ₓsdf are render_common.cuh's; K8b's recompute, chain
-// and adjoint are mma_tf32.cuh's.
+// layout, the per-point steps both kernels round as the plain version
+// does (the SDF init feature, the sphere bias, the Laplace density), the
+// eikonal's per-point steps, and K8b's forward of one 64-point tile (its
+// recompute). No float32-FMA MLP code remains: K8f's products and its
+// transpose chain of ∇ₓsdf are wgmma_tf32.cuh's, K8b's recompute, chain
+// and adjoint mma_tf32.cuh's.
 //
 // The chain of one sample point (nerf_atlas_tpu/ops/pallas/
 // render_volsdf.py `_vs_chain_fwd`, models/volsdf.py VolSDF):
@@ -49,9 +50,7 @@ static_assert(S_IN <= F_ROWS && R_IN <= F_ROWS, "init feature rows");
 
 // ---- packed weight layout (ops/kernels/render_volsdf.py:pack_weights):
 // the scale s, B [3][32] row-major, then the SDF MLP's and the View MLP's
-// Dense layers, each W [in][out] row-major followed by its bias. The
-// backward's transposed copy has each W block as [out][in] at the same
-// offset.
+// Dense layers, each W [in][out] row-major followed by its bias.
 constexpr long SCALE = 0;
 constexpr long FB = 1;
 constexpr long S_MLP = FB + 3 * N_FREQS;                        // 97
@@ -70,15 +69,13 @@ constexpr long TC_R =
 constexpr long TC_TOTAL =
     TC_R + tc::tc_mlp_floats(R_IN, R_HIDDEN, R_LAYERS, R_OUT);
 
-// ---- a tile's stash, in rows of TILE floats: the SDF MLP's
-// pre-activations first (K8f's eikonal stashes only those), then the View
-// MLP's and the two init features (K8b)
+// ---- K8b's stash of a tile, in rows of TILE floats: the SDF MLP's
+// pre-activations, then the View MLP's and the two init features
 constexpr int ST_S = 0;                                  // z_in, z_0..z_5
 constexpr int ST_R = ST_S + (S_LAYERS + 1) * S_HIDDEN;   // View z_in..z_4
 constexpr int ST_FS = ST_R + (R_LAYERS + 1) * R_HIDDEN;  // SDF init
 constexpr int ST_FR = ST_FS + S_IN;                      // View init
 constexpr int ST_ROWS = ST_FR + R_IN;                    // 2,664
-constexpr long ST_SDF_TILE = (long)ST_R * TILE;          // SDF z only
 constexpr long ST_TILE = (long)ST_ROWS * TILE;
 // the eikonal adjoint's u-stash: u_0..u_6
 constexpr long U_TILE = (long)(S_LAYERS + 1) * S_HIDDEN * TILE;
@@ -127,22 +124,22 @@ __device__ __forceinline__ float laplace_density(float sdf, float s,
   return __fdiv_rn(*cdf, s);
 }
 
-// The forward of one tile: the block's sample points q0 .. q0 + 63 (of
+// K8b's forward of one tile: the block's sample points q0 .. q0 + 63 (of
 // n_pts). H [S_HIDDEN][PS], F and FA [F_ROWS][PS] are shared-memory
 // buffers; ray_s [rays][8] holds the block's rays (`ray_setup`), w the
 // packed weights with B copied to fb. Each real point's σ goes to res[RS·q],
 // its raw rgb to res[RS·q + 1..3] and its sdf to res[RS·q + 4]. With `st`
 // (the tile's stash) the SDF MLP's pre-activations go there too, and with
-// `full` the View MLP's and both init features. `mlp` runs the two MLPs
-// (render_common.cuh `FmaMlp`, or `tc::TcMlp` with `st` and `full`).
-template <int RS, class Mlp = FmaMlp>
+// `full` the View MLP's and both init features. `mlp` (`tc::TcMlp`) runs
+// the two MLPs.
+template <int RS, class Mlp>
 __device__ void tile_forward(float* H, float* F, float* FA,
                              const float* ray_s,
                              const float* __restrict__ ts, const float* fb,
                              const float* __restrict__ w, float s,
                              bool sphere, int q0, int n_pts, int steps,
                              float* res, float* st, bool full,
-                             Mlp mlp = Mlp()) {
+                             Mlp mlp) {
   const int tid = threadIdx.x;
   sdf_init_rows(F, ray_s, ts, fb, q0, n_pts, steps);
   for (int i = tid; i < S_IN * TILE; i += THREADS) {
@@ -189,24 +186,6 @@ __device__ void tile_forward(float* H, float* F, float* FA,
     for (int c = 0; c < 3; ++c) res[RS * (q0 + tid) + 1 + c] = H[c * PS + tid];
   }
   __syncthreads();
-}
-
-// d out_0 / d init of the tile into DF rows 0..66 (zeroed here): the
-// transpose chain of the SDF MLP in float32 FMAs (K8f's eikonal column),
-// seeded with column 0 of its layer_out. F holds the SDF init feature,
-// zst the tile's SDF pre-activations, wt the transposed weights. G is
-// overwritten.
-__device__ __forceinline__ void sdf_input_grad(float* G, const float* F,
-                                               float* DF,
-                                               const float* __restrict__ wt,
-                                               const float* __restrict__ zst) {
-  for (int i = threadIdx.x; i < S_IN * TILE; i += THREADS)
-    DF[(i / TILE) * PS + i % TILE] = 0.0f;
-  seed_column<S_HIDDEN, ACT_LEAKY>(G, wt + S_OUT_W,
-                                   zst + (long)S_LAYERS * S_HIDDEN * TILE);
-  __syncthreads();
-  mlp_input_grad<S_IN, S_HIDDEN, S_LAYERS, ACT_LEAKY>(G, F, DF, wt + S_MLP,
-                                                      zst);
 }
 
 // Point p's g = ∇ₓsdf from DF (d out_0 / d init) and F (p ‖ sin ‖ cos);

@@ -1,6 +1,9 @@
 // The dense products of the forward kernels K1 (render_fwd.cu), K7f
-// (render_ae_fwd.cu) and K9f (render_dyn_fwd.cu) on Hopper's tensor
-// cores: a whole SkipConnMLP's forward by `wgmma.mma_async` in split TF32.
+// (render_ae_fwd.cu), K8f (render_volsdf_fwd.cu) and K9f
+// (render_dyn_fwd.cu) on Hopper's tensor cores: a whole SkipConnMLP's
+// forward by `wgmma.mma_async` in split TF32, and K8f's eikonal column,
+// the input gradient of the SDF's output by the transpose chain
+// (`mlp_input_grad`).
 //
 // Split TF32, as mma_tf32.cuh forms it for the backward kernels: each
 // float32 operand a is split into hi = tf32(a) and lo = tf32(a − hi), and
@@ -12,8 +15,8 @@
 // lay further from the float64 products on K1's checks).
 // ~3·2^-22 relative per term where a float32 FMA carries 2^-24:
 // `testing.split_tf32_matmul` emulates it on the CPU
-// (tests/test_torch_tf32_split.py holds the plain K1, K7f and K9f so
-// computed to their gate).
+// (tests/test_torch_tf32_split.py holds the plain K1, K7f, K8f with its
+// eikonal column, and K9f so computed to their gates).
 //
 // Why wgmma and this form. A block holds two 64-point tiles, one per
 // warpgroup: the tile's points are one wgmma's M (64), the layer's outputs
@@ -223,24 +226,21 @@ struct Mma<8> {
 
 // ---- a whole SkipConnMLP on a warpgroup's tile ----
 
-// Dense layer: dst[n][p] = ACT(z), z = b[n] + Σ_k A[k][p]·W[k][n] for the
-// warpgroup's 64 points and n < NOUT, A rows k < KA from `a` and rows KA +
-// r, r < KB, ACT_B(f[r][p]) (act of the init feature at a skip layer, the
-// raw feature at layer_in); `blk` the layer's wgmma pack, `b` its bias.
+// The product of a Dense layer on the warpgroup's 64 points: for n < NOUT,
+// epi(n, m, Σ_k A[k][m]·B[k][n]) once per output, A rows k < KA from `a`
+// and rows KA + r, r < KB, ACT_B(f[r][m]) (act of the init feature at a
+// skip layer, the raw feature at layer_in), B the wgmma-pack block `blk`.
 // The units pass through `stage` (S · UNIT_FLOATS floats, a ring of S
 // units that both warpgroups read) by cp.async, S − 1 ahead of the
 // products, one block barrier per unit. Each k-step's three products go
 // into a fresh accumulator that one float32 add carries into the sum.
-// Both warpgroups call it together; dst may alias a. Starts and ends
-// with a barrier.
-template <int S, int KA, int KB, int NOUT, int ACT, int ACT_B>
-__device__ __forceinline__ void dense(const float* __restrict__ blk,
-                                      const float* __restrict__ b,
-                                      float* stage, const float* a,
-                                      const float* f, float* dst) {
-  blk = opaque(blk);
-  b = opaque(b);
-  stage = opaque(stage);
+// Both warpgroups call it together; epi runs after every read of `a`, so
+// it may write over a. Starts and ends with a barrier. The caller makes
+// blk and stage `opaque`.
+template <int S, int KA, int KB, int NOUT, int ACT_B, class Epi>
+__device__ __forceinline__ void product(const float* __restrict__ blk,
+                                        float* stage, const float* a,
+                                        const float* f, Epi epi) {
   constexpr int NS = sub_n(NOUT), SUBS = pad8(NOUT) / NS;
   constexpr int KAP = pad16(KA), SLICES = (KAP + pad16(KB)) / SK;
   constexpr int UNITS = SUBS * SLICES, UNIT = 2 * SK * NS;
@@ -330,27 +330,83 @@ __device__ __forceinline__ void dense(const float* __restrict__ blk,
       for (int c = 0; c < 4; ++c) {
         const int n = sub * NS + 8 * j + 2 * t + (c & 1);
         const int m = m0 + 8 * (c >> 1);
-        if (n < NOUT)
-          dst[n * PS + m] = activate<ACT>(acc[sub][4 * j + c] + __ldg(b + n));
+        if (n < NOUT) epi(n, m, acc[sub][4 * j + c]);
       }
     }
   }
   __syncthreads();
 }
 
+// ---- the sign stash of a leaky-relu MLP (K8f's eikonal column: act′ is 1
+// or 0.01 by the sign of its input, and leaky-relu keeps the sign, so the
+// activations give it) ----
+//
+// A row of a tile's signs is 8 bytes: bit g of byte k is 1 where the
+// row's value at point 8k + g is > 0.
+
+// The signs of the warpgroup's rows r < rows of x ([row][PS]).
+__device__ __forceinline__ void sign_rows(const float* x, int rows,
+                                          uint8_t* signs) {
+  for (int i = threadIdx.x & (WG_THREADS - 1); i < 8 * rows;
+       i += WG_THREADS) {
+    const float* v = x + (i >> 3) * PS + 8 * (i & 7);
+    uint32_t byte = 0;
+#pragma unroll
+    for (int g = 0; g < 8; ++g) byte |= (v[g] > 0.0f ? 1u : 0u) << g;
+    signs[i] = (uint8_t)byte;
+  }
+}
+
+// act′ of a leaky-relu at row n, point m of the tile whose signs are `s`
+__device__ __forceinline__ float slope(const uint8_t* s, int n, int m) {
+  return (s[8 * n + (m >> 3)] >> (m & 7)) & 1 ? 1.0f : 0.01f;
+}
+
+// x[n][m] *= act′ for the warpgroup's rows n < rows of x, signs `s`
+__device__ __forceinline__ void apply_slopes(float* x, int rows,
+                                             const uint8_t* s) {
+  for (int i = threadIdx.x & (WG_THREADS - 1); i < rows * TILE;
+       i += WG_THREADS) {
+    const int n = i / TILE, m = i % TILE;
+    x[n * PS + m] *= slope(s, n, m);
+  }
+}
+
+// Dense layer: dst[n][p] = ACT(b[n] + `product`) for the warpgroup's 64
+// points and n < NOUT; `blk` the layer's wgmma pack, `b` its bias. Both
+// warpgroups call it together; dst may alias a. Starts and ends with a
+// barrier.
+template <int S, int KA, int KB, int NOUT, int ACT, int ACT_B>
+__device__ __forceinline__ void dense(const float* __restrict__ blk,
+                                      const float* __restrict__ b,
+                                      float* stage, const float* a,
+                                      const float* f, float* dst) {
+  blk = opaque(blk);
+  b = opaque(b);
+  stage = opaque(stage);
+  product<S, KA, KB, NOUT, ACT_B>(blk, stage, a, f,
+                                  [&](int n, int m, float acc) {
+    dst[n * PS + m] = activate<ACT>(acc + __ldg(b + n));
+  });
+}
+
 // Hidden layers I..NL-1 of `mlp_fwd`.
-template <int S, int FI, int H, int NL, int NOUT, int ACT, int I>
+template <int S, int FI, int H, int NL, int NOUT, int ACT, bool SIGNS,
+          int I>
 __device__ __forceinline__ void mlp_hidden_fwd(const float* F,
                                                const float* __restrict__ w,
                                                const float* __restrict__ wp,
-                                               float* X, float* stage) {
+                                               float* X, float* stage,
+                                               uint8_t* signs) {
   if constexpr (I < NL) {
     constexpr int KF = skip_at(I, NL) ? FI : 0;
     dense<S, H, KF, H, ACT, ACT>(
         wp + layer_offset(FI, H, NL, NOUT, I + 1),
         w + mlp_offset(FI, H, NL, I + 1) + (long)(H + KF) * H, stage, X, F,
         X);
-    mlp_hidden_fwd<S, FI, H, NL, NOUT, ACT, I + 1>(F, w, wp, X, stage);
+    if constexpr (SIGNS) sign_rows(X, H, signs + 8L * (I + 1) * H);
+    mlp_hidden_fwd<S, FI, H, NL, NOUT, ACT, SIGNS, I + 1>(F, w, wp, X, stage,
+                                                          signs);
   }
 }
 
@@ -358,20 +414,131 @@ __device__ __forceinline__ void mlp_hidden_fwd(const float* F,
 // skip layers apply ACT to it as they load it) -> its raw output in X rows
 // 0..NOUT-1 (X holds H rows). w: the packed weights at the MLP's layer_in
 // (the biases), wp: its wgmma pack; stage: S · UNIT_FLOATS floats of
-// shared memory that neither warpgroup's F or X overlaps. Both
-// warpgroups call it together, each on its own tile.
-template <int S, int FI, int H, int NL, int NOUT, int ACT>
+// shared memory that neither warpgroup's F or X overlaps. With SIGNS
+// (ACT_LEAKY), the signs of layer_in's and of each hidden layer's
+// activations, those of their pre-activations, go to `signs`, (NL + 1)·H
+// rows (`mlp_input_grad` reads them). Both warpgroups call it together,
+// each on its own tile.
+template <int S, int FI, int H, int NL, int NOUT, int ACT, bool SIGNS = false>
 __device__ __forceinline__ void mlp_fwd(const float* F,
                                         const float* __restrict__ w,
                                         const float* __restrict__ wp,
-                                        float* X, float* stage) {
+                                        float* X, float* stage,
+                                        uint8_t* signs = nullptr) {
+  static_assert(!SIGNS || ACT == ACT_LEAKY, "signs give leaky-relu's act′");
   dense<S, 0, FI, H, ACT, ACT_NONE>(wp, w + (long)FI * H, stage, nullptr, F,
                                     X);
-  mlp_hidden_fwd<S, FI, H, NL, NOUT, ACT, 0>(F, w, wp, X, stage);
+  if constexpr (SIGNS) sign_rows(X, H, signs);
+  mlp_hidden_fwd<S, FI, H, NL, NOUT, ACT, SIGNS, 0>(F, w, wp, X, stage,
+                                                    signs);
   dense<S, H, 0, NOUT, ACT_NONE, ACT_NONE>(
       wp + layer_offset(FI, H, NL, NOUT, NL + 1),
       w + mlp_offset(FI, H, NL, NL + 1) + (long)H * NOUT, stage, X, nullptr,
       X);
+}
+
+// ---- the input gradient of one output column by the transpose chain
+// (render_common.cuh states it): VolSDF's ∇ₓsdf, K8f's eikonal column ----
+
+// The chain pack (render.py `wgmma_layout_index(..., transposed=True)`):
+// per Dense layer j = 0..NL of a SkipConnMLP (not layer_out), B = W as [k
+// = out][n = in], K-major, in the wgmma pack's form: its kh hidden
+// columns, then its kf init-feature columns as two blocks, the first
+// `kf_head(kf)` and the rest (67 -> 64 + 3: a sub-product's N is 64 or,
+// below that, the width padded to 8).
+__host__ __device__ constexpr int kf_head(int kf) {
+  return kf / NS_MAX * NS_MAX;
+}
+__host__ __device__ constexpr long t_block_floats(int k, int n) {
+  return n == 0 ? 0 : 2L * pad16(k) * pad8(n);
+}
+__host__ __device__ constexpr long t_layer_floats(int kh, int kf, int out) {
+  return t_block_floats(out, kh) + t_block_floats(out, kf_head(kf))
+         + t_block_floats(out, kf - kf_head(kf));
+}
+__host__ __device__ constexpr long t_layer_offset(int fi, int h, int nl,
+                                                  int j) {
+  long off = 0;
+  for (int i = 0; i < j; ++i)
+    off += t_layer_floats(tc::layer_kh(h, i), tc::layer_kf(fi, nl, i), h);
+  return off;
+}
+__host__ __device__ constexpr long t_mlp_floats(int fi, int h, int nl) {
+  return t_layer_offset(fi, h, nl, nl + 1);
+}
+
+// DF rows n < N += the product of u (G, K rows) and the init-feature
+// columns at `blk` (`kf_head`'s two blocks), times act′(init) from the
+// init feature's signs `fs` with SLOPE.
+template <int S, int K, int N, bool SLOPE>
+__device__ __forceinline__ void init_rows_grad(const float* __restrict__ blk,
+                                               float* stage, const float* G,
+                                               float* DF,
+                                               const uint8_t* fs) {
+  constexpr int HEAD = kf_head(N);
+  auto add = [&](int n, int m, float v) {
+    DF[n * PS + m] += SLOPE ? v * slope(fs, n, m) : v;
+  };
+  if constexpr (HEAD > 0)
+    product<S, K, 0, HEAD, ACT_NONE>(opaque(blk), opaque(stage), G, nullptr,
+                                     add);
+  if constexpr (N > HEAD)
+    product<S, K, 0, N - HEAD, ACT_NONE>(
+        opaque(blk + t_block_floats(K, HEAD)), opaque(stage), G, nullptr,
+        [&](int n, int m, float v) { add(HEAD + n, m, v); });
+}
+
+// Hidden layers I..0 of `mlp_input_grad`, last first. On entry G holds
+// u_{I+1}.
+template <int S, int FI, int H, int NL, int I>
+__device__ __forceinline__ void mlp_input_grad_hidden(
+    float* G, float* DF, const float* __restrict__ wc, float* stage,
+    const uint8_t* signs) {
+  if constexpr (I >= 0) {
+    const float* blk = wc + t_layer_offset(FI, H, NL, I + 1);
+    if constexpr (skip_at(I, NL)) {
+      // DF += act′(init) ⊙ (W_I,f u_{I+1})
+      init_rows_grad<S, H, FI, true>(blk + t_block_floats(H, H), stage, G,
+                                     DF, signs + 8L * (NL + 1) * H);
+    }
+    // G <- u_I = a′_I ⊙ (W_I,h u_{I+1}), act′ after the product (in its
+    // epilogue, the sign loads beside the 128 accumulators spill)
+    product<S, H, 0, H, ACT_NONE>(opaque(blk), opaque(stage), G, nullptr,
+                                  [&](int n, int m, float v) {
+      G[n * PS + m] = v;
+    });
+    apply_slopes(G, H, signs + 8L * I * H);
+    mlp_input_grad_hidden<S, FI, H, NL, I - 1>(G, DF, wc, stage, signs);
+  }
+}
+
+// d out_0 / d init of the warpgroup's tile into DF rows 0..FI-1 for a
+// leaky-relu SkipConnMLP: each product by wgmma in split TF32, A = u from
+// the tile's rows of G, B = the layer's W [k = out][n = in] from the chain
+// pack `wc`, then times act′ (no bias). The seed
+// u_NL = a′_NL ⊙ W_out[:, 0] comes from the packed weights w (at the
+// MLP's layer_in), every act′ from `signs`: as `mlp_fwd` with SIGNS wrote
+// them, then the init feature's (FI rows, `sign_rows`). G (H rows) is
+// overwritten; stage as `mlp_fwd`'s. Both warpgroups call it together.
+// Starts and ends with a barrier.
+template <int S, int FI, int H, int NL, int NOUT>
+__device__ __forceinline__ void mlp_input_grad(float* G, float* DF,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ wc,
+                                               float* stage,
+                                               const uint8_t* signs) {
+  const int wtid = threadIdx.x & (WG_THREADS - 1);
+  const float* w_col = w + mlp_offset(FI, H, NL, NL + 1);
+  const uint8_t* zs = signs + 8L * NL * H;
+  __syncthreads();
+  for (int i = wtid; i < H * TILE; i += WG_THREADS) {
+    const int n = i / TILE, m = i % TILE;
+    G[n * PS + m] = __ldg(w_col + (long)NOUT * n) * slope(zs, n, m);
+  }
+  for (int i = wtid; i < FI * TILE; i += WG_THREADS)
+    DF[(i / TILE) * PS + i % TILE] = 0.0f;
+  mlp_input_grad_hidden<S, FI, H, NL, NL - 1>(G, DF, wc, stage, signs);
+  init_rows_grad<S, H, FI, false>(wc, stage, G, DF, nullptr);  // W_in u_0
 }
 
 }  // namespace wg

@@ -906,43 +906,62 @@ def _wgmma_block(a: torch.Tensor, pad: int
                     dim=2))
 
 
-def wgmma_layout_index(mlps: TCMlps, weight_count: int
+def wgmma_layout_index(mlps: TCMlps, weight_count: int,
+                       transposed: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
   """(index, part) of csrc/wgmma_tf32.cuh's wgmma pack of the MLPs `mlps`
-  (K1's `tc_mlps`; K7f and K9f take their backward's TC pack lists; the
-  part flags are not read: every product in two parts) of a packed weight
-  vector of `weight_count` floats (`weight_count`: a zero pad; part TC_HI
-  or TC_LO). Per MLP, in order, and per Dense layer W [in, out] (in = kh
-  hidden rows ‖ kf init rows): B = W as [kh rows padded to 16, then kf
-  rows padded to 16][out] in `_wgmma_block`'s order."""
+  (K1's `tc_mlps`; K7f, K8f and K9f take their backward's TC pack lists;
+  the part flags are not read: every product in two parts) of a packed
+  weight vector of `weight_count` floats (`weight_count`: a zero pad; part
+  TC_HI or TC_LO). Per MLP, in order, and per Dense layer W [in, out] (in
+  = kh hidden rows ‖ kf init rows): B = W as [kh rows padded to 16, then
+  kf rows padded to 16][out] in `_wgmma_block`'s order.
+
+  `transposed`: the chain pack of K8f's eikonal column (wgmma_tf32.cuh
+  `t_layer_offset`), the products of the transpose chain: per MLP and per
+  Dense layer but layer_out, B = Wᵀ [out rows padded to 16][in] as blocks
+  of its kh hidden columns, then of its kf init columns in two, the first
+  64·⌊kf/64⌋ and the rest (67 -> 64 + 3)."""
   pad = weight_count
   blocks = []
   for pos, layers, _ in mlps:
     for j, (_, n_in, n_out) in enumerate(layers):
       kh = 0 if j == 0 else layers[0][2]
       w = pos + torch.arange(n_in * n_out).view(n_in, n_out)
+      pos += n_in * n_out + n_out
+      if transposed:
+        if j == len(layers) - 1:
+          continue
+        head = kh + (n_in - kh) // _WG_SUB * _WG_SUB
+        for c0, c1 in ((0, kh), (kh, head), (head, n_in)):
+          if c1 > c0:
+            b = torch.full((_pad16(n_out), c1 - c0), pad, dtype=torch.long)
+            b[:n_out] = w[c0:c1].t()
+            blocks.append(_wgmma_block(b, pad))
+        continue
       b = torch.full((_pad16(kh) + _pad16(n_in - kh), n_out), pad,
                      dtype=torch.long)
       b[:kh] = w[:kh]
       b[_pad16(kh):_pad16(kh) + n_in - kh] = w[kh:]
       blocks.append(_wgmma_block(b, pad))
-      pos += n_in * n_out + n_out
   return (torch.cat([b.reshape(-1) for b, _ in blocks]),
           torch.cat([p.reshape(-1) for _, p in blocks]))
 
 
-_WG_INDEX: Dict[Tuple[torch.device, TCMlps, int],
+_WG_INDEX: Dict[Tuple[torch.device, TCMlps, int, bool],
                 Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def wgmma_pack_mlps(ws: torch.Tensor, mlps: TCMlps) -> torch.Tensor:
+def wgmma_pack_mlps(ws: torch.Tensor, mlps: TCMlps,
+                    transposed: bool = False) -> torch.Tensor:
   """The packed weights `ws` pre-split into csrc/wgmma_tf32.cuh's wgmma
-  pack of the MLPs `mlps` (`wgmma_layout_index`): the weight operands of
-  a forward kernel's wgmma products (K1, K7f, K9f), once per call."""
-  key = (ws.device, mlps, ws.shape[0])
+  pack of the MLPs `mlps` (`wgmma_layout_index`; `transposed`: the chain
+  pack): the weight operands of a forward kernel's wgmma products (K1,
+  K7f, K8f, K9f), once per call."""
+  key = (ws.device, mlps, ws.shape[0], transposed)
   if key not in _WG_INDEX:
     _WG_INDEX[key] = tuple(t.to(ws.device) for t in wgmma_layout_index(
-        mlps, ws.shape[0]))
+        mlps, ws.shape[0], transposed))
   index, part = _WG_INDEX[key]
   hi, lo = tf32_split(F.pad(ws, (0, 1))[index])
   return torch.where(part == TC_HI, hi, lo)

@@ -3,9 +3,12 @@ the eikonal regularizer computed inside the kernels.
 
 Counterparts of `nerf_atlas_tpu/ops/pallas/render_volsdf.py`:
 - `fused_volsdf_render` (K8f, kernel body `_vs_kernel`) launches
-  `csrc/render_volsdf_fwd.cu`; `volsdf_render_reference` is its plain
-  torch. With `want_eikonal` the output gains a 5th column, the per-ray
-  mean of (‖∇ₓsdf‖ − 1)² over the sample points.
+  `csrc/render_volsdf_fwd.cu` (built without and with the eikonal column,
+  `fwd_defines`; its MLP products by TF32 wgmma from the wgmma pack of
+  TC_MLPS, the column's transpose chain from `chain_pack`);
+  `volsdf_render_reference` is its plain torch. With `want_eikonal` the
+  output gains a 5th column, the per-ray mean of (‖∇ₓsdf‖ − 1)² over the
+  sample points.
 - `fused_volsdf_render_grad` (K8b in cotangent mode G, the autograd
   backward of K8f) and `fused_volsdf_train_step` (K8b in loss mode L, the
   one-kernel step: the L2 loss, plus `eikonal_weight` times the mean
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
@@ -70,6 +74,14 @@ WEIGHT_COUNT = MLP_OFFSET + sum(i * o + o for _, i, o in LAYERS)  # 552,325
 TC_MLPS = ((MLP_OFFSET, LAYERS[:N_SDF_LAYERS], True),
            (MLP_OFFSET + sum(i * o + o for _, i, o in LAYERS[:N_SDF_LAYERS]),
             LAYERS[N_SDF_LAYERS:], False))
+# K8f's forward takes the wgmma pack of TC_MLPS (its flags unread), its
+# eikonal column the chain pack of the SDF MLP
+CHAIN_MLPS = TC_MLPS[:1]
+# K8f's eikonal keeps the signs of a tile's (64 points') SDF MLP
+# activations, layer_in's and each hidden layer's, then of its init
+# feature: 8 bytes a row (csrc/wgmma_tf32.cuh `sign_rows`)
+SIGN_ROWS = (S_LAYERS + 1) * S_HIDDEN + S_IN                 # 1,859
+SIGN_BYTES = 8 * SIGN_ROWS                                   # 14,872
 
 Params = Union[Mapping[str, torch.Tensor], torch.Tensor]
 
@@ -289,13 +301,20 @@ def volsdf_train_step_reference(params: Params, rays: torch.Tensor,
 # the launchers (csrc/render_volsdf_fwd.cu, csrc/render_volsdf_bwd.cu)
 # ---------------------------------------------------------------------------
 
+def fwd_defines(want_eikonal: bool) -> Tuple[str, ...]:
+  """The defines that build csrc/render_volsdf_fwd.cu in one mode: two
+  libraries, compiled in parallel."""
+  return (f"RENDER_VOLSDF_EIKONAL={int(want_eikonal)}",)
+
+
 def _bind(name: str, n_ptr: int, n_int: int, n_float: int,
-          counts: Tuple[str, ...]) -> ctypes.CDLL:
-  """Build (at first use) and bind csrc/<name>.cu: its launch function,
-  the scratch sizes `counts` and the constants it must share with this
-  wrapper."""
+          counts: Tuple[str, ...],
+          defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+  """Build (at first use) and bind csrc/<name>.cu (with `defines`): its
+  launch function, the sizes `counts` and the constants it must share
+  with this wrapper."""
   from . import build
-  lib = build.load(name)
+  lib = build.load(name, defines)
   fn = getattr(lib, f"{name}_launch")
   fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                  + [ctypes.c_float] * n_float + [ctypes.c_void_p])
@@ -317,8 +336,24 @@ def _bind(name: str, n_ptr: int, n_int: int, n_float: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _load_fwd_library() -> ctypes.CDLL:
-  return _bind("render_volsdf_fwd", 7, 7, 0, ("stash_floats_per_block",))
+def _load_fwd_library(want_eikonal: bool) -> ctypes.CDLL:
+  lib = _bind("render_volsdf_fwd", 9, 6, 0,
+              ("pack_floats", "chain_floats", "stash_bytes_per_slot"),
+              fwd_defines(want_eikonal))
+  lib.render_volsdf_fwd_stash_slots.restype = ctypes.c_int
+  lib.render_volsdf_fwd_stash_slots.argtypes = []
+  want = (k1.wgmma_layout_index(TC_MLPS, WEIGHT_COUNT)[0].numel(),
+          chain_pack_floats() if want_eikonal else 0,
+          2 * SIGN_BYTES if want_eikonal else 0)
+  got = (lib.render_volsdf_fwd_pack_floats(),
+         lib.render_volsdf_fwd_chain_floats(),
+         lib.render_volsdf_fwd_stash_bytes_per_slot())
+  if got != want:
+    raise RuntimeError(f"render_volsdf_fwd.cu built for "
+                       f"{fwd_defines(want_eikonal)} reports (pack floats, "
+                       f"chain floats, stash bytes per slot) {got}, the "
+                       f"wrapper {want}")
+  return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,6 +369,48 @@ def _load_bwd_library() -> ctypes.CDLL:
   return lib
 
 
+def chain_pack_floats() -> int:
+  """Floats of K8f's chain pack (`chain_pack`)."""
+  return k1.wgmma_layout_index(CHAIN_MLPS, WEIGHT_COUNT, True)[0].numel()
+
+
+def chain_pack(ws: torch.Tensor) -> torch.Tensor:
+  """The chain pack of K8f's eikonal column (render.py
+  `wgmma_layout_index(..., transposed=True)` of the SDF MLP): each Dense
+  layer's W as the B of the transpose chain's wgmma products, hi and
+  lo."""
+  return k1.wgmma_pack_mlps(ws, CHAIN_MLPS, transposed=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _stash_slots(index: int) -> int:
+  lib = _load_fwd_library(True)
+  with torch.cuda.device(index):
+    slots = lib.render_volsdf_fwd_stash_slots()
+  if slots < 0:
+    raise RuntimeError(f"render_volsdf_fwd (eikonal) on cuda:{index}: "
+                       f"{lib.render_volsdf_fwd_error_string(-slots)!r}")
+  if slots == 0:
+    raise RuntimeError(f"no block of render_volsdf_fwd (eikonal) fits on "
+                       f"cuda:{index}")
+  return slots
+
+
+def eikonal_scratch(device) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The sign scratch of one K8f eikonal launch on `device`: (stash
+  uint8 [slots, 2, SIGN_BYTES], busy int32 [slots] of 0), a slot per SM
+  id, at least one per block the card holds at once (132 on an H100
+  80GB HBM3: 3.9 MB), whatever the number of rays. Each block keeps its
+  two tiles' signs (`testing.sign_bytes`'s layout) in the slot it
+  claims."""
+  device = torch.device(device)
+  slots = _stash_slots(device.index if device.index is not None
+                       else torch.cuda.current_device())
+  return (torch.empty((slots, 2, SIGN_BYTES), dtype=torch.uint8,
+                      device=device),
+          torch.zeros(slots, dtype=torch.int32, device=device))
+
+
 def _sm_count(device) -> int:
   return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -345,8 +422,13 @@ def _rays_per_block(steps: int) -> int:
 def _forward_launch(ws: torch.Tensor, rays: torch.Tensor, *, steps: int,
                     t_near: float, t_far: float, sigmoid_kind: str,
                     sky_kind: str, sphere_init: bool, want_eikonal: bool,
-                    ts: Optional[torch.Tensor]) -> torch.Tensor:
-  """One render_volsdf_fwd launch."""
+                    ts: Optional[torch.Tensor],
+                    scratch: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                    = None) -> torch.Tensor:
+  """One render_volsdf_fwd launch of the library built for
+  `want_eikonal`: the weights' wgmma pack (and the chain pack) packed
+  once per call; the eikonal's sign scratch is `scratch` (default a new
+  `eikonal_scratch`)."""
   k1._check_cuda(rays, "render_volsdf_fwd")
   ws = ws.detach()
   _check_call(ws, rays, steps, sigmoid_kind, sky_kind, MAX_STEPS)
@@ -358,45 +440,21 @@ def _forward_launch(ws: torch.Tensor, rays: torch.Tensor, *, steps: int,
   if n == 0:
     return out
   ts, dists = k1.sample_grid(steps, t_near, t_far, rays.device, ts)
-  lib = _load_fwd_library()
-  ray_blocks = -(-n // _rays_per_block(steps))
-  wt = stash = None
-  blocks = ray_blocks
+  lib = _load_fwd_library(want_eikonal)
+  wp = k1.wgmma_pack_mlps(ws, TC_MLPS)
+  wc = stash = busy = None
   if want_eikonal:
-    # the eikonal's transpose chain reads each tile's SDF pre-activations
-    # from a per-block scratch: a grid of two blocks per SM loops over the
-    # ray blocks
-    blocks = min(ray_blocks, 2 * _sm_count(rays.device))
-    wt = _transposed(ws)
-    stash = torch.empty(blocks * lib.render_volsdf_fwd_stash_floats_per_block(),
-                        dtype=torch.float32, device=rays.device)
+    wc = chain_pack(ws)
+    stash, busy = scratch or eikonal_scratch(rays.device)
   stream = torch.cuda.current_stream(rays.device).cuda_stream
   err = lib.render_volsdf_fwd_launch(
       rays.data_ptr(), ts.data_ptr(), dists.data_ptr(), ws.data_ptr(),
-      k1._ptr(wt), k1._ptr(stash), out.data_ptr(), n, steps, blocks,
-      k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind), int(sky_kind == "white"),
-      int(sphere_init), int(want_eikonal), stream)
+      wp.data_ptr(), k1._ptr(wc), k1._ptr(stash), k1._ptr(busy),
+      out.data_ptr(), n, steps, k1.FUSED_SIGMOID_KINDS.index(sigmoid_kind),
+      int(sky_kind == "white"), int(sphere_init),
+      busy.numel() if want_eikonal else 0, stream)
   k1._raise_on(err, lib, "render_volsdf_fwd", "render_volsdf_fwd")
   return out
-
-
-_TRANSPOSE_INDEX: Dict[torch.device, torch.Tensor] = {}
-
-
-def _transposed(ws: torch.Tensor) -> torch.Tensor:
-  """The packed vector with every Dense W [in, out] stored as [out, in]
-  at the same offset (K8f's eikonal column reads W row by output unit for
-  the transpose chain)."""
-  index = _TRANSPOSE_INDEX.get(ws.device)
-  if index is None:
-    index = torch.arange(WEIGHT_COUNT)
-    pos = MLP_OFFSET
-    for _, i, o in LAYERS:
-      index[pos:pos + i * o] = pos + torch.arange(i * o).view(i, o).t(
-      ).reshape(-1)
-      pos += i * o + o
-    index = _TRANSPOSE_INDEX.setdefault(ws.device, index.to(ws.device))
-  return ws[index]
 
 
 def _backward_launch(ws: torch.Tensor, rays: torch.Tensor, gin: torch.Tensor,
@@ -459,7 +517,9 @@ def fused_volsdf_render(params: Params, rays: torch.Tensor, *,
   shared sample positions (default the uniform grid). Rays on a CUDA
   device launch the kernel on the current stream (and raise if it cannot
   launch); rays on the CPU take `volsdf_render_reference`. The "random"
-  sky is black. Each launch adds one to `fused_volsdf_render.launches`."""
+  sky is black. Each launch adds one to `fused_volsdf_render.launches`,
+  each of the eikonal build also to
+  `fused_volsdf_render.eikonal.launches`."""
   kw = dict(steps=steps, t_near=t_near, t_far=t_far,
             sigmoid_kind=sigmoid_kind, sky_kind=sky_kind,
             sphere_init=sphere_init, want_eikonal=want_eikonal, ts=ts)
@@ -467,10 +527,13 @@ def fused_volsdf_render(params: Params, rays: torch.Tensor, *,
     return volsdf_render_reference(params, rays, **kw)
   out = _forward_launch(pack_weights(params, rays.device), rays, **kw)
   fused_volsdf_render.launches += 1
+  if want_eikonal:
+    fused_volsdf_render.eikonal.launches += 1
   return out
 
 
 fused_volsdf_render.launches = 0
+fused_volsdf_render.eikonal = types.SimpleNamespace(launches=0)
 
 
 def fused_volsdf_render_grad(params: Params, rays: torch.Tensor,

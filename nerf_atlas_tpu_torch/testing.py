@@ -253,6 +253,20 @@ def ae_float64_render(ws: torch.Tensor, rays: torch.Tensor,
   return _float64_products(k7.ae_render_reference, ws, rays, **kw)
 
 
+def volsdf_float64_render(ws: torch.Tensor, rays: torch.Tensor,
+                          **kw) -> torch.Tensor:
+  """The plain K8f (`render_volsdf.volsdf_render_reference`'s keywords)
+  with every MLP product in float64 and the rest after them in float64
+  (the sphere bias, the density, the View's init feature, the
+  compositing), on the same float32 points and SDF init feature: K8f's
+  witness, as `k1_float64_render` is K1's ([N, 4] or, with want_eikonal,
+  [N, 5] out, float64). The eikonal column's transpose chain is the
+  float64 products' backward, in float64 up to the init feature, whose
+  Fourier jacobian and the ∇ₓsdf it gives stay float32 as the points
+  are."""
+  return _float64_products(k8.volsdf_render_reference, ws, rays, **kw)
+
+
 def ae_float64_grad(ws: torch.Tensor, rays: torch.Tensor, ts: torch.Tensor,
                     arg: torch.Tensor, *, loss_mode: bool,
                     sigmoid_kind: str = "thin",
@@ -393,6 +407,16 @@ def volsdf_kink_free_rays(params: k8.Params, rays: torch.Tensor,
   the float64 evaluation: the rule for holding the port against another
   implementation (the JAX package) whose Fourier phases, hundreds of
   radians, round differently."""
+  pre = _volsdf_pre_activations(params, rays, ts, exact_features)
+  return _kink_free(lambda dtype: pre(dtype)[1:], rays, steps, margin)
+
+
+def _volsdf_pre_activations(params: k8.Params, rays: torch.Tensor,
+                            ts: torch.Tensor, exact_features: bool = False):
+  """dtype -> the inputs of the SDF MLP's leaky-relus in the plain K8f,
+  in its order: the init feature [P, 67], then layer_in's and each hidden
+  layer's pre-activations [P, 256] (`volsdf_kink_free_rays` says how
+  the init feature enters)."""
   ws = k8.pack_weights(params, rays.device)
   pts = k1.hash_pts(rays, ts)
   init32 = k8.sdf_init_feature(pts, ws[k8.B_OFFSET:k8.MLP_OFFSET].view(3, -1))
@@ -410,9 +434,94 @@ def volsdf_kink_free_rays(params: k8.Params, rays: torch.Tensor,
     with torch.no_grad():
       k8.volsdf_chain(ws.to(dtype), rays.to(dtype), ts.to(dtype), "thin",
                       True, pts=pts.to(dtype), act=act, init=init)
-    return zs[1:]                    # zs[0]: act(the init feature)
+    return zs
 
-  return _kink_free(pre_activations, rays, steps, margin)
+  return pre_activations
+
+
+# ---- K8f's eikonal sign stash (csrc/wgmma_tf32.cuh `sign_rows`,
+# `slope`) ----
+
+def sign_bytes(x: torch.Tensor) -> torch.Tensor:
+  """Rows x [..., rows, 64] (a tile's points) -> their signs in K8f's
+  stash layout, uint8 [..., rows · 8]: a row is 8 bytes, bit g of byte k
+  set where the row's value at point 8k + g is > 0."""
+  bits = (x > 0).to(torch.uint8).reshape(*x.shape[:-1], 8, 8)
+  weight = (1 << torch.arange(8, device=x.device)).to(torch.uint8)
+  return (bits * weight).sum(dim=-1, dtype=torch.uint8).reshape(
+      *x.shape[:-2], -1)
+
+
+def stash_bits(signs: torch.Tensor) -> torch.Tensor:
+  """Signs uint8 [..., rows · 8] in K8f's stash layout -> bool [..., rows,
+  64]: the bit of each row and point."""
+  b = signs.reshape(*signs.shape[:-1], -1, 8).long()
+  bits = (b[..., None] >> torch.arange(8, device=signs.device)) & 1
+  return bits.flatten(-2) == 1
+
+
+def stash_slopes(signs: torch.Tensor) -> torch.Tensor:
+  """Leaky-relu's act′ as K8f's transpose chain reads it from its signs
+  (`wg::slope`): [..., rows, 64], 1 where the bit is set, else 0.01."""
+  return torch.where(stash_bits(signs), 1.0, 0.01)
+
+
+def volsdf_sign_stash(params: k8.Params, rays: torch.Tensor,
+                      ts: torch.Tensor, margin: float = 10.0):
+  """K8f's eikonal stash as the plain forward gives it, for rays whose
+  N·T points fill whole 64-point tiles (tile t: points 64t..64t+63, ray
+  by ray): (signs uint8 [tiles, SIGN_BYTES] in the kernel's layout; z
+  float32 [tiles, SIGN_ROWS, 64], the values they are the signs of:
+  layer_in's and each hidden layer's pre-activations, then the init
+  feature; sure bool [tiles, SIGN_ROWS, 64], where z's sign is one a
+  kernel must repeat: |z| at least `margin` × its column's rms distance
+  to the float64 forward's, and not 0)."""
+  pre = _volsdf_pre_activations(params, rays, ts)
+  z32, z64 = pre(torch.float32), pre(torch.float64)
+  order = z32[1:] + z32[:1]                       # hidden rows, then init
+  z = torch.cat(order, dim=-1)                    # [P, SIGN_ROWS]
+  rms = torch.cat([(a.double() - b).pow(2).mean(dim=0).sqrt()
+                   for a, b in zip(order, z64[1:] + z64[:1])])
+  sure = (z.double().abs() >= margin * rms) & (z != 0)
+  if z.shape[0] % 64:
+    raise ValueError(f"{z.shape[0]} points do not fill 64-point tiles")
+
+  def tiles(x):
+    return x.view(-1, 64, k8.SIGN_ROWS).transpose(1, 2)
+
+  z, sure = tiles(z), tiles(sure)
+  return sign_bytes(z), z, sure
+
+
+def k8f_sign_stash(ws: torch.Tensor, rays: torch.Tensor, ts: torch.Tensor,
+                   **kw) -> torch.Tensor:
+  """The signs one launch of K8f's eikonal build keeps, read back: rays
+  [N, 6] at the T = len(ts) sample positions, N·T = 128 (one block of two
+  tiles and one pass), through a scratch filled with random bytes. The
+  block must write exactly one slot and free it. Returns that slot,
+  uint8 [2, SIGN_BYTES] (tile t: points 64t..64t+63). `kw`: sigmoid_kind,
+  sky_kind, sphere_init (default thin, black, True)."""
+  kw = {"sigmoid_kind": "thin", "sky_kind": "black", "sphere_init": True,
+        **kw}
+  steps = ts.shape[0]
+  if rays.shape[0] * steps != 128 or steps > 128:
+    raise ValueError(f"{rays.shape[0]} rays x {steps} steps are not one "
+                     "block of two tiles")
+  stash, busy = k8.eikonal_scratch(rays.device)
+  gen = torch.Generator(device=rays.device).manual_seed(3)
+  stash.copy_(torch.randint(0, 256, stash.shape, generator=gen,
+                            device=rays.device, dtype=torch.uint8))
+  before = stash.clone()
+  k8._forward_launch(k8.pack_weights(ws, rays.device), rays, steps=steps,
+                     t_near=2.0, t_far=6.0, want_eikonal=True, ts=ts,
+                     scratch=(stash, busy), **kw)
+  torch.cuda.synchronize(rays.device)
+  written = (stash != before).flatten(1).any(dim=1).nonzero().flatten()
+  if written.numel() != 1 or bool(busy.any()):
+    raise RuntimeError(f"one K8f eikonal block wrote slots "
+                       f"{written.tolist()} of {busy.numel()} and left "
+                       f"{int(busy.count_nonzero())} busy")
+  return stash[int(written[0])]
 
 
 def dyn_kink_free_rays(params: k9.Params, rays: torch.Tensor,

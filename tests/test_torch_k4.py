@@ -423,14 +423,17 @@ def test_every_render_source_includes_the_common_header():
   source defines a helper it has."""
   common = (build.CSRC / "render_common.cuh").read_text()
   helpers = ("activate", "act_grad", "sigmoid", "softplus", "rgb_act",
-             "sample_point", "ray_setup", "accumulate", "dense_fwd",
-             "dense_bwd", "load_act", "act_rows", "reduce_partials_kernel")
+             "sample_point", "ray_setup", "load_act", "act_rows",
+             "reduce_partials_kernel")
   for name in helpers:
     assert f" {name}(" in common, name
-  # K7b's FMA backward layers went when its products moved to the tensor
-  # cores (mma_tf32.cuh `mlp_bwd`)
+  # the FMA MLP layers went when the last products moved to the tensor
+  # cores: K7b's backward layers (mma_tf32.cuh `mlp_bwd`), then K8f's
+  # forward and its eikonal chain (wgmma_tf32.cuh `mlp_fwd`,
+  # `mlp_input_grad`)
   for name in ("dw_cols", "load_col", "db_col", "dw_small", "hidden_bwd",
-               "input_bwd"):
+               "input_bwd", "accumulate", "dense_fwd", "dense_bwd",
+               "mlp_input_grad"):
     assert f" {name}(" not in common, name
   for src in ("render_fwd.cu", "render_bwd.cu", "render_ae_fwd.cu",
               "render_ae_bwd.cu", "render_ae.cuh"):

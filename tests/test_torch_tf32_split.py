@@ -43,10 +43,13 @@ K1 (csrc/render_fwd.cu) runs its forward products by wgmma in the same
 split: the plain K1 so computed holds K1's 1e-4 abs gate in all six
 modes, on shared and per-ray ts and on its weights output, and K1's
 wgmma pack gives back each layer's Wᵀ as its hi and lo parts. So do K9f
-(csrc/render_dyn_fwd.cu; four modes, with and without the dp² column)
-and K7f (csrc/render_ae_fwd.cu), each with its wgmma pack; the float64
-witnesses chip_smoke.py holds the three to are their plain versions
-with float64 products. K7b
+(csrc/render_dyn_fwd.cu; four modes, with and without the dp² column),
+K7f (csrc/render_ae_fwd.cu) and K8f (csrc/render_volsdf_fwd.cu, with its
+eikonal column: the transpose chain's products in the same split, the
+column held on the kink-free rays and relative over all), each with its
+wgmma pack (K8f's column with its chain pack, and the sign stash its
+chain reads act′ from); the float64 witnesses chip_smoke.py holds the
+four to are their plain versions with float64 products. K7b
 (csrc/render_ae_bwd.cu) runs its products as K8b does, the encoder's and
 density_tfm's forward in three parts (`testing.k7b_split_tf32_mlp`):
 the plain K7b so computed holds K7b's gates on the kink-free rays; at
@@ -353,7 +356,8 @@ def test_plain_k1_split_tf32_within_k1_gate(monkeypatch, mode, per_ray):
 def _witness_case(kernel):
   """(the plain float32 render, its float64 witness) of one forward
   kernel at 32 rays × 16 steps, white sky, tanh: K1-cone, K9f (cp, spline
-  S = 4, with the dp² column) or K7f, each on its amplified weights."""
+  S = 4, with the dp² column), K7f or K8f (with the eikonal column), each
+  on its amplified weights."""
   kw = dict(steps=16, sky_kind="white", sigmoid_kind="tanh")
   if kernel == "k1":
     ws, rays = _k1_weights("cone"), _rays(32, 7)
@@ -365,16 +369,22 @@ def _witness_case(kernel):
     kw.update(enc_kind="cp", spline_points=4, want_dp=True)
     return (k9.dyn_render_reference(ws, rays, times, **kw),
             testing.dyn_float64_render(ws, rays, times, **kw))
+  if kernel == "k8f":
+    _, ws, rays, _, _, _ = _volsdf_case(32, True)
+    kw["want_eikonal"] = True
+    return (k8.volsdf_render_reference(ws, rays, **kw),
+            testing.volsdf_float64_render(ws, rays, **kw))
   ws, rays = _ae_weights(), _rays(32, 7)
   return (k7.ae_render_reference(ws, rays, **kw),
           testing.ae_float64_render(ws, rays, **kw))
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k9f", "k7f"])
+@pytest.mark.parametrize("kernel", ["k1", "k9f", "k7f", "k8f"])
 def test_k1_float64_witness_is_the_plain_render(kernel):
-  """`testing.k1_float64_render`, `dyn_float64_render` and
-  `ae_float64_render` (chip_smoke.py holds each K1, K9f and K7f line to
-  them) are the plain K1, K9f and K7f with float64 products: float64 out,
+  """`testing.k1_float64_render`, `dyn_float64_render`,
+  `ae_float64_render` and `volsdf_float64_render` (chip_smoke.py holds
+  each K1, K9f, K7f and K8f line to them) are the plain K1, K9f, K7f and
+  K8f with float64 products: float64 out,
   within the kernels' gate of the float32 plain version, not equal to it,
   and `render._matmul` put back."""
   ref, w64 = _witness_case(kernel)
@@ -388,18 +398,22 @@ def _pad8(n):
 
 
 def _wgmma_layouts():
-  """(name, its MLPs (render.TCMlps), packed weight count): K1's six
-  modes, NeRFAE's (K7f) and the four D-NeRF layouts (K9f)."""
-  out = [(e, k1.tc_mlps(e), k1.LAYOUTS[e].weight_count) for e in K1_MODES]
-  out.append(("ae", k7.TC_MLPS, k7.WEIGHT_COUNT))
+  """(name, its MLPs (render.TCMlps), packed weight count, transposed):
+  K1's six modes, NeRFAE's (K7f), VolSDF's (K8f) and its chain pack (K8f's
+  eikonal column) and the four D-NeRF layouts (K9f)."""
+  out = [(e, k1.tc_mlps(e), k1.LAYOUTS[e].weight_count, False)
+         for e in K1_MODES]
+  out.append(("ae", k7.TC_MLPS, k7.WEIGHT_COUNT, False))
+  out.append(("volsdf", k8.TC_MLPS, k8.WEIGHT_COUNT, False))
+  out.append(("volsdf-chain", k8.CHAIN_MLPS, k8.WEIGHT_COUNT, True))
   for (enc, warp), lay in k9.LAYOUTS.items():
-    out.append((f"dyn-{enc}-{warp}", lay.tc_mlps, lay.weight_count))
+    out.append((f"dyn-{enc}-{warp}", lay.tc_mlps, lay.weight_count, False))
   return out
 
 
-@pytest.mark.parametrize("name,mlps,count", _wgmma_layouts(),
+@pytest.mark.parametrize("name,mlps,count,transposed", _wgmma_layouts(),
                          ids=[t[0] for t in _wgmma_layouts()])
-def test_wgmma_pack_layout(name, mlps, count):
+def test_wgmma_pack_layout(name, mlps, count, transposed):
   """`render.wgmma_pack_mlps`, read at the offsets csrc/wgmma_tf32.cuh
   computes (`layer_offset`: per MLP and Dense layer [pad16(kh) +
   pad16(kf)][pad8(out)] hi and lo; per sub-product of `sub_n(out)` outputs
@@ -408,13 +422,19 @@ def test_wgmma_pack_layout(name, mlps, count):
   back each layer's Wᵀ [out][in] as its TF32 hi and lo parts (hi =
   tf32(w), lo = tf32(w − hi)), with zeros in the padding; in K1's modes
   it is `render.wgmma_pack`, the pack render_fwd.cu reads. The MLP lists
-  are the ones K1, K7f (`render_ae.TC_MLPS`) and K9f
-  (`render_dyn.Layout.tc_mlps`) pack: their part flags are not read."""
+  are the ones K1, K7f (`render_ae.TC_MLPS`), K8f (`render_volsdf.TC_MLPS`)
+  and K9f (`render_dyn.Layout.tc_mlps`) pack: their part flags are not
+  read. The chain pack (`transposed`, wgmma_tf32.cuh `t_layer_offset`:
+  K8f's eikonal, `render_volsdf.chain_pack`) gives back each Dense layer
+  but layer_out as W [in][out] itself, B of the transpose chain, in blocks
+  of its hidden rows, its first 64·⌊kf/64⌋ init rows and the rest."""
   gen = torch.Generator().manual_seed(5)
   ws = torch.randn(count, generator=gen)
-  pack = k1.wgmma_pack_mlps(ws, mlps)
+  pack = k1.wgmma_pack_mlps(ws, mlps, transposed)
   if name in K1_MODES:
     assert torch.equal(pack, k1.wgmma_pack(ws, name))
+  if transposed:
+    assert torch.equal(pack, k8.chain_pack(ws))
 
   def block(off, k, n):
     """The hi and lo parts of the block at `off` as Bᵀ [pad8(n)][k], and
@@ -438,6 +458,20 @@ def test_wgmma_pack_layout(name, mlps, count):
       kf = n_in - kh
       assert kf == (n_in if j == 0 else
                     (kf if 1 <= j <= nl and _skip_at(j - 1, nl) else 0))
+      if transposed:
+        if j == nl + 1:
+          continue
+        head = kh + kf // 64 * 64
+        for c0, c1 in ((0, kh), (kh, head), (head, n_in)):
+          if c1 == c0:
+            continue
+          hi, lo, off = block(off, _pad16(n_out), c1 - c0)
+          want_hi, want_lo = k1.tf32_split(w[c0:c1].contiguous())
+          for got, want in ((hi, want_hi), (lo, want_lo)):
+            assert torch.equal(got[:c1 - c0, :n_out], want)
+            assert float(got[c1 - c0:].abs().sum()) == 0.0
+            assert float(got[:, n_out:].abs().sum()) == 0.0
+        continue
       hi, lo, off = block(off, _pad16(kh) + _pad16(kf), n_out)
       want_hi, want_lo = k1.tf32_split(w.t().contiguous())
       for got, want in ((hi, want_hi), (lo, want_lo)):
@@ -504,6 +538,100 @@ def test_plain_k7f_split_tf32_within_k7f_gate(monkeypatch, sky, kind):
   e = float((got - ref).abs().max())
   print(f"K7f sky {sky} {kind}: max|Δ| {e:.3e}")
   assert e <= K1_TOL
+
+
+# ---- K8f (csrc/render_volsdf_fwd.cu on wgmma, its eikonal column by the
+# transpose chain) ----
+
+@pytest.mark.parametrize("want_eikonal", [False, True],
+                         ids=["eikonal-off", "eikonal-on"])
+@pytest.mark.parametrize("sky,kind", [("black", "upshifted"),
+                                      ("white", "thin")])
+def test_plain_k8f_split_tf32_within_k8f_gate(monkeypatch, sky, kind,
+                                              want_eikonal):
+  """The plain K8f with every MLP product in split TF32 (`render._matmul`
+  through `testing.split_tf32_matmul`: the two parts K8f's wgmma forms, in
+  the SDF and the View MLPs and, for the eikonal column, in every product
+  of the transpose chain, the emulation's backward) against itself in
+  float32: within K8f's gates, columns 0–3 1e-4 abs, the eikonal column
+  1e-4 abs on the rays `testing.volsdf_kink_free_rays` clears and 1e-2
+  relative over all rays; chip_smoke.py's check weights (the View's
+  output ×40), 256 rays × 64 jittered steps."""
+  _, ws, rays, ts, _, keep = _volsdf_case(N, True)
+  kw = dict(steps=STEPS, ts=ts, sky_kind=sky, sigmoid_kind=kind,
+            want_eikonal=want_eikonal)
+  ref = k8.volsdf_render_reference(ws, rays, **kw)
+  monkeypatch.setattr(k1, "_matmul", testing.split_tf32_matmul)
+  got = k8.volsdf_render_reference(ws, rays, **kw)
+  assert not torch.equal(got, ref)                 # the emulation ran
+  assert float(ref[:, :3].std()) > 0.05            # rgb varies
+  e = float((got[:, :4] - ref[:, :4]).abs().max())
+  line = f"K8f sky {sky} {kind}: rgb/acc max|Δ| {e:.3e}"
+  assert e <= K1_TOL
+  if want_eikonal:
+    d = (got[:, 4] - ref[:, 4]).abs()
+    e_kf = float(d[keep].max())
+    rel = float((d / ref[:, 4].abs()).max())
+    line += (f", eikonal kink-free max|Δ| {e_kf:.3e} ({int(keep.sum())}/"
+             f"{N} rays), all rays max rel {rel:.2e}")
+    assert e_kf <= K1_TOL and rel <= 1e-2
+  print(line)
+
+
+def test_k8f_sign_stash_is_leaky_act_grad():
+  """K8f's eikonal keeps one bit per input z of the SDF MLP's leaky-relus
+  and reads act′ back from it (csrc/wgmma_tf32.cuh `sign_rows`, `slope`):
+  `testing.sign_bytes` / `stash_slopes` are that layout, and
+  `testing.volsdf_sign_stash` the plain forward's stash, which
+  chip_smoke.py and the `cuda` test in test_torch_volsdf.py hold the
+  kernel's read-back stash to. The act′ read back equals autograd's
+  leaky-relu gradient of z (render_common.cuh `act_grad<ACT_LEAKY>`: 0.01
+  at 0), for ±0, denormals, ±inf and NaN among normal values, and for the
+  plain forward's z at two rays x 64 points, in the kernel's row order
+  (layer_in's and each hidden layer's pre-activations, then the init
+  feature; a tile per ray)."""
+  def leaky_grad(z):
+    zz = z.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(
+        torch.nn.functional.leaky_relu(zz, 0.01).sum(), zz)
+    return g
+
+  gen = torch.Generator().manual_seed(8)
+  z = torch.randn(256, 64, generator=gen)
+  special = torch.tensor([0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38,
+                          float("inf"), float("-inf"), float("nan")])
+  idx = torch.randperm(z.numel(), generator=gen)[:4 * special.numel()]
+  z.view(-1)[idx] = special.repeat(4)
+  signs = testing.sign_bytes(z)
+  assert signs.dtype == torch.uint8 and signs.shape == (8 * 256,)
+  want = leaky_grad(z)
+  assert torch.equal(testing.stash_slopes(signs), want)
+  assert int((want == 0.01).sum()) > 64 * 256 // 3
+
+  from nerf_atlas_tpu_torch import models
+  from nerf_atlas_tpu_torch.ops import rays as rays_ops
+  from nerf_atlas_tpu_torch.train import driver
+  ws = k8.pack_weights(driver.init_model(models.VolSDF(steps=STEPS),
+                                         seed=0).state_dict())
+  rays = _rays(2, 5)
+  ts = rays_ops.compute_ts(2.0, 6.0, STEPS, perturb=1.0, generator=gen)
+  signs, z, sure = testing.volsdf_sign_stash(ws, rays, ts)
+  assert signs.shape == (2, k8.SIGN_BYTES) and k8.SIGN_BYTES == 14872
+  zs = []
+
+  def act(v):
+    zs.append(v)
+    return torch.nn.functional.leaky_relu(v, 0.01)
+
+  with torch.no_grad():
+    k8.volsdf_chain(ws, rays, ts, "thin", True, act=act)
+  assert len(zs) == k8.S_LAYERS + 2          # the init feature, 7 layers
+  rows = torch.cat(zs[1:] + zs[:1], dim=1).view(2, STEPS, k8.SIGN_ROWS)
+  assert torch.equal(z, rows.transpose(1, 2))
+  assert torch.equal(testing.stash_bits(signs), z > 0)
+  assert torch.equal(testing.stash_slopes(signs), leaky_grad(z))
+  assert bool((z > 0).any()) and bool((z < 0).any())
+  assert float(sure.float().mean()) > 0.9, float(sure.float().mean())
 
 
 # ---- K7b (csrc/render_ae_bwd.cu) ----

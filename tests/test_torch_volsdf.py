@@ -24,8 +24,9 @@ the CPU against the JAX package.
   `shape/FourierEncoder_0/B` to `shape.mlp.enc.B`; `pack_weights` /
   `unpack_grads` (the scale's gradient chained through softplus);
   the CPU wrappers and `VolSDFRender`; the build key's headers.
-- `cuda`-marked cases: K8f (both forms) and K8b (both modes, eikonal on
-  and off, at 4096 rays) against their plain versions on the card, and
+- `cuda`-marked cases: K8f (both builds) and K8b (both modes, eikonal on
+  and off, at 4096 rays) against their plain versions on the card, the
+  eikonal build's sign stash read back against the plain forward's, and
   two K8b launches bit for bit (`python -m pytest --noconftest -m cuda
   tests/test_torch_volsdf.py`).
 The train paths, the gates and the runner: tests/test_torch_volsdf_train.py.
@@ -41,6 +42,7 @@ from nerf_atlas_tpu_torch.nn import FourierEncoder  # noqa: E402
 from nerf_atlas_tpu_torch.nn.encoders import fourier_phases  # noqa: E402
 from nerf_atlas_tpu_torch.ops import math as tmath  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import build  # noqa: E402
+from nerf_atlas_tpu_torch.ops.kernels import render as k1  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8  # noqa: E402
 
 STEPS = 16
@@ -287,12 +289,17 @@ def test_pack_and_unpack(oracle):
   raw = sd[k8.SCALE_KEY]
   assert float(back[k8.SCALE_KEY]) == pytest.approx(
       float(ws[0] * torch.sigmoid(raw)), rel=1e-6)   # d/ds · ds/draw
-  wt = k8._transposed(ws)
-  _, i0, o0 = k8.LAYERS[0]
-  name, i, o = k8.LAYERS[1]                  # layer_0 after layer_in
-  pos = k8.MLP_OFFSET + i0 * o0 + o0
-  np.testing.assert_array_equal(wt[pos:pos + i * o].view(o, i).numpy(),
-                                sd[f"{name}.weight"].numpy())
+  # K8f's chain pack opens with layer_in's W [in][out] as B [k = out][n =
+  # in]: its first unit, the hi then the lo part of in 0..63 × out 0..15
+  # as [k-chunk][n-group][8 n][4 k]
+  wc = k8.chain_pack(ws)
+  assert wc.numel() == k8.chain_pack_floats()
+  name, i0, o0 = k8.LAYERS[0]
+  unit = wc[:2 * 16 * 64].view(2, 4, 8, 8, 4).permute(0, 2, 3, 1, 4)
+  w_in = sd[f"{name}.weight"].t()            # [in, out]
+  hi, lo = k1.tf32_split(w_in[:64, :16].contiguous())
+  assert torch.equal(unit.reshape(2, 64, 16)[0], hi)
+  assert torch.equal(unit.reshape(2, 64, 16)[1], lo)
   bad = dict(sd)
   del bad[k8.B_KEY]
   with pytest.raises(KeyError):
@@ -307,6 +314,7 @@ def test_cpu_wrappers_take_the_plain_versions(oracle):
   ws = k8.pack_weights(sd)
   kw = dict(steps=STEPS, sigmoid_kind="upshifted", sky_kind="white")
   launches = (k8.fused_volsdf_render.launches,
+              k8.fused_volsdf_render.eikonal.launches,
               k8.fused_volsdf_render_grad.launches,
               k8.fused_volsdf_train_step.launches)
   for want in (False, True):
@@ -326,6 +334,7 @@ def test_cpu_wrappers_take_the_plain_versions(oracle):
       ws, r, target, eikonal_weight=0.01, **kw)
   assert torch.equal(loss, ref_loss) and torch.equal(grad, ref_grad)
   assert launches == (k8.fused_volsdf_render.launches,
+                      k8.fused_volsdf_render.eikonal.launches,
                       k8.fused_volsdf_render_grad.launches,
                       k8.fused_volsdf_train_step.launches)
   with pytest.raises(ValueError, match="steps"):
@@ -367,9 +376,16 @@ def test_volsdf_sources_share_the_headers():
   header = (build.CSRC / "render_volsdf.cuh").read_text()
   assert '#include "render_common.cuh"' in header
   common = (build.CSRC / "render_common.cuh").read_text()
-  for helper in ("mlp_input_grad", "seed_column"):   # K8f's eikonal column
-    assert f" {helper}(" in common, helper
-  assert " mlp_input_grad_adjoint(" not in common
+  assert " seed_column(" in common                   # K8b's chain seed
+  for helper in ("mlp_input_grad", "mlp_input_grad_adjoint", "dense_fwd",
+                 "dense_bwd", "FmaMlp"):             # no FMA MLP code left
+    assert f" {helper}(" not in common and f"struct {helper}" not in common
+  # K8f's products and its eikonal column: the wgmma counterparts
+  assert '#include "wgmma_tf32.cuh"' in (
+      build.CSRC / "render_volsdf_fwd.cu").read_text()
+  wg = (build.CSRC / "wgmma_tf32.cuh").read_text()
+  for helper in ("mlp_fwd", "mlp_input_grad"):
+    assert f" {helper}(" in wg, helper
   # K8b's chain and adjoint: the tensor-core counterparts, which both
   # backward sources (K8b, K9b) include
   tc = (build.CSRC / "mma_tf32.cuh").read_text()
@@ -377,9 +393,10 @@ def test_volsdf_sources_share_the_headers():
     assert f" {helper}(" in tc, helper
   for name in ("render_volsdf_bwd", "render_dyn_bwd"):
     assert '#include "mma_tf32.cuh"' in (build.CSRC / f"{name}.cu").read_text()
-  fwd = build.source_digest(build.CSRC / "render_volsdf_fwd.cu")
+  fwd = [build.source_digest(build.CSRC / "render_volsdf_fwd.cu",
+                             k8.fwd_defines(eik)) for eik in (False, True)]
   bwd = build.source_digest(build.CSRC / "render_volsdf_bwd.cu")
-  assert len(fwd) == len(bwd) == 16 and fwd != bwd
+  assert len(set(fwd + [bwd])) == 3 and len(bwd) == 16
 
 
 # ---- on the card ----
@@ -414,6 +431,20 @@ def test_cuda_k8f_matches_plain(want_eikonal):
   assert float((got[:, :4] - ref[:, :4]).abs().max()) <= 1e-4
   if want_eikonal:
     assert float((got[keep, 4] - ref[keep, 4]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_k8f_sign_stash_matches_plain_signs():
+  """The signs K8f's eikonal build keeps (read back from its scratch,
+  `testing.k8f_sign_stash`) are those of the plain forward's leaky-relu
+  inputs wherever that sign is sure (`testing.volsdf_sign_stash`)."""
+  _, ws, _, ts, _, _ = _cuda_case(2, 64, 4)
+  rays = torch.from_numpy(_rays(2, 4)).cuda()
+  got = testing.k8f_sign_stash(ws, rays, ts, sigmoid_kind="upshifted")
+  signs, _, sure = testing.volsdf_sign_stash(ws, rays, ts)
+  differ = testing.stash_bits(got) != testing.stash_bits(signs)
+  assert int((differ & sure).sum()) == 0
+  assert float(sure.float().mean()) > 0.9
 
 
 @pytest.mark.cuda
