@@ -3,7 +3,8 @@
 
 Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]
 [--recipes R ...] [--quality-steps N]] [--profile] [--sass-against DIR]`,
-or `python3 chip_smoke.py --volsdf-repeat ROOT [ROOT ...]` (below).
+or `python3 chip_smoke.py --volsdf-repeat ROOT [ROOT ...]` or
+`--k5f-against ROOT [ROOT ...]` (below).
 Phases, each printing its lines before the next starts:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles every hand-written kernel from nerf_atlas_tpu_torch/csrc
@@ -24,9 +25,12 @@ Phases, each printing its lines before the next starts:
      jittered ts, against autograd through the plain K1, over all rays
      and over the rays clear of leaky-relu kinks; a ragged batch;
      PlainCPRender's gradient against K2's. Then the hash grid: K5f
-     (hash_fwd) and K5b (hash_bwd) at T = 2^19 and 2^14 over the check
+     (hash_fwd) bit for bit at T = 2^19, 2^14 and 2 and K5b (hash_bwd)
+     at T = 2^19 and 2^14 over the check
      rays' 4096 x 64 points, bbox-face and out-of-bbox points, with the
-     table seeded and amplified to +-1; K5b bit for bit across two
+     table seeded and amplified to +-1; two K5f launches bit for bit, and
+     the share of corner pairs its 16-byte loads join per level
+     (`testing.k5f_joined_share`); K5b bit for bit across two
      launches and a permutation of the points, and its fixed point
      against the float64 sum of the same products within its bound;
      K1/K2/K3 in hash mode at T = 2^19
@@ -113,7 +117,8 @@ Phases, each printing its lines before the next starts:
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
      and the optimizer alone. For hash: K5f and K5b per call (262144 and
-     4194304 points), the K1-hash and K3-hash calls, the hash train steps
+     4194304 points, each at T = 2^19 and 2^14), the K1-hash and K3-hash
+     calls, the hash train steps
      (K3 at T = 2^19 and 2^14, K1 + K2, plain) and one 800x800 hash frame.
      For NeRFAE: the K7f and plain calls at 65536 x 64, one 800x800 frame,
      the K7b and plain K7b calls at 4096 x 64, the train steps (K7b,
@@ -133,9 +138,10 @@ Phases, each printing its lines before the next starts:
      version, K1 on per-ray ts at 65536 x 128 in each of its four modes
      and K2-cone on per-ray ts at 4096 x 128 with their plain versions,
      and the coarse_fine_mip train steps (K1 + K2 twice, plain);
-  6b. with `--sass-against DIR` only: the libraries of SASS_SAME built
-     again from DIR's csrc/ (a checkout of an earlier commit), their SASS
-     held kernel by kernel to this tree's, equal or not;
+  6b. with `--sass-against DIR` only: the libraries of SASS_SAME and
+     SASS_SAME_KERNELS built again from DIR's csrc/ (a checkout of an
+     earlier commit), their SASS held kernel by kernel to this tree's
+     (K5b's three kernels in hash_encode), equal or not;
   7. with `--quality` only: the training run at 1500 steps (the quality
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
@@ -149,7 +155,10 @@ Phases, each printing its lines before the next starts:
      idle share, per-kernel shares; host-side costs; SM clock and power
      under load).
 The last three lines are the kernels' JSON record (each kernel's
-launches on its main path, max error against its plain version, ms per
+launches on its main path (K5f in two rows: `hash_fwd` at the eval
+chunk's 4,194,304 points and T = 2^19, launched by 4b; `hash_fwd_train`
+at the train step's 262,144 points and T = 2^14, launched by 5b's
+steps), max error against its plain version, ms per
 call, the plain version's ms, the bound from this run's bytes and
 operations at the published H100 peaks, and a single PyTorch call's ms
 where one computes the function), the card's name and power limit, and
@@ -163,6 +172,13 @@ kernels into ROOT/build/kernels first, and compares the runs with the
 first: the loss of every step and the trained parameters bit for bit,
 and the eval PSNRs. Exits 1 where two loss curves or two trained models
 differ.
+
+With `--k5f-against ROOT [ROOT ...]` it runs phase 1 and then only K5f,
+from this tree and from each ROOT's csrc/hash_encode.cu (a checkout of an
+earlier commit, or a copy of the source), each held to the plain version
+bit for bit and timed in turns at phase 6's four shapes and at T = 2, and
+K5b's SASS held to each ROOT's (`_k5f_against`). Exits 1 where a K5f
+differs from the plain version.
 """
 from __future__ import annotations
 
@@ -218,6 +234,12 @@ HASH_TRAIN_ARGV = (TRAIN_ARGV[:5] + ["hash", "--hash-table-log2", "14"]
 HASH_T = 1 << 19                           # HashEncoder's default table
 HASH_REPEAT_STEPS = 50                     # phase 5b's repeatability runs
 HASH_TRAIN_T = 1 << 14
+# (rays of 64 samples, T) of the K5f / K5b timings: the train step's
+# 262,144 points and the eval chunk's 4,194,304 at both tables (the 1 MB
+# table of 2^14 stays in L2; the 32 MB one of 2^19 shares it with the
+# streams: the gap between the two is what the table's size costs)
+K5F_SHAPES = ((BATCH, HASH_T), (CHUNK, HASH_T), (BATCH, HASH_TRAIN_T),
+              (CHUNK, HASH_TRAIN_T))
 # QUALITY_r05 plain_hash (TPU, seed 0, one run): a record, not a gate
 QUALITY_R05_HASH = (33.686, 31.062)
 # K5f vs plain torch: the same float operations in the same order, 1e-6
@@ -312,11 +334,14 @@ TC_SOURCES = {"render_bwd": "HMMA", "render_ae_bwd": "HMMA",
               "render_dyn_bwd": "HMMA", "render_volsdf_bwd": "HMMA",
               "render_fwd": "HGMMA", "render_ae_fwd": "HGMMA",
               "render_volsdf_fwd": "HGMMA", "render_dyn_fwd": "HGMMA"}
-# the libraries whose code this slice leaves as it was: `--sass-against`
-# compares their SASS with an earlier commit's
-SASS_SAME = ("hash_encode", "render_fwd", "render_bwd", "render_ae_fwd",
-             "render_ae_bwd", "render_volsdf_bwd", "render_dyn_fwd",
+# the libraries whose code this slice leaves as it was, and the kernels
+# it leaves as they were in a library it changes (K5b's three beside the
+# new K5f): `--sass-against` compares their SASS with an earlier commit's
+SASS_SAME = ("render_fwd", "render_bwd", "render_ae_fwd", "render_ae_bwd",
+             "render_volsdf_fwd", "render_volsdf_bwd", "render_dyn_fwd",
              "render_dyn_bwd")
+SASS_SAME_KERNELS = {"hash_encode": ("hash_bwd_max_kernel", "hash_bwd_kernel",
+                                     "hash_bwd_convert_kernel")}
 
 
 def _sync_time(fn):
@@ -424,8 +449,9 @@ def _build(build, k1, k8, k9):
 
 def _sass(build, path):
   """{kernel (`_kernel_name`): its SASS lines} of a library (cuobjdump
-  beside nvcc), each line stripped of its address comment and any name in
-  an anonymous namespace (whose mangling hashes the source's path)."""
+  beside nvcc), each line stripped of its address comment, of any name in
+  an anonymous namespace (whose mangling hashes the source's path) and of
+  its column padding (whose width follows the library's longest line)."""
   import re
   tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
   text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
@@ -438,8 +464,8 @@ def _sass(build, path):
       out[kernel] = []
     elif kernel:
       ln = re.sub(r"^\s*/\*[0-9a-f]+\*/", "", ln)
-      out[kernel].append(re.sub(r"(_GLOBAL__N__|_INTERNAL_)\w+", r"\1#",
-                                ln).strip())
+      out[kernel].append(" ".join(re.sub(r"(_GLOBAL__N__|_INTERNAL_)\w+",
+                                         r"\1#", ln).split()))
   return out
 
 
@@ -464,17 +490,19 @@ def _tensor_core_count(build, path, name, tag, op):
 
 
 def _sass_against(build, jobs, built, ref_root):
-  """Phase 2 with `--sass-against`: each library of SASS_SAME built again
-  from `ref_root`'s nerf_atlas_tpu_torch/csrc/ with the same flags
-  (one nvcc per source and defines, started together), its SASS held
-  kernel by kernel to this tree's; prints equal or the lines that
-  differ. The kernels' mangled names carry a hash of their source path
-  that differs between two checkouts: kernels are matched by
-  `_kernel_name`."""
+  """Phase 2 with `--sass-against`: each library of SASS_SAME and of
+  SASS_SAME_KERNELS built again from `ref_root`'s
+  nerf_atlas_tpu_torch/csrc/ with the same flags (one nvcc per source and
+  defines, started together), its SASS held kernel by kernel to this
+  tree's (in SASS_SAME_KERNELS' libraries, the kernels it names); prints
+  equal or the lines that differ. The kernels' mangled names carry a hash
+  of their source path that differs between two checkouts: kernels are
+  matched by `_kernel_name`."""
   csrc = os.path.join(os.path.abspath(ref_root), "nerf_atlas_tpu_torch",
                       "csrc")
   out_dir = tempfile.mkdtemp(prefix="sass_ref_", dir=build.BUILD_DIR)
-  pairs = [(j, b) for j, b in zip(jobs, built) if j[0] in SASS_SAME]
+  pairs = [(j, b) for j, b in zip(jobs, built)
+           if j[0] in SASS_SAME or j[0] in SASS_SAME_KERNELS]
 
   def ref_build(job):
     name, defines = job
@@ -490,15 +518,19 @@ def _sass_against(build, jobs, built, ref_root):
     refs = list(pool.map(lambda p: ref_build(p[0]), pairs))
   print(f"[sass] {len(refs)} libraries built from {csrc} in "
         f"{time.perf_counter() - t0:.1f} s", flush=True)
+  same = differ = 0
   for ((name, defines), b), ref in zip(pairs, refs):
     ours, theirs = _sass(build, b.path), _sass(build, ref)
-    for kernel in sorted(set(ours) | set(theirs)):
+    kernels = SASS_SAME_KERNELS.get(name, sorted(set(ours) | set(theirs)))
+    for kernel in kernels:
       a, c = ours.get(kernel, []), theirs.get(kernel, [])
       diff = sum(x != y for x, y in zip(a, c)) + abs(len(a) - len(c))
+      same, differ = same + (diff == 0 and bool(a)), differ + (diff != 0)
       tag = f" {' '.join(defines)}" if defines else ""
       print(f"[sass] {name}.cu{tag} {kernel}: "
             f"{'equal' if diff == 0 else f'{diff} lines differ'} "
             f"({len(a)} / {len(c)} lines)", flush=True)
+  print(f"[sass] {same} kernels equal, {differ} differ", flush=True)
 
 
 def _rel_error(k1, grad, ref):
@@ -673,26 +705,39 @@ def _hash_points(k1, dev):
   return torch.cat([pts, extra]).contiguous()
 
 
-def _check_hash_encoder(hk, k1, dev):
-  """Phase 3, K5f and K5b against their plain versions at T = 2^19 and
-  2^14. Returns (K5f max |Δ|, K5b max |Δ|)."""
+def _check_hash_encoder(hk, k1, testing, dev):
+  """Phase 3, K5f against its plain version bit for bit at T = 2^19, 2^14
+  and 2 (seeded and amplified tables; two launches the same bits), with
+  the share of corner pairs its 16-byte loads join; K5b against its plain
+  version at T = 2^19 and 2^14. Returns (K5f max |Δ|, K5b max |Δ|)."""
   pts = _hash_points(k1, dev)
   gen = torch.Generator().manual_seed(4)
   g = torch.randn(pts.shape[0], 16, generator=gen).to(dev)
   max_f, max_b = 0.0, 0.0
-  for size in (HASH_T, HASH_TRAIN_T):
+  for size in (HASH_T, HASH_TRAIN_T, 2):
     for name, scale in (("seeded", 1e-4), ("amplified", 1.0)):
       table = ((torch.rand(8 * size, 2, generator=gen) * 2 - 1) * scale).to(dev)
       out = hk.hash_encode(table, pts)
+      again = hk.hash_encode(table, pts)
       ref = hk.hash_encode_reference(table, pts)
       torch.cuda.synchronize()
       err = float((out - ref).abs().max())
+      bitwise, repeat = torch.equal(out, ref), torch.equal(out, again)
       print(f"[check] K5f T=2^{size.bit_length() - 1} {name:9s} "
             f"{pts.shape[0]} points: max|Δ| {err:.3e} (tol {HASH_TOL:.0e}; "
-            f"bitwise {torch.equal(out, ref)})", flush=True)
-      if not (err <= HASH_TOL and bool(torch.isfinite(out).all())):
-        raise RuntimeError(f"K5f disagrees with its plain version: {err}")
+            f"bitwise {bitwise}; two launches bit for bit {repeat})",
+            flush=True)
+      if not (err <= HASH_TOL and bitwise and repeat
+              and bool(torch.isfinite(out).all())):
+        raise RuntimeError(f"K5f disagrees with its plain version: {err}, "
+                           f"bitwise {bitwise}, repeat {repeat}")
       max_f = max(max_f, err)
+    shares = testing.k5f_joined_share(pts, size)
+    print(f"[check] K5f T=2^{size.bit_length() - 1}: corner pairs joined "
+          f"into one 16-byte load, per level "
+          f"{' '.join(f'{v:.3f}' for v in shares)}", flush=True)
+    if size == 2:
+      continue
     got = hk.hash_encode_table_grad(pts, g, size)
     ref = hk.hash_encode_table_grad_reference(pts, g, size)
     torch.cuda.synchronize()
@@ -1473,17 +1518,16 @@ def _distinct_rows(hk, pts, size: int) -> int:
 
 
 def _time_hash_kernels(card, k1, hk, frame_rays, dev):
-  """Phase 6: K5f and K5b per call, kernel against plain (plain, kernel,
-  kernel, plain), and one PyTorch call on the same rows and weights
-  without the index math: `embedding_bag` (weighted sum of 8 rows per
-  point and level) for K5f, `index_add_` for K5b. Returns {(points,
-  T): numbers}."""
+  """Phase 6: K5f and K5b per call at K5F_SHAPES, kernel against plain
+  (plain, kernel, kernel, plain), and one PyTorch call on the same rows
+  and weights without the index math: `embedding_bag` (weighted sum of 8
+  rows per point and level) for K5f, `index_add_` for K5b. Returns
+  {(points, T): numbers}."""
   import torch.nn.functional as F
   grid = torch.linspace(2.0, 6.0, STEPS, device=dev)
   gen = torch.Generator().manual_seed(7)
   out = {}
-  for n_rays, size in ((BATCH, HASH_T), (CHUNK, HASH_T),
-                       (BATCH, HASH_TRAIN_T)):
+  for n_rays, size in K5F_SHAPES:
     pts = k1.hash_pts(frame_rays[:n_rays], grid).contiguous()
     n = pts.shape[0]
     table = ((torch.rand(8 * size, 2, generator=gen) * 2 - 1) * 1e-4).to(dev)
@@ -1543,6 +1587,146 @@ def _time_hash_kernels(card, k1, hk, frame_rays, dev):
         fwd=(min(t["kf"]), min(t["plain_f"]), bf, t["lib_f"][0]),
         bwd=(min(t["kb"]), min(t["plain_b"]), bb, t["lib_b"][0]))
   return out
+
+
+def _cold_ms(fn, reps: int, flush: torch.Tensor) -> float:
+  """Mean ms of fn over `reps` launches, each timed alone after a write of
+  `flush` (evict-normal lines through L2, as a streaming kernel leaves
+  it)."""
+  fn()                                        # warm-up
+  marks = []
+  for i in range(reps):
+    flush.fill_(float(i))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    marks.append((a, b))
+  torch.cuda.synchronize()
+  return sum(a.elapsed_time(b) for a, b in marks) / reps
+
+
+def _k5f_against(card, roots) -> int:
+  """`--k5f-against ROOT [ROOT ...]`: K5f of this tree and of each ROOT (a
+  checkout of the repo, or any directory that holds
+  nerf_atlas_tpu_torch/csrc/hash_encode.cu), each built with this tree's
+  nvcc flags, one nvcc each, started together; the SASS of K5b's three
+  kernels (SASS_SAME_KERNELS) held to this tree's. Each is held to the plain
+  version bit for bit at phase 3's points (T = 2^19, 2^14 and 2,
+  amplified table) and at the timed shapes, then timed per call at
+  K5F_SHAPES and at 4,194,304 points and T = 2 in turns (this tree, each
+  ROOT, each ROOT in reverse, this tree), back to back (L2 warm) and each
+  launch after a 256 MB write (as K1-hash's 268 MB feature stream leaves
+  L2 between two eval chunks).
+  Returns 1 where a K5f differs from the plain version."""
+  import ctypes
+  from nerf_atlas_tpu_torch.data import loaders, sampler
+  from nerf_atlas_tpu_torch.ops.kernels import build
+  from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk
+  from nerf_atlas_tpu_torch.ops.kernels import render as k1
+  dev = torch.device("cuda")
+  build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+  out_dir = tempfile.mkdtemp(prefix="k5f_", dir=build.BUILD_DIR)
+  labels = ["this tree"] + list(roots)
+
+  def compile_lib(i):
+    if i == 0:
+      b = build.build("hash_encode")
+      return str(b.path), b.log
+    src = os.path.join(os.path.abspath(roots[i - 1]), "nerf_atlas_tpu_torch",
+                       "csrc", "hash_encode.cu")
+    lib = os.path.join(out_dir, f"libhash_encode-{i}.so")
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", lib, src],
+                          capture_output=True, text=True, check=False)
+    if proc.returncode:
+      raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    return lib, proc.stdout + proc.stderr
+
+  t0 = time.perf_counter()
+  with concurrent.futures.ThreadPoolExecutor(len(labels)) as pool:
+    libs = list(pool.map(compile_lib, range(len(labels))))
+  print(f"[k5f] {len(libs)} builds in {time.perf_counter() - t0:.1f} s",
+        flush=True)
+  ours = _sass(build, libs[0][0])
+  for label, (path, _) in zip(labels[1:], libs[1:]):
+    theirs = _sass(build, path)
+    for kernel in SASS_SAME_KERNELS["hash_encode"]:
+      a, c = ours.get(kernel, []), theirs.get(kernel, [])
+      diff = [(x, y) for x, y in zip(a, c) if x != y]
+      print(f"[k5f] SASS of {kernel} against {label}: "
+            f"{'equal' if a and a == c else 'differs'} ({len(a)} / "
+            f"{len(c)} lines)", flush=True)
+      for x, y in diff[:3]:
+        print(f"[k5f]   {x!r}\n[k5f]   {y!r}", flush=True)
+  res = (ctypes.c_int * hk.LEVELS)(*hk.resolutions())
+  fwds = []
+  for label, (path, log) in zip(labels, libs):
+    entries = [f"{n}: {r}" for n, r in _ptxas_entries(log)
+               if n.startswith("hash_fwd")]
+    print(f"[k5f] {label}: {' | '.join(entries) or 'reused build'}",
+          flush=True)
+    lib = ctypes.CDLL(path)
+    lib.hash_fwd_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
+                                 ctypes.c_int * hk.LEVELS, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_void_p])
+    lib.hash_fwd_launch.restype = ctypes.c_int
+
+    def fwd(table, pts, out, lib=lib):
+      err = lib.hash_fwd_launch(
+          table.data_ptr(), pts.data_ptr(), out.data_ptr(), pts.shape[0],
+          table.shape[0] // hk.LEVELS, res, hk.BBOX[0], hk.BBOX[1],
+          torch.cuda.current_stream().cuda_stream)
+      if err:
+        raise RuntimeError(f"hash_fwd launch failed: CUDA error {err}")
+      return out
+    fwds.append(fwd)
+
+  bad = 0
+
+  def check(tag, table, pts):
+    nonlocal bad
+    ref = hk.hash_encode_reference(table, pts)
+    for label, fwd in zip(labels, fwds):
+      out = fwd(table, pts, torch.empty_like(ref))
+      torch.cuda.synchronize()
+      same = torch.equal(out, ref)
+      bad += not same
+      print(f"[k5f] {tag} {label}: bitwise {same}, max|Δ| "
+            f"{float((out - ref).abs().max()):.3e}", flush=True)
+
+  gen = torch.Generator().manual_seed(4)
+  pts = _hash_points(k1, dev)
+  for size in (HASH_T, HASH_TRAIN_T, 2):
+    table = (torch.rand(8 * size, 2, generator=gen) * 2 - 1).to(dev)
+    check(f"phase 3's {pts.shape[0]} points, T=2^{size.bit_length() - 1} "
+          "amplified,", table, pts)
+  ds = sampler.RayDataset.from_bundle(
+      loaders.load("", data_kind="synthetic", size=SIZE, num_views=1,
+                   device=dev), size=SIZE, device=dev)
+  frame_rays = ds.view_rays(0)
+  grid = torch.linspace(2.0, 6.0, STEPS, device=dev)
+  flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+  order = list(range(len(fwds))) + list(range(len(fwds)))[::-1]
+  # and at T = 2, where the table is one 128-byte line: every load an L1
+  # hit, the floor of the loads' own cost
+  for n_rays, size in K5F_SHAPES + ((CHUNK, 2),):
+    pts = k1.hash_pts(frame_rays[:n_rays], grid).contiguous()
+    table = ((torch.rand(8 * size, 2, generator=gen) * 2 - 1) * 1e-4).to(dev)
+    tag = f"{pts.shape[0]} points, T=2^{size.bit_length() - 1}"
+    check(tag, table, pts)
+    out = torch.empty(pts.shape[0], 16, device=dev)
+    warm = [[] for _ in fwds]
+    cold = [[] for _ in fwds]
+    for i in order:
+      warm[i].append(_event_ms(lambda: fwds[i](table, pts, out), 20))
+      cold[i].append(_cold_ms(lambda: fwds[i](table, pts, out), 20, flush))
+    for label, w, c in zip(labels, warm, cold):
+      print(f"[k5f] {card}: {tag} {label}: back to back "
+            f"{' / '.join(f'{v:.4f}' for v in w)} ms, after a 256 MB write "
+            f"{' / '.join(f'{v:.4f}' for v in c)} ms", flush=True)
+  return 1 if bad else 0
 
 
 def _time_hash(card, models, driver, loaders, sampler, k1, hk, rays_ops, dev,
@@ -3227,6 +3411,10 @@ def main(argv=None):
                       help="phase 2 also builds the libraries this slice "
                            "leaves unchanged from DIR (a checkout of an "
                            "earlier commit) and compares their SASS")
+  parser.add_argument("--k5f-against", metavar="ROOT", nargs="+",
+                      default=None,
+                      help="run only K5f from this tree and from each "
+                           "ROOT: checks and timings (`_k5f_against`)")
   parser.add_argument("--volsdf-repeat", metavar="ROOT", nargs="+",
                       default=None,
                       help="run only phase 5g's recipe from each checkout "
@@ -3251,6 +3439,8 @@ def main(argv=None):
   torch.backends.cudnn.allow_tf32 = False
   if args.volsdf_repeat:
     return _volsdf_repeat(args.volsdf_repeat)
+  if args.k5f_against:
+    return _k5f_against(card, args.k5f_against)
 
   from nerf_atlas_tpu_torch import models, testing
   from nerf_atlas_tpu_torch import runner as port_runner
@@ -3274,7 +3464,7 @@ def main(argv=None):
                             seed=0)
   ws = k1.pack_weights(model.state_dict(), dev)
   max_err, max_bwd = _check_kernels(k1, testing, rays_ops, model, dev)
-  max_k5f, max_k5b = _check_hash_encoder(hk, k1, dev)
+  max_k5f, max_k5b = _check_hash_encoder(hk, k1, testing, dev)
   max_err_h, max_bwd_h = _check_hash_render(k1, hk, rays_ops, models, driver,
                                             dev)
   max_k7f, max_k7b = _check_ae(k7, testing, rays_ops, models, driver, dev)
@@ -3464,6 +3654,7 @@ def main(argv=None):
                    "dnerf_dx K9b", data_kind="synthetic-dyn")
 
   k5f = hash_t["k5"][(CHUNK * STEPS, HASH_T)]["fwd"]
+  k5f_train = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["fwd"]
   k5b = hash_t["k5"][(BATCH * STEPS, HASH_TRAIN_T)]["bwd"]
   rows = [
       ("render_fwd", "render_fwd.cu", "render.py:586", launches, max_err,
@@ -3478,6 +3669,10 @@ def main(argv=None):
        train_h["K3-hash"], max_bwd_h, *hash_t["k3"], None),
       ("hash_fwd", "hash_encode.cu", "hash_encode.py:160", render_h["K5f"],
        max_k5f, *k5f),
+      # the train step's K5f (262,144 points, T = 2^14): 5b's launches less
+      # those of its eval chunks
+      ("hash_fwd_train", "hash_encode.cu", "hash_encode.py:160",
+       train_h["K5f"] - train_h["K1-hash"], max_k5f, *k5f_train),
       ("hash_bwd", "hash_encode.cu", "hash_encode.py:203", train_h["K5b"],
        max_k5b, *k5b),
       ("render_ae_fwd", "render_ae_fwd.cu", "render_ae.py:135",

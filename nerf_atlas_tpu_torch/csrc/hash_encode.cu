@@ -18,15 +18,57 @@
 // nerf_atlas_tpu.nn.HashEncoder: no FMA contraction, so a point on a grid
 // line floors to the same cell and the features agree bit for bit.
 //
-// What bounds it: bytes. Each (point, level) reads 8 float2 table rows
-// (64 B, scattered) and 12 B of its point, and writes 8 B (K5f) or adds
-// into 8 rows (K5b). The table (32 MB at T = 2^19) fits in the 50 MB L2,
-// so the gathers are mostly L2 hits at random addresses.
+// What bounds K5f on this card. Its bytes bound is 0.10 ms per
+// 4,194,304-point eval chunk at T = 2^19 (12 B of point in, 64 B of
+// features out, each distinct table row touched read once, at 3.35 TB/s),
+// but a chunk makes 268M scattered 8-byte table reads (8 corners of 8
+// levels per point), each worth a 32-byte L2 sector, while the table (32
+// MB at 2^19) shares the 50 MB L2 with 268 MB of features streaming out.
+// So the cost is the gather: how many loads and distinct sectors each warp
+// asks for, how many of them are in flight, and the table's L2 residency.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py --k5f-against):
+// the table's re-read after a 256 MB write costs nothing measurable, and
+// with this design ~86% of the time is per-point work that a table held
+// in L1 (T = 2) costs as much; the mapping below took the gather's own
+// share from ~0.49 ms a chunk to ~0.06.
 //
-// K5f (simple and exact): one thread per (point, level), point-major
-// (thread t: point t / 8, level t % 8), so the float2 output stores of a
-// warp are contiguous; nothing is reused within a block, so no shared
-// memory.
+// K5f's design, against each cost:
+// - A block takes FWD_PTS consecutive points, a point per thread. Their
+//   normalised coordinates are computed once per point and axis (cell_of's
+//   operations, so the same bits) into shared memory. Warp w takes points
+//   32w..32w + 31 through the 8 levels in turn: the lanes of every load
+//   share a level, its resolution and the dense/hash choice, and at the
+//   coarse levels neighbouring samples of a ray fall in the same cells, so
+//   a load asks for fewer distinct sectors. A warp walks all 8 levels with
+//   no block barrier between them, and each thread issues a level's loads
+//   before it uses the first. The rows and weights are corner()'s, K5b's.
+// - Corner pairs along x: corners c and c|1 (c even) differ only in x.
+//   When their rows are the two halves of one aligned pair, 2k and 2k + 1
+//   in either order (decided from the rows themselves: row c|1 == row c ^
+//   1), one 16-byte load serves both. That holds where lo_x is even and x
+//   is not clamped: in a dense level row c is then even, and in a hashed
+//   one x ^ 1 flips bit 0 of the hash only (& (T − 1) keeps it), while
+//   bit 0 itself also takes y's and z's, so row c is odd half the time.
+//   It never holds at T = 1. Every pair issues the 16-byte load of the
+//   aligned pair that holds row c, and the lanes whose pair is not joined
+//   add one predicated 8-byte load of row c|1 into fresh registers (so it
+//   waits on no earlier load): two instructions per pair, no branch, about
+//   three loads' requests where there were four.
+// - The table's loads carry an L2 evict-last policy (createpolicy,
+//   ld.global.nc.L2::cache_hint); points are read and features written
+//   evict-first (ld.global.cs, st.global.cs), so the streams do not push
+//   the table out of L2. No device setting and no access-policy window.
+// - The tile's features are staged in shared memory (swizzled so that
+//   neither the 8-byte writes nor the 16-byte reads conflict on banks)
+//   and written as contiguous 16-byte stores.
+// - The products and sums keep their order (c = 0..7, __fmul_rn /
+//   __fadd_rn), so the features equal the plain version's bit for bit.
+// Neither TMA nor wgmma serves here: TMA copies tiles of a regular grid,
+// not 8-byte rows at hashed addresses, and there is no product to run.
+// The tools are wide loads, cache policy and L2 residency.
+//
+// K5b's bound is bytes as well: each (point, level) reads 8 B of dfeat
+// and 12 B of its point and adds into 8 rows.
 //
 // K5b (order-free and deterministic): the table gradient is accumulated
 // in 64-bit fixed point, one scale per (level, feature), so that integer
@@ -123,32 +165,139 @@ __device__ __forceinline__ size_t corner(const Cell& cell, int c, int res,
   return (size_t)(idx & (table_size - 1)) + (size_t)level * table_size;
 }
 
+// ---- K5f ----
+
+constexpr int FWD_PTS = THREADS;             // points per block, one a thread
+
+// clip((x − bbox_min)/span, 0, 1), as cell_of computes it
+__device__ __forceinline__ float normalised(float x, float bbox_min,
+                                            float span) {
+  const float xn = __fdiv_rn(__fsub_rn(x, bbox_min), span);
+  return fminf(fmaxf(xn, 0.0f), 1.0f);
+}
+
+// the cell of the normalised point xn [3] at resolution res: cell_of's
+// operations after the normalisation
+__device__ __forceinline__ Cell cell_at(const float* xn, int res,
+                                        uint32_t table_size) {
+  Cell cell;
+  const float scale = (float)(res - 1);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float v = __fmul_rn(xn[a], scale);
+    const float lo = floorf(v);
+    cell.frac[a] = __fsub_rn(v, lo);
+    cell.lo[a] = (uint32_t)lo;
+  }
+  cell.rmax = (uint32_t)(res - 1);
+  cell.dense = (unsigned long long)res * res * res <= table_size;
+  return cell;
+}
+
+// an L2 policy under which the lines a load brings in are evicted last
+__device__ __forceinline__ unsigned long long evict_last_policy() {
+  unsigned long long policy;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+      : "=l"(policy));
+  return policy;
+}
+
+// rows 2k and 2k + 1 from p = row 2k (16-byte aligned), read-only,
+// under `policy`
+__device__ __forceinline__ float4 load_pair(const float2* p,
+                                            unsigned long long policy) {
+  float4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// the row at p where `need`, else zeros: a predicated load (no branch,
+// no request from the lanes that do not need it) into fresh registers,
+// so that it waits on no earlier load
+__device__ __forceinline__ float2 load_row_if(const float2* p, bool need,
+                                              unsigned long long policy) {
+  float2 v;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\tmov.f32 %1, 0f00000000;\n\t"
+      "@q ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%3], %4;\n\t}"
+      : "=f"(v.x), "=f"(v.y)
+      : "r"((int)need), "l"(p), "l"(policy));
+  return v;
+}
+
+// the float2 slot of (point p, level) in a tile's [FWD_PTS][8] features:
+// 16-byte chunk (level / 2) ^ ((p / 2) % 4), half (level % 2) ^ ((p / 8)
+// % 2), so that the 8-byte writes of 16 consecutive points and the
+// 16-byte reads of 2 points' 4 chunks fall on distinct banks
+__device__ __forceinline__ int feat_slot(int p, int level) {
+  return 8 * p + 2 * ((level >> 1) ^ ((p >> 1) & 3))
+         + ((level & 1) ^ ((p >> 3) & 1));
+}
+
+// blockIdx.x = a tile of FWD_PTS consecutive points, a point per thread:
+// warp w takes points 32w..32w + 31 through the 8 levels in turn, so the
+// lanes of every load share a level
 __global__ void __launch_bounds__(THREADS)
 hash_fwd_kernel(const float2* __restrict__ table,
-                const float* __restrict__ pts, float2* __restrict__ out,
+                const float* __restrict__ pts, float4* __restrict__ out,
                 long long n_pts, uint32_t table_size, Resolutions res,
                 float bbox_min, float bbox_max) {
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= n_pts * LEVELS) return;
-  const long long p = t / LEVELS;
-  const int level = (int)(t % LEVELS);
-  const int r = res.r[level];
-  const Cell cell = cell_of(pts + 3 * p, r, table_size, bbox_min, bbox_max);
-  float2 acc = make_float2(0.0f, 0.0f);
+  __shared__ float xn_s[3 * FWD_PTS];                 // [point][axis]
+  __shared__ float4 feat_s[4 * FWD_PTS];              // feat_slot's layout
+  const long long p0 = (long long)blockIdx.x * FWD_PTS;
+  const int n = (int)min((long long)FWD_PTS, n_pts - p0);
+  const float span = __fsub_rn(bbox_max, bbox_min);
+  for (int i = threadIdx.x; i < 3 * n; i += THREADS)
+    xn_s[i] = normalised(__ldcs(pts + 3 * p0 + i), bbox_min, span);
+  __syncthreads();
+  const int p = threadIdx.x;
+  if (p < n) {
+    const unsigned long long policy = evict_last_policy();
+    float2* feat2 = reinterpret_cast<float2*>(feat_s);
+    const float xn[3] = {xn_s[3 * p], xn_s[3 * p + 1], xn_s[3 * p + 2]};
+#pragma unroll 1
+    for (int level = 0; level < LEVELS; ++level) {
+      const int r = res.r[level];
+      const Cell cell = cell_at(xn, r, table_size);
+      size_t row[8];
+      float w[8];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float w;
-    const size_t row = corner(cell, c, r, level, table_size, &w);
-    const float2 v = __ldg(table + row);
-    const float2 contrib = make_float2(__fmul_rn(v.x, w), __fmul_rn(v.y, w));
-    if (c == 0) {
-      acc = contrib;
-    } else {
-      acc.x = __fadd_rn(acc.x, contrib.x);
-      acc.y = __fadd_rn(acc.y, contrib.y);
+      for (int c = 0; c < 8; ++c)
+        row[c] = corner(cell, c, r, level, table_size, &w[c]);
+      // a level's rows start at an even row but at T = 1, where every
+      // corner of a level is one row and no pair is joined
+      float2 v[8];
+#pragma unroll
+      for (int c = 0; c < 8; c += 2) {
+        const float4 q = load_pair(table + (row[c] & ~(size_t)1), policy);
+        const bool joined = row[c + 1] == (row[c] ^ 1);
+        const float2 b = load_row_if(table + row[c + 1], !joined, policy);
+        const bool odd = row[c] & 1;
+        v[c] = odd ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
+        v[c + 1] = !joined ? b
+                   : odd   ? make_float2(q.x, q.y) : make_float2(q.z, q.w);
+      }
+      float2 acc = make_float2(__fmul_rn(v[0].x, w[0]),
+                               __fmul_rn(v[0].y, w[0]));
+#pragma unroll
+      for (int c = 1; c < 8; ++c) {
+        acc.x = __fadd_rn(acc.x, __fmul_rn(v[c].x, w[c]));
+        acc.y = __fadd_rn(acc.y, __fmul_rn(v[c].y, w[c]));
+      }
+      feat2[feat_slot(p, level)] = acc;
     }
   }
-  out[t] = acc;                                   // [p][level] float2
+  __syncthreads();
+  // 16-byte chunk k of the tile's output: point k / 4, levels 2(k % 4) and
+  // 2(k % 4) + 1
+  for (int k = threadIdx.x; k < 4 * n; k += THREADS) {
+    const int q = k >> 2;
+    float4 f = feat_s[feat_slot(q, 2 * (k & 3)) >> 1];
+    if ((q >> 3) & 1) f = make_float4(f.z, f.w, f.x, f.y);
+    __stcs(out + 4 * p0 + k, f);
+  }
 }
 
 // ---- K5b ----
@@ -320,11 +469,10 @@ int hash_fwd_launch(const float* table, const float* pts, float* out,
                     float bbox_min, float bbox_max, void* stream) {
   int err = launch_check(n_pts, table_size, res);
   if (err != cudaSuccess || n_pts == 0) return err;
-  const long long threads = n_pts * LEVELS;
-  hash_fwd_kernel<<<(unsigned)((threads + THREADS - 1) / THREADS), THREADS,
-                    0, static_cast<cudaStream_t>(stream)>>>(
+  hash_fwd_kernel<<<(unsigned)((n_pts + FWD_PTS - 1) / FWD_PTS), THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(table), pts,
-      reinterpret_cast<float2*>(out), n_pts, (uint32_t)table_size,
+      reinterpret_cast<float4*>(out), n_pts, (uint32_t)table_size,
       to_res(res), bbox_min, bbox_max);
   return cudaGetLastError();
 }

@@ -149,11 +149,11 @@ def _launch(name: str, a: torch.Tensor, pts: torch.Tensor, out: torch.Tensor,
   for t, what in ((a, "input"), (pts, "pts")):
     if not t.is_contiguous():
       raise ValueError(f"{name}: {what} must be contiguous")
-  # K5f reads float2 table rows, K5b float4 quarters of dfeat rows
-  align = 16 if scratch else 8
-  if a.data_ptr() % align or out.data_ptr() % 8:
-    raise ValueError(f"{name}: the input must be {align}-byte and the "
-                     "output 8-byte aligned")
+  # K5f reads aligned pairs of table rows and writes the features, K5b
+  # reads dfeat, in 16-byte vectors
+  if a.data_ptr() % 16 or out.data_ptr() % 16:
+    raise ValueError(f"{name}: the input and the output must be 16-byte "
+                     "aligned")
   lib = _load_library()
   res = (ctypes.c_int * LEVELS)(*resolutions())
   stream = torch.cuda.current_stream(pts.device).cuda_stream

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops import integrate
+from .ops.kernels import hash_encode as hk
 from .ops.kernels import render as k1
 from .ops.kernels import render_ae as k7
 from .ops.kernels import render_dyn as k9
@@ -637,3 +638,48 @@ def _kink_free(pre_activations, rays, steps: int, margin: float):
     rms = (z32 - z64).pow(2).mean(dim=0).sqrt()
     fragile |= (z32.abs() < margin * rms).any(dim=-1)
   return ~fragile.view(rays.shape[0], steps).any(dim=-1)
+
+
+def k5f_corner_pairs(pts: torch.Tensor, table_size: int):
+  """K5f's corner-pair rule (csrc/hash_encode.cu) on the host: (level,
+  even corner c, row of c [P], row of c | 1 [P], joined [P] bool) for
+  every level and pair, the rows with their level offset as
+  `hash_encode._corners` gives them. A pair is joined where row c | 1 is
+  row c ^ 1 (rows 2k and 2k + 1, in either order): one 16-byte load then
+  holds both rows."""
+  rows = {(li, c): idx for li, c, idx, _ in hk._corners(pts, table_size)}
+  for li in range(hk.LEVELS):
+    for c in range(0, 8, 2):
+      a, b = rows[(li, c)], rows[(li, c + 1)]
+      yield li, c, a, b, b == (a ^ 1)
+
+
+def k5f_joined_share(pts: torch.Tensor, table_size: int) -> list:
+  """The share of K5f's corner pairs that the rule joins, per level."""
+  joined = [0.0] * hk.LEVELS
+  for li, _, _, _, j in k5f_corner_pairs(pts, table_size):
+    joined[li] += float(j.float().mean()) / 4
+  return joined
+
+
+def k5f_emulate(table: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+  """K5f's loads on the host: for each pair, the 16-byte load of the
+  aligned row pair that holds row c (row c its half by parity), and row
+  c | 1 from that load's other half where the pair is joined, from a load
+  of its own elsewhere; then the products and sums in the kernel's order.
+  Features [P, 16]: where the rule is right, `hash_encode_reference`'s
+  bits."""
+  size = hk._table_size(table)
+  quads = table.reshape(-1, 4)             # [L·T / 2]: aligned row pairs
+  weights = {(li, c): w for li, c, _, w in hk._corners(pts, size)}
+  levels = [None] * hk.LEVELS
+  for li, c, a, b, joined in k5f_corner_pairs(pts, size):
+    q = quads[a // 2]
+    odd = (a % 2 == 1)[:, None]
+    v_a = torch.where(odd, q[:, 2:], q[:, :2])
+    v_b = torch.where(joined[:, None], torch.where(odd, q[:, :2], q[:, 2:]),
+                      table[b])
+    for v, w in ((v_a, weights[(li, c)]), (v_b, weights[(li, c + 1)])):
+      contrib = v * w[:, None]
+      levels[li] = contrib if levels[li] is None else levels[li] + contrib
+  return torch.cat(levels, dim=-1)

@@ -15,9 +15,18 @@
 - A `slow` case against the Pallas kernel `hash_encode(...,
   interpret=True)`, whose table is rounded to bf16 (hash_encode.py:234):
   1e-2 relative to the features' magnitude.
+- K5f's corner-pair rule (`testing.k5f_corner_pairs`, the kernel's rule
+  on the host) at T = 1, 2, 2^10, 2^14 and 2^19: every pair it joins is
+  one aligned pair of rows, 2k and 2k + 1, so one 16-byte load holds both
+  corners' rows as `_corners` gives them, and the kernel's loads
+  emulated on the host (`testing.k5f_emulate`) give the plain K5f's bits;
+  no pair is joined where x is clamped or at T = 1; the joined share per
+  level is printed (`-s`) and held near half.
 - `cuda`-marked cases: the kernels against their plain versions on the
   card (run with `python -m pytest --noconftest -m cuda
-  tests/test_torch_hash.py`).
+  tests/test_torch_hash.py`); K5f bit for bit at T = 1 to 2^19 and a
+  ragged point count, and a table view that is not 16-byte aligned
+  refused.
 """
 import numpy as np
 import pytest
@@ -25,10 +34,14 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from nerf_atlas_tpu_torch import testing  # noqa: E402
 from nerf_atlas_tpu_torch.nn import HashEncoder  # noqa: E402
 from nerf_atlas_tpu_torch.ops.kernels import hash_encode as hk  # noqa: E402
 
 TABLE_SIZES = [1 << 10, 1 << 14]
+# K5f's pair rule: T = 1 (no pair), 2, every level hashed (2^10), and the
+# train step's and the default tables (levels 0 and 0-2 dense)
+PAIR_SIZES = [1, 2, 1 << 10, 1 << 14, 1 << 19]
 
 
 def _points(seed=0):
@@ -146,6 +159,59 @@ def test_encode_matches_pallas_kernel_interpret():
   assert np.abs(got - ref).max() <= 1e-2 * scale
 
 
+@pytest.mark.parametrize("size", PAIR_SIZES)
+def test_k5f_pair_rule_joins_one_aligned_pair(size):
+  """Each pair the kernel joins is rows 2k and 2k + 1 (in either order),
+  so the 16-byte load of that aligned pair yields both corners' rows as
+  `_corners` gives them; the emulated loads give the plain K5f's bits."""
+  table, pts = torch.from_numpy(_table(size)), torch.from_numpy(_points())
+  quads = table.reshape(-1, 4)
+  for li, c, a, b, joined in testing.k5f_corner_pairs(pts, size):
+    a, b = a[joined], b[joined]
+    assert torch.equal(torch.minimum(a, b) % 2, torch.zeros_like(a))
+    assert torch.equal((a - b).abs(), torch.ones_like(a)), (li, c)
+    pair = quads[a // 2]
+    odd = (a % 2 == 1)[:, None]
+    assert torch.equal(torch.where(odd, pair[:, 2:], pair[:, :2]), table[a])
+    assert torch.equal(torch.where(odd, pair[:, :2], pair[:, 2:]), table[b])
+  assert torch.equal(testing.k5f_emulate(table, pts),
+                     hk.hash_encode_reference(table, pts))
+
+
+@pytest.mark.parametrize("size", PAIR_SIZES)
+def test_k5f_pair_rule_never_joins_clamped_x(size):
+  """Where x is clamped (lo_x = res − 1: on the bbox face x = 1 or beyond
+  it) corners c and c | 1 share a row, and at T = 1 every corner is row
+  0 of its level: no pair is joined there."""
+  pts = torch.from_numpy(_points())
+  xn = torch.clamp((pts[:, 0] - hk.BBOX[0]) / (hk.BBOX[1] - hk.BBOX[0]),
+                   0.0, 1.0)
+  for li, c, a, b, joined in testing.k5f_corner_pairs(pts, size):
+    r = hk.resolutions()[li]
+    clamped = torch.floor(xn * float(r - 1)).long() == r - 1
+    assert int(clamped.sum()) >= 10
+    assert not bool(joined[clamped].any()), (li, c)
+    assert torch.equal(a[clamped], b[clamped])
+    if size == 1:
+      assert not bool(joined.any())
+
+
+@pytest.mark.parametrize("size", PAIR_SIZES)
+def test_k5f_joined_share_per_level(size):
+  """The share of corner pairs one 16-byte load serves, per level: about
+  half (lo_x even, and in a hashed level the two rows always fall in one
+  aligned pair then), none at T = 1, most at T = 2 (two rows a level)."""
+  share = testing.k5f_joined_share(torch.from_numpy(_points()), size)
+  print(f"T={size}: joined share per level "
+        f"{' '.join(f'{v:.3f}' for v in share)}")
+  if size == 1:
+    assert share == [0.0] * 8
+  elif size == 2:
+    assert min(share) > 0.9
+  else:
+    assert 0.4 <= min(share) and max(share) <= 0.6, share
+
+
 def _cuda_points(n, seed):
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device (and nvcc) to build and run K5f/K5b")
@@ -155,18 +221,34 @@ def _cuda_points(n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [1 << 14, 1 << 19])
+@pytest.mark.parametrize("size", PAIR_SIZES)
 def test_cuda_hash_encode_matches_plain(size):
   """K5f vs the plain K5f on the card: the same float operations in the
-  same order, so 1e-6 abs (measured: equal)."""
-  pts = _cuda_points(5000, 5)
-  table = torch.from_numpy(_table(size)).cuda()
-  before = hk.hash_encode.launches
-  out = hk.hash_encode(table, pts)
-  torch.cuda.synchronize()
-  assert hk.hash_encode.launches == before + 1
-  ref = hk.hash_encode_reference(table, pts)
-  assert float((out - ref).abs().max()) <= 1e-6
+  same order, so 1e-6 abs and bit for bit, at 5000 points and at 77 (a
+  ragged tile of the 256-point blocks); two launches the same bits."""
+  for n in (5000, 77):
+    pts = _cuda_points(n, 5)
+    table = torch.from_numpy(_table(size)).cuda()
+    before = hk.hash_encode.launches
+    out = hk.hash_encode(table, pts)
+    again = hk.hash_encode(table, pts)
+    torch.cuda.synchronize()
+    assert hk.hash_encode.launches == before + 2
+    ref = hk.hash_encode_reference(table, pts)
+    assert float((out - ref).abs().max()) <= 1e-6
+    assert torch.equal(out, ref) and torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_cuda_hash_encode_refuses_misaligned_table(cuda_device):
+  """K5f reads aligned pairs of rows as 16-byte vectors: a table view 8
+  bytes off a 16-byte boundary is refused."""
+  size = 1 << 10
+  flat = torch.zeros(8 * size * 2 + 2, device=cuda_device)
+  table = flat[2:].view(8 * size, 2)
+  assert table.data_ptr() % 16 == 8 and table.is_contiguous()
+  with pytest.raises(ValueError, match="16-byte"):
+    hk.hash_encode(table, _cuda_points(100, 5))
 
 
 @pytest.mark.cuda
