@@ -74,6 +74,17 @@ Phases, each printing its lines before the next starts:
      ts against the same ts per ray, bit for bit; K2 and K3 on those ts as
      for cp; PlainCPRender (weights output on) against K2 and two K2
      launches, bit for bit;
+  3n. the rest of the dynamic family, no kernel: the module forward on the
+     card against the same module on the CPU (the same state_dict, 1024
+     rays x 64 steps, the same times; rgb, dp and rigidity within 1e-4)
+     for DynamicNeRFAE, LongDynamicNeRF (4 segments), DynamicNeRF with an
+     8-wide time latent over plain-cp and DynamicNeRF over the tiny, ae
+     and coarse_fine canonicals, each with its warp active; each dynamic
+     regularizer on the same draws, card against CPU: the NR-NeRF offset
+     and the rigidity sparsity on the time-latent model's forward, the
+     divergence, FFJORD divergence, spline length and spline point 0 on
+     it and on the LongDynamicNeRF (values within 1e-5 relative,
+     parameter gradients within 1e-2);
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
@@ -88,7 +99,15 @@ Phases, each printing its lines before the next starts:
      4j. coarse_fine-render-800: --model coarse_fine --mip cone (BASELINE
      config #2), which must launch K1 twice per 65536-ray chunk (the
      coarse pass with weights, the fine pass on 128 per-ray ts), nothing
-     else, and run no module forward;
+     else, and run no module forward; 4k. dnerf-ae-render-800: --model ae
+     --dyn-model ae (DynamicNeRFAE), and 4l. long-render-800: --dyn-model
+     long --long-vid-segments 4 (LongDynamicNeRF over plain-cp), each 1
+     view x 2 splits on the dynamic scene, which must run module forwards
+     and launch no kernel; 4m. dnerf-over-time-800: the spline S = 4
+     D-NeRF with --render-over-time 0 --render-frames 4
+     --render-bezier-keyframes --notraintest --notest, which must launch
+     K9f 10 times per frame for the 8 frames, nothing else, and write
+     the 8 PNGs;
   5. main path, train: the port's runner trains PlainNeRF-CP on the
      procedural scene (48x48, 30 views, batch 4096, 64 steps per ray,
      300 steps) and must engage the one-kernel step, launch K3 once per
@@ -106,13 +125,26 @@ Phases, each printing its lines before the next starts:
      sweep's volsdf_eikonal recipe (300 steps), which must engage the
      one-kernel step, launch K8b once per step and K8f in eval, and beat
      all-black by 2 dB on both splits; 5h. dnerf-train-4096, the sweep's
-     dnerf_dx recipe (500 steps), and 5i. dnerf-spline-train-4096, its
+     dnerf_dx recipe (300 steps), and 5i. dnerf-spline-train-4096, its
      dnerf_spline_dp recipe (--spline 4 --dp-weight 1e-3, 300 steps), each
      through the one-kernel step (K9b once per step, K9f in eval, nothing
      else), both splits 2 dB over all-black; 5j. coarse_fine-train-4096,
      the sweep's coarse_fine_mip recipe (300 steps), through the
      two-kernel path (K1 and K2 twice per step, K1 twice per eval chunk,
-     nothing else), both splits 2 dB over all-black;
+     nothing else), both splits 2 dB over all-black; 5k.
+     dnerf-spline-reg-train-4096, the dnerf_spline_dp recipe (300 steps)
+     with --spline-len-decay, --spline-pt0-decay and
+     --dyn-divergence-weight 1e-3, through the two-kernel path (K9f with
+     its dp² column and K9b-G once per step, the regularizers by autograd
+     beside them, K9f in eval, nothing else), both splits 2 dB over
+     all-black, its eval writing the flow and rigidity maps
+     (--flow-images --rigidity-images) and clusters.png
+     (--cluster-movement 3); 5l-5n. the module-forward paths at the
+     sweep's shape, no kernel launched: the time latent with the offset,
+     rigidity-sparsity and FFJORD terms (30 steps), DynamicNeRFAE (30
+     steps), LongDynamicNeRF trained progressively over 2 segments (15
+     steps each), each loss finite with its last-10 mean under its
+     first-10 mean, results.txt written;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -158,7 +190,8 @@ The last three lines are the kernels' JSON record (each kernel's
 launches on its main path (K5f in two rows: `hash_fwd` at the eval
 chunk's 4,194,304 points and T = 2^19, launched by 4b; `hash_fwd_train`
 at the train step's 262,144 points and T = 2^14, launched by 5b's
-steps), max error against its plain version, ms per
+steps; K9f with its dp² column and K9b-G: `render_dyn_fwd_spline_dp` and
+`render_dyn_bwd_grad_spline_dp`, launched by 5k's steps), max error against its plain version, ms per
 call, the plain version's ms, the bound from this run's bytes and
 operations at the published H100 peaks, and a single PyTorch call's ms
 where one computes the function), the card's name and power limit, and
@@ -184,6 +217,9 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import copy
+import functools
 import json
 import math
 import os
@@ -313,8 +349,43 @@ DNERF_SPLINE_ARGV = DNERF_TRAIN_ARGV + ["--spline", "4", "--dp-weight",
                                         "1e-3"]
 DNERF_SPLINE = 4
 DNERF_DP = 1e-3
-DNERF_STEPS = 500
+# (500 steps until the dynamic family's phases joined: cut to 300 to keep
+# the run without arguments inside its time limit)
+DNERF_STEPS = 300
 DNERF_SPLINE_STEPS = 300
+# the rest of the dynamic family: phase 3n's module forwards on the card
+# against the CPU (1024 rays x 64 steps; rgb, dp and rigidity 1e-4 abs;
+# each regularizer's value 1e-5 relative and each parameter gradient 1e-2
+# relative, ALL_RAY_RTOL: leaky-relu kinks), phases 4k-4m's renders and
+# 5k-5n's training runs
+FAMILY_RAYS = 1024
+FAMILY_REG_RTOL = 1e-5
+FAMILY_CASES = (
+    ("DynamicNeRFAE", "DynamicNeRFAE", {}),
+    ("LongDynamicNeRF", "LongDynamicNeRF", {"segments": 4}),
+    ("DynamicNeRF time latent 8 plain-cp", "DynamicNeRF",
+     {"time_latent_size": 8, "canonical_kwargs": {"enc_kind": "cp"}}),
+    ("DynamicNeRF tiny", "DynamicNeRF", {"canonical_kind": "tiny"}),
+    ("DynamicNeRF ae", "DynamicNeRF",
+     {"canonical_kind": "ae", "canonical_kwargs": {"refl_kind": "view"}}),
+    ("DynamicNeRF coarse_fine", "DynamicNeRF",
+     {"canonical_kind": "coarse_fine",
+      "canonical_kwargs": {"refl_kind": "view"}}))
+# 5k: the dnerf_spline_dp recipe with the point-sampled regularizers, its
+# eval writing the flow and rigidity maps and the movement clusters
+DNERF_REG_ARGV = DNERF_SPLINE_ARGV + [
+    "--spline-len-decay", "1e-3", "--spline-pt0-decay", "1e-3",
+    "--dyn-divergence-weight", "1e-3"]
+DNERF_REG_EVAL = ["--flow-images", "--rigidity-images", "--cluster-movement",
+                  "3"]
+# 5l-5n: the module-forward paths at the sweep's shape, (tag, flags, steps)
+ORACLE_RUNS = (
+    ("5l", "dnerf-latent-regs", ["--dyn-refl-latent", "8", "--offset-decay",
+                                 "1e-3", "--rigidity-sparsity", "1e-3",
+                                 "--ffjord-div-decay", "1e-3"], 30),
+    ("5m", "dnerf-ae", ["--dyn-model", "ae"], 30),
+    ("5n", "long-progressive", ["--dyn-model", "long",
+                                "--long-vid-progressive-train", "2"], 15))
 QUALITY_R05_DNERF = (33.236, 26.654)
 QUALITY_R05_DNERF_SPLINE = (33.279, 26.543)
 DNERF_MODES = (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0),
@@ -342,6 +413,14 @@ SASS_SAME = ("render_fwd", "render_bwd", "render_ae_fwd", "render_ae_bwd",
              "render_dyn_bwd")
 SASS_SAME_KERNELS = {"hash_encode": ("hash_bwd_max_kernel", "hash_bwd_kernel",
                                      "hash_bwd_convert_kernel")}
+
+
+def _phase(pid: str, fn, *args, **kwargs):
+  """fn(*args, **kwargs), then one `[phase] <pid> <seconds> s` line."""
+  t0 = time.perf_counter()
+  out = fn(*args, **kwargs)
+  print(f"[phase] {pid} {time.perf_counter() - t0:.1f} s", flush=True)
+  return out
 
 
 def _sync_time(fn):
@@ -418,11 +497,17 @@ def _ptxas_entries(log: str):
 
 
 def _build(build, k1, k8, k9):
-  """Phase 2: one nvcc per kernel source, started together; render_bwd.cu
-  once per mode (`render.bwd_defines`), render_volsdf_fwd.cu without and
-  with the eikonal column (`render_volsdf.fwd_defines`), render_dyn_fwd.cu
-  and render_dyn_bwd.cu once per (canonical encoder, warp kind)
-  (`render_dyn.defines`)."""
+  """Phase 2: `_build_start`, then `_build_finish`."""
+  return _build_finish(build, _build_start(build, k1, k8, k9))
+
+
+def _build_start(build, k1, k8, k9):
+  """Phase 2's start: one nvcc per kernel source, started together in a
+  thread pool; render_bwd.cu once per mode (`render.bwd_defines`),
+  render_volsdf_fwd.cu without and with the eikonal column
+  (`render_volsdf.fwd_defines`), render_dyn_fwd.cu and render_dyn_bwd.cu
+  once per (canonical encoder, warp kind) (`render_dyn.defines`). Returns
+  what `_build_finish` waits on."""
   jobs = [(name, ()) for name in ("render_fwd", "hash_encode",
                                   "render_ae_fwd", "render_ae_bwd",
                                   "render_volsdf_bwd")]
@@ -432,11 +517,21 @@ def _build(build, k1, k8, k9):
   jobs += [(name, k9.defines(enc, spline))
            for name in ("render_dyn_bwd", "render_dyn_fwd")
            for enc, spline in k9.variants()]
-  t0 = time.perf_counter()
-  with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-    built = list(pool.map(lambda job: build.build(*job), jobs))
-  print(f"[build] phase 2: {len(jobs)} libraries in "
-        f"{time.perf_counter() - t0:.1f} s", flush=True)
+  pool = concurrent.futures.ThreadPoolExecutor(len(jobs))
+  futures = [pool.submit(build.build, *job) for job in jobs]
+  return jobs, pool, futures, time.perf_counter()
+
+
+def _build_finish(build, pending):
+  """Phase 2's end: wait for every library, print each one's build time,
+  registers and spills and its tensor-core instruction count."""
+  jobs, pool, futures, t0 = pending
+  built = [f.result() for f in futures]
+  pool.shutdown()
+  secs = time.perf_counter() - t0
+  print(f"[build] phase 2: {len(jobs)} libraries in {secs:.1f} s",
+        flush=True)
+  print(f"[phase] 2 {secs:.1f} s", flush=True)
   for (name, defines), b in zip(jobs, built):
     tag = f" {' '.join(defines)}" if defines else ""
     entries = [f"{n}: {r}" for n, r in _ptxas_entries(b.log)]
@@ -1179,6 +1274,7 @@ def _wrappers():
   from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9
   from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
   return {"K1": k1.plain_cp_render, "K2": k1.plain_cp_render_grad,
+          "K9f-dp": k9.fused_dyn_render.dp,
           "K3": k1.plain_cp_train_step, "K1-hash": k1.plain_hash_render,
           "K2-hash": k1.plain_hash_render_grad,
           "K3-hash": k1.plain_hash_train_step, "K5f": hk.hash_encode,
@@ -1201,15 +1297,20 @@ def _counted(fn):
 
 
 def _train_run(port_runner, k1, loaders, dev, steps: int, extra=(),
-               argv=TRAIN_ARGV):
+               argv=TRAIN_ARGV, outputs=()):
   """Run the port's runner on a sweep recipe; returns (results, wall s,
-  launches per kernel, black PSNR per split)."""
+  launches per kernel, black PSNR per split). Each path of `outputs`
+  (relative to the run's output directory) must have been written."""
   with tempfile.TemporaryDirectory() as outdir:
     argv = argv + ["--epochs", str(steps), "--outdir", outdir, *extra]
     (results, secs), counts = _counted(
         lambda: _sync_time(lambda: port_runner.main(argv)))
     with open(os.path.join(outdir, "log.json")) as f:
       logged = json.load(f)["engaged_path"]
+    missing = [o for o in outputs
+               if not os.path.exists(os.path.join(outdir, o))]
+    if missing:
+      raise RuntimeError(f"the run wrote no {missing}")
   if logged != results["engaged_path"]:
     raise RuntimeError(f"log.json says {logged}, the run "
                        f"{results['engaged_path']}")
@@ -1427,17 +1528,18 @@ def _time_training(card, model_cls, driver, loaders, sampler, k1, rays_ops,
         ws, rays[i:i + 8192], g[i:i + 8192], **kw)
                for i in range(0, rays.shape[0], 8192))
 
+  # the plain K2 (~7.8 s a call) takes one turn, before the kernel's two:
+  # its second turn went to keep the run inside its time limit
   launches = k1.plain_cp_render_grad.launches
   p1 = _event_ms(plain_k2, 1)
   kk1 = _event_ms(lambda: k1.plain_cp_render_grad(ws, rays, g, **kw), 2)
   kk2 = _event_ms(lambda: k1.plain_cp_render_grad(ws, rays, g, **kw), 2)
-  p2 = _event_ms(plain_k2, 1)
   k1.plain_cp_render_grad.launches = launches        # timing, not the path
   b2 = _mlp_bound(k1, "cp", rays.shape[0], STEPS, True)
   print(f"[time] {card}: one {rays.shape[0]}-ray x {STEPS}-step K2 call "
         f"{kk1:.2f} / {kk2:.2f} ms (bound {b2[0]:.2f} ms, split TF32 "
         f"{b2[3]:.2f} ms, bf16 tensor-core {b2[2]:.2f} ms), plain torch "
-        f"{p1:.2f} / {p2:.2f} ms", flush=True)
+        f"{p1:.2f} ms", flush=True)
   target = torch.rand(BATCH, 3, device=dev, generator=gen)
   r4 = rays[:BATCH].contiguous()
   k3 = {}
@@ -3085,7 +3187,7 @@ def _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev):
   """Phase 6, D-NeRF, for the cp Δx and the spline S = 4 modes: K9f and its
   plain version per 65536 x 64 call with and without the dp² column,
   K9b-L and K9b-G per 4096 x 64 call with and without the dp² term
-  (plain, kernel, kernel, plain); one 800x800 frame of the Δx model; the
+  (plain, kernel, kernel); one 800x800 frame of the Δx model; the
   three train steps of each recipe at 4096 x 64. Returns {(tag, kernel):
   (ms, plain ms, bound)} and the frame's max difference."""
   res = {}
@@ -3145,16 +3247,18 @@ def _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev):
         plain = (lambda gg=gg, dp=dp: k9.dyn_render_grad_reference(
             ws, r4, t4, gg, ts=ts, want_dp=dp, **kw))
       ms = {}
+      # the plain K9b (~0.8 s a call) takes one turn, before the kernel's
+      # two: its second turn went to keep the run inside its time limit
       for name, fn, reps in (("plain", plain, 1), ("kernel", kernel, 5),
-                             ("kernel", kernel, 5), ("plain", plain, 1)):
+                             ("kernel", kernel, 5)):
         ms.setdefault(name, []).append(_event_ms(fn, reps))
       bound = _dyn_bound(k9, enc, spline, BATCH, True)
-      res[(tag, name_k)] = (min(ms["kernel"]), min(ms["plain"]), bound)
+      res[(tag, name_k)] = (min(ms["kernel"]), ms["plain"][0], bound)
       print(f"[time] {card}: D-NeRF {tag}: one {BATCH}-ray x {STEPS}-step "
             f"{name_k} call {ms['kernel'][0]:.2f} / {ms['kernel'][1]:.2f} ms "
             f"(bound {bound[0]:.2f} ms by {bound[1]}, split TF32 "
             f"{bound[3]:.2f}, bf16 {bound[2]:.2f}), plain torch "
-            f"{ms['plain'][0]:.2f} / {ms['plain'][1]:.2f} ms", flush=True)
+            f"{ms['plain'][0]:.2f} ms", flush=True)
   for name, w in _wrappers().items():         # timing, not the main path
     w.launches = launches[name]
 
@@ -3208,6 +3312,226 @@ def _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev):
             f"{v[0]:.2f} / {v[1]:.2f} ms = {BATCH / (min(v) / 1e3):,.0f} "
             "train rays/s", flush=True)
   return res
+
+
+def _family_model(models, driver, cls: str, kw: dict):
+  """A dynamic-family model on the CPU at full width, seed 0, its warp
+  active (`_dyn_weights`' seeded layer_out)."""
+  model = driver.init_model(getattr(models, cls)(steps=STEPS, **kw), seed=0)
+  rng = np.random.default_rng(3)
+  with torch.no_grad():
+    for p, scale in ((model.warp.layer_out.weight, 0.03),
+                     (model.warp.layer_out.bias, 0.01)):
+      p.copy_(torch.from_numpy((scale * rng.normal(size=tuple(p.shape))
+                                ).astype(np.float32)))
+  return model
+
+
+def _grad_gap(got: dict, ref: dict):
+  """(worst ‖Δ‖/‖ref‖ over the tensors, its name). A tensor whose gradient
+  vanishes (a bias that cancels between a term's times: round-off on both
+  sides) is held against 1e-3 of the largest tensor's norm."""
+  scale = max(float(g.norm()) for g in ref.values())
+  if scale == 0.0:                    # a term that is 0 (spline point 0 of
+    zero = all(float(g.abs().max()) == 0 for g in got.values())  # a Bezier)
+    return (0.0 if zero else math.inf), None
+  worst = (-1.0, None)
+  for k, r in ref.items():
+    err = float((got[k].cpu() - r).norm() / max(float(r.norm()),
+                                                1e-3 * scale))
+    worst = max(worst, (err, k), key=lambda x: x[0])
+  return worst
+
+
+def _reg_on_both(fn, cpu, gpu, dev):
+  """fn(model, to) -> a scalar regularizer, on the CPU model and its card
+  copy: (CPU value, card value, gradient gap)."""
+  vals, grads = [], []
+  for model, to in ((cpu, lambda x: x), (gpu, lambda x: x.to(dev))):
+    model.zero_grad()
+    val = fn(model, to)
+    val.backward()
+    vals.append(float(val.detach()))
+    grads.append({k: p.grad for k, p in model.named_parameters()
+                  if p.grad is not None})
+  if grads[0].keys() != grads[1].keys():
+    raise RuntimeError("the card and the CPU differentiate other tensors")
+  return vals[0], vals[1], _grad_gap(grads[1], grads[0])
+
+
+def _check_family(models, driver, regularizers, dev):
+  """Phase 3n: the module forward on the card against the same module on
+  the CPU (the same state_dict, FAMILY_RAYS rays x 64 steps, the same
+  times) for DynamicNeRFAE, LongDynamicNeRF, DynamicNeRF with an 8-wide
+  time latent over plain-cp and over the tiny, ae and coarse_fine
+  canonicals: rgb, dp and rigidity within TOL. Then each dynamic
+  regularizer on the same draws (`regularizers`' draw functions from one
+  CPU generator): the out-dict ones (offset, rigidity sparsity) on the
+  time-latent model's forward, the point-sampled ones on it and on the
+  LongDynamicNeRF; values within FAMILY_REG_RTOL, parameter gradients
+  within ALL_RAY_RTOL (`_grad_gap`). No kernel runs."""
+  rays, times = _dyn_rays(FAMILY_RAYS, 31, "cpu")
+  kept = {}
+  for tag, cls, kw in FAMILY_CASES:
+    cpu = _family_model(models, driver, cls, kw)
+    gpu = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+      ref = cpu(rays, times=times)
+      got = gpu(rays.to(dev), times=times.to(dev))
+    errs = {k: float((got[k].cpu() - ref[k]).abs().max())
+            for k in ("rgb", "dp", "rigidity") if k in ref}
+    line = ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+    print(f"[check] {tag} module forward, card vs CPU, {FAMILY_RAYS} rays x "
+          f"{STEPS}: max |Δ| {line} (max |dp| "
+          f"{float(ref['dp'].abs().max()):.3e})", flush=True)
+    if max(errs.values()) > TOL or float(ref["dp"].abs().max()) <= 1e-4:
+      raise RuntimeError(f"{tag}: the card's forward differs: {errs}")
+    if cls in ("LongDynamicNeRF",) or "time_latent_size" in kw:
+      kept[tag] = (cpu, gpu)
+  latent = kept["DynamicNeRF time latent 8 plain-cp"]
+  for name in ("offset", "rigidity_sparsity"):
+    term = regularizers.REGULARIZERS[name]
+    checks = [(name, "DynamicNeRF time latent 8 plain-cp", latent,
+               lambda m, to, term=term: term(m(to(rays), times=to(times))))]
+    _check_regs(checks, dev)
+  for name, (draws, term) in regularizers.POINT_REGULARIZERS.items():
+    d = draws(torch.Generator().manual_seed(41))
+    _check_regs([(name, tag, pair, lambda m, to, term=term, d=d: term(
+        m, *(to(x) for x in d))) for tag, pair in kept.items()], dev)
+
+
+def _check_regs(checks, dev):
+  for name, tag, (cpu, gpu), fn in checks:
+    v_cpu, v_gpu, (gap, worst) = _reg_on_both(fn, cpu, gpu, dev)
+    rel = abs(v_gpu - v_cpu) / max(abs(v_cpu), 1e-30)
+    print(f"[check] regularizer {name} on {tag}, card vs CPU: value "
+          f"{v_gpu:.6e} vs {v_cpu:.6e} ({rel:.2e} relative), parameter "
+          f"gradients worst {gap:.2e} relative ({worst})", flush=True)
+    if rel > FAMILY_REG_RTOL or gap > ALL_RAY_RTOL:
+      raise RuntimeError(f"regularizer {name} on {tag}: the card differs")
+
+
+def _render_module(port_runner, models, tag, *extra):
+  """Phases 4k / 4l: the runner's 800x800 render of a model outside the
+  kernels (1 view x 2 splits at its time): module forwards, no kernel."""
+  (results, secs, counts), forwards = _module_forwards(
+      models, lambda: _render_main(port_runner, "--data-kind",
+                                   "synthetic-dyn", "--num-views", "1",
+                                   *extra))
+  launched = {k: v for k, v in counts.items() if v}
+  if launched or forwards <= 0:
+    raise RuntimeError(f"the {tag} render launched {launched} and ran "
+                       f"{forwards} module forwards")
+  print(f"[main] runner {tag} {SIZE}x{SIZE}x{STEPS}, 1 view x 2 splits: "
+        f"{secs:.2f} s end to end (incl. ground-truth render + PNGs), "
+        f"{2 * SIZE * SIZE / secs:,.0f} rays/s | kernel launches 0, module "
+        f"forwards {forwards} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f}", flush=True)
+
+
+def _render_over_time(port_runner, models):
+  """Phase 4m, dnerf-over-time-800: --render-over-time 0 --render-frames
+  4 --render-bezier-keyframes of the spline S = 4 D-NeRF at 800x800: K9f
+  once per 65536-ray chunk of each of the 4 frames and 4 keyframes,
+  nothing else, no module forward, the 8 PNGs written."""
+  chunks = -(-SIZE * SIZE // CHUNK)
+  with tempfile.TemporaryDirectory() as outdir:
+    argv = ["--data-kind", "synthetic-dyn", "--size", str(SIZE),
+            "--num-views", "1", "--epochs", "0", "--dyn-model", "plain",
+            "--spline", str(DNERF_SPLINE), "--render-over-time", "0",
+            "--render-frames", "4", "--render-bezier-keyframes",
+            "--notraintest", "--notest", "--outdir", outdir]
+    ((_, secs), counts), forwards = _module_forwards(
+        models, lambda: _counted(
+            lambda: _sync_time(lambda: port_runner.main(argv))))
+    names = ([f"over_time_{i:03d}.png" for i in range(4)]
+             + [f"keyframe_{i:02d}.png" for i in range(DNERF_SPLINE)])
+    missing = [n for n in names if not os.path.exists(os.path.join(outdir,
+                                                                   n))]
+  others = {k: v for k, v in counts.items() if k != "K9f" and v}
+  if (counts["K9f"] != 8 * chunks or others or forwards or missing):
+    raise RuntimeError(f"the render over time launched {counts}, ran "
+                       f"{forwards} module forwards, missed {missing}")
+  print(f"[main] runner dnerf-over-time {SIZE}x{SIZE}x{STEPS}, 4 frames + "
+        f"{DNERF_SPLINE} keyframes: {secs:.2f} s end to end (incl. PNGs), "
+        f"{8 * SIZE * SIZE / secs:,.0f} rays/s | K9f launches "
+        f"{counts['K9f']} ({chunks} a frame), other kernels 0, module "
+        f"forwards 0", flush=True)
+
+
+def _train_main_dyn_regs(port_runner, k1, loaders, dev):
+  """Phase 5k, dnerf-spline-reg-train-4096: the dnerf_spline_dp recipe
+  with the point-sampled regularizers through the two-kernel path: K9f
+  with its dp² column and K9b-G once per step, K9f in eval, nothing else
+  trains; both splits 2 dB over all-black; the flow and rigidity maps of
+  every view and clusters.png written. Returns the launches per kernel."""
+  views = range(30)
+  outputs = ([f"{split}/{m}_{v:03d}.png" for split in ("train", "test")
+              for m in ("flow", "rigidity") for v in views]
+             + ["clusters.png"])
+  steps = DNERF_SPLINE_STEPS
+  results, secs, counts, black = _train_run(
+      port_runner, k1, loaders, dev, steps, extra=DNERF_REG_EVAL,
+      argv=DNERF_REG_ARGV, outputs=outputs)
+  losses = _check_trained(results, black, path="fused")
+  eval_k9f = counts["K9f"] - counts["K9f-dp"]
+  others = {k: v for k, v in counts.items()
+            if k not in ("K9f", "K9f-dp", "K9b-G") and v}
+  if (counts["K9f-dp"] != steps or counts["K9b-G"] != steps
+      or eval_k9f <= 0 or others):
+    raise RuntimeError(f"the spline regularizer training launched {counts}, "
+                       f"expected {steps} K9f with the dp column and K9b-G, "
+                       "K9f in eval and nothing else")
+  print(f"[train] runner dnerf_spline_dp + spline length, spline point 0, "
+        f"divergence {steps} steps x {BATCH} rays x {STEPS} samples (48x48, "
+        f"30 views): {secs:.2f} s end to end | path "
+        f"{results['engaged_path']} | launches K9f+dp {counts['K9f-dp']}, "
+        f"K9b-G {counts['K9b-G']}, K9f {eval_k9f} in eval | loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f}) | flow, rigidity "
+        f"maps and clusters.png written", flush=True)
+  return counts
+
+
+@contextlib.contextmanager
+def _log_every_step(driver):
+  """The port's TrainConfig logging every step (log_freq 1) while the
+  block runs: the runner logs every 50 by default."""
+  cls = driver.TrainConfig
+  driver.TrainConfig = functools.partial(cls, log_freq=1)
+  try:
+    yield
+  finally:
+    driver.TrainConfig = cls
+
+
+def _train_main_oracle(port_runner, k1, loaders, driver, dev, tag, extra,
+                       steps):
+  """Phases 5l-5n: a dynamic-family run at the sweep's 48x48 / 4096 x 64
+  shape through the module forward (`oracle`): no kernel launched, each
+  step's loss finite, the mean of the last 10 under that of the first 10,
+  results.txt written for both splits."""
+  with _log_every_step(driver):
+    results, secs, counts, black = _train_run(
+        port_runner, k1, loaders, dev, steps, argv=DNERF_TRAIN_ARGV + extra,
+        outputs=("train/results.txt", "test/results.txt"))
+  losses = [h["loss"] for h in results["history"]]
+  launched = {k: v for k, v in counts.items() if v}
+  first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+  if (results["engaged_path"] != "oracle" or launched
+      or not all(math.isfinite(v) for v in losses) or not last < first):
+    raise RuntimeError(f"{tag}: path {results['engaged_path']}, launches "
+                       f"{launched}, losses {losses}")
+  print(f"[train] runner {tag} ({' '.join(extra)}) {len(losses)} steps x "
+        f"{BATCH} rays x {STEPS} samples (48x48, 30 views): {secs:.2f} s end "
+        f"to end | path {results['engaged_path']} | kernel launches 0 | "
+        f"loss mean of the first 10 {first:.5f} -> last 10 {last:.5f} | "
+        f"PSNR train {results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
 
 
 # phase 7's recipes: (name, argv, steps, QUALITY_r05 record or None)
@@ -3437,6 +3761,7 @@ def main(argv=None):
         flush=True)
   torch.backends.cuda.matmul.allow_tf32 = False     # the reference's matmuls
   torch.backends.cudnn.allow_tf32 = False
+  print(f"[phase] 1 {time.perf_counter() - t_start:.1f} s", flush=True)
   if args.volsdf_repeat:
     return _volsdf_repeat(args.volsdf_repeat)
   if args.k5f_against:
@@ -3453,28 +3778,47 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.ops.kernels import render_ae as k7
   from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9
   from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
-  from nerf_atlas_tpu_torch.train import driver
+  from nerf_atlas_tpu_torch.train import driver, regularizers
 
-  # ---- 2. build ----
-  jobs, built = _build(build, k1, k8, k9)
+  # ---- 2. build, and beside it the phases that launch no kernel ----
+  pending = _build_start(build, k1, k8, k9)
+  dev = torch.device("cuda")
+  # 3n: the dynamic family's module forwards and regularizers, card vs CPU
+  _phase("3n", _check_family, models, driver, regularizers, dev)
+  # 4k / 4l: dnerf-ae-render-800, long-render-800 (module forwards)
+  _phase("4k", _render_module, port_runner, models, "dnerf-ae", "--model",
+         "ae", "--dyn-model", "ae")
+  _phase("4l", _render_module, port_runner, models, "long", "--model",
+         "plain", "--dyn-model", "long", "--long-vid-segments", "4")
+  # 5l-5n: the module-forward train paths of the family
+  for pid, tag, extra, steps in ORACLE_RUNS:
+    _phase(pid, _train_main_oracle, port_runner, k1, loaders, driver, dev,
+           tag, extra, steps)
+  jobs, built = _build_finish(build, pending)
 
   # ---- 3. kernels vs reference on the card ----
-  dev = torch.device("cuda")
   model = driver.init_model(models.PlainNeRF(steps=STEPS, device=dev),
                             seed=0)
   ws = k1.pack_weights(model.state_dict(), dev)
-  max_err, max_bwd = _check_kernels(k1, testing, rays_ops, model, dev)
-  max_k5f, max_k5b = _check_hash_encoder(hk, k1, testing, dev)
-  max_err_h, max_bwd_h = _check_hash_render(k1, hk, rays_ops, models, driver,
-                                            dev)
-  max_k7f, max_k7b = _check_ae(k7, testing, rays_ops, models, driver, dev)
-  max_k4 = _check_k4(k1, testing, rays_ops, models, driver, dev)
-  max_k8f, max_k8b = _check_volsdf(k8, testing, rays_ops, models, driver,
-                                   dev)
-  max_k9f, max_k9b = _check_dyn(k9, testing, rays_ops, models, driver, dev)
-  max_cf = _check_coarse_fine(k1, sampling, models, driver, dev)
+  max_err, max_bwd = _phase("3", _check_kernels, k1, testing, rays_ops,
+                            model, dev)
+  max_k5f, max_k5b = _phase("3-hash", _check_hash_encoder, hk, k1, testing,
+                            dev)
+  max_err_h, max_bwd_h = _phase("3-hash-render", _check_hash_render, k1, hk,
+                                rays_ops, models, driver, dev)
+  max_k7f, max_k7b = _phase("3-ae", _check_ae, k7, testing, rays_ops,
+                            models, driver, dev)
+  max_k4 = _phase("3-k4", _check_k4, k1, testing, rays_ops, models, driver,
+                  dev)
+  max_k8f, max_k8b = _phase("3-volsdf", _check_volsdf, k8, testing,
+                            rays_ops, models, driver, dev)
+  max_k9f, max_k9b = _phase("3-dyn", _check_dyn, k9, testing, rays_ops,
+                            models, driver, dev)
+  max_cf = _phase("3-coarse_fine", _check_coarse_fine, k1, sampling, models,
+                  driver, dev)
 
   # ---- 4. main path, render: the port's runner at 800x800 ----
+  t_phase = time.perf_counter()
   results, secs, counts = _render_main(port_runner)
   launches = counts["K1"]
   if launches <= 0:
@@ -3485,7 +3829,9 @@ def main(argv=None):
         f"{n_rays / secs:,.0f} rays/s | K1 launches {launches} | PSNR train "
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
+  print(f"[phase] 4 {time.perf_counter() - t_phase:.1f} s", flush=True)
   # ---- 4b. the same with the hash grid at T = 2^19 ----
+  t_phase = time.perf_counter()
   results, secs, render_h = _render_main(port_runner, "--enc-kind", "hash")
   if render_h["K5f"] <= 0 or render_h["K1-hash"] != render_h["K5f"]:
     raise RuntimeError(f"the hash render launched {render_h}")
@@ -3495,7 +3841,9 @@ def main(argv=None):
         f"K1-hash launches {render_h['K1-hash']} | PSNR train "
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
+  print(f"[phase] 4b {time.perf_counter() - t_phase:.1f} s", flush=True)
   # ---- 4c. the same for NeRFAE ----
+  t_phase = time.perf_counter()
   results, secs, render_ae = _render_main(port_runner, "--model", "ae",
                                           "--normalize-latent")
   others = {k: v for k, v in render_ae.items() if k != "K7f" and v}
@@ -3507,62 +3855,70 @@ def main(argv=None):
         f"launches {render_ae['K1']} | PSNR train "
         f"{results['train']['psnr_mean']:.3f} test "
         f"{results['test']['psnr_mean']:.3f}", flush=True)
+  print(f"[phase] 4c {time.perf_counter() - t_phase:.1f} s", flush=True)
 
   # ---- 4d-4f. the same for the K4 families ----
   render_k4 = {
-      "posenc": _render_main_k4(port_runner, models, "posenc", "--enc-kind",
-                                "posenc"),
-      "cone": _render_main_k4(port_runner, models, "cone", "--mip", "cone"),
-      "cylinder": _render_main_k4(port_runner, models, "cylinder", "--mip",
-                                  "cylinder"),
-      "tiny": _render_main_k4(port_runner, models, "tiny", "--model",
-                              "tiny")}
+      "posenc": _phase("4d-posenc", _render_main_k4, port_runner, models,
+                       "posenc", "--enc-kind", "posenc"),
+      "cone": _phase("4e-cone", _render_main_k4, port_runner, models, "cone",
+                     "--mip", "cone"),
+      "cylinder": _phase("4e-cylinder", _render_main_k4, port_runner, models,
+                         "cylinder", "--mip", "cylinder"),
+      "tiny": _phase("4f-tiny", _render_main_k4, port_runner, models, "tiny",
+                     "--model", "tiny")}
   # ---- 4g. the same for VolSDF at the volsdf_eikonal recipe's model ----
-  render_k8 = _render_main_k4(port_runner, models, "volsdf", "--model",
-                              "volsdf", "--sigmoid-kind", "upshifted",
-                              kernel="K8f", every=True)
+  render_k8 = _phase("4g", _render_main_k4, port_runner, models, "volsdf",
+                     "--model", "volsdf", "--sigmoid-kind", "upshifted",
+                     kernel="K8f", every=True)
   # ---- 4h. dnerf-render-800: D-NeRF (Δx) at each view's time ----
-  render_k9 = _render_main_k4(port_runner, models, "dnerf", "--data-kind",
-                              "synthetic-dyn", "--dyn-model", "plain",
-                              kernel="K9f")
+  render_k9 = _phase("4h", _render_main_k4, port_runner, models, "dnerf",
+                     "--data-kind", "synthetic-dyn", "--dyn-model", "plain",
+                     kernel="K9f")
   # ---- 4j. coarse_fine-render-800: BASELINE config #2, K1 twice a chunk
-  render_cf = _render_main_k4(port_runner, models, "coarse_fine", "--model",
-                              "coarse_fine", "--mip", "cone")
+  render_cf = _phase("4j", _render_main_k4, port_runner, models,
+                     "coarse_fine", "--model", "coarse_fine", "--mip", "cone")
   cf_chunks = 2 * 2 * -(-SIZE * SIZE // CHUNK)
   if render_cf != 2 * cf_chunks:
     raise RuntimeError(f"the coarse_fine render launched K1 {render_cf} "
                        f"times for {cf_chunks} chunks, not twice a chunk")
+  # ---- 4m. dnerf-over-time-800: frames and keyframes through K9f ----
+  _phase("4m", _render_over_time, port_runner, models)
 
   # ---- 5. main path, train ----
-  k3_launches = _train_main(port_runner, k1, loaders, dev)
+  k3_launches = _phase("5", _train_main, port_runner, k1, loaders, dev)
   # ---- 5b. hash training at the plain_hash recipe ----
-  train_h = _train_main_hash(port_runner, k1, loaders, dev)
-  _hash_repeat(port_runner)
+  train_h = _phase("5b", _train_main_hash, port_runner, k1, loaders, dev)
+  _phase("5b-repeat", _hash_repeat, port_runner)
   # ---- 5c. NeRFAE at the ae recipe ----
-  train_ae = _train_main_ae(port_runner, k1, loaders, dev)
+  train_ae = _phase("5c", _train_main_ae, port_runner, k1, loaders, dev)
   # ---- 5d-5f. the K4 families at their sweep recipes ----
   train_k4 = {
-      "posenc": _train_main_k4(port_runner, k1, loaders, dev, "posenc",
-                               POSENC_TRAIN_ARGV, TRAIN_STEPS),
-      "cone": _train_main_k4(port_runner, k1, loaders, dev, "cone",
-                             MIP_TRAIN_ARGV, TRAIN_STEPS),
-      "cylinder": _train_main_k4(port_runner, k1, loaders, dev, "cylinder",
-                                 CYLINDER_TRAIN_ARGV, CYLINDER_STEPS,
-                                 gate=False),
-      "tiny": _train_main_k4(port_runner, k1, loaders, dev, "tiny",
-                             TINY_TRAIN_ARGV, TRAIN_STEPS, gate=False)}
+      "posenc": _phase("5d-posenc", _train_main_k4, port_runner, k1, loaders,
+                       dev, "posenc", POSENC_TRAIN_ARGV, TRAIN_STEPS),
+      "cone": _phase("5e-cone", _train_main_k4, port_runner, k1, loaders,
+                     dev, "cone", MIP_TRAIN_ARGV, TRAIN_STEPS),
+      "cylinder": _phase("5e-cylinder", _train_main_k4, port_runner, k1,
+                         loaders, dev, "cylinder", CYLINDER_TRAIN_ARGV,
+                         CYLINDER_STEPS, gate=False),
+      "tiny": _phase("5f-tiny", _train_main_k4, port_runner, k1, loaders,
+                     dev, "tiny", TINY_TRAIN_ARGV, TRAIN_STEPS, gate=False)}
   # ---- 5g. VolSDF at the volsdf_eikonal recipe ----
-  train_k8 = _train_main_volsdf(port_runner, k1, loaders, dev)
+  train_k8 = _phase("5g", _train_main_volsdf, port_runner, k1, loaders, dev)
   # ---- 5h / 5i. dnerf-train-4096 and dnerf-spline-train-4096 ----
-  train_k9 = _train_main_dyn(port_runner, k1, loaders, dev, "dnerf_dx",
-                             DNERF_TRAIN_ARGV, DNERF_STEPS)
-  train_k9s = _train_main_dyn(port_runner, k1, loaders, dev,
-                              "dnerf_spline_dp", DNERF_SPLINE_ARGV,
-                              DNERF_SPLINE_STEPS)
+  train_k9 = _phase("5h", _train_main_dyn, port_runner, k1, loaders, dev,
+                    "dnerf_dx", DNERF_TRAIN_ARGV, DNERF_STEPS)
+  train_k9s = _phase("5i", _train_main_dyn, port_runner, k1, loaders, dev,
+                     "dnerf_spline_dp", DNERF_SPLINE_ARGV,
+                     DNERF_SPLINE_STEPS)
   # ---- 5j. coarse_fine-train-4096, the coarse_fine_mip recipe ----
-  train_cf = _train_main_cf(port_runner, k1, loaders, dev)
+  train_cf = _phase("5j", _train_main_cf, port_runner, k1, loaders, dev)
+  # ---- 5k. dnerf-spline-reg-train-4096: K9f + dp and K9b-G ----
+  train_k9r = _phase("5k", _train_main_dyn_regs, port_runner, k1, loaders,
+                     dev)
 
   # ---- 6. timing at the main path's shapes ----
+  t_phase = time.perf_counter()
   ds = sampler.RayDataset.from_bundle(
       loaders.load("", data_kind="synthetic", size=SIZE, num_views=1,
                    device=dev), size=SIZE, device=dev)
@@ -3604,17 +3960,19 @@ def main(argv=None):
         f"diff {frame_err:.2e}", flush=True)
   k3_ms, plain_k3_ms = _time_training(card, models.PlainNeRF, driver,
                                       loaders, sampler, k1, rays_ops, dev)
-  hash_t = _time_hash(card, models, driver, loaders, sampler, k1, hk,
-                      rays_ops, dev, ds)
-  ae_t = _time_ae(card, models, driver, loaders, sampler, k7, rays_ops, dev,
-                  ds)
-  k4_t = _time_k4(card, models, driver, loaders, sampler, k1, rays_ops, dev,
-                  ds)
-  k8_t = _time_volsdf(card, models, driver, loaders, sampler, k8, rays_ops,
-                      dev, ds)
-  k9_t = _time_dyn(card, models, driver, loaders, sampler, k9, rays_ops, dev)
-  cf_t = _time_coarse_fine(card, models, driver, loaders, sampler, k1,
-                           sampling, dev, ds)
+  print(f"[phase] 6 {time.perf_counter() - t_phase:.1f} s", flush=True)
+  hash_t = _phase("6-hash", _time_hash, card, models, driver, loaders,
+                  sampler, k1, hk, rays_ops, dev, ds)
+  ae_t = _phase("6-ae", _time_ae, card, models, driver, loaders, sampler, k7,
+                rays_ops, dev, ds)
+  k4_t = _phase("6-k4", _time_k4, card, models, driver, loaders, sampler, k1,
+                rays_ops, dev, ds)
+  k8_t = _phase("6-volsdf", _time_volsdf, card, models, driver, loaders,
+                sampler, k8, rays_ops, dev, ds)
+  k9_t = _phase("6-dyn", _time_dyn, card, models, driver, loaders, sampler,
+                k9, rays_ops, dev)
+  cf_t = _phase("6-coarse_fine", _time_coarse_fine, card, models, driver,
+                loaders, sampler, k1, sampling, dev, ds)
   print(f"[time] phases 1-6 (the run without --quality and --profile): "
         f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -3705,7 +4063,14 @@ def main(argv=None):
        train_k9["K9b"], max_k9b, *k9_t[("dx", "K9b-L")], None),
       ("render_dyn_bwd_spline_dp", "render_dyn_bwd.cu", "render_dyn.py:231",
        train_k9s["K9b"], max_k9b,
-       *k9_t[(f"spline S={DNERF_SPLINE}", "K9b-L dp")], None)]
+       *k9_t[(f"spline S={DNERF_SPLINE}", "K9b-L dp")], None),
+      # the two-kernel step of 5k: K9f with its dp² column and K9b-G
+      ("render_dyn_fwd_spline_dp", "render_dyn_fwd.cu", "render_dyn.py:157",
+       train_k9r["K9f-dp"], max_k9f,
+       *k9_t[(f"spline S={DNERF_SPLINE}", "K9f dp")], None),
+      ("render_dyn_bwd_grad_spline_dp", "render_dyn_bwd.cu",
+       "render_dyn.py:231", train_k9r["K9b-G"], max_k9b,
+       *k9_t[(f"spline S={DNERF_SPLINE}", "K9b-G dp")], None)]
   # per-ray ts (K6): the fine pass's launches on the main paths, half of
   # K1's in 4j and of K2's in 5j (the coarse pass takes the shared grid)
   for mode in CF_MODES:

@@ -10,8 +10,13 @@ given as a nested dict of numpy arrays (e.g.
 TinyNeRF params/mlp/{layer_in, layer_0..5, layer_out}, and for
 DynamicNeRF params/warp/{enc/B, layer_in, layer_0..4, layer_out},
 params/rigidity/{layer_in, layer_0..2, layer_out} and the canonical
-PlainNeRF under params/canonical (the warp's B lands at `warp.enc.B`,
-where the port's SkipConnMLP keeps its encoder). One path moves:
+(any kind) under params/canonical (the warp's B lands at `warp.enc.B`,
+where the port's SkipConnMLP keeps its encoder); a time latent of width
+L widens the warp's layer_out by L and the canonical's first MLP and
+refl inputs by L, which the Dense shapes carry. DynamicNeRFAE is
+params/warp and the NeRFAE under params/canonical, LongDynamicNeRF
+params/warp (layer_0..3), params/rigidity and params/canonical: the
+same walk. One path moves:
 flax binds an encoder built inside a shape's call to the shape, so the
 VolSDF tree holds the Fourier matrix at params/shape/FourierEncoder_0/B,
 beside params/shape/mlp, where the port's SkipConnMLP keeps its encoder

@@ -1,8 +1,9 @@
-"""Model registry (the port covers TinyNeRF, PlainNeRF, NeRFAE,
-CoarseFineNeRF, VolSDF and, among the dynamic wrappers, DynamicNeRF so
-far)."""
+"""Model registry: TinyNeRF, PlainNeRF, NeRFAE, CoarseFineNeRF and VolSDF,
+and the dynamic wrappers DynamicNeRF, DynamicNeRFAE and LongDynamicNeRF
+(the voxel and rig ones arrive with ROADMAP Queue 1 #11)."""
 from .base import NeRFBase  # noqa: F401
-from .dyn import DYN_MODEL_KINDS, DynamicNeRF, load_dyn_model  # noqa: F401
+from .dyn import (DYN_MODEL_KINDS, DynamicNeRF, DynamicNeRFAE,  # noqa: F401
+                  LongDynamicNeRF, is_dynamic, load_dyn_model)
 from .nerf import CoarseFineNeRF, NeRFAE, PlainNeRF, TinyNeRF
 from .volsdf import VolSDF
 

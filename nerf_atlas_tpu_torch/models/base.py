@@ -4,15 +4,17 @@ backgrounds.
 Counterpart of `nerf_atlas_tpu/models/base.py`. Model contract:
   forward(rays [..., 6], train=False, generator=None)
       -> dict: rgb [..., 3], weights [..., T], ts, alpha.
-  query(pts [..., 3], view [..., 3]) -> (density [...], rgb [..., 3]).
+  query(pts [..., 3], view [..., 3], ..., latent=None)
+      -> (density [...], rgb [..., 3]).
 Modules own their parameters; `reset_parameters(generator)` draws them
 from an explicit `torch.Generator`. Training mode (train=True) draws the
 stratified sample jitter, the density noise and the random sky colour
 from `generator`, which lives on the rays' device. `mip` ("cone" or
 "cylinder") makes `mip_encode` return MipNeRF's IPE features of each
 sample's segment, which PlainNeRF feeds its density MLP in place of the
-encoded point. Latent-conditioned models arrive with ROADMAP Queue 1
-#9/#11.
+encoded point. `latent_size` is the width of the conditioning latent a
+model's fields read beside their input (the dynamic wrappers' per-time
+latent, `models/dyn.py`); 0 for none.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ class NeRFBase(nn.Module):
                t_far: float = 6.0, mip: Optional[str] = None,
                sky_kind: str = "black", sigmoid_kind: str = "thin",
                intermediate_size: int = 32, per_ray_jitter: bool = False,
-               lindisp: bool = False, density_noise: float = 0.0):
+               lindisp: bool = False, density_noise: float = 0.0,
+               latent_size: int = 0):
     super().__init__()
     mip_ops.load_mip(mip)       # raises on an unknown kind
     if sky_kind not in integrate.SKY_KINDS:
@@ -49,6 +52,7 @@ class NeRFBase(nn.Module):
     self.per_ray_jitter = per_ray_jitter
     self.lindisp = lindisp
     self.density_noise = density_noise
+    self.latent_size = latent_size
 
   # ---- helpers shared by all subclasses --------------------------------
 
@@ -99,6 +103,15 @@ class NeRFBase(nn.Module):
     img = integrate.volumetric_integrate(weights, rgb)
     img = img + self.sky_color(weights, r_d, train, generator)
     return dict(rgb=img, weights=weights, ts=ts, alpha=alpha)
+
+
+def broadcast_latent(latents, pts_shape, latent_size: int):
+  """An optional per-ray latent [..., L] broadcast to every sample
+  [..., T, L]; None when there is none or the model reads none."""
+  if latents is None or latent_size == 0:
+    return None
+  return latents[..., None, :].expand(tuple(pts_shape[:-1])
+                                      + (latents.shape[-1],))
 
 
 def view_per_sample(r_d, steps: int):

@@ -5,7 +5,11 @@ read) and CoarseFineNeRF (PlainNeRF's field queried by a coarse pass and
 by a fine pass at positions drawn from the coarse weights).
 
 Counterparts of `nerf_atlas_tpu/models/nerf.py:TinyNeRF`, `PlainNeRF`,
-`NeRFAE` and `CoarseFineNeRF`.
+`NeRFAE` and `CoarseFineNeRF`. Each takes `latent_size` (NeRFBase) and a
+`latent` [..., latent_size] in `query`, which its first MLP reads beside
+the encoded point (and PlainNeRF's and CoarseFineNeRF's reflectance
+beside the density MLP's features): the dynamic wrappers' per-time
+latent (`models/dyn.py`).
 """
 from __future__ import annotations
 
@@ -39,6 +43,12 @@ def _density_encoder(enc_kind: str, mip: Optional[str],
   raise NotImplementedError(f"unknown enc kind {enc_kind}")
 
 
+def _with_latent(feats, latent):
+  """The reflectance's latent: the density MLP's features, then the
+  conditioning latent when there is one."""
+  return feats if latent is None else torch.cat([feats, latent], dim=-1)
+
+
 class TinyNeRF(NeRFBase):
   """One SkipConnMLP (8-band positional encoding up to 2^6, 128×6) maps a
   point to (sigma, rgb); no view dependence. Built at the JAX model's
@@ -58,7 +68,7 @@ class TinyNeRF(NeRFBase):
           f"TinyNeRF mlp_kwargs {mlp_kwargs}: other widths arrive with "
           "--ref-compat (ROADMAP Queue 1 #13)")
     self.mlp = SkipConnMLP(
-        in_size=3, out=1 + 3,
+        in_size=3, out=1 + 3, latent_size=self.latent_size,
         enc=PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=8),
         device=device, **kw)
 
@@ -66,8 +76,8 @@ class TinyNeRF(NeRFBase):
     self.mlp.reset_parameters(generator)
 
   def query(self, pts, view=None, train: bool = False,
-            generator: Optional[torch.Generator] = None):
-    out = self.mlp(pts)
+            generator: Optional[torch.Generator] = None, latent=None):
+    out = self.mlp(pts, latent)
     density = self.add_density_noise(out[..., 0], train, generator)
     return density, self.rgb_act(out[..., 1:])
 
@@ -103,10 +113,10 @@ class PlainNeRF(NeRFBase):
     self.enc_kind = enc_kind
     self.density_mlp = SkipConnMLP(
         in_size=3 if self.mip is None else 96,
-        out=1 + self.intermediate_size, enc=enc, num_layers=5,
-        hidden_size=256, device=device)
+        out=1 + self.intermediate_size, latent_size=self.latent_size,
+        enc=enc, num_layers=5, hidden_size=256, device=device)
     self.refl = load_refl(
-        refl_kind, latent_size=self.intermediate_size,
+        refl_kind, latent_size=self.intermediate_size + self.latent_size,
         act=self.sigmoid_kind, space=refl_space, device=device)
 
   def reset_parameters(self, generator: torch.Generator):
@@ -114,10 +124,12 @@ class PlainNeRF(NeRFBase):
     self.refl.reset_parameters(generator)
 
   def query(self, pts, view, train: bool = False,
-            generator: Optional[torch.Generator] = None, mip_feats=None):
-    out = self.density_mlp(pts if mip_feats is None else mip_feats)
+            generator: Optional[torch.Generator] = None, mip_feats=None,
+            latent=None):
+    """The refl reads [features ; latent]."""
+    out = self.density_mlp(pts if mip_feats is None else mip_feats, latent)
     density = self.add_density_noise(out[..., 0], train, generator)
-    rgb = self.refl(pts, view=view, latent=out[..., 1:])
+    rgb = self.refl(pts, view=view, latent=_with_latent(out[..., 1:], latent))
     return density, rgb
 
   def forward(self, rays, train: bool = False,
@@ -151,7 +163,7 @@ class NeRFAE(NeRFBase):
     self.encoding_size = encoding_size
     self.normalize_latent = normalize_latent
     self.encode = SkipConnMLP(
-        in_size=3, out=encoding_size,
+        in_size=3, out=encoding_size, latent_size=self.latent_size,
         enc=PositionalEncoder(input_dims=3, max_freq_log2=6, num_freqs=8),
         num_layers=5, hidden_size=256, device=device)
     self.density_tfm = SkipConnMLP(
@@ -166,10 +178,11 @@ class NeRFAE(NeRFBase):
     self.density_tfm.reset_parameters(generator)
     self.refl.reset_parameters(generator)
 
-  def encoding(self, pts, with_raw: bool = False):
-    """Latent field at pts (the JAX method `encode`); with_raw also
-    returns the encoding before normalization, which `latent_l2` reads."""
-    raw = self.encode(pts)
+  def encoding(self, pts, latent=None, with_raw: bool = False):
+    """Latent field at pts (the JAX method `encode`), conditioned on
+    `latent` when the model reads one; with_raw also returns the encoding
+    before normalization, which `latent_l2` reads."""
+    raw = self.encode(pts, latent)
     enc = raw
     if self.normalize_latent:
       enc = raw / torch.clamp(
@@ -189,9 +202,9 @@ class NeRFAE(NeRFBase):
     return density, rgb
 
   def query(self, pts, view, train: bool = False,
-            generator: Optional[torch.Generator] = None):
-    return self.query_from_encoding(pts, self.encoding(pts), view, train,
-                                    generator)
+            generator: Optional[torch.Generator] = None, latent=None):
+    return self.query_from_encoding(pts, self.encoding(pts, latent), view,
+                                    train, generator)
 
   def forward(self, rays, train: bool = False,
               generator: Optional[torch.Generator] = None):
@@ -228,21 +241,24 @@ class CoarseFineNeRF(NeRFBase):
     self.enc_kind = enc_kind
     self.density_mlp = SkipConnMLP(
         in_size=3 if self.mip is None else 96,
-        out=1 + self.intermediate_size,
+        out=1 + self.intermediate_size, latent_size=self.latent_size,
         enc=_density_encoder(enc_kind, self.mip, None, device), num_layers=5,
         hidden_size=256, device=device)
-    self.refl = load_refl(refl_kind, latent_size=self.intermediate_size,
-                          act=self.sigmoid_kind, device=device)
+    self.refl = load_refl(
+        refl_kind, latent_size=self.intermediate_size + self.latent_size,
+        act=self.sigmoid_kind, device=device)
 
   def reset_parameters(self, generator: torch.Generator):
     self.density_mlp.reset_parameters(generator)
     self.refl.reset_parameters(generator)
 
   def query(self, pts, view, train: bool = False,
-            generator: Optional[torch.Generator] = None, mip_feats=None):
-    out = self.density_mlp(pts if mip_feats is None else mip_feats)
+            generator: Optional[torch.Generator] = None, mip_feats=None,
+            latent=None):
+    """The refl reads [features ; latent]."""
+    out = self.density_mlp(pts if mip_feats is None else mip_feats, latent)
     density = self.add_density_noise(out[..., 0], train, generator)
-    rgb = self.refl(pts, view=view, latent=out[..., 1:])
+    rgb = self.refl(pts, view=view, latent=_with_latent(out[..., 1:], latent))
     return density, rgb
 
   def _pass(self, rays, ts, r_o, r_d, train, generator):

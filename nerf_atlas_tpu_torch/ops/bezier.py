@@ -2,9 +2,8 @@
 closed form and the Bernstein weights.
 
 Counterpart of `nerf_atlas_tpu/ops/bezier.py` (`de_casteljau`,
-`bezier_derivative`, `cubic_bezier`). Control points live on axis 0
-([N, ...]). `frenet_normal` and `arc_len` arrive with the regularizers
-that use them (ROADMAP Queue 1 #11).
+`bezier_derivative`, `frenet_normal`, `cubic_bezier`, `arc_len`). Control
+points live on axis 0 ([N, ...]).
 """
 from __future__ import annotations
 
@@ -12,6 +11,8 @@ import math
 from typing import List
 
 import torch
+
+from .math import normalize
 
 
 def de_casteljau(coeffs, t, N: int):
@@ -36,6 +37,14 @@ def bezier_derivative(coeffs, t, N: int, deriv: int = 1):
   return de_casteljau(coeffs, t, N)
 
 
+def frenet_normal(coeffs, t, N: int):
+  """The Frenet normal of the curve at t (for rig-point orientation)."""
+  a = normalize(bezier_derivative(coeffs, t, N))
+  b = normalize(a + bezier_derivative(coeffs, t, N, deriv=2))
+  r = normalize(torch.linalg.cross(a, b))
+  return normalize(torch.linalg.cross(a, r))
+
+
 def cubic_bezier(coeffs, t, N: int):
   """Closed-form cubic evaluation (N = 4)."""
   if N != 4:
@@ -46,6 +55,18 @@ def cubic_bezier(coeffs, t, N: int):
   if k.ndim < coeffs.ndim:
     k = k.reshape(k.shape + (1,) * (coeffs.ndim - k.ndim))
   return torch.sum(k * coeffs, dim=0)
+
+
+def arc_len(ctrl_pts, samples: int = 16):
+  """Arc length by piecewise-linear quadrature over `samples` uniform
+  evaluations. ctrl_pts [N, ..., 3] -> [...]."""
+  N = ctrl_pts.shape[0]
+  t = torch.linspace(0.0, 1.0, samples, dtype=ctrl_pts.dtype,
+                     device=ctrl_pts.device)
+  t_shaped = t.reshape((1, samples) + (1,) * (ctrl_pts.ndim - 1))
+  pts = de_casteljau(ctrl_pts[:, None], t_shaped, N)    # [samples, ..., 3]
+  return torch.sum(torch.linalg.vector_norm(pts[1:] - pts[:-1], dim=-1),
+                   dim=0)
 
 
 def bernstein_weights(t, n: int) -> List[torch.Tensor]:

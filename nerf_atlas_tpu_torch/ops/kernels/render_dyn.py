@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional, Tuple, Union
 
@@ -566,7 +567,8 @@ def fused_dyn_render(params: Params, rays: torch.Tensor, times: torch.Tensor,
   (default the uniform grid). Rays on a CUDA device launch the kernel on
   the current stream (and raise if it cannot launch); rays on the CPU
   take `dyn_render_reference`. The "random" sky is black. Each launch
-  adds one to `fused_dyn_render.launches`."""
+  adds one to `fused_dyn_render.launches`, each with the dp² column also
+  to `fused_dyn_render.dp.launches`."""
   kw = _kw(steps, t_near, t_far, sigmoid_kind, sky_kind, spline_points,
            enc_kind)
   if rays.device.type == "cpu":
@@ -576,10 +578,13 @@ def fused_dyn_render(params: Params, rays: torch.Tensor, times: torch.Tensor,
                                      spline_points), rays, times,
                         want_dp=want_dp, ts=ts, **kw)
   fused_dyn_render.launches += 1
+  if want_dp:
+    fused_dyn_render.dp.launches += 1
   return out
 
 
 fused_dyn_render.launches = 0
+fused_dyn_render.dp = types.SimpleNamespace(launches=0)
 
 
 def fused_dyn_render_grad(params: Params, rays: torch.Tensor,

@@ -5,8 +5,16 @@ parser, `cli.py`) and runs the flow of its `main`: load the data, build
 the model, initialize it from `--seed` or restore `--load`, train for
 `--epochs` steps (through the one-kernel step where the gate allows,
 log.json records the engaged path), then render and score the train and
-test splits (results.txt, test_###.png). The loss plot (loss.png) is not written: it
-needs matplotlib, which the GPU machine lacks.
+test splits (results.txt, test_###.png, with --flow-images and
+--rigidity-images flow_###.png and rigidity_###.png). On timed data
+(`--data-kind synthetic-dyn`) with a --dyn-model it also writes
+--cluster-movement's clusters.png (k-means of the flow at t = 0.5),
+--render-over-time's frames and --render-bezier-keyframes' keyframes. The
+GPU machine has no matplotlib and no imageio, so the loss plot (loss.png)
+is not written, the frames over time are over_time_###.png in place of
+over_time.gif, the keyframes keyframe_##.png, and clusters.png takes
+matplotlib's tab10 palette from ten RGB constants; every image goes
+through `driver.write_png`.
 
 Examples (procedural scene):
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
@@ -40,6 +48,23 @@ Examples (procedural scene):
       --model plain --enc-kind cp --dyn-model plain [--spline 4 \
       --dp-weight 1e-3] --size 48 --num-views 30 --epochs 1500 \
       --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic-dyn \
+      --model plain --dyn-model plain --spline 4 --dp-weight 1e-3 \
+      --spline-len-decay 1e-3 --spline-pt0-decay 1e-3 \
+      --dyn-divergence-weight 1e-3 --flow-images --rigidity-images \
+      --cluster-movement 3 --size 48 --num-views 30 --epochs 300 \
+      --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic-dyn \
+      --model ae --dyn-model ae --size 800 --num-views 1 --epochs 0 \
+      --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic-dyn \
+      --model plain --dyn-model long --long-vid-segments 4 \
+      --long-vid-progressive-train 2 --size 48 --num-views 30 \
+      --epochs 15 --batch-size 4096 -lr 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic-dyn \
+      --model plain --dyn-model plain --spline 4 --render-over-time 0 \
+      --render-frames 4 --render-bezier-keyframes --size 800 \
+      --num-views 1 --epochs 0 --notraintest --notest --outdir out
 """
 from __future__ import annotations
 
@@ -48,6 +73,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from . import cli
@@ -62,13 +88,16 @@ _UNSUPPORTED = (
     ("with_canon", "Queue 1 #11"), ("light_kind", "Queue 1 #13"),
     ("replace", "Queue 1 #13"), ("cam_save_load", "Queue 1 #13"),
     ("msssim_loss", "Queue 1 #5"), ("normals_images", "Queue 1 #10"),
-    ("flow_images", "Queue 1 #11"), ("rigidity_images", "Queue 1 #11"),
     ("visualize", "Queue 1 #10/#11"), ("exp_bg", "Queue 1 #13"),
     ("draw_colormap", "Queue 1 #13"), ("normals_from_depth", "Queue 1 #13"),
     ("depth_query_normal", "Queue 1 #10"),
-    ("long_vid_progressive_train", "Queue 1 #11"),
-    ("render_bezier_keyframes", "Queue 1 #11"),
 )
+
+# matplotlib's tab10 palette (its ten colours, `--cluster-movement`)
+TAB10 = np.array([[0x1f, 0x77, 0xb4], [0xff, 0x7f, 0x0e], [0x2c, 0xa0, 0x2c],
+                  [0xd6, 0x27, 0x28], [0x94, 0x67, 0xbd], [0x8c, 0x56, 0x4b],
+                  [0xe3, 0x77, 0xc2], [0x7f, 0x7f, 0x7f], [0xbc, 0xbd, 0x22],
+                  [0x17, 0xbe, 0xcf]]) / 255.0
 
 
 def _check_supported(args):
@@ -81,32 +110,23 @@ def _check_supported(args):
         f"--model {args.model}: the port has TinyNeRF, PlainNeRF, NeRFAE, "
         "CoarseFineNeRF and VolSDF so far (ROADMAP Queue 1 #10 sdf, #13 the "
         "rest)")
-  if args.dyn_model not in (None, "plain"):
+  if args.dyn_model not in (None, "plain", "ae", "long"):
     raise NotImplementedError(
-        f"--dyn-model {args.dyn_model}: the port has DynamicNeRF ('plain') "
-        "so far (ROADMAP Queue 1 #11)")
-  if args.dyn_refl_latent:
-    raise NotImplementedError(
-        "--dyn-refl-latent: the per-time refl latent arrives with ROADMAP "
-        "Queue 1 #11")
-
-
-def _check_dynamic(args):
-  """The options that act on a dynamic run only (runner.py:1004-1025)."""
-  for flag, on in (("render_over_time", args.render_over_time >= 0),
-                   ("cluster_movement", args.cluster_movement > 0)):
-    if on:
-      raise NotImplementedError(
-          f"--{flag.replace('_', '-')}: not ported yet (ROADMAP Queue 1 #11)")
+        f"--dyn-model {args.dyn_model}: the port has 'plain', 'ae' and "
+        "'long'; the voxel and rig models arrive with ROADMAP Queue 1 #11")
 
 
 def build_model(args, device, dynamic: bool = False):
   """runner.py:build_model for --model tiny, plain, ae, coarse_fine and
-  volsdf, and on timed data (`dynamic`) with --dyn-model plain a DynamicNeRF
-  over the plain canonical (--spline, --refl-kind, --enc-kind,
-  --dyn-refl-latent; runner.py:562-576; another canonical raises, ROADMAP
-  Queue 1 #11); as in the root runner, --dyn-model on static data builds the
-  static model. tiny takes the common kwargs only (runner.py:449-456). plain
+  volsdf, and on timed data (`dynamic`) a dynamic model (runner.py:562-585):
+  --dyn-model plain a DynamicNeRF (--spline, --dyn-refl-latent) and long a
+  LongDynamicNeRF (--long-vid-segments) over the canonical --model (tiny,
+  plain, ae or coarse_fine; volsdf raises, a fault of the reference), whose
+  kwargs are --refl-kind but for tiny, and for plain also --enc-kind; ae a
+  DynamicNeRFAE from the common kwargs alone (its NeRFAE takes the class
+  defaults, whatever --encoding-size or --normalize-latent say). As in the
+  root runner, --dyn-model on static data builds the static model. tiny
+  takes the common kwargs only (runner.py:449-456). plain
   also takes --refl-kind, --mip, --enc-kind and --space-kind
   (runner.py:458-466); --hash-table-log2 N sets the hash table to 2^N
   entries per level when N is not the default 19 (runner.py:470-471).
@@ -125,16 +145,18 @@ def build_model(args, device, dynamic: bool = False):
                 lindisp=args.lindisp, per_ray_jitter=args.per_ray_jitter,
                 density_noise=args.density_noise)
   if dynamic and args.dyn_model is not None:
-    if args.model != "plain":
-      raise NotImplementedError(
-          f"--dyn-model {args.dyn_model} over --model {args.model}: the "
-          "port's dynamic wrapper takes the plain canonical so far (ROADMAP "
-          "Queue 1 #11)")
+    if args.dyn_model == "ae":
+      return load_dyn_model("ae", device=device, **kwargs)
+    canon = {"refl_kind": args.refl_kind} if args.model != "tiny" else {}
+    if args.model == "plain":
+      canon["enc_kind"] = args.enc_kind
+    if args.dyn_model == "long":
+      return load_dyn_model("long", device=device, canonical_kind=args.model,
+                            segments=args.long_vid_segments,
+                            canonical_kwargs=canon, **kwargs)
     return load_dyn_model(
-        args.dyn_model, device=device, canonical_kind="plain",
-        spline_points=args.spline,
-        canonical_kwargs={"refl_kind": args.refl_kind,
-                          "enc_kind": args.enc_kind},
+        "plain", device=device, canonical_kind=args.model,
+        spline_points=args.spline, canonical_kwargs=canon,
         time_latent_size=args.dyn_refl_latent, **kwargs)
   if args.model == "tiny":
     return load_model("tiny", device=device, **kwargs)
@@ -161,7 +183,7 @@ def build_model(args, device, dynamic: bool = False):
 
 def make_train_config(args, dynamic: bool = False) -> driver.TrainConfig:
   """runner.py:make_train_config for the fields the port trains with
-  (`dynamic`: the model is a DynamicNeRF, whose --dp-weight is carried).
+  (`dynamic`: the model is a dynamic one, whose regularizers are carried).
   Flags whose path is not ported raise NotImplementedError naming their
   ROADMAP item (here, or in `driver.check_config`)."""
   if args.crop_size > 0 or set(args.loss_fns) & {"ssim", "fft"}:
@@ -272,8 +294,6 @@ def main(argv=None, device="cuda"):
   ds = sampler.RayDataset.from_bundle(bundle, size=args.size, device=device)
   ds = _slice_views(ds, args.train_imgs)
   dynamic = ds.times is not None and args.dyn_model is not None
-  if dynamic:
-    _check_dynamic(args)
   cfg = make_train_config(args, dynamic) if args.epochs > 0 else None
   model = build_model(args, device, dynamic)
 
@@ -299,9 +319,14 @@ def main(argv=None, device="cuda"):
       print(f"step {m['step']:6d}  loss {m['loss']:.5f}  "
             f"psnr {m['psnr']:.2f}  ({time.time() - t0:.0f}s)")
 
-    results["history"] = driver.train(model, ds, cfg,
-                                      config_dict=config_dict,
-                                      callback=log_cb)
+    if args.long_vid_progressive_train and dynamic:
+      results["history"] = driver.train_progressive(
+          model, ds, cfg, segments=_progressive_segments(args, ds),
+          config_dict=config_dict, callback=log_cb)
+    else:
+      results["history"] = driver.train(model, ds, cfg,
+                                        config_dict=config_dict,
+                                        callback=log_cb)
     results["engaged_path"] = driver.LAST_TRAIN_PATH
     config_dict["engaged_path"] = driver.LAST_TRAIN_PATH
     with open(os.path.join(args.outdir, args.log), "w") as f:
@@ -311,7 +336,10 @@ def main(argv=None, device="cuda"):
       render_size=args.render_size or None, save_depth=args.depth_images,
       chunk=(args.test_crop_size ** 2 if args.test_crop_size else 65536),
       only_view=args.render_frame if args.render_frame >= 0 else None,
-      white_bg=args.test_white_bg, with_alpha=args.with_alpha)
+      white_bg=args.test_white_bg, with_alpha=args.with_alpha,
+      extra_maps=tuple(m for m, on in (("flow", args.flow_images),
+                                       ("rigidity", args.rigidity_images))
+                       if on))
   if not args.notraintest:
     results["train"] = driver.test(
         model, ds, out_dir=os.path.join(args.outdir, "train"), **test_kwargs)
@@ -323,7 +351,70 @@ def main(argv=None, device="cuda"):
     results["test"] = driver.test(
         model, tds, out_dir=os.path.join(args.outdir, "test"), **test_kwargs)
     print("[test]", results["test"]["summary"])
+  if args.cluster_movement > 0 and dynamic:
+    save_movement_clusters(model, ds, args.cluster_movement,
+                           os.path.join(args.outdir, "clusters.png"))
+  if args.render_over_time >= 0 and dynamic:
+    _render_over_time(model, ds, args)
   return results
+
+
+def _progressive_segments(args, ds) -> int:
+  """--long-vid-progressive-train N's chunk count: N, or bare the
+  --long-vid-segments, or the loaded span over --long-vid-chunk-len-sec
+  (runner.py:921-931)."""
+  segments = (args.long_vid_progressive_train
+              if args.long_vid_progressive_train > 0
+              else args.long_vid_segments)
+  if args.long_vid_chunk_len_sec:
+    span = ((args.end_sec - args.start_sec) if args.end_sec
+            else ds.num_views / 30.0)
+    segments = max(1, round(span / args.long_vid_chunk_len_sec))
+    print(f"[video] {segments} progressive chunks of "
+          f"{args.long_vid_chunk_len_sec}s")
+  return segments
+
+
+def _render_over_time(model, ds, args):
+  """--render-over-time V: V's camera over t in [0, end] as
+  over_time_###.png, and with --render-bezier-keyframes and --spline S > 1
+  S frames at the control points' times as keyframe_##.png
+  (runner.py:1008-1030)."""
+  frames = driver.render_over_time(model, ds, view=args.render_over_time,
+                                   frames=args.render_frames,
+                                   end_sec=args.render_over_time_end_sec)
+  for i, frame in enumerate(frames):
+    driver.write_png(os.path.join(args.outdir, f"over_time_{i:03d}.png"),
+                     driver.to_u8(frame[..., :3]))
+  print(f"[time] wrote {len(frames)} frames over time")
+  if args.render_bezier_keyframes and args.spline > 1:
+    kf = driver.render_over_time(model, ds, view=args.render_over_time,
+                                 frames=args.spline)
+    for i, frame in enumerate(kf):
+      driver.write_png(os.path.join(args.outdir, f"keyframe_{i:02d}.png"),
+                       driver.to_u8(frame[..., :3]))
+    print(f"[time] wrote {args.spline} keyframes")
+
+
+def save_movement_clusters(model, ds, k: int, out_path: str):
+  """--cluster-movement K: K-means (10 Lloyd steps from numpy's
+  RandomState(0)) of view 0's weight-integrated flow at t = 0.5 and at
+  up to 64×64, each pixel in its cluster's tab10 colour
+  (runner.py:1032-1053)."""
+  flow = driver.render_view(model, ds, 0, min(ds.size, 64), mode="flow",
+                            time_val=0.5)                   # [S, S, 3]
+  pts = flow.reshape(-1, 3)
+  rng = np.random.RandomState(0)
+  centers = pts[rng.choice(len(pts), k, replace=False)]
+  for _ in range(10):
+    assign = np.linalg.norm(pts[:, None] - centers[None], axis=-1).argmin(-1)
+    for c in range(k):
+      sel = pts[assign == c]
+      if len(sel):
+        centers[c] = sel.mean(0)
+  img = TAB10[assign.reshape(flow.shape[:2]) % 10]
+  driver.write_png(out_path, (img * 255).astype(np.uint8))
+  print(f"[clusters] wrote {out_path}")
 
 
 if __name__ == "__main__":

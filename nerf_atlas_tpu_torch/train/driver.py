@@ -4,9 +4,11 @@ gates, tiled view rendering, per-view PSNR.
 Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
-`render_view`, `test`), for PlainNeRF (cp, hash, posenc, and mip cone or
-cylinder), TinyNeRF, NeRFAE, CoarseFineNeRF, VolSDF and DynamicNeRF
-(D-NeRF's Δx warp and Spline-NeRF over a plain canonical). The port's
+`render_view`, `test`, `train_progressive`, `render_over_time`), for
+PlainNeRF (cp, hash, posenc, and mip cone or cylinder), TinyNeRF, NeRFAE,
+CoarseFineNeRF, VolSDF and the dynamic models (DynamicNeRF: D-NeRF's Δx
+warp and Spline-NeRF over any canonical but VolSDF, with an optional
+per-time latent; DynamicNeRFAE; LongDynamicNeRF). The port's
 modules own their parameters, so these functions take the model where the
 JAX package takes (model, params), and a train step is a Python closure (no
 jit). Unlike the JAX gates, a kernel gate never catches an exception: a
@@ -28,7 +30,7 @@ import torch
 
 from ..data import sampler as sampler_lib
 from ..models import (MODEL_KINDS, CoarseFineNeRF, DynamicNeRF, NeRFAE,
-                      PlainNeRF, TinyNeRF, VolSDF)
+                      PlainNeRF, TinyNeRF, VolSDF, is_dynamic)
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
@@ -48,11 +50,18 @@ from . import regularizers
 LAST_TRAIN_PATH: Optional[str] = None
 
 # the regularizers each model kind carries (the JAX package's
-# REGULARIZERS keys; "dynamic" is DynamicNeRF); every other active
-# coefficient raises
+# REGULARIZERS and POINT_REGULARIZERS keys; "dynamic" is any dynamic
+# model); every other active coefficient raises
 MODEL_REGULARIZERS = {"ae": ("latent_l2",),
                       "volsdf": ("eikonal", "volsdf_scale"),
-                      "dynamic": ("delta_x",)}
+                      "dynamic": ("delta_x", "offset", "rigidity_sparsity",
+                                  "dyn_divergence", "ffjord_div",
+                                  "spline_length", "spline_pt0")}
+# the out-dict regularizers each kernel family takes (in the kernel, or,
+# for NeRFAE's latent L2 and VolSDF's scale decay, beside it)
+_KERNEL_REGULARIZERS = {"ae": ("latent_l2",),
+                        "volsdf": ("eikonal", "volsdf_scale"),
+                        "dynamic": ("delta_x",)}
 # the in-kernel regularizer column (the 5th output) of each kernel family
 _COLUMN_REGULARIZER = {"volsdf": "eikonal", "dynamic": "delta_x"}
 
@@ -134,14 +143,13 @@ def check_config(cfg: TrainConfig, model_kind: str = "plain"):
   if active:
     raise NotImplementedError(
         f"regularizers {active} for --model {model_kind}: arrive with their "
-        "models (ROADMAP Queue 1 "
-        f"{'#11' if model_kind == 'dynamic' else '#10-#13'})")
+        "models (ROADMAP Queue 1 #10-#13)")
 
 
 def model_kind(model) -> str:
-  """The `models.MODEL_KINDS` key of a model ("dynamic" for a
-  DynamicNeRF)."""
-  if isinstance(model, DynamicNeRF):
+  """The `models.MODEL_KINDS` key of a model ("dynamic" for a dynamic
+  one)."""
+  if is_dynamic(model):
     return "dynamic"
   return next(k for k, c in MODEL_KINDS.items() if isinstance(model, c))
 
@@ -179,22 +187,27 @@ def _fused_enc_kind(model) -> Optional[str]:
   - "dyn-cp" / "dyn-posenc" for a DynamicNeRF over a plain canonical
     whose canonical_kwargs set nothing but enc_kind (cp or posenc),
     refl_kind (view), steps, t_near, t_far, sky_kind and sigmoid_kind,
-    with the rigidity gate, no mip, and spline_points at most
-    k9.MAX_SPLINE, the kernels' packed width (driver.py:405-422,
-    :617-629, :1064-1082; the JAX gates' other rules cannot fail here:
-    the port's DynamicNeRF refuses spline_points 1 and a time latent, and
-    its canonical is always plain). The train gates also need the data's
-    times (`_data_ok`).
-  The JAX gates also reject a latent (latent_size != 0) and, for the
-  static models, timed data: the port's models take no latent, and a
-  static model on timed data trains as on static data (the JAX gates
-  check the times only for their dynamic branch)."""
-  if (model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS or model.lindisp):
+    with the rigidity gate, no mip, no time latent, and spline_points at
+    most k9.MAX_SPLINE, the kernels' packed width (driver.py:405-422,
+    :617-629, :1064-1082; the JAX gates' spline_points rule cannot fail
+    here: the port's DynamicNeRF refuses spline_points 1). The train
+    gates also need the data's times (`_data_ok`). DynamicNeRFAE and
+    LongDynamicNeRF have no kernel.
+  Every gate refuses a model that reads a latent (latent_size != 0,
+  driver.py:146, :1044-1148). The JAX gates also reject timed data for
+  the static models: a static model on timed data trains as on static
+  data (the JAX gates check the times only for their dynamic branch)."""
+  if (model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS or model.lindisp
+      or model.latent_size != 0):
     return None
-  if isinstance(model, DynamicNeRF):
+  if is_dynamic(model):
+    if not isinstance(model, DynamicNeRF):
+      return None
     ck = model.canonical_kwargs
     return (f"dyn-{ck.get('enc_kind', 'cp')}"
-            if (model.mip is None and model.with_rigidity
+            if (model.canonical_kind == "plain"
+                and model.time_latent_size == 0
+                and model.mip is None and model.with_rigidity
                 and model.spline_points <= k9.MAX_SPLINE
                 and ck.get("enc_kind", "cp") in k9.ENC_KINDS
                 and ck.get("refl_kind", "view") == "view"
@@ -259,8 +272,12 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   """Config constraints of both training kernel gates
   (train/driver.py:135-155): black or white sky, no density noise, no
   per-ray jitter or lindisp, no crops, no camera training, no active
-  regularizer but NeRFAE's latent L2 (which the step adds outside the
-  kernel, `regularizers.ae_latent_l2`), no omit-bg. Unlike the JAX gate
+  out-dict regularizer but the kernel family's (`_KERNEL_REGULARIZERS`;
+  NeRFAE's latent L2 the step adds outside the kernel,
+  `regularizers.ae_latent_l2`), no omit-bg. The point-sampled
+  regularizers pass: the two-kernel path adds them beside the kernels'
+  loss by autograd (driver.py:721-733), the one-kernel gate refuses
+  them (`_fused_step_fn`). Unlike the JAX gate
   there is no batch-multiple rule (the CUDA kernels mask the ragged
   edge) and no CPU rule (there the wrappers take their plain versions).
   The port's envelope is narrower in one rule: at most as many samples
@@ -276,7 +293,7 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   kernel (up to 2048 steps). A VolSDF that computes normals engages only
   with the eikonal active, whose residual the kernels compute themselves
   (driver.py:374, :595)."""
-  allowed = MODEL_REGULARIZERS.get(model_kind(model), ())
+  allowed = _KERNEL_REGULARIZERS.get(model_kind(model), ())
   enc = _fused_enc_kind(model)
   max_steps = {"ae": k7.BWD_MAX_STEPS, "volsdf": k8.BWD_MAX_STEPS,
                **{f"dyn-{e}": k9.BWD_MAX_STEPS[e] for e in k9.ENC_KINDS}}
@@ -291,7 +308,7 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
       or model.per_ray_jitter or model.lindisp
       or cfg.train_camera or cfg.crop_size > 0
       or any(v for k, v in (cfg.reg_coeffs or {}).items()
-             if k not in allowed)
+             if k not in allowed and k not in regularizers.POINT_REGULARIZERS)
       or cfg.omit_bg)
 
 
@@ -312,7 +329,7 @@ def _data_ok(model, ds) -> bool:
   data (driver.py:303); the other models' gates do not look at the
   times."""
   timed = getattr(ds, "times", None) is not None
-  if isinstance(model, DynamicNeRF):
+  if is_dynamic(model):
     return timed
   return not (timed and isinstance(model, CoarseFineNeRF))
 
@@ -329,7 +346,9 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   loss mode, for VolSDF K8b in loss mode with the eikonal inside, when
   the training loss is the kernel's (plain l2 on rgb, no colour
   transforms, tone map, gamma or style, 3- or 4-channel labels) and
-  `_fused_common_ok` holds; None otherwise. VolSDF's scale decay reads
+  `_fused_common_ok` holds, with no active regularizer but the kernel
+  family's (a point-sampled one sends the step to the two-kernel path,
+  driver.py:483-495); None otherwise. VolSDF's scale decay reads
   the raw scale, which the kernel step does not return: with it the
   two-kernel path trains (driver.py:582-586). For DynamicNeRF K9b in
   loss mode, with --dp-weight's mean dp² inside (driver.py:617-641).
@@ -347,7 +366,9 @@ def _fused_step_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
       or gamma_active or style_active or ds.pixels.shape[-1] not in (3, 4)
       or cfg.volsdf_alternate or isinstance(model, CoarseFineNeRF)
       or not _fused_common_ok(model, cfg) or not _data_ok(model, ds)
-      or (cfg.reg_coeffs or {}).get("volsdf_scale")):
+      or (cfg.reg_coeffs or {}).get("volsdf_scale")
+      or any(v for k, v in (cfg.reg_coeffs or {}).items()
+             if k not in _KERNEL_REGULARIZERS.get(model_kind(model), ()))):
     return None
   enc = _fused_enc_kind(model)
   spline = getattr(model, "spline_points", 0)
@@ -446,8 +467,13 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   the eikonal inside K8b. DynamicNeRF's --dp-weight: on the oracle path
   the mean of out["dp"]² (`regularizers.delta_x`); on the two-kernel
   path K9f's dp² column (its mean over the rays, driver.py:724-731); the
-  one-kernel step computes it inside K9b. CoarseFineNeRF's loss sums the fine
-  and the coarse image's (driver.py:716-718, :786-787), on both paths. A
+  one-kernel step computes it inside K9b. The point-sampled regularizers
+  (`regularizers.point_regularizers`: the dynamic models' divergence and
+  spline terms) add to the two-kernel and the oracle path's loss by
+  autograd (driver.py:721-733, :789-792), the out-dict ones
+  (`regularizers.total_regularizer`) to the oracle's. CoarseFineNeRF's
+  loss sums the fine and the coarse image's (driver.py:716-718,
+  :786-787), on both paths. A
   dynamic model's batch carries each ray's time (its view's). A parameter
   that takes no gradient (VolSDF's and DynamicNeRF's Fourier matrices) gets
   a zero one, so that the optimizer steps it as optax steps a stop-gradient
@@ -456,7 +482,7 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   fixed = [p for p in params.values() if not p.requires_grad]
   device = next(model.parameters()).device
   enc = _fused_enc_kind(model)
-  dynamic = isinstance(model, DynamicNeRF)
+  dynamic = is_dynamic(model)
   coeffs = cfg.reg_coeffs or {}
   latent_l2 = float(coeffs.get("latent_l2") or 0.0)
   column = float(coeffs.get(_COLUMN_REGULARIZER.get(model_kind(model), ""))
@@ -465,7 +491,7 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
 
   def fused_regularizer(out, generator):
     """The regularizer of the two-kernel path, outside the kernels."""
-    reg = 0.0
+    reg = regularizers.point_regularizers(model, generator, coeffs)
     if latent_l2:
       reg = reg + latent_l2 * regularizers.ae_latent_l2(model, generator)
     if out.shape[-1] == 5:
@@ -510,7 +536,8 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
       main = loss_fn(out["rgb"], pix)
       if "coarse_rgb" in out:
         main = main + loss_fn(out["coarse_rgb"], pix)
-      loss = main + regularizers.total_regularizer(out, coeffs)
+      loss = (main + regularizers.total_regularizer(out, coeffs)
+              + regularizers.point_regularizers(model, generator, coeffs))
       loss.backward()
     for p in fixed:
       p.grad = torch.zeros_like(p)
@@ -587,6 +614,63 @@ def train(model, ds: sampler_lib.RayDataset, cfg: TrainConfig,
   return history
 
 
+def train_progressive(model, ds: sampler_lib.RayDataset, cfg: TrainConfig,
+                      segments: int = 4, config_dict: Optional[dict] = None,
+                      callback: Optional[Callable] = None) -> List[dict]:
+  """Progressive long-video training (driver.py:1232-1290): the views,
+  time-sorted, split into `segments` windows [lo, hi) trained in turn,
+  each `cfg.steps` steps with a fresh optimizer whose schedule is
+  `cfg.steps` long, its rays from its window without pixel jitter, its
+  draws from a generator seeded with seed + 99 + s, through the module
+  forward under autograd with the out-dict regularizers only. Saves once
+  at the end; returns the history (loss, mse, psnr, step, segment every
+  `log_freq` steps)."""
+  global LAST_TRAIN_PATH
+  check_config(cfg, model_kind(model))
+  LAST_TRAIN_PATH = "oracle"
+  loss_fn = losses_lib.load_loss_fn(cfg.loss_kinds, cfg.color_spaces,
+                                    cfg.tone_map, cfg.gamma_correct)
+  fixed = [p for p in model.parameters() if not p.requires_grad]
+  timed = is_dynamic(model)
+  n, history = ds.num_views, []
+  for s in range(segments):
+    lo = (s * n) // segments
+    hi = max(((s + 1) * n) // segments, lo + 1)
+    opt = optim_lib.load_optimizer(
+        model.parameters(), cfg.opt_kind, cfg.learning_rate,
+        total_steps=cfg.steps, sched_min=cfg.sched_min,
+        no_sched=cfg.no_sched, grad_clip=cfg.grad_clip,
+        accum_steps=cfg.accum_steps)
+    generator = torch.Generator(device=ds.device).manual_seed(
+        cfg.seed + 99 + s)
+    for i in range(cfg.steps):
+      opt.zero_grad()
+      rays, pix, t, _ = ds.sample(generator, cfg.batch_size,
+                                  view_range=(lo, hi))
+      out = model(rays, train=True, generator=generator,
+                  **({"times": t} if timed else {}))
+      main = loss_fn(out["rgb"], pix)
+      loss = main + regularizers.total_regularizer(out, cfg.reg_coeffs)
+      loss.backward()
+      for p in fixed:
+        p.grad = torch.zeros_like(p)
+      opt.step()
+      if (i + 1) % cfg.log_freq == 0:
+        m = {"loss": float(loss.detach()), "mse": float(main.detach())}
+        if not math.isfinite(m["loss"]):
+          raise FloatingPointError(
+              f"non-finite loss {m['loss']} at segment {s} step {i + 1}")
+        m.update(step=i + 1, segment=s,
+                 psnr=float(losses_lib.mse2psnr(m["mse"])))
+        history.append(m)
+        if callback:
+          callback(m)
+  if cfg.save_freq:
+    checkpoints.save(cfg.save_path, model.state_dict(), config=config_dict,
+                     step=segments * cfg.steps)
+  return history
+
+
 def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
   """Validation render of view 0 at up to 64×64 (driver.py:1217-1229),
   written next to the checkpoint. A render error propagates."""
@@ -594,7 +678,7 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
   out_dir = os.path.dirname(cfg.save_path) or "."
   os.makedirs(out_dir, exist_ok=True)
   write_png(os.path.join(out_dir, f"valid_{step:06d}.png"),
-            _to_u8(img[..., :3]))
+            to_u8(img[..., :3]))
 
 
 def _fused_render_fn(model) -> Optional[Callable]:
@@ -643,19 +727,23 @@ def render_view(model, ds: sampler_lib.RayDataset, view: int,
                 time_val: Optional[float] = None) -> np.ndarray:
   """Tiled no-grad rendering of one full view -> [S, S, C] numpy.
 
-  mode: "rgb" | "depth" (expected termination depth) | "acc" (opacity).
-  rgb goes through the model's kernel when the model is in its
-  envelope, everything else through the model's forward. A dynamic model
-  renders at `time_val`, else at the view's time ds.times[view]
+  mode: "rgb" | "depth" (expected termination depth) | "acc" (opacity)
+  | "flow" (a dynamic model's deformation out["dp"]) | "rigidity" (its
+  out["rigidity"]), the maps weight-integrated along the ray
+  (driver.py:1293-1360). rgb goes through the model's kernel when the
+  model is in its envelope, everything else through the model's forward;
+  a model that emits no such map raises KeyError. A dynamic model renders
+  at `time_val`, else at the view's time ds.times[view]
   (driver.py:1320-1338); with neither it raises."""
-  if mode not in ("rgb", "depth", "acc"):
+  maps = {"flow": "dp", "rigidity": "rigidity"}
+  if mode not in ("rgb", "depth", "acc", *maps):
     raise NotImplementedError(
-        f"render mode {mode}: normals/flow/rigidity maps arrive with their "
-        "models (ROADMAP Queue 1 #10/#11)")
+        f"render mode {mode}: the normals map arrives with its model "
+        "(ROADMAP Queue 1 #10)")
   rs = render_size or ds.size
   rays = ds.view_rays(view, rs)
   timed = {}
-  if isinstance(model, DynamicNeRF):
+  if is_dynamic(model):
     if time_val is None:
       if ds.times is None:
         raise ValueError("a dynamic model renders at a time: pass time_val "
@@ -676,6 +764,13 @@ def render_view(model, ds: sampler_lib.RayDataset, view: int,
       outs.append(integrate.depth_from_weights(out["weights"], out["ts"]))
     elif mode == "acc":
       outs.append(out["weights"].sum(-1, keepdim=True))
+    elif mode in maps:
+      val = out.get(maps[mode])
+      if val is None:
+        raise KeyError(f"model emits no '{maps[mode]}' (mode={mode})")
+      w = out["weights"]
+      outs.append(integrate.volumetric_integrate(w, val)
+                  if val.ndim == w.ndim + 1 else val)
     else:
       outs.append(out["rgb"])
   return torch.cat(outs).reshape(rs, rs, -1).cpu().numpy()
@@ -705,7 +800,7 @@ def write_png(path: str, img: np.ndarray):
     f.write(png)
 
 
-def _to_u8(img):
+def to_u8(img):
   return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
@@ -713,10 +808,12 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
          render_size: Optional[int] = None, save_images: bool = True,
          chunk: int = 65536, only_view: Optional[int] = None,
          white_bg: bool = False, with_alpha: bool = False,
-         save_depth: bool = False):
+         save_depth: bool = False, extra_maps: tuple = ()):
   """Per-view PSNR + summary stats; writes results.txt (the JAX package's
-  format) + test_###.png (+ depth_###.png with save_depth). `chunk` =
-  rays per tiled render call (--test-crop-size²).
+  format) + test_###.png (+ depth_###.png with save_depth; + <map>_###.png
+  for each of extra_maps ⊆ {flow, rigidity}: |flow| over its max, the
+  rigidity in grey, driver.py:1450-1466). `chunk` = rays per tiled render
+  call (--test-crop-size²).
 
   only_view: test a single view (--render-frame). white_bg: composite the
   reference over white via its alpha (--test-white-bg). with_alpha: save
@@ -733,7 +830,15 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
                           mode="depth")[..., 0]
       dmin, dmax = float(depth.min()), float(depth.max())
       dn = (depth - dmin) / max(dmax - dmin, 1e-6)
-      write_png(os.path.join(out_dir, f"depth_{v:03d}.png"), _to_u8(dn))
+      write_png(os.path.join(out_dir, f"depth_{v:03d}.png"), to_u8(dn))
+    for m in extra_maps:
+      vis = render_view(model, ds, v, render_size, chunk=chunk, mode=m)
+      if m == "flow":
+        vis = np.abs(vis) / max(float(np.abs(vis).max()), 1e-6)
+      if vis.shape[-1] == 1:
+        vis = np.repeat(vis, 3, axis=-1)
+      write_png(os.path.join(out_dir, f"{m}_{v:03d}.png"),
+                to_u8(vis[..., :3]))
     ref_full = ds.pixels[v].cpu().numpy()
     ref = ref_full[..., :3]
     if white_bg and ref_full.shape[-1] > 3:
@@ -752,7 +857,7 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
       if with_alpha:
         acc = render_view(model, ds, v, render_size, chunk=chunk, mode="acc")
         save = np.concatenate([save, np.clip(acc, 0, 1)], axis=-1)
-      write_png(os.path.join(out_dir, f"test_{v:03d}.png"), _to_u8(save))
+      write_png(os.path.join(out_dir, f"test_{v:03d}.png"), to_u8(save))
   arr = np.asarray(psnrs)
   summary = (f"PSNR mean {arr.mean():.3f} median {np.median(arr):.3f} "
              f"min {arr.min():.3f} max {arr.max():.3f} var {arr.var():.4f}")
@@ -761,3 +866,14 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
     f.write("\n".join(lines) + "\n")
   return {"psnr_mean": float(arr.mean()), "psnr_median": float(np.median(arr)),
           "psnrs": psnrs, "summary": summary}
+
+
+def render_over_time(model, ds: sampler_lib.RayDataset, view: int = 0,
+                     frames: int = 24, render_size: Optional[int] = None,
+                     end_sec: float = 1.0) -> np.ndarray:
+  """A fixed camera (`view`) swept over t in [0, end_sec] in `frames`
+  renders (driver.py:1535-1546) -> [frames, S, S, 3]."""
+  return np.stack([
+      render_view(model, ds, view, render_size,
+                  time_val=end_sec * i / max(frames - 1, 1))
+      for i in range(frames)])

@@ -28,8 +28,9 @@ canonical, each with the Δx warp and the Spline-NeRF warp at S = 4.
   `testing.dyn_kink_free_rays` clears.
 - `params_from_flax` puts the warp's B at `warp.enc.B`; `pack_weights` /
   `unpack_grads` (the spline's padded layer_out); the CPU wrappers and
-  `DynRender`; the kink-free rule; the options not ported; the sources'
-  headers and build variants.
+  `DynRender`; the kink-free rule; the options not ported (the voxel and
+  rig models, a VolSDF canonical); the sources' headers and build
+  variants.
 - `cuda`-marked cases: K9f (both forms) and K9b (both modes, dp on and
   off) against their plain versions on the card in every mode, two K9b
   launches bit for bit (`python -m pytest --noconftest -m cuda
@@ -419,13 +420,16 @@ def test_kink_free_rule_flags_kinks_and_taps(oracle):
 
 
 def test_unported_dynamic_options_raise():
-  with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-    models.DynamicNeRF(time_latent_size=4)
-  with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-    models.DynamicNeRF(canonical_kind="tiny")
-  for kind in ("ae", "long", "voxel", "rig"):
+  """The voxel and rig dynamic models (ROADMAP Queue 1 #11) and a VolSDF
+  canonical (the reference's fault, ROADMAP Queue 3) raise; the time
+  latent, the other canonicals, DynamicNeRFAE and LongDynamicNeRF are
+  held against JAX in tests/test_torch_dyn_family.py."""
+  for kind in ("voxel", "rig"):
     with pytest.raises(NotImplementedError, match="Queue 1 #11"):
       models.load_dyn_model(kind)
+  with pytest.raises(NotImplementedError, match="Queue 3"):
+    models.DynamicNeRF(canonical_kind="volsdf")
+  assert set(models.DYN_MODEL_KINDS) == {"plain", "ae", "long"}
   with pytest.raises(ValueError):
     models.DynamicNeRF(spline_points=1)
   with pytest.raises(ValueError):
