@@ -3,6 +3,8 @@
 
 Run from the repo root: `python3 chip_smoke.py [--quality [--seeds S ...]
 [--recipes R ...] [--quality-steps N]] [--profile] [--sass-against DIR]`,
+or `python3 chip_smoke.py --quality-only [--recipes R ...]` (phase 1,
+then phase 7 alone: no result lines),
 or `python3 chip_smoke.py --volsdf-repeat ROOT [ROOT ...]` or
 `--k5f-against ROOT [ROOT ...]` (below).
 Phases, each printing its lines before the next starts:
@@ -85,6 +87,17 @@ Phases, each printing its lines before the next starts:
      divergence, FFJORD divergence, spline length and spline point 0 on
      it and on the LongDynamicNeRF (values within 1e-5 relative,
      parameter gradients within 1e-2);
+  3s. the SDF family, no kernel, beside phase 2: the SDF renderer (the MLP
+     shape and each other kind in its bounding sphere, bisect; the MLP
+     shape with secant and sphere marching; 128 scan steps, seed 0) on
+     the card against the same model on the CPU, 256 rays, on the rays
+     whose scan decisions cannot flip (SDF_MARGIN): hits exact, rgb and
+     pts within 1e-4, the throughput within 1e-3, the normals within
+     1e-2 relative (sphere marching: hits on all but 1 ray in 50, the
+     shading at the card's own end points); --volsdf-alternate
+     --alt-train 1 for 20 steps of the volsdf_eikonal recipe through the
+     module forward; a VolSDF-SIREN render at 64x64 writing the normals,
+     depth and depth-query normal maps;
   4. main path, render: the port's runner renders and scores the
      procedural scene at 800x800 (2 views, train + test split, seeded
      random weights) and must launch K1; 4b. the same with --enc-kind
@@ -144,7 +157,15 @@ Phases, each printing its lines before the next starts:
      rigidity-sparsity and FFJORD terms (30 steps), DynamicNeRFAE (30
      steps), LongDynamicNeRF trained progressively over 2 segments (15
      steps each), each loss finite with its last-10 mean under its
-     first-10 mean, results.txt written;
+     first-10 mean, results.txt written; 5s. sdf-surface-train-4096 (run
+     beside phase 2): the sweep's sdf_surface recipe (--model sdf, 200
+     steps) through the module forward, no kernel, its losses finite and
+     falling, both splits' PSNR beside all-black, the normals maps
+     written; 5v. volsdf-smooth-train-4096: the volsdf_eikonal recipe with
+     --smooth-normals-weight 1e-3 (200 steps) through the two-kernel path
+     (K8f with its eikonal column and K8b-G once per step, the smoothness
+     term by autograd beside them, K8f in eval, nothing else), its loss
+     falling;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -178,8 +199,9 @@ Phases, each printing its lines before the next starts:
      sweep's budget) on the kernel path for each of
      `--seeds` (default 0) and with --no-fused for the first seed; then
      plain_hash, ae, plain_posenc, plain_mip_cone, volsdf_eikonal,
-     dnerf_dx, dnerf_spline_dp and coarse_fine_mip at 1500 steps and tiny
-     at 3000 for each seed (`--recipes` picks some of them; the D-NeRF and
+     dnerf_dx, dnerf_spline_dp, coarse_fine_mip, sdf_surface and
+     volsdf_smooth (5v's recipe) at 1500 steps and tiny at 3000 for each
+     seed (`--recipes` picks some of them; the D-NeRF and
      coarse_fine runs must beat all-black by 2 dB on both splits);
   8. with `--profile` only: where one frame's and one train step's time
      goes, for cp, hash, ae, posenc, volsdf and dnerf_dx (torch.profiler
@@ -191,7 +213,10 @@ launches on its main path (K5f in two rows: `hash_fwd` at the eval
 chunk's 4,194,304 points and T = 2^19, launched by 4b; `hash_fwd_train`
 at the train step's 262,144 points and T = 2^14, launched by 5b's
 steps; K9f with its dp² column and K9b-G: `render_dyn_fwd_spline_dp` and
-`render_dyn_bwd_grad_spline_dp`, launched by 5k's steps), max error against its plain version, ms per
+`render_dyn_bwd_grad_spline_dp`, launched by 5k's steps; K8f's eikonal
+column and K8b-G: `render_volsdf_fwd_eikonal` and
+`render_volsdf_bwd_grad_eikonal`, launched by 5v's steps), max error
+against its plain version, ms per
 call, the plain version's ms, the bound from this run's bytes and
 operations at the published H100 peaks, and a single PyTorch call's ms
 where one computes the function), the card's name and power limit, and
@@ -386,6 +411,35 @@ ORACLE_RUNS = (
     ("5m", "dnerf-ae", ["--dyn-model", "ae"], 30),
     ("5n", "long-progressive", ["--dyn-model", "long",
                                 "--long-vid-progressive-train", "2"], 15))
+# the SDF family. 5s: the quality sweep's sdf_surface recipe
+# (scripts/tpu_quality_sweep.py:107-108; --model sdf, the MLP shape in its
+# bounding sphere, bisect over 128 scan steps, through the module
+# forward), SDF_STEPS steps beside phase 2's nvcc jobs; QUALITY_r05
+# sdf_surface (TPU, seed 0, one run, the oracle path): a record, not a
+# gate. 3s: each shape kind and intersector, card vs CPU on SDF_CHECK_RAYS
+# rays (the rays whose scan decisions cannot flip: every scan value off
+# 0 by SDF_MARGIN and the minimum unique by it): hits exact, rgb and pts
+# within TOL, the throughput within SDF_TPUT_TOL (the sigmoid of −500 ×
+# the minimum sdf), the normals within ALL_RAY_RTOL relative (leaky-relu
+# kinks). Sphere marching sums the field's values along the ray, and at
+# random weights |∇sdf| > 1 grows the devices' round-off step by step
+# (0.1 apart after 128 steps on the card): its hits may differ on 1 ray in
+# 50, and its shading is held at the card's own end points;
+# --volsdf-alternate --alt-train 1 for ALT_STEPS steps; the
+# normals, depth and depth-query normal maps at MAPS_SIZE. 5v: the
+# volsdf_eikonal recipe with --smooth-normals-weight through K8f's eikonal
+# column and K8b-G (VOLSDF_SMOOTH_STEPS steps)
+SDF_TRAIN_ARGV = TRAIN_ARGV[:3] + ["sdf", "--sdf-kind", "mlp"] + TRAIN_ARGV[6:]
+SDF_STEPS = 200
+QUALITY_R05_SDF = (18.613, 18.597)
+SDF_KINDS = ("mlp", "siren", "curl-mlp", "local", "spheres", "triangles")
+SDF_CHECK_RAYS = 256
+SDF_MARGIN = 1e-4
+SDF_TPUT_TOL = 1e-3
+ALT_STEPS = 20
+MAPS_SIZE = 64
+VOLSDF_SMOOTH_ARGV = VOLSDF_TRAIN_ARGV + ["--smooth-normals-weight", "1e-3"]
+VOLSDF_SMOOTH_STEPS = 200
 QUALITY_R05_DNERF = (33.236, 26.654)
 QUALITY_R05_DNERF_SPLINE = (33.279, 26.543)
 DNERF_MODES = (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0),
@@ -3394,7 +3448,9 @@ def _check_family(models, driver, regularizers, dev):
     checks = [(name, "DynamicNeRF time latent 8 plain-cp", latent,
                lambda m, to, term=term: term(m(to(rays), times=to(times))))]
     _check_regs(checks, dev)
-  for name, (draws, term) in regularizers.POINT_REGULARIZERS.items():
+  for name in ("dyn_divergence", "ffjord_div", "spline_length",
+               "spline_pt0"):
+    draws, term = regularizers.POINT_REGULARIZERS[name]
     d = draws(torch.Generator().manual_seed(41))
     _check_regs([(name, tag, pair, lambda m, to, term=term, d=d: term(
         m, *(to(x) for x in d))) for tag, pair in kept.items()], dev)
@@ -3496,6 +3552,180 @@ def _train_main_dyn_regs(port_runner, k1, loaders, dev):
   return counts
 
 
+def _march_clear(value, rays, near, far, steps):
+  """Bool [n] on the CPU: the rays whose scan decisions cannot flip
+  between two float32 evaluations (SDF_MARGIN's rule above)."""
+  o, d = rays[:, :3], rays[:, 3:6]
+  ts = near + ((far - near) / steps) * torch.arange(1, steps + 1,
+                                                    dtype=torch.float32)
+  ts = torch.cat([torch.tensor([near]), ts])
+  with torch.no_grad():
+    sd = value(o[:, None] + ts[:, None] * d[:, None])
+  two = torch.topk(sd, 2, dim=-1, largest=False).values
+  return (sd.abs() > SDF_MARGIN).all(-1) & (two[:, 1] - two[:, 0]
+                                            > SDF_MARGIN)
+
+
+def _check_sdf_family(port_runner, models, driver, loaders, k1, dev):
+  """Phase 3s, beside phase 2: the SDF renderer (`--model sdf`'s model,
+  seed 0) for each shape kind with bisect and for the MLP shape with
+  secant and sphere marching, card against CPU (SDF_MARGIN's rule above);
+  then --volsdf-alternate --alt-train 1 (ALT_STEPS steps of the
+  volsdf_eikonal recipe, no eval) and a VolSDF-SIREN render's normals,
+  depth and depth-query normal maps at MAPS_SIZE (1 view x 2 splits).
+  No kernel launches."""
+  rays = torch.from_numpy(_check_rays(SDF_CHECK_RAYS, 37))
+  cases = ([(kind, "bisect") for kind in SDF_KINDS]
+           + [("mlp", "secant"), ("mlp", "sphere")])
+  for kind, isect in cases:
+    cpu = driver.init_model(models.SDF(sdf_kind=kind, isect_kind=isect),
+                            seed=0)
+    gpu = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+      (ref, got), counts = _counted(lambda: [
+          m(r) for m, r in ((cpu, rays), (gpu, rays.to(dev)))])
+    if got["rgb"].device.type != "cuda" or any(counts.values()):
+      raise RuntimeError(f"sdf {kind} {isect}: on {got['rgb'].device}, "
+                         f"launches {counts}")
+    keep = _march_clear(cpu.value, rays, cpu.t_near, cpu.t_far,
+                        cpu.march_steps)
+    got = {k: v.detach().cpu() for k, v in got.items()}
+    ref = {k: v.detach() for k, v in ref.items()}
+    drift = ""
+    if isect == "sphere":
+      # t sums the field's values step by step; where |∇sdf| > 1 the two
+      # devices' round-off grows along the march, so the shading is held
+      # at the card's own end points
+      drift = (f" | end points {float((got['pts'] - ref['pts']).abs().max()):.3e}"
+               " apart")
+      pts = got["pts"]
+      with torch.no_grad():
+        sd, latent = cpu.shape(pts)
+        n = cpu.normals(pts)
+        view = rays[:, 3:6] / rays[:, 3:6].norm(dim=-1, keepdim=True)
+        rgb = cpu.refl(pts, view=view, normal=n, latent=latent)
+      ref.update(pts=pts, normals=n,
+                 rgb=torch.where(got["hits"][:, None], rgb, 0.0),
+                 throughput=torch.sigmoid(-cpu.alpha * sd[:, None]))
+      keep = torch.ones_like(keep)
+    flips = int((got["hits"] != ref["hits"])[keep].sum())
+    err = {k: float((got[k] - ref[k])[keep].abs().max())
+           for k in ("rgb", "pts", "throughput")}
+    n_rel = float((got["normals"] - ref["normals"])[keep].norm()
+                  / ref["normals"][keep].norm())
+    print(f"[check] sdf {kind} ({isect}, bounded, 128 scan steps), card vs "
+          f"CPU, {int(keep.sum())} of {SDF_CHECK_RAYS} rays clear: hits "
+          f"{int(ref['hits'][keep].sum())}, flipped {flips} | max |Δ| rgb "
+          f"{err['rgb']:.3e}, pts {err['pts']:.3e}, throughput "
+          f"{err['throughput']:.3e} | normals {n_rel:.3e} relative{drift}",
+          flush=True)
+    if (flips > (SDF_CHECK_RAYS // 50 if isect == "sphere" else 0)
+        or keep.sum() < SDF_CHECK_RAYS // 2 or err["rgb"] > TOL
+        or err["pts"] > TOL or err["throughput"] > SDF_TPUT_TOL
+        or n_rel > ALL_RAY_RTOL):
+      raise RuntimeError(f"sdf {kind} {isect}: the card differs")
+
+  with _log_every_step(driver):
+    results, secs, counts, _ = _train_run(
+        port_runner, k1, loaders, dev, ALT_STEPS,
+        extra=("--volsdf-alternate", "--alt-train", "1", "--notraintest",
+               "--notest"), argv=VOLSDF_TRAIN_ARGV)
+  losses = [h["loss"] for h in results["history"]]
+  launched = {k: v for k, v in counts.items() if v}
+  if (results["engaged_path"] != "oracle" or launched
+      or len(losses) != ALT_STEPS
+      or not all(math.isfinite(v) for v in losses)):
+    raise RuntimeError(f"volsdf-alternate: path {results['engaged_path']}, "
+                       f"launches {launched}, losses {losses}")
+  print(f"[train] runner volsdf_eikonal --volsdf-alternate --alt-train 1, "
+        f"{ALT_STEPS} steps x {BATCH} rays (volume and surface in turn): "
+        f"{secs:.2f} s | path {results['engaged_path']} | kernel launches 0 "
+        f"| losses volume {losses[0]:.5f}, surface {losses[1]:.5f} -> "
+        f"{losses[-2]:.5f}, {losses[-1]:.5f}", flush=True)
+
+  maps = ("normals_000.png", "query_normals_000.png", "depth_000.png")
+  with tempfile.TemporaryDirectory() as outdir:
+    argv = ["--data-kind", "synthetic", "--model", "volsdf", "--sdf-kind",
+            "siren", "--sdf-eikonal", "0.01", "--size", str(MAPS_SIZE),
+            "--num-views", "1", "--epochs", "0", "--normals-images",
+            "--depth-query-normal", "--visualize", "depth", "--outdir",
+            outdir]
+    ((_, secs), counts), forwards = _module_forwards(models, lambda: _counted(
+        lambda: _sync_time(lambda: port_runner.main(argv))))
+    missing = [f"{s}/{m}" for s in ("train", "test") for m in maps
+               if not os.path.exists(os.path.join(outdir, s, m))]
+  launched = {k: v for k, v in counts.items() if v}
+  if missing or launched or forwards <= 0:
+    raise RuntimeError(f"the maps: missing {missing}, launches {launched}, "
+                       f"{forwards} module forwards")
+  print(f"[main] runner volsdf-siren {MAPS_SIZE}x{MAPS_SIZE}, 1 view x 2 "
+        f"splits with the normals, depth and depth-query normal maps: "
+        f"{secs:.2f} s | kernel launches 0, module forwards {forwards}",
+        flush=True)
+
+
+def _train_main_sdf(port_runner, k1, loaders, driver, dev):
+  """Phase 5s, beside phase 2: `--model sdf` at the sdf_surface recipe
+  (SDF_STEPS steps, logged every step) through the module forward: no
+  kernel launched, each loss finite with its last-10 mean under its
+  first-10 mean, both splits scored against all-black and the normals
+  map of every view written (--normals-images)."""
+  outputs = [f"{s}/normals_{v:03d}.png" for s in ("train", "test")
+             for v in range(30)]
+  with _log_every_step(driver):
+    results, secs, counts, black = _train_run(
+        port_runner, k1, loaders, dev, SDF_STEPS,
+        extra=("--normals-images",), argv=SDF_TRAIN_ARGV, outputs=outputs)
+  losses = [h["loss"] for h in results["history"]]
+  launched = {k: v for k, v in counts.items() if v}
+  first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+  if (results["engaged_path"] != "oracle" or launched
+      or not all(math.isfinite(v) for v in losses) or not last < first):
+    raise RuntimeError(f"sdf_surface: path {results['engaged_path']}, "
+                       f"launches {launched}, losses {losses}")
+  print(f"[train] runner sdf_surface (--model sdf --sdf-kind mlp, bisect, "
+        f"128 scan steps) {SDF_STEPS} steps x {BATCH} rays (48x48, 30 "
+        f"views): {secs:.2f} s end to end | path {results['engaged_path']} | "
+        f"kernel launches 0 | loss (l2 + silhouette BCE) mean of the first 10 "
+        f"{first:.5f} -> last 10 {last:.5f} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f}) | normals maps "
+        f"written", flush=True)
+
+
+def _train_main_volsdf_smooth(port_runner, k1, loaders, dev):
+  """Phase 5v, volsdf-smooth-train-4096: the volsdf_eikonal recipe with
+  --smooth-normals-weight 1e-3 (VOLSDF_SMOOTH_STEPS steps) through the
+  two-kernel path: K8f with its eikonal column and K8b-G once per step,
+  the smoothness term by autograd beside them, K8f (without the column)
+  in eval, nothing else; the loss falling. Returns the launches per
+  kernel."""
+  steps = VOLSDF_SMOOTH_STEPS
+  results, secs, counts, black = _train_run(port_runner, k1, loaders, dev,
+                                            steps, argv=VOLSDF_SMOOTH_ARGV)
+  losses = [h["loss"] for h in results["history"]]
+  eval_k8f = counts["K8f"] - counts["K8f-eik"]
+  others = {k: v for k, v in counts.items()
+            if k not in ("K8f", "K8f-eik", "K8b-G") and v}
+  if (results["engaged_path"] != "fused"
+      or not all(math.isfinite(v) for v in losses)
+      or not losses[-1] < losses[0] or counts["K8f-eik"] != steps
+      or counts["K8b-G"] != steps or eval_k8f <= 0 or others):
+    raise RuntimeError(f"volsdf smooth: path {results['engaged_path']}, "
+                       f"launches {counts}, losses {losses}")
+  print(f"[train] runner volsdf_eikonal + --smooth-normals-weight 1e-3, "
+        f"{steps} steps x {BATCH} rays x {STEPS} samples (48x48, 30 views): "
+        f"{secs:.2f} s end to end | path {results['engaged_path']} | "
+        f"launches K8f+eikonal {counts['K8f-eik']}, K8b-G {counts['K8b-G']}, "
+        f"K8f {eval_k8f} in eval | loss (l2 + eikonal + smoothness) "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} | PSNR train "
+        f"{results['train']['psnr_mean']:.3f} test "
+        f"{results['test']['psnr_mean']:.3f} (all-black "
+        f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+  return counts
+
+
 @contextlib.contextmanager
 def _log_every_step(driver):
   """The port's TrainConfig logging every step (log_freq 1) while the
@@ -3547,7 +3777,9 @@ QUALITY_RECIPES = (
     ("dnerf_dx", DNERF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_DNERF),
     ("dnerf_spline_dp", DNERF_SPLINE_ARGV, QUALITY_STEPS,
      QUALITY_R05_DNERF_SPLINE),
-    ("coarse_fine_mip", CF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_CF))
+    ("coarse_fine_mip", CF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_CF),
+    ("sdf_surface", SDF_TRAIN_ARGV, QUALITY_STEPS, QUALITY_R05_SDF),
+    ("volsdf_smooth", VOLSDF_SMOOTH_ARGV, QUALITY_STEPS, None))
 
 
 def _quality(card, port_runner, k1, loaders, dev, seeds, recipes=None,
@@ -3743,6 +3975,10 @@ def main(argv=None):
                       default=None,
                       help="run only phase 5g's recipe from each checkout "
                            "ROOT and compare the runs (module docstring)")
+  parser.add_argument("--quality-only", action="store_true",
+                      help="run phase 1 and then only phase 7 (the kernels "
+                           "its recipes launch build as they are first "
+                           "called)")
   parser.add_argument("--quality-steps", type=int, default=QUALITY_STEPS,
                       help="phase 7's budget in place of the sweep's 1500 "
                            "steps (tiny trains twice it), e.g. 300 for the "
@@ -3779,6 +4015,11 @@ def main(argv=None):
   from nerf_atlas_tpu_torch.ops.kernels import render_dyn as k9
   from nerf_atlas_tpu_torch.ops.kernels import render_volsdf as k8
   from nerf_atlas_tpu_torch.train import driver, regularizers
+  if args.quality_only:
+    _quality(card, port_runner, k1, loaders, torch.device("cuda"),
+             args.seeds, args.recipes, args.quality_steps)
+    print(card)
+    return 0
 
   # ---- 2. build, and beside it the phases that launch no kernel ----
   pending = _build_start(build, k1, k8, k9)
@@ -3794,6 +4035,11 @@ def main(argv=None):
   for pid, tag, extra, steps in ORACLE_RUNS:
     _phase(pid, _train_main_oracle, port_runner, k1, loaders, driver, dev,
            tag, extra, steps)
+  # 5s / 3s: the SDF renderer's training run, the SDF family's module
+  # forwards card vs CPU, --volsdf-alternate and the normals maps
+  _phase("5s", _train_main_sdf, port_runner, k1, loaders, driver, dev)
+  _phase("3s", _check_sdf_family, port_runner, models, driver, loaders, k1,
+         dev)
   jobs, built = _build_finish(build, pending)
 
   # ---- 3. kernels vs reference on the card ----
@@ -3916,6 +4162,9 @@ def main(argv=None):
   # ---- 5k. dnerf-spline-reg-train-4096: K9f + dp and K9b-G ----
   train_k9r = _phase("5k", _train_main_dyn_regs, port_runner, k1, loaders,
                      dev)
+  # ---- 5v. volsdf-smooth-train-4096: K8f + eikonal and K8b-G ----
+  train_k8s = _phase("5v", _train_main_volsdf_smooth, port_runner, k1,
+                     loaders, dev)
 
   # ---- 6. timing at the main path's shapes ----
   t_phase = time.perf_counter()
@@ -4049,10 +4298,14 @@ def main(argv=None):
        render_k8["K8f"] - render_k8["K8f-eik"],
        max(max_k8f, k8_t["frame_err"]), *k8_t["K8f"], None),
       ("render_volsdf_fwd_eikonal", "render_volsdf_fwd.cu",
-       "render_volsdf.py:262", render_k8["K8f-eik"] + train_k8["K8f-eik"],
-       max_k8f, *k8_t["K8f eikonal"], None),
+       "render_volsdf.py:262", render_k8["K8f-eik"] + train_k8["K8f-eik"]
+       + train_k8s["K8f-eik"], max_k8f, *k8_t["K8f eikonal"], None),
       ("render_volsdf_bwd", "render_volsdf_bwd.cu", "render_volsdf.py:306",
        train_k8["K8b"], max_k8b, *k8_t["K8b-L eikonal"], None),
+      # the two-kernel step of 5v: K8b in cotangent mode with the eikonal
+      ("render_volsdf_bwd_grad_eikonal", "render_volsdf_bwd.cu",
+       "render_volsdf.py:306", train_k8s["K8b-G"], max_k8b,
+       *k8_t["K8b-G eikonal"], None),
       ("render_dyn_fwd", "render_dyn_fwd.cu", "render_dyn.py:157",
        render_k9, max(max_k9f, k9_t["frame_err"]), *k9_t[("dx", "K9f")],
        None),

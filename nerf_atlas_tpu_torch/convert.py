@@ -20,8 +20,13 @@ same walk. One path moves:
 flax binds an encoder built inside a shape's call to the shape, so the
 VolSDF tree holds the Fourier matrix at params/shape/FourierEncoder_0/B,
 beside params/shape/mlp, where the port's SkipConnMLP keeps its encoder
-at shape.mlp.enc (`shape.mlp.enc.B`). VolSDF's raw scale `density_scale`
-is a 0-d array and stays one.
+at shape.mlp.enc (`shape.mlp.enc.B`); so do the CurlMLP shape's, and
+the Local shape's, beside params/shape/fine (`shape.fine.enc.B`). The
+other shapes' trees (siren's shape/mlp; spheres' shape/centers,
+shape/radii and shape/resid; triangles' shape/tris), a bounded shape's
+(the same under shape/inner) and the SDF renderer's (shape and refl)
+map one to one. VolSDF's raw scale `density_scale` is a 0-d array and
+stays one.
 A flax `Dense.kernel` is [in, out] and a torch `Linear.weight` is
 [out, in], so kernels are transposed. A skip layer's input rows are
 ordered [hidden ; init_feat] in both packages, so nothing else moves.
@@ -57,6 +62,8 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
   walk(tree, "")
   for key in [k for k in out if k.endswith("FourierEncoder_0.B")]:
     prefix = key[:-len("FourierEncoder_0.B")]
-    if prefix + "mlp.layer_in.weight" in out:
-      out[prefix + "mlp.enc.B"] = out.pop(key)
+    for owner in ("mlp", "fine"):
+      if prefix + owner + ".layer_in.weight" in out:
+        out[prefix + owner + ".enc.B"] = out.pop(key)
+        break
   return out

@@ -1,13 +1,14 @@
 """VolSDF: volume rendering of a signed distance field.
 
 Counterpart of `nerf_atlas_tpu/models/volsdf.py:VolSDF`: the density is
-LaplaceCDF(−sdf, s)/s with a learned scale s, the SDF a shape model
-(`models/sdf.py`), the colour the View refl on the SDF's latent, and the
+LaplaceCDF(−sdf, s)/s with a learned scale s, the SDF any shape of
+`models/sdf.py`, the colour the View refl on the SDF's latent, and the
 compositing takes the density as σ directly (relu, no softplus). With
 `with_normals` the forward also returns the SDF's gradient at the sample
-points (by autograd, differentiable again) and the eikonal residual. The
-occlusion, the integrators, the lights and the surface render arrive with
-ROADMAP Queue 1 #13.
+points (by autograd, differentiable again) and the eikonal residual.
+`surface_render` renders the same SDF and refl at the surface bisection
+finds (`--volsdf-alternate`'s other half). The occlusion, the
+integrators and the lights arrive with ROADMAP Queue 1 #13.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import march
 from ..ops.math import laplace_cdf
 from ..refl import load_refl
 from .base import NeRFBase, view_per_sample
-from .sdf import load_sdf_shape
+from .sdf import load_sdf_shape, sdf_gradient
 
 SCALE_KINDS = ("softplus", "ident")
 
@@ -71,6 +73,13 @@ class VolSDF(NeRFBase):
     self.refl.reset_parameters(generator)
     self.reset_scale()
 
+  def sdf_value(self, pts):
+    return self.shape(pts)[0]
+
+  def normals(self, pts):
+    """∇ₓsdf by autograd (`sdf.sdf_gradient`)."""
+    return sdf_gradient(self.sdf_value, pts)
+
   def density_params(self):
     """The learned Laplace scale s."""
     if self.scale_kind == "ident":
@@ -101,10 +110,26 @@ class VolSDF(NeRFBase):
     rgb = self.refl(pts, view=view, latent=latent)
     return self.density_from_sdf(sdf_vals), rgb, sdf_vals, normals
 
-  def surface_render(self, rays, *args, **kwargs):
-    raise NotImplementedError(
-        "VolSDF.surface_render (--volsdf-alternate): needs the SDF marchers, "
-        "not ported yet (ROADMAP Queue 1 #13)")
+  def surface_render(self, rays, train: bool = False,
+                     generator: Optional[torch.Generator] = None):
+    """The surface render of the same SDF and refl (the other half of
+    --volsdf-alternate): 32 scan steps and 32 bisections over [t_near,
+    t_far], the refl at the points found with the shape's latent, black
+    where a ray misses. Returns {"rgb", "hits", "throughput"}: the
+    throughput is sigmoid(−500 · the minimum SDF along the ray) [..., 1],
+    the differentiable silhouette."""
+    del train, generator
+    r_o, r_d = rays[..., :3], rays[..., 3:6]
+    pts, hits, _, tput = march.bisect(self.sdf_value, r_o, r_d, iters=32,
+                                      near=self.t_near, far=self.t_far)
+    _, latent = self.shape(pts)
+    n = self.normals(pts)
+    view = r_d / torch.clamp(torch.linalg.vector_norm(r_d, dim=-1,
+                                                      keepdim=True), min=1e-8)
+    rgb = self.refl(pts, view=view, normal=n, latent=latent)
+    rgb = torch.where(hits[..., None], rgb, torch.zeros_like(rgb))
+    return {"rgb": rgb, "hits": hits,
+            "throughput": torch.sigmoid(-500.0 * tput)}
 
   def forward(self, rays, train: bool = False,
               generator: Optional[torch.Generator] = None):

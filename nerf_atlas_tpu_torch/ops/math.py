@@ -86,6 +86,12 @@ def laplace_cdf(sdf_vals, scale):
                      1 - torch.exp(-torch.maximum(scaled, zero)) / 2)
 
 
+def smooth_min(v, k: float = 32.0, dim: int = 0):
+  """Differentiable min along `dim`: −log(max(Σ exp(−k·v), 1e-4)) / k."""
+  return -torch.log(torch.clamp(torch.sum(torch.exp(-k * v), dim=dim),
+                                min=1e-4)) / k
+
+
 def mse2psnr(x):
   return -10 * torch.log10(x)
 

@@ -5,8 +5,11 @@ parser, `cli.py`) and runs the flow of its `main`: load the data, build
 the model, initialize it from `--seed` or restore `--load`, train for
 `--epochs` steps (through the one-kernel step where the gate allows,
 log.json records the engaged path), then render and score the train and
-test splits (results.txt, test_###.png, with --flow-images and
---rigidity-images flow_###.png and rigidity_###.png). On timed data
+test splits (results.txt, test_###.png, with --normals-images,
+--flow-images and --rigidity-images normals_###.png, flow_###.png and
+rigidity_###.png, with --depth-images depth_###.png, with
+--depth-query-normal query_normals_###.png; --visualize names the same
+maps). On timed data
 (`--data-kind synthetic-dyn`) with a --dyn-model it also writes
 --cluster-movement's clusters.png (k-means of the flow at t = 0.5),
 --render-over-time's frames and --render-bezier-keyframes' keyframes. The
@@ -44,6 +47,17 @@ Examples (procedural scene):
       --model volsdf --sdf-kind mlp --sigmoid-kind upshifted \
       --sdf-eikonal 0.01 --size 48 --num-views 30 --epochs 1500 \
       --batch-size 4096 -lr 3e-4 --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model volsdf --sigmoid-kind upshifted --sdf-eikonal 0.01 \
+      --smooth-normals-weight 1e-3 --size 48 --num-views 30 --epochs 300 \
+      --batch-size 4096 -lr 3e-4 --normals-images --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model volsdf --volsdf-alternate --alt-train 1 --sdf-kind siren \
+      --size 48 --num-views 30 --epochs 300 --batch-size 4096 -lr 3e-4 \
+      --outdir out
+  python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
+      --model sdf --sdf-kind mlp --isect-kind bisect --size 48 \
+      --num-views 30 --epochs 1500 --batch-size 4096 -lr 1e-3 --outdir out
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic-dyn \
       --model plain --enc-kind cp --dyn-model plain [--spline 4 \
       --dp-weight 1e-3] --size 48 --num-views 30 --epochs 1500 \
@@ -69,6 +83,7 @@ Examples (procedural scene):
 from __future__ import annotations
 
 import json
+import math
 import os
 import sys
 import time
@@ -83,15 +98,15 @@ from .train import checkpoints, driver
 
 # flags the port does not carry yet: (attribute, ROADMAP item)
 _UNSUPPORTED = (
-    ("bendy", "Queue 1 #13"),
-    ("ref_compat", "Queue 1 #13"), ("neural_upsample", "Queue 1 #13"),
+    ("bendy", "Queue 1 #13"), ("neural_upsample", "Queue 1 #13"),
     ("with_canon", "Queue 1 #11"), ("light_kind", "Queue 1 #13"),
     ("replace", "Queue 1 #13"), ("cam_save_load", "Queue 1 #13"),
-    ("msssim_loss", "Queue 1 #5"), ("normals_images", "Queue 1 #10"),
-    ("visualize", "Queue 1 #10/#11"), ("exp_bg", "Queue 1 #13"),
+    ("msssim_loss", "Queue 1 #5"), ("exp_bg", "Queue 1 #13"),
     ("draw_colormap", "Queue 1 #13"), ("normals_from_depth", "Queue 1 #13"),
-    ("depth_query_normal", "Queue 1 #10"),
 )
+# --visualize's names -> the flags they set (runner.py:845-847)
+_VISUALIZE = {"depth": "depth_images", "normals": "normals_images",
+              "flow": "flow_images", "rigidity": "rigidity_images"}
 
 # matplotlib's tab10 palette (its ten colours, `--cluster-movement`)
 TAB10 = np.array([[0x1f, 0x77, 0xb4], [0xff, 0x7f, 0x0e], [0x2c, 0xa0, 0x2c],
@@ -105,11 +120,18 @@ def _check_supported(args):
     if getattr(args, flag):
       raise NotImplementedError(
           f"--{flag.replace('_', '-')}: not ported yet (ROADMAP {item})")
-  if args.model not in ("tiny", "plain", "ae", "coarse_fine", "volsdf"):
+  if args.model not in ("tiny", "plain", "ae", "coarse_fine", "volsdf",
+                        "sdf"):
     raise NotImplementedError(
         f"--model {args.model}: the port has TinyNeRF, PlainNeRF, NeRFAE, "
-        "CoarseFineNeRF and VolSDF so far (ROADMAP Queue 1 #10 sdf, #13 the "
+        "CoarseFineNeRF, VolSDF and SDF so far (ROADMAP Queue 1 #13 the "
         "rest)")
+  if args.ref_compat and args.model not in ("volsdf", "sdf"):
+    what = ("the ref-hash encoder (ROADMAP Queue 1 #7) and the reference's "
+            "widths (#13)" if args.model == "plain" else
+            "the reference's widths (ROADMAP Queue 1 #13)")
+    raise NotImplementedError(
+        f"--ref-compat for --model {args.model}: {what} are not ported yet")
   if args.dyn_model not in (None, "plain", "ae", "long"):
     raise NotImplementedError(
         f"--dyn-model {args.dyn_model}: the port has 'plain', 'ae' and "
@@ -134,11 +156,19 @@ def build_model(args, device, dynamic: bool = False):
   the class's hash; runner.py:459-467), and as in the root runner neither
   --space-kind nor --hash-table-log2. ae takes --refl-kind, --encoding-size
   and --normalize-latent (runner.py:483-486); like the root runner it
-  ignores --mip, --enc-kind and --space-kind. volsdf takes --sdf-kind,
+  ignores --mip, --enc-kind and --space-kind. volsdf takes --sdf-kind
+  (every shape, unbounded: --bound-sphere-rad is the sdf model's),
   --refl-kind, --sphere-init / --no-sphere-init, --occ-kind and
   --integrator-kind (which the port's VolSDF refuses, ROADMAP Queue 1 #13),
-  and computes normals when --sdf-eikonal or --surface-eikonal is set, so
-  that the eikonal reads them (runner.py:503-531)."""
+  computes normals when --sdf-eikonal or --surface-eikonal is set, so
+  that the eikonal reads them, and with --ref-compat takes the
+  reference's MLP spectrum (128 frequencies at sigma 16/2π, no sphere
+  init) for the mlp and curl-mlp kinds (curl-mlp has no such options and
+  raises, as in the JAX package) and the "ident" scale (runner.py:503-531).
+  sdf (runner.py:536-543) takes --sdf-kind, --refl-kind, --isect-kind,
+  t_near = max(--near − 2, 0), t_far = --far, --sigmoid-kind, always a
+  bounding sphere of --bound-sphere-rad (1.5 when not positive) and
+  --sphere-init; the common kwargs are not its."""
   kwargs = dict(steps=args.steps, t_near=args.near, t_far=args.far,
                 sky_kind=args.sky_kind, sigmoid_kind=args.sigmoid_kind,
                 intermediate_size=args.intermediate_size,
@@ -161,12 +191,27 @@ def build_model(args, device, dynamic: bool = False):
   if args.model == "tiny":
     return load_model("tiny", device=device, **kwargs)
   kwargs["refl_kind"] = args.refl_kind
+  if args.model == "sdf":
+    return load_model(
+        "sdf", device=device, sdf_kind=args.sdf_kind,
+        refl_kind=args.refl_kind, isect_kind=args.isect_kind,
+        t_near=max(args.near - 2, 0.0), t_far=args.far,
+        sigmoid_kind=args.sigmoid_kind, bounded=True,
+        bound_radius=(args.bound_sphere_rad if args.bound_sphere_rad > 0
+                      else 1.5),
+        sdf_kwargs={"sphere_init": args.sphere_init})
   if args.model == "volsdf":
+    ref = args.ref_compat
     kwargs.update(sdf_kind=args.sdf_kind, occ_kind=args.occ_kind,
                   integrator_kind=args.integrator_kind,
                   with_normals=(args.eikonal_weight > 0
                                 or args.surface_eikonal > 0),
-                  sdf_kwargs={"sphere_init": args.sphere_init})
+                  sdf_kwargs=(
+                      {"sphere_init": False, "enc_freqs": 128,
+                       "enc_sigma": 16 / (2 * math.pi)}
+                      if ref and args.sdf_kind in ("mlp", "curl-mlp")
+                      else {"sphere_init": args.sphere_init}),
+                  **({"scale_kind": "ident"} if ref else {}))
     return load_model("volsdf", device=device, **kwargs)
   if args.model == "ae":
     kwargs.update(encoding_size=args.encoding_size,
@@ -200,6 +245,11 @@ def make_train_config(args, dynamic: bool = False) -> driver.TrainConfig:
     raise NotImplementedError(
         "--mesh-devices > 1 / --data-parallel: the port trains on one "
         "device; multi-GPU training arrives with ROADMAP Queue 1 #12")
+  if args.volsdf_alternate:
+    if args.model != "volsdf":
+      raise ValueError("--volsdf-alternate needs --model volsdf")
+    if args.alt_train == 0:
+      args.alt_train = 2048           # the reference's run_len=4096 halves
   cfg = driver.TrainConfig(
       steps=args.epochs, batch_size=args.batch_size,
       learning_rate=args.learning_rate, opt_kind=args.opt_kind,
@@ -256,6 +306,38 @@ def make_train_config(args, dynamic: bool = False) -> driver.TrainConfig:
   return cfg
 
 
+def zero_flags(args):
+  """The root runner's flag zeroing (runner.py:672-701): a regularizer
+  weight that the model cannot carry is set to 0 with a warning (the
+  occlusion terms always: the port has no occlusion, ROADMAP Queue 1
+  #13)."""
+  def zero(flag, why):
+    if getattr(args, flag) > 0:
+      print(f"[warn]: zeroing --{flag.replace('_', '-')}: {why}")
+      setattr(args, flag, 0.0)
+
+  if args.model != "volsdf":
+    zero("volsdf_scale_decay", "model is not volsdf")
+  if args.model not in ("volsdf", "sdf"):
+    for flag in ("eikonal_weight", "eikonal_random_weight",
+                 "surface_eikonal", "smooth_surface_weight"):
+      zero(flag, "model has no SDF")
+  if args.occ_kind not in ("all-learned", "joint-all-const"):
+    zero("smooth_occ_weight", "occlusion is not (all-)learned")
+    zero("occ_decay_weight", "occlusion is not all-learned")
+  if args.dyn_model is None:
+    for flag in ("dp_weight", "dyn_divergence_weight", "ffjord_div_decay",
+                 "offset_decay", "rigidity_sparsity",
+                 "spline_length_weight", "spline_pt0_weight",
+                 "random_spline_len_decay", "voxel_random_spline_len_decay"):
+      zero(flag, "model is not dynamic")
+  if args.model != "voxel" and args.dyn_model != "voxel":
+    for flag in ("tv_sigma", "tv_refl", "tv_bezier", "tv_rigidity"):
+      zero(flag, "model is not voxel")
+  if args.refl_kind == "pos" and args.view_variance_weight > 0:
+    zero("view_variance_weight", "positional refl does not use view")
+
+
 def _slice_views(ds, n: int):
   """--train-imgs: keep the first n views."""
   if n <= 0 or n >= ds.num_views:
@@ -278,6 +360,8 @@ def main(argv=None, device="cuda"):
     raise RuntimeError("CUDA is not available; the port's runner needs a GPU")
   args = cli.arguments(argv)
   _check_supported(args)
+  for vis in args.visualize:
+    setattr(args, _VISUALIZE[vis], True)
   if args.nosave:
     args.save_freq = 0
   if not args.derive_kind and args.data_kind is None:
@@ -294,6 +378,7 @@ def main(argv=None, device="cuda"):
   ds = sampler.RayDataset.from_bundle(bundle, size=args.size, device=device)
   ds = _slice_views(ds, args.train_imgs)
   dynamic = ds.times is not None and args.dyn_model is not None
+  zero_flags(args)
   cfg = make_train_config(args, dynamic) if args.epochs > 0 else None
   model = build_model(args, device, dynamic)
 
@@ -337,9 +422,11 @@ def main(argv=None, device="cuda"):
       chunk=(args.test_crop_size ** 2 if args.test_crop_size else 65536),
       only_view=args.render_frame if args.render_frame >= 0 else None,
       white_bg=args.test_white_bg, with_alpha=args.with_alpha,
-      extra_maps=tuple(m for m, on in (("flow", args.flow_images),
+      extra_maps=tuple(m for m, on in (("normals", args.normals_images),
+                                       ("flow", args.flow_images),
                                        ("rigidity", args.rigidity_images))
-                       if on))
+                       if on),
+      depth_query_normal=args.depth_query_normal)
   if not args.notraintest:
     results["train"] = driver.test(
         model, ds, out_dir=os.path.join(args.outdir, "train"), **test_kwargs)

@@ -6,7 +6,8 @@ Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
 `render_view`, `test`, `train_progressive`, `render_over_time`), for
 PlainNeRF (cp, hash, posenc, and mip cone or cylinder), TinyNeRF, NeRFAE,
-CoarseFineNeRF, VolSDF and the dynamic models (DynamicNeRF: D-NeRF's Δx
+CoarseFineNeRF, VolSDF (every SDF shape, --volsdf-alternate), the SDF
+surface renderer and the dynamic models (DynamicNeRF: D-NeRF's Δx
 warp and Spline-NeRF over any canonical but VolSDF, with an optional
 per-time latent; DynamicNeRFAE; LongDynamicNeRF). The port's
 modules own their parameters, so these functions take the model where the
@@ -27,10 +28,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data import sampler as sampler_lib
-from ..models import (MODEL_KINDS, CoarseFineNeRF, DynamicNeRF, NeRFAE,
-                      PlainNeRF, TinyNeRF, VolSDF, is_dynamic)
+from ..models import (MODEL_KINDS, SDF, CoarseFineNeRF, DynamicNeRF,
+                      NeRFAE, PlainNeRF, TinyNeRF, VolSDF, is_dynamic)
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
@@ -53,7 +55,11 @@ LAST_TRAIN_PATH: Optional[str] = None
 # REGULARIZERS and POINT_REGULARIZERS keys; "dynamic" is any dynamic
 # model); every other active coefficient raises
 MODEL_REGULARIZERS = {"ae": ("latent_l2",),
-                      "volsdf": ("eikonal", "volsdf_scale"),
+                      "volsdf": ("eikonal", "volsdf_scale", "surface_eikonal",
+                                 "smooth_normals", "smooth_surface",
+                                 "eikonal_random"),
+                      "sdf": ("eikonal", "surface_eikonal", "smooth_normals",
+                              "eikonal_random"),
                       "dynamic": ("delta_x", "offset", "rigidity_sparsity",
                                   "dyn_divergence", "ffjord_div",
                                   "spline_length", "spline_pt0")}
@@ -65,16 +71,12 @@ _KERNEL_REGULARIZERS = {"ae": ("latent_l2",),
 # the in-kernel regularizer column (the 5th output) of each kernel family
 _COLUMN_REGULARIZER = {"volsdf": "eikonal", "dynamic": "delta_x"}
 
-# the options of the smoothness regularizers (their models are not ported)
-_SMOOTH_REGS = {"item": "Queue 1 #10/#13"}
-
-
 @dataclass
 class TrainConfig:
   """The JAX package's TrainConfig without `use_mesh` (the port trains on
   one device; the runner rejects a device mesh, ROADMAP Queue 1 #12). The
-  port honours the fields up to `no_fused` below; `check_config` raises
-  on the rest when they leave their defaults."""
+  port honours the fields up to `volsdf_alternate` below; `check_config`
+  raises on the rest when they leave their defaults."""
   steps: int = 1000
   batch_size: int = 4096
   learning_rate: float = 5e-4
@@ -104,10 +106,13 @@ class TrainConfig:
   freeze_substr: Optional[str] = None
   style_weight: float = 0.0
   no_fused: bool = False
+  smooth_eps: float = 1e-3
+  smooth_eps_rng: bool = False
+  smooth_ords: tuple = (2,)
+  # --alt-train's cadence: step i's phase is (i // alt_train) % 2
+  alt_train: int = 0
+  volsdf_alternate: bool = False
   # not ported yet: (ROADMAP item) in the metadata
-  smooth_eps: float = field(default=1e-3, metadata=_SMOOTH_REGS)
-  smooth_eps_rng: bool = field(default=False, metadata=_SMOOTH_REGS)
-  smooth_ords: tuple = field(default=(2,), metadata=_SMOOTH_REGS)
   model_parallel: int = field(default=1, metadata={"item": "Queue 1 #12"})
   train_camera: bool = field(default=False, metadata={"item": "Queue 1 #13"})
   profile_dir: Optional[str] = field(default=None,
@@ -120,10 +125,7 @@ class TrainConfig:
                                   metadata={"item": "Queue 1 #13"})
   inc_fourier_rate: float = field(default=1.0005,
                                   metadata={"item": "Queue 1 #13"})
-  alt_train: int = field(default=0, metadata={"item": "Queue 1 #13"})
   omit_bg: bool = field(default=False, metadata={"item": "Queue 1 #13"})
-  volsdf_alternate: bool = field(default=False,
-                                 metadata={"item": "Queue 1 #10"})
 
 
 def check_config(cfg: TrainConfig, model_kind: str = "plain"):
@@ -183,7 +185,7 @@ def _fused_enc_kind(model) -> Optional[str]:
     sdf option but `sphere_init`), the View refl, `sdf_latent` 32, the
     softplus scale and no mip (driver.py:366-378, :587-597, :1104-1117).
     The port's VolSDF has no occlusion, integrator or light, so those
-    rules cannot fail.
+    rules cannot fail. The SDF surface renderer has no kernel.
   - "dyn-cp" / "dyn-posenc" for a DynamicNeRF over a plain canonical
     whose canonical_kwargs set nothing but enc_kind (cp or posenc),
     refl_kind (view), steps, t_near, t_far, sky_kind and sigmoid_kind,
@@ -197,6 +199,8 @@ def _fused_enc_kind(model) -> Optional[str]:
   driver.py:146, :1044-1148). The JAX gates also reject timed data for
   the static models: a static model on timed data trains as on static
   data (the JAX gates check the times only for their dynamic branch)."""
+  if isinstance(model, SDF):
+    return None
   if (model.sigmoid_kind not in k1.FUSED_SIGMOID_KINDS or model.lindisp
       or model.latent_size != 0):
     return None
@@ -293,14 +297,15 @@ def _fused_common_ok(model, cfg: TrainConfig) -> bool:
   kernel (up to 2048 steps). A VolSDF that computes normals engages only
   with the eikonal active, whose residual the kernels compute themselves
   (driver.py:374, :595)."""
-  allowed = _KERNEL_REGULARIZERS.get(model_kind(model), ())
   enc = _fused_enc_kind(model)
+  if enc is None:
+    return False
+  allowed = _KERNEL_REGULARIZERS.get(model_kind(model), ())
   max_steps = {"ae": k7.BWD_MAX_STEPS, "volsdf": k8.BWD_MAX_STEPS,
                **{f"dyn-{e}": k9.BWD_MAX_STEPS[e] for e in k9.ENC_KINDS}}
   samples = model.steps + getattr(model, "fine_steps", 0)
   return not (
-      enc is None
-      or samples > max_steps.get(enc, k1.BWD_MAX_STEPS.get(enc))
+      samples > max_steps.get(enc, k1.BWD_MAX_STEPS.get(enc))
       or (enc == "volsdf" and model.with_normals
           and not (cfg.reg_coeffs or {}).get("eikonal"))
       or model.sky_kind not in ("black", "white")
@@ -416,9 +421,12 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
   the loss computed outside. Returns fn(ws, rays, generator, times=None)
   -> [N, 4] (with an in-kernel regularizer column [N, 5]; CoarseFineNeRF:
   (fine, coarse)), differentiable in the packed weights ws (and, for
-  hash, in the model's table parameter), or None."""
-  if (cfg.no_fused or not _fused_common_ok(model, cfg)
-      or not _data_ok(model, ds)):
+  hash, in the model's table parameter), or None. --volsdf-alternate
+  trains through the module (driver.py:377). The point-sampled
+  regularizers (VolSDF's smoothness and random eikonal, the dynamic
+  models' divergence and spline terms) add beside the kernels."""
+  if (cfg.no_fused or cfg.volsdf_alternate
+      or not _fused_common_ok(model, cfg) or not _data_ok(model, ds)):
     return None
   enc = _fused_enc_kind(model)
   _pack(model.state_dict(), None, enc,
@@ -468,18 +476,29 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   the mean of out["dp"]² (`regularizers.delta_x`); on the two-kernel
   path K9f's dp² column (its mean over the rays, driver.py:724-731); the
   one-kernel step computes it inside K9b. The point-sampled regularizers
-  (`regularizers.point_regularizers`: the dynamic models' divergence and
-  spline terms) add to the two-kernel and the oracle path's loss by
-  autograd (driver.py:721-733, :789-792), the out-dict ones
-  (`regularizers.total_regularizer`) to the oracle's. CoarseFineNeRF's
+  (`regularizers.point_regularizers`: the SDF models' smoothness and
+  random eikonal with the --smooth-* options, the dynamic models'
+  divergence and spline terms) add to the two-kernel and the oracle
+  path's loss by autograd (driver.py:721-733, :789-792), the out-dict
+  ones (`regularizers.total_regularizer`) to the oracle's. CoarseFineNeRF's
   loss sums the fine and the coarse image's (driver.py:716-718,
-  :786-787), on both paths. A
+  :786-787), on both paths. The SDF renderer's loss with 4-channel labels
+  is the l2 on rgb plus the mean sigmoid BCE of out["sil_logit"] against
+  the alpha (driver.py:769-780); a model with a throughput output and no
+  logit appends it to rgb as the 4th channel (:781-784).
+  --volsdf-alternate (driver.py:742-764): step i's phase (i // alt_train)
+  % 2 trains the volume render (phase 0, its loss with the out-dict
+  regularizers) or `surface_render` (phase 1, rgb with the throughput as
+  the 4th channel), the point-sampled terms beside either; with
+  alt_train > 0 the gradients of parameters whose names hold "analytic"
+  are scaled by the phase and those holding "learned" by 1 − phase
+  (driver.py:837-847; no port model has them yet). A
   dynamic model's batch carries each ray's time (its view's). A parameter
-  that takes no gradient (VolSDF's and DynamicNeRF's Fourier matrices) gets
-  a zero one, so that the optimizer steps it as optax steps a stop-gradient
-  parameter: weight decay shrinks it."""
+  that takes no gradient in a step (VolSDF's and DynamicNeRF's Fourier
+  matrices; VolSDF's scale in a surface step) gets a zero one, so that
+  the optimizer steps it as optax steps every parameter: weight decay
+  shrinks it, Adam's moments decay and move it."""
   params = dict(model.named_parameters())
-  fixed = [p for p in params.values() if not p.requires_grad]
   device = next(model.parameters()).device
   enc = _fused_enc_kind(model)
   dynamic = is_dynamic(model)
@@ -488,10 +507,46 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   column = float(coeffs.get(_COLUMN_REGULARIZER.get(model_kind(model), ""))
                  or 0.0)
   scale_decay = float(coeffs.get("volsdf_scale") or 0.0)
+  smooth_opts = {"eps": cfg.smooth_eps, "eps_rng": cfg.smooth_eps_rng,
+                 "ords": tuple(cfg.smooth_ords)}
+
+  def points(generator):
+    return regularizers.point_regularizers(model, generator, coeffs,
+                                           smooth_opts)
+
+  def module_loss(rays, pix, generator, timed):
+    """(main, regularized loss) through the module forward."""
+    out = model(rays, train=True, generator=generator, **timed)
+    pred = out["rgb"]
+    if "sil_logit" in out and pix.shape[-1] > 3:
+      main = loss_fn(pred, pix[..., :3]) + F.binary_cross_entropy_with_logits(
+          out["sil_logit"][..., 0], pix[..., 3])
+    else:
+      if "throughput" in out and pix.shape[-1] > 3:
+        pred = torch.cat([pred, out["throughput"]], dim=-1)
+      main = loss_fn(pred, pix)
+    if "coarse_rgb" in out:
+      main = main + loss_fn(out["coarse_rgb"], pix)
+    return main, (main + regularizers.total_regularizer(out, coeffs)
+                  + points(generator))
+
+  def alternate_loss(rays, pix, generator, phase):
+    """--volsdf-alternate's (main, loss) in `phase`."""
+    if phase == 0:
+      out = model(rays, train=True, generator=generator)
+      main = loss_fn(out["rgb"], pix) + regularizers.total_regularizer(
+          out, coeffs)
+    else:
+      out = model.surface_render(rays, train=True, generator=generator)
+      pred = out["rgb"]
+      if pix.shape[-1] > 3:
+        pred = torch.cat([pred, out["throughput"]], dim=-1)
+      main = loss_fn(pred, pix)
+    return main, main + points(generator)
 
   def fused_regularizer(out, generator):
     """The regularizer of the two-kernel path, outside the kernels."""
-    reg = regularizers.point_regularizers(model, generator, coeffs)
+    reg = points(generator)
     if latent_l2:
       reg = reg + latent_l2 * regularizers.ae_latent_l2(model, generator)
     if out.shape[-1] == 5:
@@ -506,6 +561,7 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
       p.grad = grad if p.grad is None else p.grad + grad
 
   def step(i: int, generator: torch.Generator):
+    phase = (i // cfg.alt_train) % 2 if cfg.alt_train else 0
     opt.zero_grad()
     rays, pix, t, _ = ds.sample(
         generator, cfg.batch_size, jitter=cfg.pixel_jitter,
@@ -531,21 +587,25 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
       loss = main + fused_regularizer(out, generator)
       loss.backward()       # hash: the table's .grad, ae: the encoder's,
       add_grads(_unpack_grads(model, enc, ws.grad))  # volsdf: the scale's
-    else:
-      out = model(rays, train=True, generator=generator, **timed)
-      main = loss_fn(out["rgb"], pix)
-      if "coarse_rgb" in out:
-        main = main + loss_fn(out["coarse_rgb"], pix)
-      loss = (main + regularizers.total_regularizer(out, coeffs)
-              + regularizers.point_regularizers(model, generator, coeffs))
+    elif cfg.volsdf_alternate:
+      main, loss = alternate_loss(rays, pix, generator, phase)
       loss.backward()
-    for p in fixed:
-      p.grad = torch.zeros_like(p)
+    else:
+      main, loss = module_loss(rays, pix, generator, timed)
+      loss.backward()
+    for p in params.values():
+      if p.grad is None:
+        p.grad = torch.zeros_like(p)
     for key, p in params.items():
       keep = (cfg.train_only is None
               or any(k in key for k in cfg.train_only))
       if not keep or (cfg.freeze_substr and cfg.freeze_substr in key):
-        p.grad = None if p.grad is None else torch.zeros_like(p.grad)
+        p.grad = torch.zeros_like(p.grad)
+      elif cfg.alt_train > 0:
+        if "analytic" in key:
+          p.grad = p.grad * phase
+        elif "learned" in key:
+          p.grad = p.grad * (1 - phase)
     opt.step()
     return {"loss": loss.detach(), "mse": main.detach()}
 
@@ -728,18 +788,19 @@ def render_view(model, ds: sampler_lib.RayDataset, view: int,
   """Tiled no-grad rendering of one full view -> [S, S, C] numpy.
 
   mode: "rgb" | "depth" (expected termination depth) | "acc" (opacity)
-  | "flow" (a dynamic model's deformation out["dp"]) | "rigidity" (its
-  out["rigidity"]), the maps weight-integrated along the ray
-  (driver.py:1293-1360). rgb goes through the model's kernel when the
-  model is in its envelope, everything else through the model's forward;
-  a model that emits no such map raises KeyError. A dynamic model renders
-  at `time_val`, else at the view's time ds.times[view]
-  (driver.py:1320-1338); with neither it raises."""
-  maps = {"flow": "dp", "rigidity": "rigidity"}
+  | "normals" (an SDF model's out["normals"]) | "flow" (a dynamic
+  model's deformation out["dp"]) | "rigidity" (its out["rigidity"]), the
+  per-sample maps weight-integrated along the ray, a per-ray one (the SDF
+  renderer's normals) as it is (driver.py:1293-1360). rgb goes through
+  the model's kernel when the model is in its envelope, everything else
+  through the model's forward; a model that emits no such map raises
+  KeyError. A model's `eval_chunk` (the SDF renderer's) bounds `chunk`.
+  A dynamic model renders at `time_val`, else at the view's time
+  ds.times[view] (driver.py:1320-1338); with neither it raises."""
+  maps = {"normals": "normals", "flow": "dp", "rigidity": "rigidity"}
   if mode not in ("rgb", "depth", "acc", *maps):
-    raise NotImplementedError(
-        f"render mode {mode}: the normals map arrives with its model "
-        "(ROADMAP Queue 1 #10)")
+    raise ValueError(f"unknown render mode {mode}")
+  chunk = min(chunk, getattr(model, "eval_chunk", chunk))
   rs = render_size or ds.size
   rays = ds.view_rays(view, rs)
   timed = {}
@@ -804,16 +865,35 @@ def to_u8(img):
   return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
 
+def _query_normals(model, ds, view: int, render_size: Optional[int],
+                   depth: np.ndarray, chunk: int) -> np.ndarray:
+  """--depth-query-normal's map (driver.py:1437-1449): the model's SDF
+  normals at each ray's expected termination point o + depth·d, unit
+  length, mapped to [0, 1], black where the depth reaches t_far − 0.1."""
+  rs = render_size or ds.size
+  rays = ds.view_rays(view, rs).cpu().numpy().reshape(rs, rs, 6)
+  isect = torch.from_numpy(rays[..., :3] + rays[..., 3:] * depth[..., None])
+  isect = isect.reshape(-1, 3).to(ds.pixels.device)
+  n = torch.cat([model.normals(p) for p in isect.split(chunk)])
+  n = n.detach().cpu().numpy().reshape(rs, rs, 3)
+  n = n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-8)
+  far = getattr(model, "t_far", 1e9)
+  return np.where(depth[..., None] > far - 1e-1, 0.0, n * 0.5 + 0.5)
+
+
 def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
          render_size: Optional[int] = None, save_images: bool = True,
          chunk: int = 65536, only_view: Optional[int] = None,
          white_bg: bool = False, with_alpha: bool = False,
-         save_depth: bool = False, extra_maps: tuple = ()):
+         save_depth: bool = False, extra_maps: tuple = (),
+         depth_query_normal: bool = False):
   """Per-view PSNR + summary stats; writes results.txt (the JAX package's
   format) + test_###.png (+ depth_###.png with save_depth; + <map>_###.png
-  for each of extra_maps ⊆ {flow, rigidity}: |flow| over its max, the
-  rigidity in grey, driver.py:1450-1466). `chunk` = rays per tiled render
-  call (--test-crop-size²).
+  for each of extra_maps ⊆ {normals, flow, rigidity}: the normals mapped
+  from [−1, 1] to [0, 1], |flow| over its max, the rigidity in grey,
+  driver.py:1450-1466; + query_normals_###.png with depth_query_normal,
+  `_query_normals`, where the model has `normals`, else a note). `chunk`
+  = rays per tiled render call (--test-crop-size²).
 
   only_view: test a single view (--render-frame). white_bg: composite the
   reference over white via its alpha (--test-white-bg). with_alpha: save
@@ -825,15 +905,26 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
   views = range(ds.num_views) if only_view is None else [only_view]
   for v in views:
     img = render_view(model, ds, v, render_size, chunk=chunk)
-    if save_depth:
+    if save_depth or depth_query_normal:
       depth = render_view(model, ds, v, render_size, chunk=chunk,
                           mode="depth")[..., 0]
+    if save_depth:
       dmin, dmax = float(depth.min()), float(depth.max())
       dn = (depth - dmin) / max(dmax - dmin, 1e-6)
       write_png(os.path.join(out_dir, f"depth_{v:03d}.png"), to_u8(dn))
+    if depth_query_normal:
+      if hasattr(model, "normals"):
+        write_png(os.path.join(out_dir, f"query_normals_{v:03d}.png"),
+                  to_u8(_query_normals(model, ds, v, render_size, depth,
+                                       chunk)))
+      else:
+        print(f"[test] depth-query-normal unavailable: "
+              f"{type(model).__name__} has no normals")
     for m in extra_maps:
       vis = render_view(model, ds, v, render_size, chunk=chunk, mode=m)
-      if m == "flow":
+      if m == "normals":
+        vis = vis * 0.5 + 0.5
+      elif m == "flow":
         vis = np.abs(vis) / max(float(np.abs(vis).max()), 1e-6)
       if vis.shape[-1] == 1:
         vis = np.repeat(vis, 3, axis=-1)

@@ -1,22 +1,27 @@
 """The regularizers the port's models carry: NeRFAE's latent L2, in its
-two forms, VolSDF's eikonal and scale decay, and the dynamic models'
-delta-x, NR-NeRF offset, rigidity sparsity, divergence (Hutchinson and
-FFJORD), spline length and spline point 0.
+two forms, the SDF models' eikonal (on the ray samples, near the surface
+and at random points), normal and surface smoothness and VolSDF's scale
+decay, and the dynamic models' delta-x, NR-NeRF offset, rigidity
+sparsity, divergence (Hutchinson and FFJORD), spline length and spline
+point 0.
 
 Counterpart of `nerf_atlas_tpu/train/regularizers.py:latent_l2`,
 `eikonal`, `delta_x`, `offset_nrnerf`, `rigidity_sparsity`,
-`volsdf_scale`, `total_regularizer`, `ae_latent_l2`, `dyn_divergence`,
+`volsdf_scale`, `surface_eikonal`, `total_regularizer`, `ae_latent_l2`,
+`smooth_normals`, `eikonal_random`, `smooth_surface`, `dyn_divergence`,
 `ffjord_div`, `spline_length`, `spline_pt0` and `point_regularizers`;
-the other terms arrive with their models (ROADMAP Queue 1 #10, #13).
-Two families: out-dict terms read the module forward's output dict
-(`total_regularizer`); point-sampled terms evaluate the model at random
-points (`point_regularizers`). A point-sampled term is two functions:
-its draws from an explicit `torch.Generator` and its arithmetic on them,
-so that the arithmetic can be fed another package's draws.
+the other terms arrive with their models (ROADMAP Queue 1 #13: the
+occlusion's `smooth_occ` and `occ_decay`, `view_variance`, the voxel
+grids' TV terms, `weight_sparsity`). Two families: out-dict terms read
+the module forward's output dict (`total_regularizer`); point-sampled
+terms evaluate the model at random points (`point_regularizers`). A
+point-sampled term is two functions: its draws from an explicit
+`torch.Generator` and its arithmetic on them, so that the arithmetic can
+be fed another package's draws.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -70,10 +75,24 @@ def rigidity_sparsity(out):
   return 0.0 if r is None else torch.mean(torch.abs(r))
 
 
+def surface_eikonal(out):
+  """The eikonal weighted toward the surface: Σ w·(‖n‖ − 1)² / (Σ w +
+  1e-8) over out["normals"] and out["weights"] (the rendering weights
+  concentrate at the ray-surface crossings); 0 without either. For the
+  SDF renderer, whose weights are [..., 1] and normals one per ray, the
+  product broadcasts [N, 1] × [N] to [N, N], as in the JAX package."""
+  n, w = out.get("normals"), out.get("weights")
+  if n is None or w is None:
+    return 0.0
+  ei = torch.square(torch.linalg.vector_norm(n, dim=-1) - 1.0)
+  return torch.sum(w * ei) / (torch.sum(w) + 1e-8)
+
+
 REGULARIZERS = {"latent_l2": latent_l2, "eikonal": eikonal,
                 "delta_x": delta_x, "offset": offset_nrnerf,
                 "rigidity_sparsity": rigidity_sparsity,
-                "volsdf_scale": volsdf_scale}
+                "volsdf_scale": volsdf_scale,
+                "surface_eikonal": surface_eikonal}
 
 
 def total_regularizer(out, coeffs: Dict[str, float]):
@@ -107,6 +126,63 @@ def ae_latent_l2(model, generator: torch.Generator,
   package)."""
   raw = model.encode_raw(uniform_points(generator, n))
   return torch.mean(torch.sum(torch.square(raw), dim=-1))
+
+
+# ---- the SDF models' point-sampled terms (`normals`, `sdf_value`) ----
+
+def smooth_draws(generator: torch.Generator, n: int = 512,
+                 eps: float = 1e-2, eps_rng: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
+  """The smoothness terms' draws: points uniform in [−1, 1]³ [n, 3] and
+  their offsets [n, 3], a unit gaussian direction times eps, or with
+  `eps_rng` times U(0, eps) per point (--smooth-eps, --smooth-eps-rng)."""
+  dev = generator.device
+  pts = uniform_points(generator, n, 1.0)
+  d = torch.randn(n, 3, generator=generator, device=dev)
+  d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                      min=1e-8)
+  r = (torch.rand(n, 1, generator=generator, device=dev) * eps if eps_rng
+       else eps)
+  return pts, d * r
+
+
+def smooth_normals(model, pts, delta, ords=(2,)):
+  """E‖n(x) − n(x + δ)‖ for each vector-norm order in `ords`
+  (--smooth-n-ord), n = `model.normals`; order 2 as the mean of the
+  squared differences' sum (the norm's square has a NaN gradient at 0)."""
+  n0 = model.normals(pts)
+  n1 = model.normals(pts + delta)
+  total = 0.0
+  for o in ords:
+    if o == 2:
+      total = total + torch.mean(torch.sum(torch.square(n0 - n1), dim=-1))
+    else:
+      total = total + torch.mean(torch.linalg.vector_norm(n0 - n1, ord=o,
+                                                          dim=-1))
+  return total
+
+
+def eikonal_draws(generator: torch.Generator, n: int = 512
+                  ) -> Tuple[torch.Tensor]:
+  """The random eikonal's draw: points uniform in [−1.5, 1.5]³ [n, 3]."""
+  return (uniform_points(generator, n, 1.5),)
+
+
+def eikonal_random(model, pts):
+  """The eikonal at random points: the mean of (‖∇ₓsdf‖ − 1)²
+  (--eikonal-random-weight)."""
+  g = model.normals(pts)
+  return torch.mean(torch.square(torch.linalg.vector_norm(g, dim=-1) - 1.0))
+
+
+def smooth_surface(model, pts, delta, sharp: float = 8.0):
+  """Normal smoothness weighted toward the zero set: the mean of
+  exp(−sharp·|sdf|) (the sdf without gradient) times ‖n(x) − n(x + δ)‖²
+  (--smooth-surface-weight)."""
+  w = torch.exp(-sharp * torch.abs(model.sdf_value(pts).detach()))
+  n0 = model.normals(pts)
+  n1 = model.normals(pts + delta)
+  return torch.mean(w * torch.sum(torch.square(n0 - n1), dim=-1))
 
 
 # ---- the dynamic models' point-sampled terms ----------------------------
@@ -189,6 +265,9 @@ def spline_pt0(model, pts):
 
 # name -> (draws from a generator, the term on the model and those draws)
 POINT_REGULARIZERS: Dict[str, Tuple[Callable, Callable]] = {
+    "smooth_normals": (smooth_draws, smooth_normals),
+    "eikonal_random": (eikonal_draws, eikonal_random),
+    "smooth_surface": (smooth_draws, smooth_surface),
     "dyn_divergence": (divergence_draws, dyn_divergence),
     "ffjord_div": (divergence_draws, ffjord_div),
     "spline_length": (spline_draws, spline_length),
@@ -196,14 +275,25 @@ POINT_REGULARIZERS: Dict[str, Tuple[Callable, Callable]] = {
 }
 
 
+# the terms that take the smoothing options (--smooth-eps, --smooth-eps-rng,
+# --smooth-n-ord): "ords" goes to the term, the others to its draws
+_SMOOTH_REGS = {"smooth_normals": ("eps", "eps_rng", "ords"),
+                "smooth_surface": ("eps", "eps_rng")}
+
+
 def point_regularizers(model, generator: torch.Generator,
-                       coeffs: Dict[str, float]):
+                       coeffs: Dict[str, float],
+                       smooth_opts: Optional[Dict] = None):
   """Σ coeff·term over the active point-sampled coefficients, in the
   order of `coeffs`, each term drawing from `generator` in turn;
-  differentiable in the model's parameters by autograd."""
+  differentiable in the model's parameters by autograd. `smooth_opts`
+  ({"eps", "eps_rng", "ords"}) reach the smoothness terms."""
   total = 0.0
   for name, c in (coeffs or {}).items():
     if c and name in POINT_REGULARIZERS:
       draws, term = POINT_REGULARIZERS[name]
-      total = total + c * term(model, *draws(generator))
+      opts = {k: smooth_opts[k] for k in _SMOOTH_REGS.get(name, ())
+              if smooth_opts and k in smooth_opts}
+      ords = {"ords": opts.pop("ords")} if "ords" in opts else {}
+      total = total + c * term(model, *draws(generator, **opts), **ords)
   return total

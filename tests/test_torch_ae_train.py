@@ -273,8 +273,8 @@ def test_runner_trains_ae_on_cpu(tmp_path, extra, path):
 def test_runner_ae_ref_compat_and_other_models_raise(tmp_path):
   with pytest.raises(NotImplementedError, match="Queue 1 #13"):
     _run(tmp_path, "ref", "--epochs", "0", "--ref-compat")
-  with pytest.raises(NotImplementedError, match="--model sdf"):
-    runner.main(["--data-kind", "synthetic", "--model", "sdf", "--size",
+  with pytest.raises(NotImplementedError, match="--model voxel"):
+    runner.main(["--data-kind", "synthetic", "--model", "voxel", "--size",
                  "4", "--num-views", "1", "--epochs", "0", "--outdir",
                  str(tmp_path / "v")], device="cpu")
   with pytest.raises(NotImplementedError, match="latent_l2"):

@@ -73,7 +73,7 @@ def _port_files():
 
 def test_port_and_chip_smoke_import_no_jax_and_no_root_runner():
   files = _port_files()
-  assert len(files) >= 41, files
+  assert len(files) >= 42, files
   names = {os.path.relpath(f, REPO) for f in files}
   assert {"nerf_atlas_tpu_torch/ops/kernels/render_ae.py",
           "nerf_atlas_tpu_torch/ops/kernels/render.py",
@@ -85,6 +85,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_root_runner():
           "nerf_atlas_tpu_torch/models/volsdf.py",
           "nerf_atlas_tpu_torch/models/dyn.py",
           "nerf_atlas_tpu_torch/ops/bezier.py",
+          "nerf_atlas_tpu_torch/ops/march.py",
           "nerf_atlas_tpu_torch/ops/kernels/render_dyn.py",
           "nerf_atlas_tpu_torch/ops/sampling.py",
           "nerf_atlas_tpu_torch/train/driver.py",

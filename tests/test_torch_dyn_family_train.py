@@ -472,5 +472,5 @@ def test_render_maps_and_frames_over_time():
   long = driver.init_model(models.LongDynamicNeRF(steps=8), seed=0)
   with pytest.raises(KeyError, match="rigidity"):
     driver.render_view(long, ds, 0, mode="rigidity")
-  with pytest.raises(NotImplementedError, match="normals"):
+  with pytest.raises(KeyError, match="normals"):   # an SDF model's map
     driver.render_view(model, ds, 0, mode="normals")

@@ -106,7 +106,7 @@ def test_render_view_modes_match_jax():
     t = driver.render_view(tmodel, tds, 0, chunk=24, mode=mode)
     assert t.shape == j.shape, mode
     np.testing.assert_allclose(t, j, atol=atol, rtol=0, err_msg=mode)
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(KeyError, match="normals"):    # an SDF model's map
     driver.render_view(tmodel, tds, 0, mode="normals")
 
 
@@ -124,15 +124,17 @@ def test_write_png_roundtrips(tmp_path):
     (["--epochs", "5", "--crop-size", "8"], NotImplementedError),
     (["--epochs", "5", "--mesh-devices", "4"], NotImplementedError),
     (["--epochs", "5", "--data-parallel"], NotImplementedError),
-    (["--epochs", "5", "--smooth-eps", "0.01"], NotImplementedError),
-    (["--epochs", "5", "--smooth-n-ord", "1"], NotImplementedError),
+    # the smoothing options and --depth-query-normal run since the SDF
+    # family's slice (tests/test_torch_sdf_train.py)
+    (["--epochs", "5", "--omit-bg"], NotImplementedError),
+    (["--epochs", "5", "--train-parts", "refl"], NotImplementedError),
     (["--param-file", "x.json"], NotImplementedError),
     (["--model", "coarse_fine", "--enc-kind", "ref-hash"],
      NotImplementedError),
     (["--enc-kind", "ref-hash"], NotImplementedError),
     (["--model", "voxel"], NotImplementedError),
     (["--data-kind", "dnerf"], NotImplementedError),
-    (["--depth-query-normal"], NotImplementedError),
+    (["--normals-from-depth"], NotImplementedError),
 ])
 def test_runner_rejects_what_is_not_ported(argv, error, tmp_path):
   base = ["--data-kind", "synthetic", "--size", "4", "--num-views", "1",

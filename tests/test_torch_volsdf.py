@@ -354,18 +354,24 @@ def test_kink_free_rule_flags_near_zero_pre_activations(oracle):
 
 
 def test_unported_sdf_kinds_and_options_raise():
-  from nerf_atlas_tpu_torch.models.sdf import load_sdf_shape
+  """Since the SDF family's slice every shape kind, the bounding sphere and
+  the surface render exist (held against JAX in tests/test_torch_sdf.py);
+  the occlusion, integrators and lights still raise, and an unknown shape
+  kind."""
+  from nerf_atlas_tpu_torch.models.sdf import UnitSphere, load_sdf_shape
   for kind in ("siren", "curl-mlp", "local", "spheres", "triangles"):
-    with pytest.raises(NotImplementedError, match="Queue 1 #10/#13"):
-      load_sdf_shape(kind)
-  with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-    load_sdf_shape("mlp", bounded=True)
+    assert type(load_sdf_shape(kind)).__name__ != "MLP"
+    assert isinstance(models.VolSDF(sdf_kind=kind).shape,
+                      type(load_sdf_shape(kind)))
+  assert isinstance(load_sdf_shape("mlp", bounded=True), UnitSphere)
+  with pytest.raises(NotImplementedError, match="unknown sdf kind"):
+    load_sdf_shape("octahedron")
   for kw in (dict(occ_kind="all-learned"), dict(integrator_kind="direct"),
              dict(light_kind="field")):
     with pytest.raises(NotImplementedError, match="Queue 1 #13"):
       models.VolSDF(**kw)
-  with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-    models.VolSDF().surface_render(torch.zeros(1, 6))
+  out = models.VolSDF().surface_render(torch.zeros(1, 6))
+  assert set(out) == {"rgb", "hits", "throughput"}
   assert isinstance(models.load_model("volsdf"), models.VolSDF)
 
 

@@ -272,8 +272,9 @@ def test_gates_engage_the_volsdf_paths():
   assert driver._fused_enc_kind(no_sphere) == "volsdf"
   assert driver._kernel_kw(no_sphere)["sphere_init"] is False
   driver.check_config(driver.TrainConfig(reg_coeffs={
-      "eikonal": 0.1, "volsdf_scale": 1e-3}), "volsdf")
-  for key in ("surface_eikonal", "latent_l2", "eikonal_random"):
+      "eikonal": 0.1, "volsdf_scale": 1e-3, "surface_eikonal": 0.1,
+      "eikonal_random": 0.1}), "volsdf")       # the last two since the family
+  for key in ("latent_l2", "smooth_occ", "view_variance"):
     with pytest.raises(NotImplementedError, match=key):
       driver.check_config(driver.TrainConfig(reg_coeffs={key: 0.1}),
                           "volsdf")
@@ -327,13 +328,12 @@ def test_runner_trains_volsdf_on_cpu(tmp_path, untrained, extra, path):
 def test_runner_renders_volsdf_and_raises_on_unported_options(tmp_path):
   res, _ = _run(tmp_path, "render", "--epochs", "0", "--no-sphere-init")
   assert "engaged_path" not in res and np.isfinite(res["test"]["psnr_mean"])
-  for flags, item in ((("--ref-compat",), "Queue 1 #13"),
-                      (("--occ-kind", "all-learned"), "Queue 1 #13"),
+  # --ref-compat, the other shapes, --volsdf-alternate and the surface
+  # eikonal run since the SDF family's slice (tests/test_torch_sdf_train.py)
+  for flags, item in ((("--occ-kind", "all-learned"), "Queue 1 #13"),
                       (("--integrator-kind", "direct"), "Queue 1 #13"),
-                      (("--sdf-kind", "siren"), "Queue 1 #10/#13"),
-                      (("--epochs", "2", "--volsdf-alternate"),
-                       "Queue 1 #10"),
-                      (("--epochs", "2", "--surface-eikonal", "0.1"),
-                       "surface_eikonal")):
+                      (("--light-kind", "field"), "Queue 1 #13"),
+                      (("--epochs", "2", "--view-variance-weight", "0.1"),
+                       "view_variance")):
     with pytest.raises(NotImplementedError, match=item):
       _run(tmp_path, "bad", "--epochs", "0", *flags)
