@@ -138,14 +138,14 @@ Phases, each printing its lines before the next starts:
      sweep's volsdf_eikonal recipe (300 steps), which must engage the
      one-kernel step, launch K8b once per step and K8f in eval, and beat
      all-black by 2 dB on both splits; 5h. dnerf-train-4096, the sweep's
-     dnerf_dx recipe (300 steps), and 5i. dnerf-spline-train-4096, its
-     dnerf_spline_dp recipe (--spline 4 --dp-weight 1e-3, 300 steps), each
+     dnerf_dx recipe (200 steps), and 5i. dnerf-spline-train-4096, its
+     dnerf_spline_dp recipe (--spline 4 --dp-weight 1e-3, 200 steps), each
      through the one-kernel step (K9b once per step, K9f in eval, nothing
      else), both splits 2 dB over all-black; 5j. coarse_fine-train-4096,
-     the sweep's coarse_fine_mip recipe (300 steps), through the
+     the sweep's coarse_fine_mip recipe (200 steps), through the
      two-kernel path (K1 and K2 twice per step, K1 twice per eval chunk,
      nothing else), both splits 2 dB over all-black; 5k.
-     dnerf-spline-reg-train-4096, the dnerf_spline_dp recipe (300 steps)
+     dnerf-spline-reg-train-4096, the dnerf_spline_dp recipe (200 steps)
      with --spline-len-decay, --spline-pt0-decay and
      --dyn-divergence-weight 1e-3, through the two-kernel path (K9f with
      its dp² column and K9b-G once per step, the regularizers by autograd
@@ -165,7 +165,23 @@ Phases, each printing its lines before the next starts:
      --smooth-normals-weight 1e-3 (200 steps) through the two-kernel path
      (K8f with its eikonal column and K8b-G once per step, the smoothness
      term by autograd beside them, K8f in eval, nothing else), its loss
-     falling;
+     falling; 5o. captured scenes: beside phase 2, on-disk fixtures written
+     at their formats' sizes from the procedural scene rendered on the card
+     (`testing.write_nerf_synthetic`, `write_dtu`: a NeRF-synthetic scene
+     of 12 train + 4 test views at 800x800 RGBA, a D-NeRF scene of the same
+     size with times, a DTU scan of 12 views at 1600x1200 RGB with masks
+     and cameras.npz; row r of each PNG filtered by r mod 5); then through
+     the runner, each load's decode + resize seconds per split: the
+     makefile's `original` recipe (PlainNeRF --mip cone, size 128, batch
+     4096, 64 samples), its `dtu` recipe (VolSDF, size 192, batch 1024,
+     eikonal 0.1) and its `dnerf` recipe (size 128, batch 2048, --dp-weight
+     1e-3), CAPTURED_STEPS steps each on `fused-one-kernel` with K3-cone,
+     K8b-L and K9b-L once a step, K1-cone, K8f and K9f in eval and nothing
+     else, the loss falling and train PSNR 2 dB over all-black; then
+     BASELINE config #1 (--model tiny --data-kind original, size 64,
+     --crop-size 32 --loss-fns l2 ssim fft --style-img <a test view>
+     --msssim-loss, CROP_STEPS steps) on the module path: no kernel in
+     training (K1-tiny once per eval view), MS-SSIM written for each view;
   6. timing: one 800x800x64 frame through render_view (kernel) and through
      the plain-torch reference, one 65536-ray K1 call and one 65536-ray K2
      call of each; per train step at 4096x64: K3, K1 + K2, the plain step
@@ -231,6 +247,10 @@ first: the loss of every step and the trained parameters bit for bit,
 and the eval PSNRs. Exits 1 where two loss curves or two trained models
 differ.
 
+With `--decode-views N` it runs phase 1 and then only a NeRF-synthetic
+split of N views at 800x800 RGBA written as phase 5o writes it, and times
+its load (decode + resize to 128) on the card's host.
+
 With `--k5f-against ROOT [ROOT ...]` it runs phase 1 and then only K5f,
 from this tree and from each ROOT's csrc/hash_encode.cu (a checkout of an
 earlier commit, or a copy of the source), each held to the plain version
@@ -248,6 +268,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -348,7 +369,9 @@ K4_MODES = ("posenc", "tiny", "cone", "cylinder")
 # seed 0, one run, the two-kernel path): a record, not a gate
 CF_TRAIN_ARGV = (TRAIN_ARGV[:3] + ["coarse_fine", "--mip", "cone"]
                  + TRAIN_ARGV[6:])
-CF_STEPS = 300
+# (300 steps until the captured scenes' phase 5o joined: cut to 200 to keep
+# the run without arguments inside its time limit)
+CF_STEPS = 200
 FINE_STEPS = 64
 QUALITY_R05_CF = (33.359, 32.386)
 # the kernel modes CoarseFineNeRF takes (K1/K2 with per-ray ts, K6)
@@ -374,10 +397,11 @@ DNERF_SPLINE_ARGV = DNERF_TRAIN_ARGV + ["--spline", "4", "--dp-weight",
                                         "1e-3"]
 DNERF_SPLINE = 4
 DNERF_DP = 1e-3
-# (500 steps until the dynamic family's phases joined: cut to 300 to keep
-# the run without arguments inside its time limit)
-DNERF_STEPS = 300
-DNERF_SPLINE_STEPS = 300
+# (500 steps until the dynamic family's phases joined, then 300 until the
+# captured scenes' phase 5o joined: cut to keep the run without arguments
+# inside its time limit)
+DNERF_STEPS = 200
+DNERF_SPLINE_STEPS = 200
 # the rest of the dynamic family: phase 3n's module forwards on the card
 # against the CPU (1024 rays x 64 steps; rgb, dp and rigidity 1e-4 abs;
 # each regularizer's value 1e-5 relative and each parameter gradient 1e-2
@@ -440,6 +464,31 @@ ALT_STEPS = 20
 MAPS_SIZE = 64
 VOLSDF_SMOOTH_ARGV = VOLSDF_TRAIN_ARGV + ["--smooth-normals-weight", "1e-3"]
 VOLSDF_SMOOTH_STEPS = 200
+# phase 5o: the makefile's dataset recipes on on-disk fixtures
+# (makefile:92-124), and BASELINE config #1
+CAPTURED_VIEWS = (12, 4)                   # NeRF-synthetic train, test
+CAPTURED_SIZE = 800
+DTU_VIEWS, DTU_W, DTU_H = 12, 1600, 1200
+CAPTURED_STEPS = 100
+CROP_STEPS = 50
+CAPTURED_RUNS = (
+    # (tag, scene, argv, train kernel, eval kernel; each a `_wrappers` key:
+    # K3 in cone mode, K8b and K9b in loss mode)
+    ("original", "lego", ["--data-kind", "original", "--model", "plain",
+                          "--size", "128", "--batch-size", "4096", "--steps",
+                          "64", "-lr", "5e-4", "--mip", "cone",
+                          "--sigmoid-kind", "thin"], "K3", "K1"),
+    ("dtu", "scan97", ["--data-kind", "dtu", "--model", "volsdf", "--size",
+                       "192", "--batch-size", "1024", "--steps", "64", "-lr",
+                       "5e-4", "--eikonal-weight", "0.1"], "K8b", "K8f"),
+    ("dnerf", "jumpingjacks", ["--data-kind", "dnerf", "--model", "plain",
+                               "--dyn-model", "plain", "--size", "128",
+                               "--batch-size", "2048", "--steps", "64", "-lr",
+                               "5e-4", "--dp-weight", "1e-3"], "K9b", "K9f"))
+CROP_ARGV = ["--data-kind", "original", "--model", "tiny", "--size", "64",
+             "--batch-size", "4096", "--steps", "64", "-lr", "5e-4",
+             "--crop-size", "32", "--loss-fns", "l2", "ssim", "fft",
+             "--msssim-loss"]
 QUALITY_R05_DNERF = (33.236, 26.654)
 QUALITY_R05_DNERF_SPLINE = (33.279, 26.543)
 DNERF_MODES = (("cp", 0), ("cp", DNERF_SPLINE), ("posenc", 0),
@@ -3764,6 +3813,154 @@ def _train_main_oracle(port_runner, k1, loaders, driver, dev, tag, extra,
         f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
 
 
+def _captured_fixtures(testing, root, dev):
+  """Phase 5o's scenes (beside phase 2): the procedural scene rendered on
+  the card and written in each dataset's on-disk format at its native
+  size, every PNG row r filtered by r mod 5 (zlib level 1)."""
+  t0 = time.perf_counter()
+  kw = dict(device=dev, level=1, chunk=1 << 18)
+  testing.write_nerf_synthetic(os.path.join(root, "lego"), *CAPTURED_VIEWS,
+                               CAPTURED_SIZE, **kw)
+  testing.write_nerf_synthetic(os.path.join(root, "jumpingjacks"),
+                               *CAPTURED_VIEWS, CAPTURED_SIZE, dynamic=True,
+                               **kw)
+  testing.write_dtu(os.path.join(root, "scan97"), DTU_VIEWS, DTU_W, DTU_H,
+                    **kw)
+  print(f"[data] fixtures: NeRF-synthetic and D-NeRF {CAPTURED_VIEWS[0]} + "
+        f"{CAPTURED_VIEWS[1]} views at {CAPTURED_SIZE}x{CAPTURED_SIZE} RGBA, "
+        f"DTU {DTU_VIEWS} views at {DTU_W}x{DTU_H} RGB + masks, rendered and "
+        f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+@contextlib.contextmanager
+def _timed_loads(port_runner):
+  """The runner's `load`, timed while the block runs: yields a list that
+  gains (split, seconds, views, all-black PSNR) per call."""
+  inner, record = port_runner.load, []
+
+  def load(path, data_kind=None, training=True, **kw):
+    t0 = time.perf_counter()
+    bundle = inner(path, data_kind=data_kind, training=training, **kw)
+    px = bundle.labels[0] if isinstance(bundle.labels, tuple) else \
+        bundle.labels
+    record.append(("train" if training else "test",
+                   time.perf_counter() - t0, len(px),
+                   _black_psnr(torch.as_tensor(px))))
+    return bundle
+
+  port_runner.load = load
+  try:
+    yield record
+  finally:
+    port_runner.load = inner
+
+
+def _captured_run(port_runner, root, scene, argv, steps):
+  """One runner call on a phase-5o scene -> (results, wall s, launches,
+  loads)."""
+  with tempfile.TemporaryDirectory() as outdir, \
+      _timed_loads(port_runner) as loads:
+    full = ["-d", os.path.join(root, scene), *argv, "--epochs", str(steps),
+            "--seed", "0", "--nosave", "--valid-freq", "0", "--outdir",
+            outdir]
+    (results, secs), counts = _counted(
+        lambda: _sync_time(lambda: port_runner.main(full)))
+  return results, secs, counts, loads
+
+
+def _loads_text(loads) -> str:
+  return ", ".join(f"{split} {n} views {secs:.2f} s"
+                   for split, secs, n, _ in loads)
+
+
+def _captured(port_runner, root):
+  """Phase 5o: the makefile's dataset recipes on the on-disk scenes, then
+  BASELINE config #1 (module docstring). Returns the launches per
+  kernel, summed over the runs."""
+  total = {}
+  for tag, scene, argv, train_k, eval_k in CAPTURED_RUNS:
+    results, secs, counts, loads = _captured_run(port_runner, root, scene,
+                                                 argv, CAPTURED_STEPS)
+    losses = [h["loss"] for h in results["history"]]
+    black = {split: b for split, _, _, b in loads}
+    others = {k: v for k, v in counts.items()
+              if k not in (train_k, eval_k) and v}
+    if (results["engaged_path"] != "fused-one-kernel"
+        or counts[train_k] != CAPTURED_STEPS or counts[eval_k] <= 0
+        or others or not all(math.isfinite(v) for v in losses)
+        or not losses[-1] < losses[0]
+        or not results["train"]["psnr_mean"] >= black["train"] + 2.0):
+      raise RuntimeError(f"captured {tag}: path {results['engaged_path']}, "
+                         f"launches {counts}, losses {losses}, PSNR train "
+                         f"{results['train']['psnr_mean']} (all-black "
+                         f"{black['train']})")
+    print(f"[captured] {tag} ({' '.join(argv[2:])}) {CAPTURED_STEPS} steps: "
+          f"{secs:.2f} s end to end | decode + resize: {_loads_text(loads)} "
+          f"| path {results['engaged_path']} | launches {train_k}-"
+          f"{'cone' if train_k == 'K3' else 'L'} {counts[train_k]}, {eval_k}"
+          f"{'-cone' if eval_k == 'K1' else ''} {counts[eval_k]} in eval | loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} | PSNR train "
+          f"{results['train']['psnr_mean']:.3f} test "
+          f"{results['test']['psnr_mean']:.3f} (all-black "
+          f"{black['train']:.3f} / {black['test']:.3f})", flush=True)
+    for k, v in counts.items():
+      total[k] = total.get(k, 0) + v
+  style = os.path.join(root, "lego", "test", "r_0.png")
+  results, secs, counts, loads = _captured_run(
+      port_runner, root, "lego", CROP_ARGV + ["--style-img", style],
+      CROP_STEPS)
+  losses = [h["loss"] for h in results["history"]]
+  # eval renders each view in one K1-tiny call (64x64 < 65536 rays)
+  eval_views = sum(len(results[split]["psnrs"]) for split in
+                   ("train", "test"))
+  trained = {k: v for k, v in counts.items() if v}
+  trained["K1"] = trained.get("K1", 0) - eval_views
+  trained = {k: v for k, v in trained.items() if v}
+  ssims = results["test"]["ssims"]
+  if (results["engaged_path"] != "oracle" or trained
+      or not all(math.isfinite(v) for v in losses)
+      or len(ssims) != CAPTURED_VIEWS[1]
+      or not all(math.isfinite(v) for v in ssims)):
+    raise RuntimeError(f"captured crop run: path {results['engaged_path']}, "
+                       f"launches {counts}, losses {losses}, MS-SSIM {ssims}")
+  print(f"[captured] BASELINE config #1 ({' '.join(CROP_ARGV[2:])} "
+        f"--style-img <test view 0>) {CROP_STEPS} steps: {secs:.2f} s end to "
+        f"end | decode + resize: {_loads_text(loads)} | path "
+        f"{results['engaged_path']} | kernel launches in training 0 (K1 "
+        f"{counts['K1']} in eval, one per view) | loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} | PSNR train {results['train']['psnr_mean']:.3f} "
+        f"test {results['test']['psnr_mean']:.3f} | MS-SSIM train "
+        f"{np.mean(results['train']['ssims']):.4f} test "
+        f"{np.mean(ssims):.4f}", flush=True)
+  return total
+
+
+def _decode_views(views: int) -> int:
+  """`--decode-views N`: one NeRF-synthetic split of N views at 800x800
+  RGBA written as phase 5o writes it, and its load timed."""
+  from nerf_atlas_tpu_torch import testing
+  from nerf_atlas_tpu_torch.data import loaders
+  root = tempfile.mkdtemp(prefix="decode_")
+  try:
+    t0 = time.perf_counter()
+    testing.write_nerf_synthetic(root, views, 1, CAPTURED_SIZE,
+                                 device=torch.device("cuda"), level=1,
+                                 chunk=1 << 18)
+    t1 = time.perf_counter()
+    bundle = loaders.load(root, "original", training=True, size=128)
+    t2 = time.perf_counter()
+    bundle = loaders.load(root, "original", training=True, size=800)
+    t3 = time.perf_counter()
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  print(f"[data] {views} views at {CAPTURED_SIZE}x{CAPTURED_SIZE} RGBA (rows "
+        f"filtered r mod 5): written in {t1 - t0:.2f} s; loaded (decode + "
+        f"INTER_AREA to 128) in {t2 - t1:.2f} s, (decode alone, size 800) in "
+        f"{t3 - t2:.2f} s; labels {tuple(bundle.labels.shape)} on "
+        f"{os.cpu_count()} host cores", flush=True)
+  return 0
+
+
 # phase 7's recipes: (name, argv, steps, QUALITY_r05 record or None)
 QUALITY_RECIPES = (
     ("plain_cp", TRAIN_ARGV, QUALITY_STEPS, None),
@@ -3975,6 +4172,10 @@ def main(argv=None):
                       default=None,
                       help="run only phase 5g's recipe from each checkout "
                            "ROOT and compare the runs (module docstring)")
+  parser.add_argument("--decode-views", type=int, default=None,
+                      metavar="N",
+                      help="run only the load of an N-view 800x800 RGBA "
+                           "NeRF-synthetic split (`_decode_views`)")
   parser.add_argument("--quality-only", action="store_true",
                       help="run phase 1 and then only phase 7 (the kernels "
                            "its recipes launch build as they are first "
@@ -4002,6 +4203,8 @@ def main(argv=None):
     return _volsdf_repeat(args.volsdf_repeat)
   if args.k5f_against:
     return _k5f_against(card, args.k5f_against)
+  if args.decode_views:
+    return _decode_views(args.decode_views)
 
   from nerf_atlas_tpu_torch import models, testing
   from nerf_atlas_tpu_torch import runner as port_runner
@@ -4040,6 +4243,9 @@ def main(argv=None):
   _phase("5s", _train_main_sdf, port_runner, k1, loaders, driver, dev)
   _phase("3s", _check_sdf_family, port_runner, models, driver, loaders, k1,
          dev)
+  # 5o's on-disk scenes
+  captured_root = tempfile.mkdtemp(prefix="captured_")
+  _phase("5o-fixtures", _captured_fixtures, testing, captured_root, dev)
   jobs, built = _build_finish(build, pending)
 
   # ---- 3. kernels vs reference on the card ----
@@ -4165,6 +4371,11 @@ def main(argv=None):
   # ---- 5v. volsdf-smooth-train-4096: K8f + eikonal and K8b-G ----
   train_k8s = _phase("5v", _train_main_volsdf_smooth, port_runner, k1,
                      loaders, dev)
+  # ---- 5o. captured scenes: the makefile's dataset recipes, config #1 ----
+  try:
+    captured = _phase("5o", _captured, port_runner, captured_root)
+  finally:
+    shutil.rmtree(captured_root, ignore_errors=True)
 
   # ---- 6. timing at the main path's shapes ----
   t_phase = time.perf_counter()
@@ -4287,33 +4498,39 @@ def main(argv=None):
       ("render_ae_bwd", "render_ae_bwd.cu", "render_ae.py:166",
        train_ae["K7b"], max_k7b, *ae_t["k7b"], None),
   ]
+  # 5o's launches join their rows: the original recipe's K3-cone and
+  # K1-cone, the dtu recipe's K8b-L and K8f, the dnerf recipe's K9b-L and
+  # K9f (each phase-5o count holds one recipe's launches alone)
   for mode in K4_MODES:
+    extra = (captured["K1"], captured["K3"]) if mode == "cone" else (0, 0)
     rows += [
         (f"render_fwd_{mode}", "render_fwd.cu", "render.py:586",
-         render_k4[mode], max_k4[mode][0], *k4_t[mode][0], None),
+         render_k4[mode] + extra[0], max_k4[mode][0], *k4_t[mode][0], None),
         (f"render_bwd_{mode}", "render_bwd.cu", "render.py:915",
-         train_k4[mode], max_k4[mode][1], *k4_t[mode][1], None)]
+         train_k4[mode] + extra[1], max_k4[mode][1], *k4_t[mode][1], None)]
   rows += [
       ("render_volsdf_fwd", "render_volsdf_fwd.cu", "render_volsdf.py:262",
-       render_k8["K8f"] - render_k8["K8f-eik"],
+       render_k8["K8f"] - render_k8["K8f-eik"] + captured["K8f"],
        max(max_k8f, k8_t["frame_err"]), *k8_t["K8f"], None),
       ("render_volsdf_fwd_eikonal", "render_volsdf_fwd.cu",
        "render_volsdf.py:262", render_k8["K8f-eik"] + train_k8["K8f-eik"]
        + train_k8s["K8f-eik"], max_k8f, *k8_t["K8f eikonal"], None),
       ("render_volsdf_bwd", "render_volsdf_bwd.cu", "render_volsdf.py:306",
-       train_k8["K8b"], max_k8b, *k8_t["K8b-L eikonal"], None),
+       train_k8["K8b"] + captured["K8b"], max_k8b, *k8_t["K8b-L eikonal"],
+       None),
       # the two-kernel step of 5v: K8b in cotangent mode with the eikonal
       ("render_volsdf_bwd_grad_eikonal", "render_volsdf_bwd.cu",
        "render_volsdf.py:306", train_k8s["K8b-G"], max_k8b,
        *k8_t["K8b-G eikonal"], None),
       ("render_dyn_fwd", "render_dyn_fwd.cu", "render_dyn.py:157",
-       render_k9, max(max_k9f, k9_t["frame_err"]), *k9_t[("dx", "K9f")],
-       None),
+       render_k9 + captured["K9f"], max(max_k9f, k9_t["frame_err"]),
+       *k9_t[("dx", "K9f")], None),
       ("render_dyn_fwd_spline", "render_dyn_fwd.cu", "render_dyn.py:157",
        train_k9s["K9f"], max_k9f,
        *k9_t[(f"spline S={DNERF_SPLINE}", "K9f")], None),
       ("render_dyn_bwd", "render_dyn_bwd.cu", "render_dyn.py:231",
-       train_k9["K9b"], max_k9b, *k9_t[("dx", "K9b-L")], None),
+       train_k9["K9b"] + captured["K9b"], max_k9b, *k9_t[("dx", "K9b-L")],
+       None),
       ("render_dyn_bwd_spline_dp", "render_dyn_bwd.cu", "render_dyn.py:231",
        train_k9s["K9b"], max_k9b,
        *k9_t[(f"spline S={DNERF_SPLINE}", "K9b-L dp")], None),

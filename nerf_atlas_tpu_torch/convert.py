@@ -26,9 +26,10 @@ other shapes' trees (siren's shape/mlp; spheres' shape/centers,
 shape/radii and shape/resid; triangles' shape/tris), a bounded shape's
 (the same under shape/inner) and the SDF renderer's (shape and refl)
 map one to one. VolSDF's raw scale `density_scale` is a 0-d array and
-stays one.
+stays one. StyleLoss's params/conv_0..2 map to `conv_0..2`.
 A flax `Dense.kernel` is [in, out] and a torch `Linear.weight` is
-[out, in], so kernels are transposed. A skip layer's input rows are
+[out, in], so kernels are transposed; a flax `Conv.kernel` [kh, kw, in,
+out] becomes a `Conv2d.weight` [out, in, kh, kw]. A skip layer's input rows are
 ordered [hidden ; init_feat] in both packages, so nothing else moves.
 """
 from __future__ import annotations
@@ -48,8 +49,10 @@ def params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
   def walk(node: Mapping, prefix: str):
-    if "kernel" in node:                       # a flax Dense
-      out[prefix + "weight"] = tensor(node["kernel"]).t().contiguous()
+    if "kernel" in node:                       # a flax Dense or Conv
+      kernel = tensor(node["kernel"])
+      out[prefix + "weight"] = (kernel.permute(3, 2, 0, 1) if kernel.ndim == 4
+                                else kernel.t()).contiguous()
       if "bias" in node:
         out[prefix + "bias"] = tensor(node["bias"])
       return

@@ -1,9 +1,10 @@
 """Device-resident labels + camera: random training ray batches and the
 eval ray grid.
 
-Counterpart of `nerf_atlas_tpu/data/sampler.py:RayDataset`. Crop batches
-(`sample_crop`, for the image-structured losses) arrive with ROADMAP
-Queue 1 #5; until then `--crop-size` raises in the runner.
+Counterpart of `nerf_atlas_tpu/data/sampler.py:RayDataset`: uniform
+random rays over all views and pixels (`sample`), contiguous crops for
+the image-structured losses (`sample_crop`, `crop_at`), and the eval ray
+grid (`view_rays`), with any camera of `cameras.py`.
 """
 from __future__ import annotations
 
@@ -74,6 +75,37 @@ class RayDataset:
                        device=dev)
     pix = self.pixels[view, xy[:, 1], xy[:, 0]]
     rays = self.camera.rays_at(view, xy.to(torch.float32) + 0.5, s,
+                               jitter=jitter, generator=generator)
+    return rays, pix, None if self.times is None else self.times[view], view
+
+  def sample_crop(self, generator: torch.Generator, crop_size: int,
+                  views_per_batch: int = 1, jitter: float = 0.0):
+    """Random contiguous crops from random views (driver.py's crop
+    batches): `views_per_batch` views uniform over all, each crop's
+    top-left corner uniform over [0, max(s − c, 1)) per axis, drawn from
+    `generator`; then `crop_at`."""
+    n, s, c, dev = self.num_views, self.size, crop_size, self.device
+    view = torch.randint(0, n, (views_per_batch,), generator=generator,
+                         device=dev)
+    top_left = torch.randint(0, max(s - c, 1), (views_per_batch, 2),
+                             generator=generator, device=dev)
+    return self.crop_at(view, top_left, crop_size, jitter, generator)
+
+  def crop_at(self, view, top_left, crop_size: int, jitter: float = 0.0,
+              generator: Optional[torch.Generator] = None):
+    """The crops of views `view` [V] at top-left pixels (x, y) `top_left`
+    [V, 2]: pixels [V, c, c, C] (indices clamped to the image, as JAX's
+    gather clamps them) and the rays [V, c, c, 6] at their centres,
+    jittered. Returns (rays, pix, times [V] (None for a static scene),
+    view [V])."""
+    s, c, dev = self.size, crop_size, self.device
+    ar = torch.arange(c, device=dev)
+    grid = torch.stack(torch.meshgrid(ar, ar, indexing="xy"), dim=-1)
+    xy = top_left[:, None, None, :] + grid[None]               # [V, c, c, 2]
+    vidx = view[:, None, None]
+    pix = self.pixels[vidx, xy[..., 1].clamp(0, s - 1),
+                      xy[..., 0].clamp(0, s - 1)]
+    rays = self.camera.rays_at(vidx, xy.to(torch.float32) + 0.5, s,
                                jitter=jitter, generator=generator)
     return rays, pix, None if self.times is None else self.times[view], view
 

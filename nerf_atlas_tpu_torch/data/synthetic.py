@@ -5,7 +5,8 @@ volume-rendered analytically with the port's own integrator. The poses
 come from the same `np.random.default_rng(seed)` draws as the JAX
 package's, so both packages see the same cameras and pixels. In the
 dynamic variant the first sphere orbits with time, each view at its own
-time in [0, 1]. The lit variant arrives with ROADMAP Queue 1 #13.
+time in [0, 1]. The forward-facing variant (`synthetic-ff`) takes LLFF-style
+poses. The lit variant arrives with ROADMAP Queue 1 #13.
 """
 from __future__ import annotations
 
@@ -36,15 +37,21 @@ def look_at(eye, target, up=(0.0, 1.0, 0.0)):
   return c2w
 
 
-def hemisphere_poses(n: int, radius: float = 3.0, seed: int = 0):
-  """n camera-to-world poses [n, 4, 4] looking at the origin, spread over
-  the upper hemisphere (the NeRF-synthetic orbit). The forward-facing
-  variant arrives with the MPI model (ROADMAP Queue 1 #13)."""
+def hemisphere_poses(n: int, radius: float = 3.0, seed: int = 0,
+                     front_facing: bool = False):
+  """n camera-to-world poses [n, 4, 4] looking at the origin: spread over
+  the upper hemisphere (the NeRF-synthetic orbit), or with front_facing
+  clustered in a narrow cone on the −z side looking +z (the LLFF capture
+  geometry)."""
   rng = np.random.default_rng(seed)
   poses = []
   for i in range(n):
-    azim = 2 * math.pi * (i / n) + rng.uniform(0, 0.1)
-    elev = rng.uniform(0.15, 1.2)
+    if front_facing:
+      azim = -math.pi / 2 + (rng.uniform(-0.22, 0.22) if n > 1 else 0.0)
+      elev = rng.uniform(0.25, 0.55)
+    else:
+      azim = 2 * math.pi * (i / n) + rng.uniform(0, 0.1)
+      elev = rng.uniform(0.15, 1.2)
     eye = (radius * math.cos(elev) * math.cos(azim),
            radius * math.sin(elev),
            radius * math.cos(elev) * math.sin(azim))
@@ -89,6 +96,25 @@ def scene_density_rgb(pts, t=None, spheres=None):
   return density, rgb
 
 
+def render_rays(rays, *, t_near=2.0, t_far=4.5, steps=96, times=None,
+                chunk: int = 16384) -> torch.Tensor:
+  """Ground-truth render of the scene along rays [M, 6], on their device;
+  with `times` [M] ray m sees the dynamic scene at times[m]. Returns
+  [M, 4] (rgb + alpha)."""
+  outs = []
+  for i in range(0, rays.shape[0], chunk):
+    pts, ts, _, r_d = rays_ops.compute_pts_ts(rays[i:i + chunk], t_near,
+                                              t_far, steps)
+    density, rgb = scene_density_rgb(
+        pts, None if times is None else times[i:i + chunk, None])
+    _, weights = integrate.alpha_from_density(density, ts, r_d,
+                                              softplus=False)
+    img = integrate.volumetric_integrate(weights, rgb)
+    acc = torch.sum(weights, dim=-1, keepdim=True)
+    outs.append(torch.cat([img, acc], dim=-1))
+  return torch.cat(outs)
+
+
 def render_gt(camera, size: int, *, t_near=2.0, t_far=4.5, steps=96,
               times=None, chunk: int = 16384):
   """Ground-truth render of the scene for every camera view, on the
@@ -100,31 +126,24 @@ def render_gt(camera, size: int, *, t_near=2.0, t_far=4.5, steps=96,
   gy, gx = torch.meshgrid(xs, xs, indexing="ij")
   positions = torch.stack([gx, gy], dim=-1)                 # [S, S, 2]
   flat = camera.sample_positions(positions, size).reshape(-1, 6)
+  tper = None
   if times is not None:
     tper = torch.repeat_interleave(
         torch.as_tensor(times, dtype=torch.float32, device=device),
         size * size)
-  outs = []
-  for i in range(0, flat.shape[0], chunk):
-    pts, ts, _, r_d = rays_ops.compute_pts_ts(flat[i:i + chunk], t_near,
-                                              t_far, steps)
-    density, rgb = scene_density_rgb(
-        pts, None if times is None else tper[i:i + chunk, None])
-    _, weights = integrate.alpha_from_density(density, ts, r_d,
-                                              softplus=False)
-    img = integrate.volumetric_integrate(weights, rgb)
-    acc = torch.sum(weights, dim=-1, keepdim=True)
-    outs.append(torch.cat([img, acc], dim=-1))
-  return torch.cat(outs).reshape(n, size, size, 4).cpu().numpy()
+  out = render_rays(flat, t_near=t_near, t_far=t_far, steps=steps,
+                    times=tper, chunk=chunk)
+  return out.reshape(n, size, size, 4).cpu().numpy()
 
 
 def dataset(num_views: int = 8, size: int = 64, *, dynamic: bool = False,
-            seed: int = 0, device=None):
+            seed: int = 0, front_facing: bool = False, device=None):
   """(labels, camera, None) in the loader contract. Static: labels = imgs
   [N,S,S,4] numpy. Dynamic: labels = (imgs, times [N] float32), times =
-  linspace(0, 1, N). The lit and white-background variants arrive with
-  ROADMAP Queue 1 #13."""
-  poses = hemisphere_poses(num_views, seed=seed)
+  linspace(0, 1, N). front_facing: `hemisphere_poses`' LLFF-style poses.
+  The lit and white-background variants arrive with ROADMAP Queue 1
+  #13."""
+  poses = hemisphere_poses(num_views, seed=seed, front_facing=front_facing)
   camera = cam_lib.NeRFCamera.from_json_transforms(
       poses, camera_angle_x=0.6911, width=size, device=device)
   if dynamic:

@@ -1,7 +1,9 @@
 """The port's entry point: `python -m nerf_atlas_tpu_torch.runner ...`.
 
 Takes the root `runner.py`'s flags (through the port's own copy of its
-parser, `cli.py`) and runs the flow of its `main`: load the data, build
+parser, `cli.py`) and runs the flow of its `main`: load the data (the
+procedural scenes, or captured ones from disk: `-d DIR --data-kind
+original|dnerf|dtu|shiny|pixel-single`, or derived from the path), build
 the model, initialize it from `--seed` or restore `--load`, train for
 `--epochs` steps (through the one-kernel step where the gate allows,
 log.json records the engaged path), then render and score the train and
@@ -10,14 +12,33 @@ test splits (results.txt, test_###.png, with --normals-images,
 rigidity_###.png, with --depth-images depth_###.png, with
 --depth-query-normal query_normals_###.png; --visualize names the same
 maps). On timed data
-(`--data-kind synthetic-dyn`) with a --dyn-model it also writes
+(`--data-kind synthetic-dyn` or `dnerf`) with a --dyn-model it also writes
 --cluster-movement's clusters.png (k-means of the flow at t = 0.5),
 --render-over-time's frames and --render-bezier-keyframes' keyframes. The
 GPU machine has no matplotlib and no imageio, so the loss plot (loss.png)
 is not written, the frames over time are over_time_###.png in place of
 over_time.gif, the keyframes keyframe_##.png, and clusters.png takes
 matplotlib's tab10 palette from ten RGB constants; every image goes
-through `driver.write_png`.
+through `image_io.write_png` (`driver.write_png`). With --crop-size (32
+by itself for --loss-fns ssim|fft and --style-img) training takes image
+crops through the module forward; --msssim-loss adds each view's MS-SSIM
+to results.txt.
+
+Examples (captured scenes: the makefile's dataset recipes):
+  python -m nerf_atlas_tpu_torch.runner -d data/nerf_synthetic/lego \
+      --data-kind original --model plain --size 128 --epochs 50000 \
+      --batch-size 4096 --steps 64 -lr 5e-4 --mip cone --outdir out
+  python -m nerf_atlas_tpu_torch.runner -d data/DTU/scan97 --data-kind dtu \
+      --model volsdf --size 192 --epochs 60000 --batch-size 1024 \
+      --steps 64 -lr 5e-4 --eikonal-weight 0.1 --outdir out
+  python -m nerf_atlas_tpu_torch.runner -d data/dnerf/jumpingjacks \
+      --data-kind dnerf --model plain --dyn-model plain --size 128 \
+      --epochs 80000 --batch-size 2048 --steps 64 -lr 5e-4 \
+      --dp-weight 1e-3 --outdir out
+  python -m nerf_atlas_tpu_torch.runner -d data/nerf_synthetic/lego \
+      --data-kind original --model tiny --size 64 --crop-size 32 \
+      --loss-fns l2 ssim fft --style-img style.png --msssim-loss \
+      --epochs 5000 --batch-size 4096 --outdir out
 
 Examples (procedural scene):
   python -m nerf_atlas_tpu_torch.runner --data-kind synthetic \
@@ -101,7 +122,7 @@ _UNSUPPORTED = (
     ("bendy", "Queue 1 #13"), ("neural_upsample", "Queue 1 #13"),
     ("with_canon", "Queue 1 #11"), ("light_kind", "Queue 1 #13"),
     ("replace", "Queue 1 #13"), ("cam_save_load", "Queue 1 #13"),
-    ("msssim_loss", "Queue 1 #5"), ("exp_bg", "Queue 1 #13"),
+    ("exp_bg", "Queue 1 #13"),
     ("draw_colormap", "Queue 1 #13"), ("normals_from_depth", "Queue 1 #13"),
 )
 # --visualize's names -> the flags they set (runner.py:845-847)
@@ -231,10 +252,10 @@ def make_train_config(args, dynamic: bool = False) -> driver.TrainConfig:
   (`dynamic`: the model is a dynamic one, whose regularizers are carried).
   Flags whose path is not ported raise NotImplementedError naming their
   ROADMAP item (here, or in `driver.check_config`)."""
-  if args.crop_size > 0 or set(args.loss_fns) & {"ssim", "fft"}:
-    raise NotImplementedError(
-        "--crop-size / --loss-fns ssim|fft: crop batches arrive with "
-        "ROADMAP Queue 1 #5")
+  crop_size = args.crop_size
+  if crop_size == 0 and (set(args.loss_fns) & {"ssim", "fft"}
+                         or args.style_img):
+    crop_size = 32   # image-structured losses need image-shaped batches
   if args.train_parts != ["all"]:
     raise NotImplementedError(
         "--train-parts: the refl/occ/path-tf groups and camera training "
@@ -292,7 +313,7 @@ def make_train_config(args, dynamic: bool = False) -> driver.TrainConfig:
       train_only=cli._train_only_substrings(args.train_parts),
       profile_dir=args.profile_dir, save_load_opt=args.save_load_opt,
       alt_train=args.alt_train, inc_fourier_freqs=args.inc_fourier_freqs,
-      crop_size=args.crop_size, style_img=args.style_img,
+      crop_size=crop_size, style_img=args.style_img,
       style_weight=args.style_img_weight,
       model_parallel=args.model_parallel,
       weight_decay=args.decay, serial_idxs=args.serial_idxs,
@@ -342,10 +363,8 @@ def _slice_views(ds, n: int):
   """--train-imgs: keep the first n views."""
   if n <= 0 or n >= ds.num_views:
     return ds
-  cam = ds.camera
   return sampler.RayDataset(
-      pixels=ds.pixels[:n],
-      camera=type(cam)(cam.cam_to_world[:n], cam.focal), size=ds.size,
+      pixels=ds.pixels[:n], camera=ds.camera[:n], size=ds.size,
       times=None if ds.times is None else ds.times[:n])
 
 
@@ -373,6 +392,8 @@ def main(argv=None, device="cuda"):
   load_kwargs = {}
   if args.data_kind in ("synthetic", "synthetic-dyn"):
     load_kwargs["num_views"] = args.num_views
+  if args.data_kind == "dnerf" and args.time_gamma:
+    load_kwargs["time_gamma"] = True
   bundle = load(args.data, data_kind=args.data_kind, training=True,
                 size=args.size, device=device, **load_kwargs)
   ds = sampler.RayDataset.from_bundle(bundle, size=args.size, device=device)
@@ -426,7 +447,8 @@ def main(argv=None, device="cuda"):
                                        ("flow", args.flow_images),
                                        ("rigidity", args.rigidity_images))
                        if on),
-      depth_query_normal=args.depth_query_normal)
+      depth_query_normal=args.depth_query_normal,
+      with_ssim=args.msssim_loss)
   if not args.notraintest:
     results["train"] = driver.test(
         model, ds, out_dir=os.path.join(args.outdir, "train"), **test_kwargs)

@@ -1,11 +1,18 @@
-"""Helpers that hold the kernels against their plain versions: used by
-`chip_smoke.py` and the `cuda` tests, not by any training or rendering
-path."""
+"""Helpers that hold the kernels against their plain versions, and the
+writers of on-disk dataset fixtures (a PNG encoder with every row
+filter; NeRF-synthetic, D-NeRF and DTU scenes rendered from the
+procedural scene): used by `chip_smoke.py` and the tests, not by any
+training or rendering path."""
 from __future__ import annotations
 
+import json
 import math
-from typing import Optional
+import os
+import struct
+import zlib
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -683,3 +690,151 @@ def k5f_emulate(table: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
       contrib = v * w[:, None]
       levels[li] = contrib if levels[li] is None else levels[li] + contrib
   return torch.cat(levels, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# on-disk dataset fixtures
+# ---------------------------------------------------------------------------
+
+_COLOR_TYPES = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
+def filter_rows(raw: np.ndarray, bpp: int,
+                filters: Sequence[int]) -> np.ndarray:
+  """PNG's forward row filters: raw [H, stride] uint8, filters [H] (0
+  None, 1 Sub, 2 Up, 3 Average, 4 Paeth) -> [H, 1 + stride] uint8. Every
+  predictor reads the unfiltered bytes, so each filter is one numpy
+  expression over the image."""
+  x = raw.astype(np.int16)
+  a = np.zeros_like(x)
+  a[:, bpp:] = x[:, :-bpp]
+  b = np.zeros_like(x)
+  b[1:] = x[:-1]
+  c = np.zeros_like(x)
+  c[1:, bpp:] = x[:-1, :-bpp]
+  pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+  paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+  preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+  f = np.asarray(filters)
+  out = (x - preds[f, np.arange(len(f))]) & 255
+  return np.concatenate([f[:, None], out], axis=1).astype(np.uint8)
+
+
+def encode_png(img: np.ndarray, filters: Optional[Sequence[int]] = None,
+               level: int = 6) -> bytes:
+  """An 8-bit (uint8) or 16-bit (uint16) PNG of img [H, W] or [H, W, C]
+  (C = 1-4: grey, grey + alpha, RGB, RGBA), row r filtered by filters[r]
+  (default: r mod 5, so that every unfilter runs)."""
+  img = np.asarray(img)
+  if img.ndim == 2:
+    img = img[..., None]
+  h, w, c = img.shape
+  depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[img.dtype]
+  raw = (img.astype(">u2").view(np.uint8) if depth == 16 else img)
+  raw = np.ascontiguousarray(raw).reshape(h, -1)
+  filters = np.arange(h) % 5 if filters is None else filters
+  rows = filter_rows(raw, c * depth // 8, filters)
+
+  def chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+  return (b"\x89PNG\r\n\x1a\n"
+          + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth,
+                                       _COLOR_TYPES[c], 0, 0, 0))
+          + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+          + chunk(b"IEND", b""))
+
+
+def write_png_filtered(path: str, img: np.ndarray, **kw):
+  """`encode_png` into a file."""
+  os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+  with open(path, "wb") as f:
+    f.write(encode_png(img, **kw))
+
+
+def _u8(img) -> np.ndarray:
+  return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def write_nerf_synthetic(root: str, n_train: int, n_test: int, size: int,
+                         dynamic: bool = False, device=None, level: int = 6,
+                         chunk: int = 16384):
+  """A NeRF-synthetic (or, `dynamic`, D-NeRF) scene of the procedural
+  scene: transforms_{train,test}.json (camera_angle_x 0.6911) and RGBA
+  PNGs train/r_i.png, test/r_i.png at size × size, the train poses from
+  seed 0 and the test poses from seed 1 (`hemisphere_poses`). D-NeRF:
+  each frame's `time` (linspace over the split), the frames listed in a
+  shuffled order. `level`: zlib's; `chunk`: rays per render call.
+  Returns {split: imgs [N, S, S, 4] float32}."""
+  from .data import cameras as cam_lib
+  from .data import synthetic
+  out = {}
+  for split, n, seed in (("train", n_train, 0), ("test", n_test, 1)):
+    poses = synthetic.hemisphere_poses(n, seed=seed)
+    cam = cam_lib.NeRFCamera.from_json_transforms(poses, 0.6911, size,
+                                                  device=device)
+    times = np.linspace(0.0, 1.0, n).astype(np.float32) if dynamic else None
+    imgs = synthetic.render_gt(cam, size, times=times, chunk=chunk)
+    frames = []
+    for i in range(n):
+      rel = f"{split}/r_{i}"
+      write_png_filtered(os.path.join(root, rel + ".png"), _u8(imgs[i]),
+                         level=level)
+      fr = {"file_path": f"./{rel}",
+            "transform_matrix": poses[i].tolist()}
+      if dynamic:
+        fr["time"] = float(times[i])
+      frames.append(fr)
+    if dynamic:
+      frames = [frames[i] for i in np.random.default_rng(seed).permutation(n)]
+    with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+      json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    out[split] = imgs
+  return out
+
+
+def write_dtu(root: str, views: int, width: int, height: int,
+              device=None, level: int = 6,
+              chunk: int = 16384) -> np.ndarray:
+  """A DTU scan of the procedural scene: image/###.png (RGB) and
+  mask/###.png (grey, the alpha above 0.5) at width × height, and
+  cameras.npz with world_mat_i = K [R | t] (OpenCV axes: +z forward, y
+  down; focal from camera_angle_x 0.6911 over the width, centred
+  principal point) and an identity scale_mat_i, the poses those of
+  `hemisphere_poses(views)`. `level`: zlib's; `chunk`: rays per render
+  call. Returns the RGBA renders [V, H, W, 4]."""
+  from .data import cameras as cam_lib
+  from .data import synthetic
+  f = 0.5 * width / math.tan(0.5 * 0.6911)
+  K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
+  flip = np.diag([1.0, -1.0, -1.0])
+  poses = synthetic.hemisphere_poses(views).numpy().astype(np.float64)
+  c2w_cv = poses.copy()
+  c2w_cv[:, :3, :3] = poses[:, :3, :3] @ flip
+  cam = cam_lib.DTUCamera(
+      pose=torch.as_tensor(c2w_cv, dtype=torch.float32, device=device),
+      K=torch.as_tensor(np.tile(K, (views, 1, 1)),
+                        dtype=torch.float32, device=device))
+  ys = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+  xs = torch.arange(width, dtype=torch.float32, device=device) + 0.5
+  gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+  xy = torch.stack([gx, gy], dim=-1)
+  mats, imgs = {}, []
+  for i in range(views):
+    vidx = torch.full(xy.shape[:-1], i, dtype=torch.long, device=device)
+    rays = cam.rays_at(vidx, xy, 0).reshape(-1, 6)
+    img = synthetic.render_rays(rays, chunk=chunk).reshape(
+        height, width, 4).cpu().numpy()
+    imgs.append(img)
+    world = np.eye(4)
+    world[:3] = K @ np.linalg.inv(c2w_cv[i])[:3]
+    mats[f"world_mat_{i}"] = world
+    mats[f"scale_mat_{i}"] = np.eye(4)
+    write_png_filtered(os.path.join(root, "image", f"{i:03d}.png"),
+                       _u8(img[..., :3]), level=level)
+    write_png_filtered(os.path.join(root, "mask", f"{i:03d}.png"),
+                       (img[..., 3] > 0.5).astype(np.uint8) * 255,
+                       level=level)
+  np.savez(os.path.join(root, "cameras.npz"), **mats)
+  return np.stack(imgs)

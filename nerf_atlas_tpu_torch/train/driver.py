@@ -4,7 +4,8 @@ gates, tiled view rendering, per-view PSNR.
 Counterpart of `nerf_atlas_tpu/train/driver.py` (`TrainConfig`,
 `_fused_common_ok`, `_fused_step_fn`, `_fused_train_fn`,
 `make_train_step`, `train`, `init_model`, `_fused_render_fn`,
-`render_view`, `test`, `train_progressive`, `render_over_time`), for
+`render_view`, `test`, `train_progressive`, `render_over_time`,
+`_make_style_fn`), for
 PlainNeRF (cp, hash, posenc, and mip cone or cylinder), TinyNeRF, NeRFAE,
 CoarseFineNeRF, VolSDF (every SDF shape, --volsdf-alternate), the SDF
 surface renderer and the dynamic models (DynamicNeRF: D-NeRF's Δx
@@ -20,9 +21,7 @@ from __future__ import annotations
 
 import math
 import os
-import struct
 import time
-import zlib
 from dataclasses import dataclass, field, fields
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -30,9 +29,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data import sampler as sampler_lib
+from ..data import image_io, sampler as sampler_lib
+from ..data.image_io import write_png  # noqa: F401 (the writer's old home)
 from ..models import (MODEL_KINDS, SDF, CoarseFineNeRF, DynamicNeRF,
                       NeRFAE, PlainNeRF, TinyNeRF, VolSDF, is_dynamic)
+from ..nn.misc import StyleLoss
 from ..ops import integrate, rays as rays_ops
 from ..ops.kernels import render as k1
 from ..ops.kernels import render_ae as k7
@@ -105,6 +106,10 @@ class TrainConfig:
   skip_loss: int = 0
   freeze_substr: Optional[str] = None
   style_weight: float = 0.0
+  # crop batches (the image-structured losses, the style loss): [V, c, c]
+  # crops, V = max(1, batch_size // c²)
+  crop_size: int = 0
+  style_img: Optional[str] = None
   no_fused: bool = False
   smooth_eps: float = 1e-3
   smooth_eps_rng: bool = False
@@ -118,9 +123,6 @@ class TrainConfig:
   profile_dir: Optional[str] = field(default=None,
                                      metadata={"item": "Queue 1 #13"})
   save_load_opt: bool = field(default=False, metadata={"item": "Queue 1 #13"})
-  crop_size: int = field(default=0, metadata={"item": "Queue 1 #5"})
-  style_img: Optional[str] = field(default=None,
-                                   metadata={"item": "Queue 1 #5"})
   inc_fourier_freqs: bool = field(default=False,
                                   metadata={"item": "Queue 1 #13"})
   inc_fourier_rate: float = field(default=1.0005,
@@ -458,12 +460,19 @@ def _fused_train_fn(model, cfg: TrainConfig, ds) -> Optional[Callable]:
 
 
 def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
-                    cfg: TrainConfig, fused_step=None, fused_train=None):
+                    cfg: TrainConfig, fused_step=None, fused_train=None,
+                    style_fn=None):
   """The per-step closure step(i, generator) -> {"loss", "mse"} (device
   scalars; loss = mse + the regularizer): sample a batch, get the
   gradient from the one-kernel step, from the two-kernel path, or from
   the module forward under autograd, mask it (train_only /
-  freeze_substr), and step the optimizer. The hash table's gradient
+  freeze_substr), and step the optimizer. With cfg.crop_size c > 0 the
+  batch is max(1, batch_size // c²) crops [V, c, c] (`sample_crop`; each
+  crop's time its view's), which the kernel gates refuse: the module
+  forward takes them flat and the loss sees them as images
+  (driver.py:694-700); the style loss (`_make_style_fn`, or `style_fn`
+  when given) adds style_weight × its value on the crops' rgb
+  (driver.py:794-795). The hash table's gradient
   comes from K5b. NeRFAE's latent L2 (driver.py:672-683, :813-818) is
   the module's out["latent_l2"] on the oracle path; the fused paths add
   the point-sampled `regularizers.ae_latent_l2` and its autograd
@@ -514,19 +523,29 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
     return regularizers.point_regularizers(model, generator, coeffs,
                                            smooth_opts)
 
+  if style_fn is None:
+    style_fn = _make_style_fn(cfg, device)
+
   def module_loss(rays, pix, generator, timed):
-    """(main, regularized loss) through the module forward."""
+    """(main, regularized loss) through the module forward, on rays [B, 6]
+    whose labels pix are [B, C] or crops [V, c, c, C]."""
     out = model(rays, train=True, generator=generator, **timed)
-    pred = out["rgb"]
+
+    def shaped(v):                     # [B, k] -> pix's leading shape
+      return v.reshape(pix.shape[:-1] + v.shape[-1:])
+
+    pred = shaped(out["rgb"])
     if "sil_logit" in out and pix.shape[-1] > 3:
       main = loss_fn(pred, pix[..., :3]) + F.binary_cross_entropy_with_logits(
-          out["sil_logit"][..., 0], pix[..., 3])
+          shaped(out["sil_logit"])[..., 0], pix[..., 3])
     else:
       if "throughput" in out and pix.shape[-1] > 3:
-        pred = torch.cat([pred, out["throughput"]], dim=-1)
+        pred = torch.cat([pred, shaped(out["throughput"])], dim=-1)
       main = loss_fn(pred, pix)
     if "coarse_rgb" in out:
-      main = main + loss_fn(out["coarse_rgb"], pix)
+      main = main + loss_fn(shaped(out["coarse_rgb"]), pix)
+    if style_fn is not None:
+      main = main + cfg.style_weight * style_fn(shaped(out["rgb"]))
     return main, (main + regularizers.total_regularizer(out, coeffs)
                   + points(generator))
 
@@ -563,9 +582,18 @@ def make_train_step(model, ds, loss_fn, opt: optim_lib.TrainOptimizer,
   def step(i: int, generator: torch.Generator):
     phase = (i // cfg.alt_train) % 2 if cfg.alt_train else 0
     opt.zero_grad()
-    rays, pix, t, _ = ds.sample(
-        generator, cfg.batch_size, jitter=cfg.pixel_jitter,
-        serial_step=i if cfg.serial_idxs else None, end_bias=cfg.end_bias)
+    if cfg.crop_size > 0:
+      c = cfg.crop_size
+      rays, pix, t, _ = ds.sample_crop(
+          generator, c, views_per_batch=max(1, cfg.batch_size // (c * c)),
+          jitter=cfg.pixel_jitter)
+      rays = rays.reshape(-1, 6)
+      if t is not None:
+        t = t.repeat_interleave(c * c)
+    else:
+      rays, pix, t, _ = ds.sample(
+          generator, cfg.batch_size, jitter=cfg.pixel_jitter,
+          serial_step=i if cfg.serial_idxs else None, end_bias=cfg.end_bias)
     timed = {"times": t} if dynamic else {}
     if fused_step is not None:
       main, grads = fused_step(rays, pix, generator, **timed)
@@ -741,6 +769,32 @@ def _save_valid_image(model, ds, cfg: TrainConfig, step: int):
             to_u8(img[..., :3]))
 
 
+def _make_style_fn(cfg: TrainConfig, device=None) -> Optional[Callable]:
+  """The Gram-matrix style loss against cfg.style_img (driver.py:999-1021):
+  the image read as imageio reads it, /255 when its max passes 1.5, its
+  first three channels resized to crop × crop by cv2's INTER_LINEAR
+  (`image_io.resize_linear`), against a `StyleLoss` drawn from seed 0.
+  Returns style_fn(pred_rgb [V, c, c, 3]) -> scalar, or None without a
+  style image or weight. Needs crop batches."""
+  if not cfg.style_img or cfg.style_weight <= 0:
+    return None
+  if cfg.crop_size <= 0:
+    raise ValueError("--style-img requires crop-based training")
+  img = image_io.read_png(cfg.style_img).astype(np.float32)
+  if img.max() > 1.5:
+    img = img / 255.0
+  img = image_io.resize_linear(img[..., :3], (cfg.crop_size, cfg.crop_size))
+  style = torch.as_tensor(img, device=device)[None]          # [1, c, c, 3]
+  mod = StyleLoss(device=device)
+  mod.reset_parameters(torch.Generator().manual_seed(0))
+
+  def style_fn(pred_rgb):
+    return mod(pred_rgb, style.to(pred_rgb.dtype).expand(pred_rgb.shape))
+
+  style_fn.module = mod
+  return style_fn
+
+
 def _fused_render_fn(model) -> Optional[Callable]:
   """rays [n, 6] -> rgb [n, 3] through K1 in the model's mode (cp,
   posenc, tiny, cone, cylinder), K5f + K1 (hash), K7f (ae), K8f (volsdf),
@@ -837,30 +891,6 @@ def render_view(model, ds: sampler_lib.RayDataset, view: int,
   return torch.cat(outs).reshape(rs, rs, -1).cpu().numpy()
 
 
-def write_png(path: str, img: np.ndarray):
-  """Write a uint8 image [H, W] or [H, W, C] (C = 1, 3 or 4) as an 8-bit
-  PNG with zlib and struct alone."""
-  img = np.ascontiguousarray(img, dtype=np.uint8)
-  if img.ndim == 2:
-    img = img[..., None]
-  h, w, c = img.shape
-  color_type = {1: 0, 3: 2, 4: 6}[c]
-  rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)],
-                        axis=1)                  # filter byte 0 per row
-
-  def chunk(tag: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + tag + data
-            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-  png = (b"\x89PNG\r\n\x1a\n"
-         + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0,
-                                      0))
-         + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-         + chunk(b"IEND", b""))
-  with open(path, "wb") as f:
-    f.write(png)
-
-
 def to_u8(img):
   return (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
@@ -886,7 +916,7 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
          chunk: int = 65536, only_view: Optional[int] = None,
          white_bg: bool = False, with_alpha: bool = False,
          save_depth: bool = False, extra_maps: tuple = (),
-         depth_query_normal: bool = False):
+         depth_query_normal: bool = False, with_ssim: bool = False):
   """Per-view PSNR + summary stats; writes results.txt (the JAX package's
   format) + test_###.png (+ depth_###.png with save_depth; + <map>_###.png
   for each of extra_maps ⊆ {normals, flow, rigidity}: the normals mapped
@@ -897,11 +927,13 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
 
   only_view: test a single view (--render-frame). white_bg: composite the
   reference over white via its alpha (--test-white-bg). with_alpha: save
-  RGBA using the accumulated opacity (--with-alpha). A render whose size
-  differs from the reference raises (the JAX package resizes the
-  reference with cv2, which the port does not carry)."""
+  RGBA using the accumulated opacity (--with-alpha). with_ssim: each
+  view's MS-SSIM against the reference beside its PSNR, and their mean in
+  the summary (--msssim-loss). A render of another size than the
+  reference (--render-size) is scored against the reference resized by
+  cv2's INTER_LINEAR (`image_io.resize_linear`), with a note."""
   os.makedirs(out_dir, exist_ok=True)
-  psnrs, lines = [], []
+  psnrs, ssims, lines = [], [], []
   views = range(ds.num_views) if only_view is None else [only_view]
   for v in views:
     img = render_view(model, ds, v, render_size, chunk=chunk)
@@ -936,13 +968,19 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
       a = ref_full[..., 3:4]
       ref = ref * a + (1.0 - a)
     if img.shape[:2] != ref.shape[:2]:
-      raise ValueError(
-          f"view {v}: render {img.shape[:2]} vs reference {ref.shape[:2]}; "
-          "the port compares at the dataset's size only")
+      print(f"[test] view {v}: comparing at {img.shape[:2]} against "
+            f"resized reference {ref.shape[:2]} — PSNR is approximate")
+      ref = image_io.resize_linear(ref, img.shape[:2][::-1])
     mse = float(np.mean((img[..., :3] - ref) ** 2))
     p = float(-10 * math.log10(max(mse, 1e-10)))
     psnrs.append(p)
-    lines.append(f"view {v:03d}: PSNR {p:.3f}")
+    line = f"view {v:03d}: PSNR {p:.3f}"
+    if with_ssim:
+      s = float(losses_lib.ms_ssim(torch.from_numpy(img[..., :3]),
+                                   torch.from_numpy(ref)))
+      ssims.append(s)
+      line += f"  MS-SSIM {s:.4f}"
+    lines.append(line)
     if save_images:
       save = np.clip(img[..., :3], 0, 1)
       if with_alpha:
@@ -952,11 +990,13 @@ def test(model, ds: sampler_lib.RayDataset, out_dir: str = "outputs",
   arr = np.asarray(psnrs)
   summary = (f"PSNR mean {arr.mean():.3f} median {np.median(arr):.3f} "
              f"min {arr.min():.3f} max {arr.max():.3f} var {arr.var():.4f}")
+  if ssims:
+    summary += f" | MS-SSIM mean {np.mean(ssims):.4f}"
   lines.append(summary)
   with open(os.path.join(out_dir, "results.txt"), "w") as f:
     f.write("\n".join(lines) + "\n")
   return {"psnr_mean": float(arr.mean()), "psnr_median": float(np.median(arr)),
-          "psnrs": psnrs, "summary": summary}
+          "psnrs": psnrs, "ssims": ssims, "summary": summary}
 
 
 def render_over_time(model, ds: sampler_lib.RayDataset, view: int = 0,

@@ -6,9 +6,9 @@
   plain_cp and plain_hash (scripts/tpu_quality_sweep.py:52-60, 161-167)
   and `--enc-kind ref-hash`; `_train_only_substrings` agrees too.
 - An AST walk over every module of `nerf_atlas_tpu_torch/` (NeRFAE's
-  kernel wrappers and regularizers included) and over `chip_smoke.py`
-  finds no import of jax, flax, optax, the JAX package or the root
-  runner.
+  kernel wrappers and regularizers included, the PNG decoder and the
+  loaders) and over `chip_smoke.py` finds no import of jax, flax, optax,
+  the JAX package, the root runner, imageio, cv2, PIL or matplotlib.
 """
 import ast
 import os
@@ -51,7 +51,9 @@ def test_param_file_raises():
     cli.arguments(["--param-file", "x.json"])
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerf_atlas_tpu", "runner")
+# the JAX side, and the image packages the GPU machine does not have
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "nerf_atlas_tpu", "runner",
+             "imageio", "cv2", "PIL", "matplotlib")
 
 
 def _imports(path):
@@ -89,6 +91,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_root_runner():
           "nerf_atlas_tpu_torch/ops/kernels/render_dyn.py",
           "nerf_atlas_tpu_torch/ops/sampling.py",
           "nerf_atlas_tpu_torch/train/driver.py",
+          "nerf_atlas_tpu_torch/data/image_io.py",
+          "nerf_atlas_tpu_torch/data/loaders.py",
+          "nerf_atlas_tpu_torch/data/cameras.py",
+          "nerf_atlas_tpu_torch/nn/misc.py",
           "nerf_atlas_tpu_torch/runner.py"} <= names
   for path in files:
     for name in _imports(path):

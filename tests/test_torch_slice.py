@@ -121,7 +121,9 @@ def test_write_png_roundtrips(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--epochs", "5", "--crop-size", "8"], NotImplementedError),
+    # crops and the on-disk loaders run since the captured-scenes slice
+    # (tests/test_torch_crop.py, tests/test_torch_data_disk.py)
+    (["--data-kind", "synthetic-lit"], NotImplementedError),
     (["--epochs", "5", "--mesh-devices", "4"], NotImplementedError),
     (["--epochs", "5", "--data-parallel"], NotImplementedError),
     # the smoothing options and --depth-query-normal run since the SDF
@@ -133,7 +135,7 @@ def test_write_png_roundtrips(tmp_path):
      NotImplementedError),
     (["--enc-kind", "ref-hash"], NotImplementedError),
     (["--model", "voxel"], NotImplementedError),
-    (["--data-kind", "dnerf"], NotImplementedError),
+    (["--data-kind", "nerv_point"], NotImplementedError),
     (["--normals-from-depth"], NotImplementedError),
 ])
 def test_runner_rejects_what_is_not_ported(argv, error, tmp_path):
@@ -158,11 +160,13 @@ def test_port_imports_no_jax():
       "p.__name__ + '.')]\n"
       "for m in mods: importlib.import_module(m)\n"
       "bad = sorted(m for m in sys.modules "
-      "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+      "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'imageio', "
+      "'cv2', 'PIL', 'matplotlib'))\n"
       "assert len(mods) >= 20, mods\n"
       "named = {p.__name__ + '.' + m for m in ('ops.mip', 'models.nerf', "
       "'ops.kernels.render', 'ops.kernels.render_ae', "
-      "'ops.kernels.hash_encode', 'ops.sampling')}\n"
+      "'ops.kernels.hash_encode', 'ops.sampling', 'data.image_io', "
+      "'nn.misc')}\n"
       "assert named <= set(mods), named - set(mods)\n"
       "assert not bad, bad\n")
   env = dict(os.environ, PYTHONPATH=REPO)

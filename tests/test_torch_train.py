@@ -149,9 +149,16 @@ def test_load_loss_fn_matches_jax(kinds, spaces, tone, gamma, channels):
 
 
 def test_crop_losses_raise():
+  """ssim and fft need crops [..., H, W, C]: on a flat ray batch [N, C]
+  they raise, as JAX's do (they run on crops since the captured-scenes
+  slice, tests/test_torch_crop.py)."""
+  flat = torch.rand(64, 3)
   for kind in ("ssim", "fft"):
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-      losses.load_loss_fn((kind,))
+    with pytest.raises((RuntimeError, IndexError)):
+      losses.load_loss_fn((kind,))(flat, flat)
+    with pytest.raises(Exception):
+      jlosses.load_loss_fn((kind,))(jnp.asarray(flat.numpy()),
+                                    jnp.asarray(flat.numpy()))
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +412,12 @@ def test_gates_pick_the_paths_of_the_jax_gates():
   off = driver.TrainConfig(no_fused=True)
   assert driver._fused_step_fn(flagship, off, ds) is None
   assert driver._fused_train_fn(flagship, off, ds) is None
-  with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-    driver.check_config(driver.TrainConfig(crop_size=8))
+  crops = driver.TrainConfig(crop_size=8)          # the JAX gates' rule
+  driver.check_config(crops)
+  assert driver._fused_step_fn(flagship, crops, ds) is None
+  assert driver._fused_train_fn(flagship, crops, ds) is None
+  with pytest.raises(NotImplementedError, match="Queue 1 #13"):
+    driver.check_config(driver.TrainConfig(omit_bg=True))
   with pytest.raises(NotImplementedError, match="regularizers"):
     driver.check_config(driver.TrainConfig(reg_coeffs={"eikonal": 0.1}))
 
